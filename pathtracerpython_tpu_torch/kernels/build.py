@@ -1,0 +1,113 @@
+"""Build ``csrc/*.cu`` with nvcc into one shared library and load it with
+ctypes.
+
+The library has a plain C interface and includes no PyTorch header, so
+one nvcc call builds every kernel in seconds. It is built on the first
+CUDA launch into ``build/torch_kernels/`` beside the package, named by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the cached file. A failed build raises; nothing falls
+back to the plain versions. Importing this module runs nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "torch_kernels")
+
+# -fmad=false: no product is fused into an add, so the kernels round like
+# their plain PyTorch versions. Never --use_fast_math.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_functions: dict[str, ctypes._CFuncPtr] = {}
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            candidates.append(os.path.join(root, "bin", "nvcc"))
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[str]:
+    return sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+        + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    )
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libptt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the sources unless the library for them exists; return its
+    path. The compiler's output, ptxas' register and spill report
+    included, is kept beside it as ``.log``."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    units = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *units]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    """The compiler output of the current library's build ("" if none)."""
+    path = library_path()[:-3] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The library's C function ``name`` returning int, with ``argtypes``
+    set; builds and loads the library on first use."""
+    global _lib
+    with _lock:
+        fn = _functions.get(name)
+        if fn is None:
+            if _lib is None:
+                _lib = ctypes.CDLL(build())
+            fn = getattr(_lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _functions[name] = fn
+        return fn

@@ -1,0 +1,77 @@
+"""Dense counter-based RNG (Threefry-2x32), bit-equal to ``ops/rng.py`` of
+the JAX package.
+
+Keys are pairs of Python ints; per-ray streams hash dense counter tensors
+(the GLOBAL path id), so a draw depends only on the key and the counter,
+never on the lane it lands in. PyTorch has no shifts on uint32, so 32-bit
+words ride in int64 tensors masked to 32 bits after every step that can
+carry past them. The same code runs on Python ints, which is how keys are
+derived (``fold``) without touching the device.
+
+Threefry-2x32 (Salmon et al. 2011, "Parallel random numbers: as easy as
+1, 2, 3") with the standard 20 rounds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
+_PARITY = 0x1BD11BDA
+_MASK = 0xFFFFFFFF
+_FOLD_WORD = 0x736F6C74
+
+
+def _rotl(x, r: int):
+    return ((x << r) & _MASK) | (x >> (32 - r))
+
+
+def threefry2x32(k0: int, k1: int, x0, x1):
+    """Hash counter words (x0, x1) under key (k0, k1). Keys are ints in
+    [0, 2^32); x0/x1 are ints or int64 tensors holding 32-bit words,
+    broadcastable. Returns (y0, y1) of the same kinds."""
+    ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ _PARITY) & _MASK)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for block in range(5):
+        rots = _ROT[0:4] if block % 2 == 0 else _ROT[4:8]
+        for r in rots:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(block + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(block + 2) % 3] + block + 1) & _MASK
+    return x0, x1
+
+
+def key_from_seed(seed: int) -> tuple[int, int]:
+    """(k0, k1) from an int seed: the pair ``jax.random.PRNGKey(seed)``
+    holds, (seed >> 32, seed & 0xffffffff)."""
+    s = int(seed)
+    return (s >> 32) & _MASK, s & _MASK
+
+
+def fold(k0: int, k1: int, salt: int) -> tuple[int, int]:
+    """Derive a sub-key: hash the salt under the parent key."""
+    return threefry2x32(k0, k1, int(salt) & _MASK, _FOLD_WORD)
+
+
+def _to_unit_interval(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit words (int64) -> float32 in [0, 1): set mantissa, subtract 1."""
+    f = (bits >> 9) | 0x3F800000
+    return f.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniforms(k0: int, k1: int, counters: torch.Tensor, n_draws: int):
+    """[n_draws, *counters.shape] float32 uniforms in [0, 1).
+
+    Draws 2k and 2k+1 for counter c are the (y0, y1) outputs of the single
+    hash threefry(key, (c, k)). ``counters``: integer tensor of 32-bit
+    path ids."""
+    c = counters.to(torch.int64) & _MASK
+    out = []
+    for d in range(0, n_draws, 2):
+        y0, y1 = threefry2x32(k0, k1, c, d >> 1)
+        out.append(_to_unit_interval(y0))
+        if d + 1 < n_draws:
+            out.append(_to_unit_interval(y1))
+    return torch.stack(out, dim=0)

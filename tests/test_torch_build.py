@@ -1,0 +1,110 @@
+"""The port's packaging rules, checked on the CPU: it never imports jax,
+its top-level package imports nothing heavy, the CUDA build uses the flags
+that keep the kernels' rounding equal to their plain versions, a failed
+build raises, and a CPU render never touches the build."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pathtracerpython_tpu_torch.kernels import build, intersect, nee
+from pathtracerpython_tpu_torch.render.config import RenderConfig
+from pathtracerpython_tpu_torch.render.integrator import render
+from pathtracerpython_tpu_torch.scene import arrays, synthetic
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Run in a fresh interpreter: tests/conftest.py has already imported jax
+# into this one.
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import pathtracerpython_tpu_torch as pkg
+top_level = sorted(m for m in ("torch", "numpy", "jax") if m in sys.modules)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from pathtracerpython_tpu_torch.kernels import build
+print(json.dumps({
+    "top_level": top_level,
+    "modules": names,
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "library_loaded": build._lib is not None,
+}))
+"""
+
+
+def test_port_never_imports_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO_ROOT,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["jax"] == []
+    # the package __init__ alone pulls in no framework
+    assert out["top_level"] == []
+    for name in ("scene.arrays", "ops.rng", "kernels.intersect",
+                 "kernels.nee", "kernels.build", "render.integrator"):
+        assert f"pathtracerpython_tpu_torch.{name}" in out["modules"], name
+    # importing every module builds and loads nothing
+    assert out["library_loaded"] is False
+
+
+def test_nvcc_flags_keep_plain_rounding():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+
+
+def test_sources_are_in_the_package():
+    names = sorted(os.path.basename(p) for p in build._sources())
+    assert names == ["mt.cuh", "nearest.cu", "nee.cu"]
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    before = build.library_path()
+    assert build.library_path() == before
+    with open(csrc / "nee.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path() != before
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler that fails leaves no library and raises; nothing falls
+    back to the plain versions."""
+    failing = shutil.which("false")
+    assert failing is not None
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "torch_kernels"))
+    monkeypatch.setattr(build, "find_nvcc", lambda: failing)
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_functions", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.function("ptt_nearest_t_idx", [])
+    assert not os.path.exists(build.library_path())
+    assert build._lib is None
+
+
+def test_cpu_render_runs_the_plain_versions(monkeypatch):
+    """On CPU tensors the wrappers take their plain versions: the CUDA
+    library is never built, loaded or counted."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path asked for the CUDA library")
+
+    monkeypatch.setattr(build, "function", refuse)
+    monkeypatch.setattr(intersect, "LAUNCHES", 0)
+    monkeypatch.setattr(nee, "LAUNCHES", 0)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(6, 6), pad_to=32)
+    rad = render(scene, RenderConfig(n_samples=1, n_bounces=2), seed=0)
+    assert rad.device == torch.device("cpu") and rad.shape == (36, 3)
+    assert intersect.LAUNCHES == 0 and nee.LAUNCHES == 0

@@ -1,0 +1,140 @@
+"""The CUDA kernels on the card against their plain versions, and the render
+on the card against the same render on the CPU. These need an NVIDIA GPU
+with nvcc (the library is built for sm_90a) and skip elsewhere. On the
+card, from the root of a checkout:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+``--noconftest`` because ``tests/conftest.py`` sets up JAX, which a machine
+that runs only the port need not have; this file imports no JAX.
+
+Tolerances: kernel and plain version run the same float32 operations in
+the same order (the library is built with -fmad=false), so they agree bit
+for bit except where the card's rsqrt or a grazing ray flips a discrete
+choice; the bounds below leave room for that and nothing more."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracerpython_tpu_torch.kernels import build, intersect, nee
+from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+from pathtracerpython_tpu_torch.ops.geometry import nearest_hit_cm, normalize3
+from pathtracerpython_tpu_torch.render.config import RenderConfig
+from pathtracerpython_tpu_torch.render.integrator import (
+    arrival_side_normal,
+    render,
+)
+from pathtracerpython_tpu_torch.scene import arrays, synthetic
+
+pytestmark = pytest.mark.cuda
+
+MIN_AGREE = 0.999         # share of lanes with the same winner / bits
+T_RTOL = T_ATOL = 1e-6    # K1 t on lanes with the same winner
+MC_ATOL = 1e-5            # K2 mean cosine on lanes whose bits agree
+RENDER_TOL = 1e-4         # card against CPU radiance, on 99% of pixels
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU runs the plain versions")
+    return torch.device("cuda")
+
+
+def _scene(name, cuda):
+    if name == "cornell":
+        desc, pad_to = synthetic.cornell_box_scene(40, 40), 32
+    else:  # 300 boxes: 3604 triangles, 15 shared-memory tiles
+        desc, pad_to = synthetic.box_field_scene(n_boxes=300, width=40,
+                                                 height=40), 128
+    return arrays.pack_scene(desc, pad_to=pad_to).to(cuda)
+
+
+def _rays(scene, seed=0):
+    """Primary rays and random rays from inside the scene, on its device;
+    1600 + 999 lanes, so the last block of 256 is ragged."""
+    rs = np.random.default_rng(seed)
+    o, d = make_primary_rays(scene.eye, scene.ortho, scene.meta.width,
+                             scene.meta.height)
+    valid = scene.tri_valid.cpu().numpy()
+    verts = scene.tri_v0.cpu().numpy()[valid]
+    lo, hi = verts.min(axis=0), verts.max(axis=0)
+    o_rand = torch.from_numpy(rs.uniform(lo, hi, (999, 3)).astype(np.float32))
+    d_rand = torch.from_numpy(rs.normal(size=(999, 3)).astype(np.float32))
+    o3 = torch.cat([o.T, o_rand.T.to(scene.device)], 1).contiguous()
+    d3 = torch.cat([d.T, d_rand.T.to(scene.device)], 1).contiguous()
+    return o3, normalize3(d3).contiguous()
+
+
+@pytest.mark.parametrize("name", ["cornell", "boxfield300"])
+def test_nearest_kernel_matches_plain(cuda, name):
+    scene = _scene(name, cuda)
+    o3, d3u = _rays(scene)
+    before = intersect.LAUNCHES
+    t, idx = intersect.nearest_t_idx_cm(o3, d3u, scene)
+    assert intersect.LAUNCHES == before + 1
+    pt, pidx = intersect.nearest_t_idx_plain(o3, d3u,
+                                             intersect.scene_tripack(scene))
+    torch.cuda.synchronize()
+    assert t.device.type == "cuda" and idx.dtype == torch.int32
+    assert bool((t[idx < 0] == 0).all())
+    same = idx == pidx
+    assert same.float().mean().item() >= MIN_AGREE
+    torch.testing.assert_close(t[same], pt[same], rtol=T_RTOL, atol=T_ATOL)
+
+
+@pytest.mark.parametrize("s_samples", [1, 3, 8])
+@pytest.mark.parametrize("name", ["cornell", "boxfield300"])
+def test_nee_kernel_matches_plain(cuda, name, s_samples):
+    scene = _scene(name, cuda)
+    o3, d3u = _rays(scene)
+    hit = nearest_hit_cm(o3, d3u, scene)
+    normal3 = arrival_side_normal(hit.normal3, d3u).contiguous()
+    point3 = hit.point3.contiguous()
+    n = point3.shape[1]
+    u = torch.from_numpy(np.random.default_rng(s_samples).uniform(
+        size=(5 * s_samples, n)).astype(np.float32)).to(cuda)
+    before = nee.LAUNCHES
+    mc, occ = nee.nee_mean_cos_fused(point3, normal3, u, scene, s_samples)
+    assert nee.LAUNCHES == before + 1
+    pmc, pocc = nee.nee_mean_cos_plain(point3, normal3, u,
+                                       intersect.scene_tripack(scene),
+                                       nee.light_pack(scene), s_samples)
+    torch.cuda.synchronize()
+    assert mc.shape == (1, n) and occ.shape == (s_samples, n)
+    same = occ == pocc
+    assert same.float().mean().item() >= MIN_AGREE
+    lanes = same.all(dim=0)
+    torch.testing.assert_close(mc[0][lanes], pmc[0][lanes], rtol=0,
+                               atol=MC_ATOL)
+
+
+def test_render_on_card_matches_cpu(cuda):
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(16, 16), pad_to=32)
+    cfg = RenderConfig(n_samples=2, n_bounces=3, batch_samples=True)
+    k1, k2 = intersect.LAUNCHES, nee.LAUNCHES
+    on_card = render(scene.to(cuda), cfg, seed=5)
+    assert intersect.LAUNCHES == k1 + 3 and nee.LAUNCHES == k2 + 3
+    assert on_card.device.type == "cuda"
+    on_cpu = render(scene, cfg, seed=5)
+    close = torch.isclose(on_card.cpu(), on_cpu, rtol=RENDER_TOL,
+                          atol=RENDER_TOL).all(dim=1)
+    assert close.float().mean().item() >= 0.99
+    looped = render(scene.to(cuda), dataclasses.replace(
+        cfg, batch_samples=False), seed=5)
+    assert torch.equal(looped, on_card)
+
+
+def test_failed_build_raises_on_the_card(cuda, tmp_path, monkeypatch):
+    """A CUDA tensor never falls back to the plain version."""
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "find_nvcc", lambda: "false")
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_functions", {})
+    scene = _scene("cornell", cuda)
+    o3, d3u = _rays(scene)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        intersect.nearest_t_idx_cm(o3, d3u, scene)
