@@ -10,19 +10,35 @@ phase fails:
 
 0. card identity: ``nvidia-smi`` name and power limit, torch and CUDA
    versions; no CUDA device is an error;
-1. build: compiles ``pathtracerpython_tpu_torch/csrc/*.cu`` with nvcc;
-2. kernel against plain: K1 (nearest hit) and K2 (fused NEE) against their
-   plain PyTorch versions on the card, on the first and second bounce
-   wavefronts of the 512x512x4spp render (1,048,576 lanes), for the Cornell
-   stand-in and a 300-box field (3,604 triangles, still dense), with
-   CUDA-event times of both;
-3. the full render: Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE
-   samples; radiance finite, non-negative and not constant; each kernel
-   launched exactly once per bounce; and a 32x32 render on the card held
-   against the same render on the CPU (the plain versions);
+1. build: compiles ``pathtracerpython_tpu_torch/csrc/*.cu`` with nvcc, one
+   process per source, in parallel;
+2. kernel against plain, with CUDA-event times of both:
+   - K1 (dense nearest hit) and K2 (fused NEE) on the first and second
+     bounce wavefronts of the 512x512x4spp render (1,048,576 lanes), for
+     the Cornell stand-in and a 300-box field (3,604 triangles, still
+     dense), and K4 (dense any-hit) on the box field's shadow rays;
+   - K5 (cluster-sparse nearest) and K9 (walker any-hit) on the sorted,
+     parked first and second bounce wavefronts of the 100k-triangle box
+     field at 512x512x2spp (524,288 path lanes, 1,572,864 shadow lanes):
+     each against its plain version on a subset of ray blocks, and against
+     the dense K1 / K4 on the whole wavefront, which shows whether the
+     hierarchy culls and that its per-ray gate drops no hit;
+3. the full renders:
+   - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
+     radiance finite, non-negative and not constant; K1 and K2 launched
+     exactly once per bounce; a 32x32 render on the card held against the
+     same render on the CPU (the plain versions);
+   - the 100k-triangle box field at 512x512, 2 spp, 3 bounces
+     (accel="auto", the hybrid): the same radiance checks; K5 and K9
+     launched once per bounce, K1, K2 and K4 never (the lists are
+     complete, so no dense fallback exists);
+   - the 300-box field at 128x128 with accel="hybrid" against
+     accel="none" on the card, a 400-box field's hybrid render on the
+     card against the CPU, and the Cornell stand-in with a 72-triangle
+     light (unfused NEE, K4 once per bounce);
 4. timing: ms per render (CUDA events, 2 warm-up renders, median of 10)
-   and Mrays/s counted two ways, for the Cornell cell and the box field at
-   512x512, 2 spp, 3 bounces.
+   and Mrays/s counted two ways, for the Cornell cell, the 300-box field
+   and the 100k-triangle field.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -30,6 +46,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -47,6 +64,16 @@ NEE_SAMPLES = 3
 FIELD_BOXES = 300
 FIELD_SPP = 2
 FIELD_BOUNCES = 3
+# The 100k-triangle box field of the JAX package's scripts/bench_large.py:
+# 8,333 boxes (100,000 triangles) in morton order, 512x512, 2 spp carried
+# as extra lanes, 3 bounces, 3 NEE samples, accel="auto" (the hybrid).
+LARGE_BOXES = 8333
+LARGE_SPP = 2
+LARGE_BOUNCES = 3
+HYBRID_CHECK_SIZE = 128  # the 300-box field, hybrid against dense
+# K5/K9 against their plain versions: every ray block of the first bounce,
+# every SUBSET_STRIDE-th block of the second.
+SUBSET_STRIDE = 8
 
 # The port is read from the checkout that holds this script, never from
 # another installation.
@@ -58,7 +85,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MIN_IDX_AGREE = 0.9999       # K1: share of lanes with the same winner
 T_RTOL = T_ATOL = 1e-6       # K1: t on lanes with the same winner
 GRAZING_MARGIN = 1e-5        # K1: float64 barycentric margin of a mismatch
-MIN_OCC_AGREE = 0.9999       # K2: share of (lane, sample) occlusion bits
+MIN_OCC_AGREE = 0.9999       # K2, K4, K9: share of equal occlusion bits
 MC_ATOL = 1e-5               # K2: mean cosine on lanes whose bits agree
 # Card against CPU at 32x32: the CPU's rsqrt, sin and cos round differently
 # in the last bit; the scene keeps those ulps from flipping discrete events.
@@ -154,19 +181,25 @@ def bary_margin_f64(tripack: np.ndarray, o, d, idx: int) -> float:
 
 
 def wavefronts(scene, spp: int):
-    """Inputs of both kernels on the first and second bounce wavefronts of
-    the scene's batch_samples render: [(o3, d3u, point3, normal3, u_nee)]."""
+    """Inputs of the kernels on the first and second bounce wavefronts of
+    the scene's batch_samples render, sorted and parked where the render
+    sorts (the cluster hierarchies): [(o3, d3u, point3, normal3, u_nee,
+    shadow)], ``shadow`` the unfused NEE's shadow rays of the wavefront
+    (``integrator.ShadowRays``: parked and sorted where the render does)."""
     from pathtracerpython_tpu_torch.ops import rng
     from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
     from pathtracerpython_tpu_torch.ops.geometry import (
         nearest_hit_cm,
         normalize3,
     )
+    from pathtracerpython_tpu_torch.ops.sort import scene_bounds
     from pathtracerpython_tpu_torch.render import integrator
     from pathtracerpython_tpu_torch.render.config import RenderConfig
 
     cfg = RenderConfig(n_samples=spp, n_bounces=2,
                        n_light_samples=NEE_SAMPLES, batch_samples=True)
+    sort_bounds = (scene_bounds(scene)
+                   if integrator._sort_enabled(scene, cfg) else None)
     w, h = scene.meta.width, scene.meta.height
     origins, dirs = make_primary_rays(scene.eye, scene.ortho, w, h)
     pid = torch.arange(w * h, device=scene.device)
@@ -176,14 +209,43 @@ def wavefronts(scene, spp: int):
     k0, k1 = rng.key_from_seed(0)
     out = []
     for b in range(2):
+        st, o3, d3 = integrator.sort_and_park(state, sort_bounds)
         nk = rng.fold(k0, k1, b * 4 + integrator._P_NEE)
-        u_nee = rng.uniforms(*nk, state.counters, NEE_SAMPLES * 5)
-        d3u = normalize3(state.direction3)
-        hit = nearest_hit_cm(state.origin3, state.direction3, scene)
-        shading = integrator.arrival_side_normal(hit.normal3, d3u)
-        out.append((state.origin3, d3u, hit.point3, shading, u_nee))
-        state = integrator.bounce_step(state, b, scene, cfg, k0, k1)
+        u_nee = rng.uniforms(*nk, st.counters, NEE_SAMPLES * 5)
+        hit = nearest_hit_cm(o3, d3, scene, accel=cfg.accel)
+        shading = integrator.arrival_side_normal(hit.normal3,
+                                                 normalize3(st.direction3))
+        shadow = integrator.nee_shadow_rays(
+            hit, u_nee, scene, cfg, shading,
+            st.alive & hit.hit & ~hit.is_light, st.nee_occ_hint)
+        out.append((o3, normalize3(d3), hit.point3, shading, u_nee, shadow))
+        state = integrator.bounce_step(state, b, scene, cfg, k0, k1,
+                                       sort_bounds)
     return out
+
+
+def check_winners(what, tripack, o3, d3u, t, idx, want_t, want_idx):
+    """K1's bounds: winners equal on MIN_IDX_AGREE of lanes, every
+    mismatch grazing, t within T_RTOL/T_ATOL on equal winners. Returns
+    (share of equal winners, grazing mismatches, t max abs error)."""
+    same = idx == want_idx
+    agree = same.float().mean().item()
+    if agree < MIN_IDX_AGREE:
+        fail(f"{what}: winners agree on {agree:.6f} of lanes")
+    bad = torch.nonzero(~same).flatten().cpu().numpy()
+    if len(bad):
+        pack = tripack.cpu().numpy()
+        o_np, d_np = o3.cpu().numpy(), d3u.cpu().numpy()
+        ik, ip = idx.cpu().numpy(), want_idx.cpu().numpy()
+        for r in bad:
+            margins = [abs(bary_margin_f64(pack, o_np[:, r], d_np[:, r], i))
+                       for i in (ik[r], ip[r]) if i >= 0]
+            if not margins or min(margins) >= GRAZING_MARGIN:
+                fail(f"{what}: lane {r} winners {ik[r]} vs {ip[r]} is not "
+                     f"grazing (margins {margins})")
+    if not torch.allclose(t[same], want_t[same], rtol=T_RTOL, atol=T_ATOL):
+        fail(f"{what}: t differs beyond rtol/atol {T_RTOL}")
+    return agree, len(bad), (t[same] - want_t[same]).abs().max().item()
 
 
 def check_k1(label, scene, o3, d3u, report) -> None:
@@ -192,29 +254,12 @@ def check_k1(label, scene, o3, d3u, report) -> None:
     tripack = intersect.scene_tripack(scene)
     t_k, i_k = intersect.nearest_t_idx_cm(o3, d3u, scene)
     t_p, i_p = intersect.nearest_t_idx_plain(o3, d3u, tripack)
-    torch.cuda.synchronize()
-    same = i_k == i_p
-    agree = same.float().mean().item()
-    if agree < MIN_IDX_AGREE:
-        fail(f"K1 {label}: winners agree on {agree:.6f} of lanes")
-    bad = torch.nonzero(~same).flatten().cpu().numpy()
-    if len(bad):
-        pack = tripack.cpu().numpy()
-        o_np, d_np = o3.cpu().numpy(), d3u.cpu().numpy()
-        ik, ip = i_k.cpu().numpy(), i_p.cpu().numpy()
-        for r in bad:
-            margins = [abs(bary_margin_f64(pack, o_np[:, r], d_np[:, r], i))
-                       for i in (ik[r], ip[r]) if i >= 0]
-            if not margins or min(margins) >= GRAZING_MARGIN:
-                fail(f"K1 {label}: lane {r} winners {ik[r]} vs {ip[r]} "
-                     f"is not grazing (margins {margins})")
-    if not torch.allclose(t_k[same], t_p[same], rtol=T_RTOL, atol=T_ATOL):
-        fail(f"K1 {label}: t differs beyond rtol/atol {T_RTOL}")
-    err = (t_k[same] - t_p[same]).abs().max().item()
+    agree, grazing, err = check_winners(f"K1 {label}", tripack, o3, d3u,
+                                        t_k, i_k, t_p, i_p)
     k_ms = cuda_ms(lambda: intersect.nearest_t_idx_cm(o3, d3u, scene), 10)
     p_ms = cuda_ms(lambda: intersect.nearest_t_idx_plain(o3, d3u, tripack), 3)
     log(f"[2] K1 {label}: {o3.shape[1]} lanes x {tripack.shape[0]} tris, "
-        f"winners agree {agree:.6f} ({len(bad)} grazing), t max abs err "
+        f"winners agree {agree:.6f} ({grazing} grazing), t max abs err "
         f"{err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
     report.append((label, err, k_ms, p_ms))
 
@@ -248,62 +293,290 @@ def check_k2(label, scene, point3, normal3, u, report) -> None:
     report.append((label, err, k_ms, p_ms))
 
 
-def phase2_kernels(scenes) -> tuple[list, list]:
-    k1, k2 = [], []
+def check_bits(what, occ, want) -> tuple[float, float]:
+    """Occlusion bits equal on MIN_OCC_AGREE of lanes. Returns (share of
+    equal bits, max abs difference of the 0/1 bits)."""
+    agree = (occ == want).float().mean().item()
+    if agree < MIN_OCC_AGREE:
+        fail(f"{what}: occlusion agrees on {agree:.6f} of lanes")
+    return agree, (occ.float() - want.float()).abs().max().item()
+
+
+def once_ms(fn):
+    """(result, milliseconds) of one run of ``fn()`` by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_k4(label, scene, shadow, report) -> None:
+    from pathtracerpython_tpu_torch.kernels import intersect
+
+    tripack = intersect.scene_tripack(scene)
+    o3, d3, maxd = (x.contiguous() for x in (shadow.o3, shadow.d3,
+                                              shadow.maxd))
+    occ = intersect.any_hit_cm(o3, d3, maxd, scene)
+    plain, p_ms = once_ms(lambda: intersect.any_hit_plain(o3, d3, maxd,
+                                                          tripack))
+    agree, err = check_bits(f"K4 {label}", occ, plain)
+    k_ms = cuda_ms(lambda: intersect.any_hit_cm(o3, d3, maxd, scene), 10)
+    log(f"[2] K4 {label}: {o3.shape[1]} shadow lanes x "
+        f"{int((tripack[:, 10] > 0.5).sum())} occluders, occluded "
+        f"{occ.float().mean().item():.4f}, agrees with plain {agree:.6f}; "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    report.append((label, err, k_ms, p_ms))
+
+
+def block_subset(o3_rows, lists, r_blk, stride):
+    """Every ``stride``-th ray block of a wavefront: the rows [..., lanes]
+    of its lanes and its lists (a block's list concerns its own lanes
+    only, so the subset is a wavefront of its own)."""
+    from pathtracerpython_tpu_torch.kernels.sparse import BlockLists
+
+    n = o3_rows[0].shape[-1]
+    blocks = torch.arange(0, lists.ncand.shape[0], stride,
+                          device=lists.ncand.device)
+    lanes = (blocks[:, None] * r_blk
+             + torch.arange(r_blk, device=blocks.device)[None, :]).flatten()
+    lanes = lanes[lanes < n]
+    rows = [x[..., lanes].contiguous() for x in o3_rows]
+    return lanes, rows, BlockLists(*(x[blocks].contiguous() for x in lists))
+
+
+def check_k5(label, scene, o3, d3u, stride, report) -> None:
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse
+
+    r_blk = sparse.R_BLK_HYBRID_NEAREST
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    n = o3.shape[1]
+    nrb = -(-n // r_blk)
+    lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+        (nrb,), intersect.BIG, device=o3.device), r_blk)
+    t_k, i_k = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene)
+    lanes, (o_s, d_s), sub = block_subset([o3, d3u], lists, r_blk, stride)
+    (t_p, i_p), p_ms = once_ms(lambda: sparse.sparse_nearest_plain(
+        o_s, d_s, tripack, aabb8, sub, r_blk))
+    agree_p, grazing_p, err = check_winners(
+        f"K5 {label} against plain", tripack, o_s, d_s, t_k[lanes],
+        i_k[lanes], t_p, i_p)
+    (t_d, i_d), d_ms = once_ms(lambda: intersect.nearest_t_idx_cm(o3, d3u,
+                                                                  scene))
+    agree_d, grazing_d, err_d = check_winners(
+        f"K5 {label} against K1", tripack, o3, d3u, t_k, i_k, t_d, i_d)
+    k_ms = cuda_ms(lambda: sparse.sparse_nearest_t_idx_cm(o3, d3u, scene), 10)
+    ks_ms = cuda_ms(lambda: sparse._launch(o_s, d_s, tripack, aabb8, sub,
+                                           r_blk), 10)
+    lists_ms = cuda_ms(lambda: sparse.block_lists(aabb8, o3, d3u, torch.full(
+        (nrb,), intersect.BIG, device=o3.device), r_blk), 10)
+    nc = lists.ncand.float()
+    log(f"[2] K5 {label}: {n} lanes in {nrb} blocks of {r_blk}, "
+        f"{aabb8.shape[0]} clusters, candidates per block mean "
+        f"{nc.mean().item():.1f} max {int(nc.max().item())}, hit "
+        f"{(i_k >= 0).float().mean().item():.4f}; against plain on "
+        f"{sub.ncand.shape[0]} of {nrb} blocks ({o_s.shape[1]} lanes): "
+        f"winners {agree_p:.6f} ({grazing_p} grazing), t max abs err "
+        f"{err:.3g}; against K1 on all lanes: winners {agree_d:.6f} "
+        f"({grazing_d} grazing), t max abs err {err_d:.3g}")
+    log(f"[2] K5 {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
+        f"lists {lists_ms:.3f} ms; on the subset kernel {ks_ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms; dense K1 on all lanes {d_ms:.3f} ms")
+    report.append((label, max(err, err_d), ks_ms, p_ms, k_ms, d_ms))
+
+
+def check_k9(label, scene, shadow, stride, report) -> None:
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse, walker
+
+    r_blk = walker.R_BLK
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    o3, d3, maxd = (x.contiguous() for x in (shadow.o3, shadow.d3,
+                                              shadow.maxd))
+    n = o3.shape[1]
+    lists = walker.walker_lists(aabb8, o3, d3, maxd)
+    occ = walker.walker_any_hit_cm(o3, d3, maxd, scene)
+    lanes, (o_s, d_s, m_s), sub = block_subset([o3, d3, maxd], lists, r_blk,
+                                               stride)
+    plain, p_ms = once_ms(lambda: walker.walker_any_hit_plain(
+        o_s, d_s, m_s, tripack, aabb8, sub, r_blk))
+    agree_p, err = check_bits(f"K9 {label} against plain", occ[lanes], plain)
+    dense, d_ms = once_ms(lambda: intersect.any_hit_cm(o3, d3, maxd, scene))
+    agree_d, err_d = check_bits(f"K9 {label} against K4", occ, dense)
+    k_ms = cuda_ms(lambda: walker.walker_any_hit_cm(o3, d3, maxd, scene), 10)
+    ks_ms = cuda_ms(lambda: walker._launch(o_s, d_s, m_s, tripack, aabb8,
+                                           sub, r_blk), 10)
+    parked = (maxd == 0).float().mean().item()
+    nc = lists.ncand.float()
+    log(f"[2] K9 {label}: {n} shadow lanes ({parked:.4f} parked) in "
+        f"{lists.ncand.shape[0]} blocks of {r_blk}, candidates per block "
+        f"mean {nc.mean().item():.1f} max {int(nc.max().item())}, occluded "
+        f"{occ.float().mean().item():.4f}; against plain on "
+        f"{sub.ncand.shape[0]} of {lists.ncand.shape[0]} blocks "
+        f"({o_s.shape[1]} lanes): {agree_p:.6f}; against K4 on all lanes: "
+        f"{agree_d:.6f}")
+    log(f"[2] K9 {label} times: wrapper (lists + kernel) {k_ms:.3f} ms; on "
+        f"the subset kernel {ks_ms:.3f} ms, plain {p_ms:.3f} ms; dense K4 on "
+        f"all lanes {d_ms:.3f} ms")
+    report.append((label, max(err, err_d), ks_ms, p_ms, k_ms, d_ms))
+
+
+def phase2_kernels(scenes, large) -> dict:
+    rows = {k: [] for k in ("K1", "K2", "K4", "K5", "K9")}
     for name, scene in scenes:
-        for b, (o3, d3u, p3, n3, u) in enumerate(
+        for b, (o3, d3u, p3, n3, u, shadow) in enumerate(
                 wavefronts(scene, CORNELL_SPP), start=1):
             label = f"{name} bounce {b}"
-            check_k1(label, scene, o3, d3u, k1)
-            check_k2(label, scene, p3, n3, u, k2)
-    return k1, k2
+            check_k1(label, scene, o3, d3u, rows["K1"])
+            check_k2(label, scene, p3, n3, u, rows["K2"])
+            if name == "boxfield":
+                check_k4(label, scene, shadow, rows["K4"])
+    for b, (o3, d3u, _, _, _, shadow) in enumerate(
+            wavefronts(large, LARGE_SPP), start=1):
+        stride = 1 if b == 1 else SUBSET_STRIDE
+        label = f"large100k bounce {b}"
+        check_k5(label, large, o3, d3u, stride, rows["K5"])
+        check_k9(label, large, shadow, stride, rows["K9"])
+    return rows
 
 
-def phase3_render(scene) -> dict:
-    from pathtracerpython_tpu_torch.kernels import intersect, nee
+def reset_launches() -> None:
+    from pathtracerpython_tpu_torch.kernels import intersect, nee, sparse, walker
+
+    intersect.LAUNCHES = intersect.ANY_HIT_LAUNCHES = 0
+    nee.LAUNCHES = sparse.LAUNCHES = walker.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from pathtracerpython_tpu_torch.kernels import intersect, nee, sparse, walker
+
+    return {"K1": intersect.LAUNCHES, "K2": nee.LAUNCHES,
+            "K4": intersect.ANY_HIT_LAUNCHES, "K5": sparse.LAUNCHES,
+            "K9": walker.LAUNCHES}
+
+
+def check_radiance(label, rad, pixels) -> None:
+    if tuple(rad.shape) != (pixels, 3):
+        fail(f"{label}: radiance shape {tuple(rad.shape)}")
+    if not torch.isfinite(rad).all():
+        fail(f"{label}: radiance has non-finite values")
+    if (rad < 0).any():
+        fail(f"{label}: radiance has negative values")
+    if rad.min() == rad.max():
+        fail(f"{label}: radiance is constant")
+    log(f"[3] {label}: radiance finite, >= 0, mean {rad.mean().item():.6f}, "
+        f"range [{rad.min().item():.6f}, {rad.max().item():.6f}]")
+
+
+def render_counted(label, scene, cfg, want: dict) -> tuple:
+    """Render once with every launch count set to 0 just before; fail
+    unless the counts read just after are ``want``."""
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    reset_launches()
+    rad = render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[3] {label}: launches {launches}")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    return rad, launches
+
+
+def hold_close(label, got, want) -> None:
+    close = torch.isclose(got, want, rtol=RENDER_RTOL,
+                          atol=RENDER_ATOL).all(dim=1)
+    share = close.float().mean().item()
+    diff = (got - want).abs().max().item()
+    log(f"[3] {label}: {share:.4f} of pixels within rtol/atol "
+        f"{RENDER_RTOL}, max abs diff {diff:.3g}")
+    if share < MIN_PIXELS_CLOSE:
+        fail(f"{label}: agree on only {share:.4f} of pixels")
+
+
+def phase3_render(cornell, large) -> dict:
+    """The main paths, each driven with the launch counts set to 0 just
+    before it and read just after; returns each kernel's launches in its
+    own path's run."""
     from pathtracerpython_tpu_torch.render.config import RenderConfig
     from pathtracerpython_tpu_torch.render.integrator import render
     from pathtracerpython_tpu_torch.scene.arrays import pack_scene
-    from pathtracerpython_tpu_torch.scene.synthetic import cornell_box_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import (
+        box_field_scene,
+        cornell_box_scene,
+        grid_light,
+    )
 
+    none = {"K1": 0, "K2": 0, "K4": 0, "K5": 0, "K9": 0}
     cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
                        n_bounces=CORNELL_BOUNCES,
                        n_light_samples=NEE_SAMPLES, batch_samples=True)
-    intersect.LAUNCHES = 0
-    nee.LAUNCHES = 0
-    rad = render(scene, cfg, seed=0)
-    torch.cuda.synchronize()
-    launches = {"K1": intersect.LAUNCHES, "K2": nee.LAUNCHES}
-    log(f"[3] Cornell stand-in {CORNELL_SIZE}x{CORNELL_SIZE}, {CORNELL_SPP} "
-        f"spp, {CORNELL_BOUNCES} bounces: launches {launches}")
-    for k, v in launches.items():
-        if v != CORNELL_BOUNCES:
-            fail(f"{k} launched {v} times in a {CORNELL_BOUNCES}-bounce render")
-    if tuple(rad.shape) != (CORNELL_SIZE * CORNELL_SIZE, 3):
-        fail(f"radiance shape {tuple(rad.shape)}")
-    if not torch.isfinite(rad).all():
-        fail("radiance has non-finite values")
-    if (rad < 0).any():
-        fail("radiance has negative values")
-    if rad.min() == rad.max():
-        fail("radiance is constant")
-    log(f"[3] radiance finite, >= 0, mean {rad.mean().item():.6f}, "
-        f"range [{rad.min().item():.6f}, {rad.max().item():.6f}]")
+    rad, cornell_counts = render_counted(
+        f"Cornell stand-in {CORNELL_SIZE}x{CORNELL_SIZE}, {CORNELL_SPP} spp, "
+        f"{CORNELL_BOUNCES} bounces", cornell, cfg,
+        {**none, "K1": CORNELL_BOUNCES, "K2": CORNELL_BOUNCES})
+    check_radiance("Cornell stand-in", rad, CORNELL_SIZE * CORNELL_SIZE)
 
     small_scene = pack_scene(cornell_box_scene(32, 32), pad_to=32)
     small_cfg = RenderConfig(mode="fast", n_samples=2, n_bounces=4,
                              n_light_samples=NEE_SAMPLES, batch_samples=True)
-    on_card = render(small_scene.to("cuda"), small_cfg, seed=0).cpu()
-    on_cpu = render(small_scene, small_cfg, seed=0)
-    close = torch.isclose(on_card, on_cpu, rtol=RENDER_RTOL,
-                          atol=RENDER_ATOL).all(dim=1)
-    share = close.float().mean().item()
-    diff = (on_card - on_cpu).abs().max().item()
-    log(f"[3] 32x32x2spp card vs CPU: {share:.4f} of pixels within "
-        f"rtol/atol {RENDER_RTOL}, max abs diff {diff:.3g}")
-    if share < MIN_PIXELS_CLOSE:
-        fail(f"card and CPU renders agree on only {share:.4f} of pixels")
-    return launches
+    hold_close("Cornell 32x32x2spp card vs CPU",
+               render(small_scene.to("cuda"), small_cfg, seed=0).cpu(),
+               render(small_scene, small_cfg, seed=0))
+
+    large_cfg = RenderConfig(mode="fast", n_samples=LARGE_SPP,
+                             n_bounces=LARGE_BOUNCES,
+                             n_light_samples=NEE_SAMPLES, batch_samples=True)
+    rad, large_counts = render_counted(
+        f"100k box field {CORNELL_SIZE}x{CORNELL_SIZE}, {LARGE_SPP} spp, "
+        f"{LARGE_BOUNCES} bounces, accel='auto'", large, large_cfg,
+        {**none, "K5": LARGE_BOUNCES, "K9": LARGE_BOUNCES})
+    log("[3] 100k box field: dense fallbacks 0 (K1, K2 and K4 launched "
+        "0 times; the candidate lists have no cap, so no fallback path "
+        "exists)")
+    check_radiance("100k box field", rad, CORNELL_SIZE * CORNELL_SIZE)
+
+    size = HYBRID_CHECK_SIZE
+    field = pack_scene(box_field_scene(n_boxes=FIELD_BOXES, width=size,
+                                       height=size)).to("cuda")
+    field_cfg = RenderConfig(mode="fast", n_samples=FIELD_SPP,
+                             n_bounces=FIELD_BOUNCES,
+                             n_light_samples=NEE_SAMPLES, batch_samples=True)
+    hybrid, _ = render_counted(
+        f"box field {FIELD_BOXES} {size}x{size} accel='hybrid'", field,
+        dataclasses.replace(field_cfg, accel="hybrid"),
+        {**none, "K5": FIELD_BOUNCES, "K9": FIELD_BOUNCES})
+    dense, _ = render_counted(
+        f"box field {FIELD_BOXES} {size}x{size} accel='none'", field,
+        dataclasses.replace(field_cfg, accel="none"),
+        {**none, "K1": FIELD_BOUNCES, "K2": FIELD_BOUNCES})
+    hold_close(f"box field {FIELD_BOXES} {size}x{size} hybrid vs none on "
+               "the card", hybrid, dense)
+
+    small_field = pack_scene(box_field_scene(n_boxes=400, width=32,
+                                             height=32), tri_order="morton")
+    hybrid_cfg = dataclasses.replace(small_cfg, n_bounces=3, accel="hybrid")
+    hold_close("box field 400 32x32x2spp hybrid card vs CPU",
+               render(small_field.to("cuda"), hybrid_cfg, seed=0).cpu(),
+               render(small_field, hybrid_cfg, seed=0))
+
+    big_light = pack_scene(dataclasses.replace(
+        cornell_box_scene(64, 64),
+        light_mesh=grid_light(6, 6, 3.0, -0.45, 0.45, -24.3, -22.5),
+    ), pad_to=32).to("cuda")
+    rad, light_counts = render_counted(
+        f"Cornell stand-in 64x64 with a "
+        f"{big_light.meta.n_light_triangles}-triangle light (unfused NEE)",
+        big_light, dataclasses.replace(cfg, n_samples=1),
+        {**none, "K1": CORNELL_BOUNCES, "K4": CORNELL_BOUNCES})
+    check_radiance("72-triangle light", rad, 64 * 64)
+    return {"K1": cornell_counts["K1"], "K2": cornell_counts["K2"],
+            "K4": light_counts["K4"], "K5": large_counts["K5"],
+            "K9": large_counts["K9"]}
 
 
 def time_render(label, scene, spp, bounces) -> dict:
@@ -356,9 +629,12 @@ def profile_render(label, scene, spp, bounces, render_ms) -> dict:
                if e.device_type == DeviceType.CUDA]
     if not kernels:
         fail(f"profile {label}: the trace shows no device kernel")
-    busy_us = {"K1": 0.0, "K2": 0.0, "torch": 0.0}
+    busy_us = {k: 0.0 for k in ("K1", "K2", "K4", "K5", "K9", "torch")}
     for e in kernels:
-        group = ("K1" if "nearest_kernel" in e.key else
+        group = ("K5" if "sparse_nearest_kernel" in e.key else
+                 "K9" if "walker_any_hit_kernel" in e.key else
+                 "K1" if "nearest_kernel" in e.key else
+                 "K4" if "any_hit_kernel" in e.key else
                  "K2" if "nee_kernel" in e.key else "torch")
         busy_us[group] += e.self_device_time_total
     busy_ms = sum(busy_us.values()) / 1e3
@@ -368,11 +644,13 @@ def profile_render(label, scene, spp, bounces, render_ms) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         **{f"{k}_ms": v / 1e3 for k, v in busy_us.items()},
     }
+    split = ", ".join(f"{k} {row[f'{k}_ms']:.3f} ms" for k in busy_us
+                      if k != "torch")
     log(f"[profile] {label}: device busy {busy_ms:.3f} ms of the untraced "
-        f"{render_ms:.3f} ms (idle share {row['idle_share']:.3f}); K1 "
-        f"{row['K1_ms']:.3f} ms, K2 {row['K2_ms']:.3f} ms, PyTorch kernels "
-        f"{row['torch_ms']:.3f} ms in {row['kernel_launches']} device "
-        f"kernels; traced wall {traced_ms:.3f} ms")
+        f"{render_ms:.3f} ms (idle share {row['idle_share']:.3f}); {split}, "
+        f"PyTorch kernels {row['torch_ms']:.3f} ms in "
+        f"{row['kernel_launches']} device kernels; traced wall "
+        f"{traced_ms:.3f} ms")
     log(prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=12, max_name_column_width=60))
     return row
@@ -393,42 +671,56 @@ def main() -> None:
     field = pack_scene(box_field_scene(n_boxes=FIELD_BOXES,
                                        width=CORNELL_SIZE,
                                        height=CORNELL_SIZE)).to("cuda")
+    large = pack_scene(box_field_scene(n_boxes=LARGE_BOXES,
+                                       width=CORNELL_SIZE,
+                                       height=CORNELL_SIZE),
+                       tri_order="morton").to("cuda")
     log(f"[2] scenes: Cornell stand-in ({cornell.meta.path}, "
-        f"{cornell.meta.n_triangles} tris) and box field "
+        f"{cornell.meta.n_triangles} tris), box field "
         f"({field.meta.n_triangles} tris, {field.num_padded_triangles} "
-        "padded); no scene file is read")
-    k1, k2 = phase2_kernels([("cornell", cornell), ("boxfield", field)])
-    launches = phase3_render(cornell)
-    cells = [
-        time_render(f"cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp "
-                    f"{CORNELL_BOUNCES}b", cornell, CORNELL_SPP,
-                    CORNELL_BOUNCES),
-        time_render(f"boxfield{FIELD_BOXES} {CORNELL_SIZE}^2 {FIELD_SPP}spp "
-                    f"{FIELD_BOUNCES}b", field, FIELD_SPP, FIELD_BOUNCES),
+        f"padded) and large box field ({large.meta.n_triangles} tris, "
+        f"{large.num_padded_triangles} padded, morton order); no scene file "
+        "is read")
+    rows = phase2_kernels([("cornell", cornell), ("boxfield", field)], large)
+    launches = phase3_render(cornell, large)
+    cell_args = [
+        (f"cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp {CORNELL_BOUNCES}b",
+         cornell, CORNELL_SPP, CORNELL_BOUNCES),
+        (f"boxfield{FIELD_BOXES} {CORNELL_SIZE}^2 {FIELD_SPP}spp "
+         f"{FIELD_BOUNCES}b", field, FIELD_SPP, FIELD_BOUNCES),
+        (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp {LARGE_BOUNCES}b",
+         large, LARGE_SPP, LARGE_BOUNCES),
     ]
+    cells = [time_render(*args) for args in cell_args]
     log("[4] cells " + json.dumps(cells))
     if "--profile" in sys.argv[1:]:
-        rows = [
-            profile_render(c["cell"], scene, spp, bounces, c["ms_per_render"])
-            for c, scene, spp, bounces in (
-                (cells[0], cornell, CORNELL_SPP, CORNELL_BOUNCES),
-                (cells[1], field, FIELD_SPP, FIELD_BOUNCES))
-        ]
-        log("[profile] " + json.dumps(rows))
+        prof = [profile_render(*args, c["ms_per_render"])
+                for args, c in zip(cell_args, cells)]
+        log("[profile] " + json.dumps(prof))
 
-    # the main path's shapes: the Cornell primary wavefront
+    # each kernel at its main path's first wavefront: K1, K2 the Cornell
+    # primary rays, K4 the 300-box field's first shadow rays, K5, K9 the
+    # 100k field's first bounce (every block, the lists built beforehand
+    # for kernel and plain alike)
     kernels = []
-    for entry, rows, src, replaces in (
-        ("K1 nearest_t_idx_cm", k1, "pathtracerpython_tpu_torch/csrc/nearest.cu",
+    for key, entry, src, replaces in (
+        ("K1", "K1 nearest_t_idx_cm", "nearest.cu",
          "pathtracerpython_tpu/kernels/intersect_pallas.py:489"),
-        ("K2 nee_mean_cos_fused", k2, "pathtracerpython_tpu_torch/csrc/nee.cu",
+        ("K2", "K2 nee_mean_cos_fused", "nee.cu",
          "pathtracerpython_tpu/kernels/nee_pallas.py:226"),
+        ("K4", "K4 any_hit_cm", "any_hit.cu",
+         "pathtracerpython_tpu/kernels/intersect_pallas.py:599"),
+        ("K5", "K5 sparse_nearest_t_idx_cm", "sparse_nearest.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1694"),
+        ("K9", "K9 walker_any_hit_cm", "walker_any_hit.cu",
+         "pathtracerpython_tpu/kernels/walker_pallas.py:374"),
     ):
         kernels.append({
-            "name": entry, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[entry[:2]],
-            "max_abs_err": max(r[1] for r in rows),
-            "ms": rows[0][2], "plain_ms": rows[0][3],
+            "name": entry, "route": "cuda",
+            "source": f"pathtracerpython_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": max(r[1] for r in rows[key]),
+            "ms": rows[key][0][2], "plain_ms": rows[key][0][3],
         })
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,10 +7,14 @@ module's counterpart is easy to find:
 - ``scene``    — SDL + OBJ parsing into a padded ``SceneTensors`` dataclass.
 - ``ops``      — RNG, camera, sampling and geometry on component-major
                  float32 ``[3, N]`` tensors.
-- ``kernels``  — the hand-written CUDA kernels (``csrc/*.cu``) for the
-                 nearest-hit sweep and the fused NEE, each with its plain
-                 PyTorch version, built with ``nvcc`` at first use.
-- ``render``   — the fast-mode wavefront integrator and image output.
+- ``kernels``  — the hand-written CUDA kernels (``csrc/*.cu``): the dense
+                 nearest-hit and any-hit sweeps, the fused NEE, and the
+                 cluster hierarchy's sparse nearest sweep and walker
+                 any-hit, each with its plain PyTorch version, built with
+                 ``nvcc`` at first use.
+- ``render``   — the fast-mode wavefront integrator (dense, or the hybrid
+                 hierarchy with wavefront sorting for large scenes) and
+                 image output.
 
 The render runs on the device its scene tensors live on: on a CUDA device
 the kernels launch; on the CPU their plain versions run. Importing the

@@ -1,5 +1,5 @@
 // Möller–Trumbore ray-triangle test and the shared-memory triangle tile,
-// shared by the nearest-hit (nearest.cu) and fused NEE (nee.cu) kernels.
+// shared by every kernel of the library.
 //
 // The arithmetic follows pathtracerpython_tpu/kernels/intersect_pallas.py
 // _mt_rows term for term: e1 = v1 - v0 and e2 = v2 - v0 formed from the
@@ -17,6 +17,8 @@ constexpr float kDetEps = 1e-7f;  // |det| > kDetEps: not parallel
 constexpr float kTMin = 1e-4f;    // forward near-clip
 constexpr float kBig = 3.0e38f;   // "no hit yet"
 constexpr int kPackCols = 12;     // v0.xyz | v1.xyz | v2.xyz | valid | occluder | 0
+constexpr int kValidCol = 9;
+constexpr int kOccluderCol = 10;
 constexpr int kTile = 256;        // triangles staged in shared memory at a time
 constexpr int kThreads = 256;     // rays (one per thread) per block
 
@@ -47,17 +49,18 @@ __device__ __forceinline__ void load_tile(TriTile& tile,
     tile.e2x[r] = p[6] - v0x;
     tile.e2y[r] = p[7] - v0y;
     tile.e2z[r] = p[8] - v0z;
-    tile.use[r] = p[9] > 0.5f && (mask_col < 0 || p[mask_col] > 0.5f);
+    tile.use[r] = p[kValidCol] > 0.5f && (mask_col < 0 || p[mask_col] > 0.5f);
   }
 }
 
-// Forward hit of ray (o, d) against tile row j; writes t either way.
-__device__ __forceinline__ bool mt_hit(const TriTile& tile, int j,
-                                       float ox, float oy, float oz,
-                                       float dx, float dy, float dz,
-                                       float& t_out) {
-  const float e1x = tile.e1x[j], e1y = tile.e1y[j], e1z = tile.e1z[j];
-  const float e2x = tile.e2x[j], e2y = tile.e2y[j], e2z = tile.e2z[j];
+// Forward hit of ray (o, d) against the triangle (v0, e1, e2); writes t
+// either way.
+__device__ __forceinline__ bool mt_core(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float& t_out) {
   // pvec = d x e2
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
@@ -65,9 +68,9 @@ __device__ __forceinline__ bool mt_hit(const TriTile& tile, int j,
   const float det = e1x * pvx + e1y * pvy + e1z * pvz;
   const bool not_par = fabsf(det) > kDetEps;
   const float inv_det = 1.0f / (not_par ? det : 1.0f);
-  const float tvx = ox - tile.v0x[j];
-  const float tvy = oy - tile.v0y[j];
-  const float tvz = oz - tile.v0z[j];
+  const float tvx = ox - v0x;
+  const float tvy = oy - v0y;
+  const float tvz = oz - v0z;
   const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
   // qvec = tvec x e1
   const float qvx = tvy * e1z - tvz * e1y;
@@ -77,6 +80,27 @@ __device__ __forceinline__ bool mt_hit(const TriTile& tile, int j,
   const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
   t_out = t;
   return not_par && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin;
+}
+
+// Forward hit of ray (o, d) against tile row j; writes t either way.
+__device__ __forceinline__ bool mt_hit(const TriTile& tile, int j,
+                                       float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       float& t_out) {
+  return mt_core(tile.v0x[j], tile.v0y[j], tile.v0z[j], tile.e1x[j],
+                 tile.e1y[j], tile.e1z[j], tile.e2x[j], tile.e2y[j],
+                 tile.e2z[j], ox, oy, oz, dx, dy, dz, t_out);
+}
+
+// Forward hit of ray (o, d) against one packed row p[0:12], with e1 and e2
+// formed here exactly as load_tile forms them.
+__device__ __forceinline__ bool mt_hit_row(const float* p, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float& t_out) {
+  const float v0x = p[0], v0y = p[1], v0z = p[2];
+  return mt_core(v0x, v0y, v0z, p[3] - v0x, p[4] - v0y, p[5] - v0z,
+                 p[6] - v0x, p[7] - v0y, p[8] - v0z, ox, oy, oz, dx, dy, dz,
+                 t_out);
 }
 
 }  // namespace ptt

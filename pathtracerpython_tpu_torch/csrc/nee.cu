@@ -28,7 +28,6 @@ namespace {
 
 constexpr int kMaxLight = 64;
 constexpr int kMaxSamples = 8;
-constexpr int kOccluderCol = 10;
 
 template <int S>
 __global__ void __launch_bounds__(ptt::kThreads)
@@ -92,7 +91,7 @@ nee_kernel(const float* __restrict__ point3, const float* __restrict__ normal3,
     // thread has an unoccluded sample left
     if (!__syncthreads_or(pending > 0)) break;
     const int rows = min(ptt::kTile, t_count - base);
-    ptt::load_tile(tile, tripack, base, rows, kOccluderCol);
+    ptt::load_tile(tile, tripack, base, rows, ptt::kOccluderCol);
     __syncthreads();
     for (int j = 0; j < rows && pending > 0; ++j) {
       if (!tile.use[j]) continue;

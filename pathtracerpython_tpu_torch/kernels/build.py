@@ -2,7 +2,8 @@
 ctypes.
 
 The library has a plain C interface and includes no PyTorch header, so
-one nvcc call builds every kernel in seconds. It is built on the first
+each source compiles in seconds; the sources compile in parallel, one nvcc
+each, and one more nvcc links them. It is built on the first
 CUDA launch into ``build/torch_kernels/`` beside the package, named by a
 hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the cached file. A failed build raises; nothing falls
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "torch_kernels")
 # their plain PyTorch versions. Never --use_fast_math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -74,16 +75,37 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    units = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *units]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    stem = f"{out[:-3]}.{os.getpid()}"
+    nvcc = find_nvcc()
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, errors = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{stderr}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = f"{stem}.tmp"
+    if not errors:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{proc.stderr}")
     with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+        f.write("".join(log))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, out)
     return out
 

@@ -1,12 +1,15 @@
-"""K1: the dense nearest-hit sweep — CUDA kernel wrapper and plain version.
+"""K1 and K4: the dense nearest-hit and any-hit sweeps — CUDA kernel
+wrappers and plain versions.
 
-``nearest_t_idx_cm`` has the signature of the JAX package's
-``kernels/intersect_pallas.py:nearest_t_idx_cm``. On a CUDA tensor it
-launches ``csrc/nearest.cu`` (or raises); on a CPU tensor it runs
-``nearest_t_idx_plain``, the same arithmetic in PyTorch: Möller–Trumbore in
-``_mt_rows``' component order, and the per-ray (t, index) minimum with the
-smallest index winning ties. Forward only: inputs that require grad are
-refused, since a silent zero gradient would be a fault.
+``nearest_t_idx_cm`` (K1) has the signature of the JAX package's
+``kernels/intersect_pallas.py:nearest_t_idx_cm``, ``any_hit_cm`` (K4) that of
+its ``any_hit_pallas_cm``. On a CUDA tensor each launches its kernel
+(``csrc/nearest.cu``, ``csrc/any_hit.cu``) or raises; on a CPU tensor it runs
+its plain version, the same arithmetic in PyTorch: Möller–Trumbore in
+``_mt_rows``' component order, then the per-ray (t, index) minimum with the
+smallest index winning ties (K1), or any occluder hit with
+t < maxd - 1e-4 (K4). Forward only: inputs that require grad are refused,
+since a silent zero gradient would be a fault.
 """
 
 from __future__ import annotations
@@ -26,14 +29,22 @@ IMAX = 2**31 - 1
 # one temporary stays under this many elements.
 PLAIN_CHUNK_ELEMS = 1 << 24
 
-# Launches of the CUDA kernel since the count was last reset.
+# Launches of the CUDA kernels since the counts were last reset: K1, K4.
 LAUNCHES = 0
+ANY_HIT_LAUNCHES = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
     ctypes.c_void_p, ctypes.c_int,                    # tripack, t_count
     ctypes.c_void_p, ctypes.c_void_p,                 # t_out, idx_out
     ctypes.c_int, ctypes.c_void_p,                    # device, stream
+]
+_ANY_HIT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
+    ctypes.c_int,                                       # n
+    ctypes.c_void_p, ctypes.c_int,                      # tripack, t_count
+    ctypes.c_void_p,                                    # occ_out
+    ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
 
@@ -50,10 +61,10 @@ def scene_tripack(scene) -> torch.Tensor:
 
 
 def mt_rows(tri: torch.Tensor, ox, oy, oz, dx, dy, dz):
-    """Möller–Trumbore of [T, 12] pack rows against [1, R] ray rows ->
-    (hit [T, R] incl. the valid column, t [T, R]); the operation order of
-    ``intersect_pallas.py:_mt_rows``."""
-    col = lambda c: tri[:, c:c + 1]
+    """Möller–Trumbore of [..., T, 12] pack rows against [..., 1, R] ray
+    rows -> (hit [..., T, R] incl. the valid column, t [..., T, R]); the
+    operation order of ``intersect_pallas.py:_mt_rows``."""
+    col = lambda c: tri[..., c:c + 1]
     v0x, v0y, v0z = col(0), col(1), col(2)
     e1x, e1y, e1z = col(3) - v0x, col(4) - v0y, col(5) - v0z
     e2x, e2y, e2z = col(6) - v0x, col(7) - v0y, col(8) - v0z
@@ -166,3 +177,54 @@ def _launch(o3, d3_unit, tripack):
         raise RuntimeError(f"nearest-hit kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return t, idx
+
+
+def any_hit_plain(o3: torch.Tensor, d3_unit: torch.Tensor,
+                  maxd: torch.Tensor, tripack: torch.Tensor) -> torch.Tensor:
+    """Occlusion bool[N] of rays o3/d3_unit within maxd, chunked over the
+    occluder rows."""
+    rays = [o3[k:k + 1] for k in range(3)] + [d3_unit[k:k + 1] for k in range(3)]
+    occluders = tripack[tripack[:, 10] > 0.5]
+    limit = maxd[None, :] - T_MIN
+    blocked = torch.zeros_like(limit, dtype=torch.bool)
+    step = chunk_rows(o3.shape[1])
+    for lo in range(0, occluders.shape[0], step):
+        hit, t = mt_rows(occluders[lo:lo + step], *rays)
+        blocked = blocked | (hit & (t < limit)).any(dim=0, keepdim=True)
+    return blocked[0]
+
+
+def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
+               scene) -> torch.Tensor:
+    """Whether an occluder triangle of the scene blocks each shadow ray
+    o3/d3_unit f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4;
+    bool[N]. Lanes with maxd = 0 (parked) are never occluded."""
+    device = o3.device
+    n = o3.shape[1] if o3.dim() == 2 else -1
+    check_input("o3", o3, device, torch.float32, (3, None))
+    check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
+    check_input("maxd", maxd, device, torch.float32, (n,))
+    tripack = scene_tripack(scene)
+    check_input("scene triangles", tripack, device, torch.float32, (None, 12))
+    if device.type == "cpu":
+        return any_hit_plain(o3, d3_unit, maxd, tripack)
+    if device.type != "cuda":
+        raise ValueError(f"no any-hit kernel for device {device}")
+    return _launch_any_hit(o3, d3_unit, maxd, tripack)
+
+
+def _launch_any_hit(o3, d3_unit, maxd, tripack):
+    global ANY_HIT_LAUNCHES
+    n = o3.shape[1]
+    occ = torch.empty(n, dtype=torch.bool, device=o3.device)
+    if n == 0:
+        return occ
+    fn = build.function("ptt_any_hit", _ANY_HIT_ARGTYPES)
+    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
+             tripack.data_ptr(), tripack.shape[0], occ.data_ptr(),
+             o3.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"any-hit kernel launch failed: CUDA error {err}")
+    ANY_HIT_LAUNCHES += 1
+    return occ

@@ -1,0 +1,338 @@
+"""K5: the cluster-sparse nearest sweep, and the cluster hierarchy's
+candidate lists — CUDA kernel wrapper and plain version.
+
+The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
+
+- **clusters**: the triangle pack, padded to a multiple of 512 rows, is cut
+  into ``C_TRI = 128``-triangle clusters with AABBs (``cluster_aabbs``);
+  ``pack_scene(tri_order="morton")`` makes them spatially tight;
+- **candidate lists**: each block of ``r_blk`` consecutive rays gets the
+  clusters any of its rays can touch, by an interval slab test of the
+  block's (origin box x direction box) family against every cluster AABB
+  (``candidate_enter_hit``), sorted front to back by that conservative
+  entry bound (``block_lists``). The lists are complete (no cap), so
+  there is no overflow and no fallback;
+- **the sweep**: ``sparse_nearest_t_idx_cm`` walks each block's list per
+  ray; a ray tests a cluster only when its own slab test lets it through
+  with entry < best t + SLAB_EPS. The winner is the lexicographic
+  (t, global index) minimum, the dense K1's winner.
+
+Left behind as TPU machinery: the packed [seg|active|rb|cl] work words,
+the SMEM budgets (``W_PER_RB``, ``CHUNK_RB``, ``W_SMEM_ENTRIES``), grouping,
+the grid cascade, the interpret-mode caps and the two-pass and
+``REFINE_K`` protocols (off by default there).
+
+On a CUDA tensor the wrapper launches ``csrc/sparse_nearest.cu`` (or
+raises); on a CPU tensor it runs ``sparse_nearest_plain``, the same walk in
+PyTorch, vectorized over ray blocks slot by slot. Forward only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from pathtracerpython_tpu_torch.kernels import build
+from pathtracerpython_tpu_torch.kernels.intersect import (
+    BIG,
+    IMAX,
+    PLAIN_CHUNK_ELEMS,
+    check_input,
+    mt_rows,
+    scene_tripack,
+)
+
+# Scenes from this many padded triangles up resolve accel="auto" to
+# AUTO_LARGE, the hybrid: this sparse nearest sweep and the walker any-hit
+# (kernels/walker.py) for shadow rays.
+SPARSE_MIN_TRIS = 4096
+AUTO_LARGE = "hybrid"
+C_TRI = 128        # triangles per cluster
+PACK_ROWS = 512    # the pack is padded to a multiple of this many rows
+R_BLK_HYBRID_NEAREST = 1024  # rays per block of the hybrid's nearest sweep
+SLAB_EPS = 1e-3    # conservative slack of every slab comparison
+
+# Launches of the CUDA kernel since the count was last reset.
+LAUNCHES = 0
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # tripack, aabb8, C
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
+    ctypes.c_int,                                     # r_blk
+    ctypes.c_void_p, ctypes.c_void_p,                 # t_out, idx_out
+    ctypes.c_int, ctypes.c_void_p,                    # device, stream
+]
+
+
+def resolve_accel(accel: str, n_padded_tris: int) -> str:
+    """The hierarchy ``accel`` selects: "auto" is AUTO_LARGE for scenes of
+    SPARSE_MIN_TRIS padded triangles and more, "none" below; other values
+    name themselves."""
+    if accel == "auto":
+        return AUTO_LARGE if n_padded_tris >= SPARSE_MIN_TRIS else "none"
+    return accel
+
+
+def use_sparse(accel: str, n_padded_tris: int) -> bool:
+    """Whether the sweeps run a cluster hierarchy: the gate of the
+    coherence machinery (wavefront sorting, shadow-lane sorting, relevance
+    parking)."""
+    return resolve_accel(accel, n_padded_tris) in ("sparse", "walker",
+                                                   "hybrid")
+
+
+class BlockLists(NamedTuple):
+    """Per ray block, the candidate clusters front to back: row b holds
+    block b's ``ncand[b]`` clusters and their entry bounds first."""
+
+    ids: torch.Tensor    # i32[nrb, C]
+    keys: torch.Tensor   # f32[nrb, C]  conservative entry bound, >= 0
+    ncand: torch.Tensor  # i32[nrb]
+
+
+def pack_for_sparse(scene) -> torch.Tensor:
+    """The scene's [T, 12] pack (``scene_tripack``) padded with zero rows
+    (not valid) to a multiple of PACK_ROWS, as ``_pack_for_sparse``."""
+    tripack = scene_tripack(scene)
+    pad = (-tripack.shape[0]) % PACK_ROWS
+    if pad:
+        tripack = torch.cat([tripack, tripack.new_zeros((pad, 12))])
+    return tripack
+
+
+def cluster_aabbs(tripack: torch.Tensor, c_tri: int = C_TRI) -> torch.Tensor:
+    """Per-cluster AABBs f32[C, 8] = (min.xyz | max.xyz | 0 | 0) over the
+    valid rows; a cluster without one gets an inverted box."""
+    c = tripack.shape[0] // c_tri
+    tp = tripack.reshape(c, c_tri, 12)
+    valid = (tp[:, :, 9:10] > 0.5)[..., None]
+    vs = tp[:, :, 0:9].reshape(c, c_tri, 3, 3)
+    vmin = torch.where(valid, vs, BIG).amin(dim=(1, 2))
+    vmax = torch.where(valid, vs, -BIG).amax(dim=(1, 2))
+    return torch.cat([vmin, vmax, vmin.new_zeros((c, 2))], dim=1)
+
+
+def pad_repeat_last(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Pad the lane (last) axis to a multiple of ``mult`` by repeating the
+    last lane: a block's bounds then cover its real lanes only."""
+    pad = (-x.shape[-1]) % mult
+    if pad == 0:
+        return x
+    return torch.cat([x, x[..., -1:].expand(*x.shape[:-1], pad)], dim=-1)
+
+
+def _interval_inv(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) / max(|x|, 1e-12), with sign(0) = 1."""
+    sign = torch.sign(torch.where(x == 0.0, 1.0, x))
+    return sign / torch.clamp_min(x.abs(), 1e-12)
+
+
+def candidate_enter_hit(aabb8, o3, d3, tmax_rb, r_blk: int):
+    """Interval slab test of every ray block's (origin box x direction
+    box) family against every cluster AABB, as ``_candidate_enter_hit``.
+    Returns (enter f32[nrb, C] conservative entry bound, hit bool[nrb, C]).
+    ``tmax_rb`` f32[nrb]: the block's largest useful distance."""
+    o = pad_repeat_last(o3, r_blk)
+    d = pad_repeat_last(d3, r_blk)
+    nrb = o.shape[1] // r_blk
+    o = o.reshape(3, nrb, r_blk)
+    d = d.reshape(3, nrb, r_blk)
+    olo, ohi = o.amin(dim=2), o.amax(dim=2)   # [3, nrb]
+    dlo, dhi = d.amin(dim=2), d.amax(dim=2)
+    blo = aabb8[:, 0:3].T                     # [3, C]
+    bhi = aabb8[:, 3:6].T
+    nonempty = aabb8[:, 0] <= aabb8[:, 3]
+
+    enter = torch.full((nrb, aabb8.shape[0]), -BIG, dtype=o3.dtype,
+                       device=o3.device)
+    exit_ = torch.full_like(enter, BIG)
+    for k in range(3):
+        n1 = blo[k][None, :] - ohi[k][:, None]   # [nrb, C]
+        n2 = bhi[k][None, :] - olo[k][:, None]
+        straddles = ((dlo[k] <= 0.0) & (dhi[k] >= 0.0))[:, None]
+        i1 = _interval_inv(dlo[k])[:, None]
+        i2 = _interval_inv(dhi[k])[:, None]
+        p11, p12, p21, p22 = n1 * i1, n1 * i2, n2 * i1, n2 * i2
+        lo_k = torch.minimum(torch.minimum(p11, p12), torch.minimum(p21, p22))
+        hi_k = torch.maximum(torch.maximum(p11, p12), torch.maximum(p21, p22))
+        lo_k = torch.where(straddles, -BIG, lo_k)
+        hi_k = torch.where(straddles, BIG, hi_k)
+        enter = torch.maximum(enter, lo_k)
+        exit_ = torch.minimum(exit_, hi_k)
+
+    hit = (
+        nonempty[None, :]
+        & (enter <= exit_ + SLAB_EPS)
+        & (exit_ >= -SLAB_EPS)
+        & (enter <= tmax_rb[:, None] + SLAB_EPS)
+    )
+    return enter, hit
+
+
+def block_lists(aabb8, o3, d3, tmax_rb, r_blk: int) -> BlockLists:
+    """Every block's candidate clusters sorted front to back by the clamped
+    entry bound (the per-block list of ``grouped_worklist`` and
+    ``walker_worklist``, uncapped)."""
+    enter, hit = candidate_enter_hit(aabb8, o3, d3, tmax_rb, r_blk)
+    key = torch.where(hit, torch.clamp_min(enter, 0.0), BIG)
+    keys, order = torch.sort(key, dim=1, stable=True)
+    return BlockLists(
+        ids=order.to(torch.int32).contiguous(),
+        keys=keys.contiguous(),
+        ncand=hit.sum(dim=1, dtype=torch.int32),
+    )
+
+
+def lane_slab(box, o, inv):
+    """Per-ray slab test of ``_slab_rows_inv``: box [..., 8], o and inv
+    [3, ...] broadcast against it. Returns (hit, entry clamped to >= 0)."""
+    enter = exit_ = None
+    for k in range(3):
+        lo = (box[..., k] - o[k]) * inv[k]
+        hi = (box[..., k + 3] - o[k]) * inv[k]
+        tn, tf = torch.minimum(lo, hi), torch.maximum(lo, hi)
+        enter = tn if enter is None else torch.maximum(enter, tn)
+        exit_ = tf if exit_ is None else torch.minimum(exit_, tf)
+    enter0 = torch.clamp_min(enter, 0.0)
+    return exit_ >= enter0 - SLAB_EPS, enter0
+
+
+def lane_inv(d: torch.Tensor) -> torch.Tensor:
+    """1 / d with |d| clamped to 1e-12, sign kept (``_inv_rows``)."""
+    tiny = torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype)
+    return 1.0 / torch.where(d.abs() < 1e-12, tiny, d)
+
+
+class BlockRays(NamedTuple):
+    """The rays of a wavefront cut into [nrb, 1, r_blk] blocks."""
+
+    o: torch.Tensor     # f32[3, nrb, 1, r_blk]
+    d: torch.Tensor     # f32[3, nrb, 1, r_blk]
+    inv: torch.Tensor   # f32[3, nrb, 1, r_blk]
+    live: torch.Tensor  # bool[nrb, 1, r_blk]  real lanes
+
+
+def block_rays(o3, d3, nrb: int, r_blk: int) -> BlockRays:
+    n = o3.shape[1]
+    cut = lambda x: pad_repeat_last(x, r_blk)[..., :nrb * r_blk].reshape(
+        x.shape[0], nrb, 1, r_blk)
+    d = cut(d3)
+    live = torch.arange(nrb * r_blk, device=o3.device) < n
+    return BlockRays(cut(o3), d, lane_inv(d), live.reshape(nrb, 1, r_blk))
+
+
+def cluster_rows(tripack, ids_s: torch.Tensor) -> torch.Tensor:
+    """The packed rows [nrb, C_TRI, 12] of cluster ids_s[b] per block."""
+    c = tripack.shape[0] // C_TRI
+    return tripack.reshape(c, C_TRI, 12)[ids_s.to(torch.int64)]
+
+
+def by_block_chunks(fn, o3, rows, lists: BlockLists, r_blk: int):
+    """``fn(rows_chunk, lists_chunk)`` over runs of whole ray blocks, so
+    that a plain walk's [blocks, C_TRI, r_blk] temporaries stay under
+    PLAIN_CHUNK_ELEMS elements; ``rows``: per-lane tensors [..., N].
+    Returns the per-lane outputs concatenated (a block's list concerns
+    its own lanes only, so chunking changes no result)."""
+    n = o3.shape[1]
+    nrb = lists.ncand.shape[0]
+    step = max(1, PLAIN_CHUNK_ELEMS // (C_TRI * r_blk))
+    outs = []
+    for b0 in range(0, nrb, step):
+        lanes = slice(b0 * r_blk, min((b0 + step) * r_blk, n))
+        outs.append(fn([x[..., lanes] for x in rows],
+                       BlockLists(*(x[b0:b0 + step] for x in lists))))
+    return [torch.cat(parts, dim=-1) for parts in zip(*outs)]
+
+
+def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
+                         r_blk: int):
+    """The walk of ``csrc/sparse_nearest.cu`` in PyTorch: slot s of every
+    block's list at once, with the kernel's per-lane gate, (t, index) merge
+    and whole-walk stop (taken per block instead of per CTA, which changes
+    no result). Returns (t [N] — 0 on a miss, idx [N] int32 — -1 on a
+    miss)."""
+    def walk(rows, chunk: BlockLists):
+        o3c, d3c = rows
+        n, nrb = o3c.shape[1], chunk.ncand.shape[0]
+        rays = block_rays(o3c, d3c, nrb, r_blk)
+        best_t = torch.full((nrb, 1, r_blk), BIG, dtype=o3c.dtype,
+                            device=o3c.device)
+        best_idx = torch.full((nrb, 1, r_blk), -1, dtype=torch.int32,
+                              device=o3c.device)
+        walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
+        for s in range(int(chunk.ncand.max())):
+            key = chunk.keys[:, s][:, None, None]
+            walking = walking & (s < chunk.ncand) & (
+                rays.live & (key <= best_t + SLAB_EPS)).flatten(1).any(dim=1)
+            if not bool(walking.any()):
+                break
+            cl = chunk.ids[:, s]
+            box = aabb8[cl.to(torch.int64)][:, None, None, :]
+            slab, enter0 = lane_slab(box, rays.o, rays.inv)
+            needed = (walking[:, None, None] & rays.live & slab
+                      & (enter0 < best_t + SLAB_EPS))
+            hit, t = mt_rows(cluster_rows(tripack, cl), *rays.o, *rays.d)
+            tkey = torch.where(hit, t, BIG)             # [nrb, C_TRI, r_blk]
+            tile_t = tkey.amin(dim=1, keepdim=True)
+            gidx = (cl[:, None, None] * C_TRI
+                    + torch.arange(C_TRI, dtype=torch.int32,
+                                   device=o3c.device)[None, :, None])
+            cand = torch.where((tkey == tile_t) & hit, gidx, IMAX)
+            tile_idx = cand.amin(dim=1, keepdim=True)
+            better = needed & (tile_idx != IMAX) & (
+                (tile_t < best_t)
+                | ((tile_t == best_t) & (tile_idx < best_idx)))
+            best_t = torch.where(better, tile_t, best_t)
+            best_idx = torch.where(better, tile_idx, best_idx)
+        return best_t.reshape(-1)[:n], best_idx.reshape(-1)[:n]
+
+    t, idx = by_block_chunks(walk, o3, [o3, d3_unit], lists, r_blk)
+    return torch.where(idx >= 0, t, 0.0), idx
+
+
+def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene):
+    """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
+    length) through the cluster hierarchy, in blocks of
+    R_BLK_HYBRID_NEAREST rays; the result of the dense
+    ``nearest_t_idx_cm``: (t [N] — 0 on a miss, idx [N] int32 — -1 on a
+    miss)."""
+    device = o3.device
+    n = o3.shape[1] if o3.dim() == 2 else -1
+    check_input("o3", o3, device, torch.float32, (3, None))
+    check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
+    tripack = pack_for_sparse(scene)
+    check_input("scene triangles", tripack, device, torch.float32, (None, 12))
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no sparse nearest-hit kernel for device {device}")
+    if n == 0:
+        return (torch.zeros(0, dtype=o3.dtype, device=device),
+                torch.zeros(0, dtype=torch.int32, device=device))
+    aabb8 = cluster_aabbs(tripack)
+    r_blk = R_BLK_HYBRID_NEAREST
+    nrb = -(-n // r_blk)
+    tmax = torch.full((nrb,), BIG, dtype=o3.dtype, device=device)
+    lists = block_lists(aabb8, o3, d3_unit, tmax, r_blk)
+    if device.type == "cpu":
+        return sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists, r_blk)
+    return _launch(o3, d3_unit, tripack, aabb8, lists, r_blk)
+
+
+def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk):
+    global LAUNCHES
+    n = o3.shape[1]
+    t = torch.empty(n, dtype=torch.float32, device=o3.device)
+    idx = torch.empty(n, dtype=torch.int32, device=o3.device)
+    fn = build.function("ptt_sparse_nearest", _ARGTYPES)
+    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, tripack.data_ptr(),
+             aabb8.data_ptr(), aabb8.shape[0], lists.ids.data_ptr(),
+             lists.keys.data_ptr(), lists.ncand.data_ptr(), r_blk,
+             t.data_ptr(), idx.data_ptr(), o3.device.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sparse nearest-hit kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return t, idx

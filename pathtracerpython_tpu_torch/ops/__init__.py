@@ -1,2 +1,3 @@
-"""Batched RNG, camera, sampling and geometry primitives on component-major
-float32 [3, N] tensors — the counterparts of the JAX package's ``ops``."""
+"""Batched RNG, camera, sampling, wavefront sorting and geometry primitives
+on component-major float32 [3, N] tensors — the counterparts of the JAX
+package's ``ops``."""

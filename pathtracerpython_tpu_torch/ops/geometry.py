@@ -1,8 +1,15 @@
-"""Closest-hit records on component-major [3, N] tensors.
+"""Closest-hit records and shadow occlusion on component-major [3, N]
+tensors.
 
-The fast dense branch of the JAX package's ``ops/geometry.py:nearest_hit_cm``:
-normalize the directions, run the nearest-hit sweep (the K1 kernel on the
-card, its plain version on the CPU), and resolve the winner's attributes.
+The fast branches of the JAX package's ``ops/geometry.py:nearest_hit_cm``
+and ``any_hit_within_cm``: the hierarchy ``accel`` resolves to picks the
+sweep (a CUDA kernel on the card, its plain version on the CPU):
+
+    resolved accel   nearest sweep              shadow any-hit
+    "none"           K1 kernels/intersect.py    K4 kernels/intersect.py
+    "hybrid"         K5 kernels/sparse.py       K9 kernels/walker.py
+
+"sparse" and "walker" (K6-K8) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -11,7 +18,15 @@ from typing import NamedTuple
 
 import torch
 
-from pathtracerpython_tpu_torch.kernels.intersect import nearest_t_idx_cm
+from pathtracerpython_tpu_torch.kernels.intersect import (
+    any_hit_cm,
+    nearest_t_idx_cm,
+)
+from pathtracerpython_tpu_torch.kernels.sparse import (
+    resolve_accel,
+    sparse_nearest_t_idx_cm,
+)
+from pathtracerpython_tpu_torch.kernels.walker import walker_any_hit_cm
 from pathtracerpython_tpu_torch.ops.gather import cm_take
 from pathtracerpython_tpu_torch.scene.arrays import SceneTensors
 
@@ -40,12 +55,27 @@ class NearestHitCM(NamedTuple):
     is_light: torch.Tensor  # bool[N]
 
 
-def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor,
-                   scene: SceneTensors) -> NearestHitCM:
-    """Dense closest hit of rays (o3, d3) [3, N] against every triangle;
-    ``d3`` need not be normalized."""
+def _resolve(accel: str, scene: SceneTensors) -> str:
+    resolved = resolve_accel(accel, scene.num_padded_triangles)
+    if resolved in ("sparse", "walker"):
+        raise NotImplementedError(
+            f"accel={accel!r} (the {resolved} hierarchy, kernels K6-K8) is "
+            "not ported to pathtracerpython_tpu_torch yet (ROADMAP.md queue "
+            "A, item 7: the next slice of the large-scene path)"
+        )
+    return resolved
+
+
+def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor, scene: SceneTensors,
+                   accel: str = "none") -> NearestHitCM:
+    """Closest hit of rays (o3, d3) [3, N] against the scene's triangles,
+    through the sweep ``accel`` resolves to; ``d3`` need not be
+    normalized. Every sweep gives the dense sweep's winner."""
     d3u = normalize3(d3)
-    t, idx = nearest_t_idx_cm(o3, d3u, scene)
+    if _resolve(accel, scene) == "hybrid":
+        t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene)
+    else:
+        t, idx = nearest_t_idx_cm(o3, d3u, scene)
     found = idx >= 0
     safe_idx = idx.clamp_min(0)
     point3 = o3 + d3u * t[None, :]
@@ -59,3 +89,14 @@ def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor,
         material=scene.tri_material[rows],
         is_light=scene.tri_is_light[rows] & found,
     )
+
+
+def any_hit_within_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
+                      max_dist: torch.Tensor, scene: SceneTensors,
+                      accel: str = "none") -> torch.Tensor:
+    """Shadow occlusion bool[N] of rays (o3, d3_unit) [3, N] within
+    ``max_dist`` [N], through the any-hit ``accel`` resolves to;
+    ``d3_unit`` must be normalized."""
+    if _resolve(accel, scene) == "hybrid":
+        return walker_any_hit_cm(o3, d3_unit, max_dist, scene)
+    return any_hit_cm(o3, d3_unit, max_dist, scene)

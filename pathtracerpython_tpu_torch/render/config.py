@@ -3,9 +3,10 @@
 decides: CUDA kernels on the card, their plain versions on the CPU) and
 ``tile`` (the width of the XLA sweeps, which the port does not have).
 
-The port runs the fast-mode forward render with the dense sweeps and the
-fused NEE. ``render`` refuses the values of the remaining fields that
-need parts not yet ported with ``NotImplementedError`` (see
+The port runs the fast-mode forward render, dense (``accel="none"``) or
+through the hybrid hierarchy (``"hybrid"``, and ``"auto"`` on large
+scenes). ``render`` refuses the values of the remaining fields that need
+parts not yet ported with ``NotImplementedError`` (see
 ``render.integrator.check_supported``)."""
 
 from __future__ import annotations

@@ -5,21 +5,24 @@ The forward fast-mode path of the JAX package's ``render/integrator.py``:
     for each sample:                  (a Python loop, or extra lanes)
         state = primary rays          (ops.camera)
         for each bounce:              (a Python loop)
-            hit   = nearest_hit_cm    (K1: kernels/intersect.py)
-            color = shade(hit)        (ambient + fused NEE, K2: kernels/nee.py)
+            [sort + park]             (ops.sort, cluster hierarchies)
+            hit   = nearest_hit_cm    (K1 dense, or K5 for the hybrid)
+            color = shade(hit)        (ambient + NEE: fused K2, or the
+                                       unfused NEE with K4 / K9)
             state = scatter(hit)      (diffuse/specular branch, masked)
 
 Every per-ray vector is float32 [3, N]; dead rays are masked lanes. The
 RNG is the counter-based Threefry keyed by the global path id
 ``pixel_id * n_samples + sample``, bit-equal to the JAX package's, so both
 plans (per-sample loop and ``batch_samples``) draw the same numbers and
-give the same radiance. The render runs on the device the scene lives on.
+give the same radiance. Sorting permutes lanes with their counters, so a
+sorted render equals an unsorted one. The render runs on the device the
+scene lives on.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item (``check_supported``): reference mode, the sparse / walker /
-hybrid hierarchies, the unfused NEE (more than 64 light triangles), soft
-visibility, geometry sharding, ray sorting and the occluder cache, and
-rematerialized bounces.
+ROADMAP item (``check_supported``): reference mode, the sparse and walker
+hierarchies with the occluder cache, soft visibility, geometry sharding
+and rematerialized bounces.
 """
 
 from __future__ import annotations
@@ -33,18 +36,31 @@ from pathtracerpython_tpu_torch.kernels.nee import (
     MAX_LIGHT_SAMPLES,
     nee_mean_cos_fused,
 )
+from pathtracerpython_tpu_torch.kernels.sparse import resolve_accel, use_sparse
 from pathtracerpython_tpu_torch.ops import rng
 from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
 from pathtracerpython_tpu_torch.ops.gather import cm_take
 from pathtracerpython_tpu_torch.ops.geometry import (
     NearestHitCM,
+    any_hit_within_cm,
     nearest_hit_cm,
     normalize3,
 )
 from pathtracerpython_tpu_torch.ops.sampling import (
     cm_cosine_hemisphere_fixed,
     cm_dot,
+    cm_point_from_barycentric,
     cm_reflect,
+    cm_sample_barycentric_uniform,
+    pick_light_triangle,
+)
+from pathtracerpython_tpu_torch.ops.sort import (
+    PARK_DIR,
+    PARK_ORIGIN,
+    permute_minor,
+    scene_bounds,
+    unpermute_minor,
+    wavefront_sort_order,
 )
 from pathtracerpython_tpu_torch.render.config import RenderConfig
 from pathtracerpython_tpu_torch.scene.arrays import SceneTensors
@@ -52,11 +68,6 @@ from pathtracerpython_tpu_torch.scene.arrays import SceneTensors
 # purpose salts for per-bounce key derivation
 _P_NEE = 0
 _P_SCATTER = 1
-
-# Scenes from this many padded triangles up resolve accel="auto" to the
-# hybrid hierarchy (kernels/sparse_pallas.py:SPARSE_MIN_TRIS in the JAX
-# package).
-SPARSE_MIN_TRIS = 4096
 
 
 class RayState(NamedTuple):
@@ -69,6 +80,9 @@ class RayState(NamedTuple):
     radiance3: torch.Tensor    # f32[3, N] accumulated pixel color
     counters: torch.Tensor     # i64[N] global path id = pixel_id * spp + sample
     prev_specular: torch.Tensor  # bool[N] (fast-mode emission rule)
+    nee_occ_hint: torch.Tensor   # bool[N] every shadow sample of the lane
+    #                              was occluded last bounce: an ordering
+    #                              signal of the sorted NEE sweep only
 
 
 class Materials(NamedTuple):
@@ -79,14 +93,6 @@ class Materials(NamedTuple):
     kd: torch.Tensor    # f32[N]
     ks: torch.Tensor    # f32[N]
     n: torch.Tensor     # f32[N]
-
-
-def resolve_accel(accel: str, n_padded_tris: int) -> str:
-    """The hierarchy ``accel`` selects: "auto" is the hybrid for scenes
-    of SPARSE_MIN_TRIS padded triangles and more, "none" below."""
-    if accel == "auto":
-        return "hybrid" if n_padded_tris >= SPARSE_MIN_TRIS else "none"
-    return accel
 
 
 def _not_ported(what: str, item: str):
@@ -102,31 +108,42 @@ def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
     if cfg.mode != "fast":
         _not_ported(f"mode={cfg.mode!r}", "item 6: reference mode")
     resolved = resolve_accel(cfg.accel, scene.num_padded_triangles)
-    if resolved != "none":
-        _not_ported(f"accel={cfg.accel!r} (resolves to {resolved!r})",
-                    "item 7: the large-scene slice")
-    if scene.light_area.shape[0] > FUSED_NEE_MAX_LIGHT_TRIS:
-        _not_ported(
-            f"a light of {scene.light_area.shape[0]} triangles (more than "
-            f"{FUSED_NEE_MAX_LIGHT_TRIS}: the unfused NEE)",
-            "item 5: the unfused NEE with the any-hit kernel K4",
-        )
-    if cfg.n_light_samples > MAX_LIGHT_SAMPLES:
-        _not_ported(
-            f"n_light_samples={cfg.n_light_samples} (more than "
-            f"{MAX_LIGHT_SAMPLES}: the unfused NEE)",
-            "item 5: the unfused NEE with the any-hit kernel K4",
-        )
+    if cfg.nee_cache == "on" and resolved == "sparse":
+        _not_ported("nee_cache='on' (the sparse hierarchy's occluder cache, "
+                    "kernel K7)", "item 7: the large-scene slice")
+    if resolved in ("sparse", "walker"):
+        _not_ported(f"accel={cfg.accel!r} (resolves to {resolved!r}, "
+                    "kernels K6-K8)", "item 7: the large-scene slice")
     if cfg.soft_vis_beta > 0.0:
         _not_ported("soft_vis_beta > 0", "item 8: diff")
     if cfg.remat_bounces:
         _not_ported("remat_bounces=True", "item 8: diff")
     if cfg.geom_axis is not None:
         _not_ported("geom_axis", "item 9: parallel")
-    if cfg.nee_cache == "on":
-        _not_ported("nee_cache='on'", "item 7: the large-scene slice")
+
+
+def _sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
+    """Per-bounce wavefront sorting: on for the cluster hierarchies (block
+    coherence is their performance model), or when asked for."""
     if cfg.sort_rays == "on":
-        _not_ported("sort_rays='on'", "item 7: the large-scene slice")
+        return True
+    return cfg.sort_rays == "auto" and use_sparse(
+        cfg.accel, scene.num_padded_triangles)
+
+
+def _nee_sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
+    """Shadow-lane sorting (and with it relevance parking) runs where a
+    cluster hierarchy's any-hit does."""
+    return cfg.sort_nee != "off" and use_sparse(
+        cfg.accel, scene.num_padded_triangles)
+
+
+def _fused_nee(scene: SceneTensors, cfg: RenderConfig) -> bool:
+    """The fused K2 runs on dense scenes whose light and sample count fit
+    it; everything else takes the unfused NEE."""
+    return (resolve_accel(cfg.accel, scene.num_padded_triangles) == "none"
+            and scene.light_area.shape[0] <= FUSED_NEE_MAX_LIGHT_TRIS
+            and cfg.n_light_samples <= MAX_LIGHT_SAMPLES)
 
 
 def resolve_materials(scene: SceneTensors, material) -> Materials:
@@ -140,25 +157,115 @@ def resolve_materials(scene: SceneTensors, material) -> Materials:
     )
 
 
+class ShadowRays(NamedTuple):
+    """The unfused NEE's S*N shadow rays in the order they are swept."""
+
+    o3: torch.Tensor     # f32[3, S*N]
+    d3: torch.Tensor     # f32[3, S*N] unit length
+    maxd: torch.Tensor   # f32[S*N] distance to the light point; 0 = parked
+    order: torch.Tensor | None  # i64[S*N] lane s*N + i of sweep slot k,
+    #                             None when unsorted
+    cos: torch.Tensor    # f32[S, N] clamped cosine of each sample
+
+
+def nee_shadow_rays(hit: NearestHitCM, u, scene: SceneTensors,
+                    cfg: RenderConfig, shading_normal3, relevant,
+                    occ_hint) -> ShadowRays:
+    """The unfused NEE's light samples (area-CDF light pick, sqrt-trick
+    barycentrics) as shadow rays from the hit points. Where the shadow-lane
+    sort runs, the rays whose result the radiance discards (not
+    ``relevant`` bool[N]) are parked, and the lanes are sorted by their own
+    key, with predicted-occluded lanes (``occ_hint`` bool[N]) first when
+    ``cfg.nee_hint == "on"``."""
+    s = cfg.n_light_samples
+    point3 = hit.point3
+    n = point3.shape[1]
+    u = u.reshape(s, 5, n)
+    tri = pick_light_triangle(u[:, 0], scene.light_area)          # [S, N]
+    bary = cm_sample_barycentric_uniform(u[:, 1:3].transpose(0, 1))
+    lv = cm_take(torch.cat([scene.light_v0.T, scene.light_v1.T,
+                            scene.light_v2.T]), tri)              # [9, S, N]
+    light_pt3 = cm_point_from_barycentric(bary, lv[0:3], lv[3:6], lv[6:9])
+    vec3 = light_pt3 - point3[:, None, :]
+    # sqrt(x + tiny) for the distance, rsqrt(max(x, tiny)) for the direction
+    dist = torch.sqrt(cm_dot(vec3, vec3) + 1e-24)                 # [S, N]
+    sdir3 = normalize3(vec3)
+    cos = torch.clamp_min(cm_dot(sdir3, shading_normal3[:, None, :]), 0.0)
+
+    flat_o3 = point3[:, None, :].expand(3, s, n).reshape(3, s * n)
+    flat_d3 = sdir3.reshape(3, s * n)
+    flat_dist = dist.reshape(s * n)
+    if not _nee_sort_enabled(scene, cfg):
+        return ShadowRays(flat_o3, flat_d3, flat_dist, None, cos)
+    # park the irrelevant lanes only where the sort groups them into blocks
+    # of their own: a parked origin in a mixed block widens the block's box
+    # over the whole scene (the JAX package measured 31 s against 1.1 s per
+    # render when parking without sorting)
+    rel_flat = relevant[None, :].expand(s, n).reshape(s * n)
+    flat_o3 = torch.where(rel_flat[None, :], flat_o3,
+                          flat_o3.new_tensor(PARK_ORIGIN)[:, None])
+    flat_d3 = torch.where(rel_flat[None, :], flat_d3,
+                          flat_d3.new_tensor(PARK_DIR)[:, None])
+    flat_dist = torch.where(rel_flat, flat_dist, 0.0)
+    hint_flat = None
+    if cfg.nee_hint == "on":
+        hint_flat = occ_hint[None, :].expand(s, n).reshape(s * n)
+    order = wavefront_sort_order(flat_o3, flat_d3, rel_flat,
+                                 *scene_bounds(scene), occ_hint=hint_flat)
+    return ShadowRays(permute_minor(flat_o3, order),
+                      permute_minor(flat_d3, order),
+                      permute_minor(flat_dist, order), order, cos)
+
+
 def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
-              cfg: RenderConfig, shading_normal3) -> torch.Tensor:
-    """Direct light by next-event estimation through the fused kernel K2:
-    light_color x rgb x the mean unoccluded clamped cosine over
-    ``cfg.n_light_samples`` light samples. ``u``: [S*5, N] uniforms."""
-    mean_cos = nee_mean_cos_fused(
-        hit.point3, shading_normal3, u, scene, cfg.n_light_samples
-    )[0][0]
-    return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :]
+              cfg: RenderConfig, shading_normal3, relevant, occ_hint):
+    """Direct light by next-event estimation: light_color x rgb x the mean
+    unoccluded clamped cosine over ``cfg.n_light_samples`` light samples.
+    ``u``: [S*5, N] uniforms. Returns (direct3 [3, N], occ_hint).
+
+    Dense scenes with a light and a sample count that fit it take the
+    fused kernel K2. Everything else takes the unfused NEE: the same
+    estimator on the [S, N] shadow rays of ``nee_shadow_rays``, whose
+    occlusion runs through ``any_hit_within_cm`` (K4 dense, K9 for the
+    hybrid). ``relevant`` and ``occ_hint`` (last bounce's
+    all-samples-occluded bit, refreshed on return) only order and park the
+    sorted sweep's lanes: radiance is the same either way."""
+    if _fused_nee(scene, cfg):
+        mean_cos = nee_mean_cos_fused(
+            hit.point3, shading_normal3, u, scene, cfg.n_light_samples
+        )[0][0]
+        return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], \
+            occ_hint
+
+    rays = nee_shadow_rays(hit, u, scene, cfg, shading_normal3, relevant,
+                           occ_hint)
+    occ_flat = any_hit_within_cm(rays.o3.contiguous(), rays.d3.contiguous(),
+                                 rays.maxd.contiguous(), scene,
+                                 accel=cfg.accel)
+    if rays.order is not None:
+        occ_flat = unpermute_minor(occ_flat, rays.order)
+    occluded = occ_flat.reshape(rays.cos.shape)
+    # parked lanes read False; they are parked again before it matters
+    occ_hint = occluded.all(dim=0)
+    mean_cos = torch.where(occluded, 0.0, rays.cos).sum(dim=0) / float(
+        rays.cos.shape[0])
+    return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], occ_hint
 
 
 def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
-          cfg: RenderConfig, prev_specular, shading_normal3) -> torch.Tensor:
-    """Per-bounce color [3, N]: surface hits pay ambient + NEE; a light hit
-    pays the light color only when the path arrived from the camera or a
-    specular bounce; a miss pays the background when ``use_background``
-    is set, else 0."""
+          cfg: RenderConfig, prev_specular, shading_normal3, alive,
+          occ_hint):
+    """Per-bounce color ([3, N], occ_hint): surface hits pay ambient + NEE;
+    a light hit pays the light color only when the path arrived from the
+    camera or a specular bounce; a miss pays the background when
+    ``use_background`` is set, else 0. Where the shadow-lane sort runs, the
+    NEE parks the shadow rays of lanes whose direct term is discarded
+    (not ``alive``, missed, light hits)."""
+    relevant = alive & hit.hit & ~hit.is_light
     ambient3 = mat.rgb3 * (mat.ka * scene.ambient)[None, :]
-    surface3 = ambient3 + shade_nee(hit, mat, u, scene, cfg, shading_normal3)
+    direct3, occ_hint = shade_nee(hit, mat, u, scene, cfg, shading_normal3,
+                                  relevant, occ_hint)
+    surface3 = ambient3 + direct3
     light3 = torch.where(prev_specular[None, :], scene.light_color[:, None],
                          0.0)
     color3 = torch.where(hit.is_light[None, :], light3, surface3)
@@ -166,7 +273,7 @@ def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
         miss3 = scene.background[:, None].expand_as(surface3)
     else:
         miss3 = torch.zeros_like(surface3)
-    return torch.where(hit.hit[None, :], color3, miss3)
+    return torch.where(hit.hit[None, :], color3, miss3), occ_hint
 
 
 def arrival_side_normal(normal3, d_in3):
@@ -194,20 +301,47 @@ def scatter(state: RayState, hit: NearestHitCM, mat: Materials, u,
     return new_dir3, w, survives, ~choose_diffuse
 
 
+def sort_and_park(state: RayState, sort_bounds=None):
+    """(state, sweep_o3, sweep_d3): with ``sort_bounds`` (lo3, hi3), the
+    state sorted by (octant, origin morton, direction morton) with dead
+    lanes last, and the rays to sweep with dead lanes parked on a ray that
+    touches no cluster; without, the state and its own rays."""
+    if sort_bounds is None:
+        return state, state.origin3, state.direction3
+    order = wavefront_sort_order(state.origin3, state.direction3,
+                                 state.alive, *sort_bounds)
+    state = RayState(*(permute_minor(f, order) for f in state))
+    alive3 = state.alive[None, :]
+    sweep_o3 = torch.where(alive3, state.origin3,
+                           state.origin3.new_tensor(PARK_ORIGIN)[:, None])
+    sweep_d3 = torch.where(alive3, state.direction3,
+                           state.direction3.new_tensor(PARK_DIR)[:, None])
+    return state, sweep_o3, sweep_d3
+
+
 def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
-                cfg: RenderConfig, k0: int, k1: int) -> RayState:
-    """One wavefront bounce: intersect -> shade -> scatter, fully masked."""
+                cfg: RenderConfig, k0: int, k1: int,
+                sort_bounds=None) -> RayState:
+    """One wavefront bounce: intersect -> shade -> scatter, fully masked.
+
+    ``sort_bounds``: (lo3, hi3) scene bounds when wavefront sorting is on:
+    the state is re-sorted by (octant, origin morton, direction morton) and
+    the sweep parks dead lanes on a ray that touches no cluster; a pure
+    lane permutation (the counters carry the RNG), so the radiance equals
+    the unsorted path's."""
+    state, sweep_o3, sweep_d3 = sort_and_park(state, sort_bounds)
     nk0, nk1 = rng.fold(k0, k1, bounce_idx * 4 + _P_NEE)
     sk0, sk1 = rng.fold(k0, k1, bounce_idx * 4 + _P_SCATTER)
     u_nee = rng.uniforms(nk0, nk1, state.counters, cfg.n_light_samples * 5)
     u_scatter = rng.uniforms(sk0, sk1, state.counters, 3)
 
-    hit = nearest_hit_cm(state.origin3, state.direction3, scene)
+    hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel)
     mat = resolve_materials(scene, hit.material)
     # one arrival-side normal for both direct light and scattering
     shading_n3 = arrival_side_normal(hit.normal3, normalize3(state.direction3))
-    color3 = shade(hit, mat, u_nee, scene, cfg, state.prev_specular,
-                   shading_n3)
+    color3, occ_hint = shade(hit, mat, u_nee, scene, cfg,
+                             state.prev_specular, shading_n3, state.alive,
+                             state.nee_occ_hint)
     contrib3 = torch.where(
         state.alive[None, :], color3 * state.throughput[None, :], 0.0
     )
@@ -226,6 +360,7 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
         radiance3=radiance3,
         counters=state.counters,
         prev_specular=state.alive & chose_spec,
+        nee_occ_hint=occ_hint,
     )
 
 
@@ -241,13 +376,27 @@ def init_rays(origins3, directions3, counters) -> RayState:
         radiance3=torch.zeros((3, n), dtype=origins3.dtype, device=device),
         counters=counters.to(torch.int64),
         prev_specular=torch.ones(n, dtype=torch.bool, device=device),
+        nee_occ_hint=torch.zeros(n, dtype=torch.bool, device=device),
     )
 
 
-def _bounce_sweep(state: RayState, scene, cfg, k0, k1) -> RayState:
+def _bounce_sweep(state: RayState, scene, cfg, k0, k1,
+                  sort_bounds) -> RayState:
     for b in range(cfg.n_bounces):
-        state = bounce_step(state, b, scene, cfg, k0, k1)
+        state = bounce_step(state, b, scene, cfg, k0, k1, sort_bounds)
     return state
+
+
+def _unscramble(state: RayState, n: int, s_total: int,
+                batched: bool) -> torch.Tensor:
+    """The radiance [3, lanes] back in lane order after any number of
+    sorts: the counter pixel_id * spp + sample names each lane's slot
+    (sample * n + pixel for batch_samples, the pixel otherwise)."""
+    c = state.counters
+    pid = c // s_total
+    slot = (c % s_total) * n + pid if batched else pid
+    out = torch.zeros_like(state.radiance3)
+    return out.index_copy_(1, slot, state.radiance3)
 
 
 def render_rays(origins, directions, pixel_ids, scene: SceneTensors,
@@ -267,18 +416,25 @@ def render_rays(origins, directions, pixel_ids, scene: SceneTensors,
     d3 = directions.T
     pid = pixel_ids.to(torch.int64)
     k0, k1 = rng.key_from_seed(base_key)
+    sort_bounds = scene_bounds(scene) if _sort_enabled(scene, cfg) else None
+
+    def sweep(state: RayState, batched: bool) -> torch.Tensor:
+        state = _bounce_sweep(state, scene, cfg, k0, k1, sort_bounds)
+        if sort_bounds is None:
+            return state.radiance3
+        return _unscramble(state, n, s_total, batched)
 
     passes = []
     if cfg.batch_samples and s_total > 1:
         counters = torch.cat([pid * s_total + s for s in range(s_total)])
         state = init_rays(o3.repeat(1, s_total), d3.repeat(1, s_total),
                           counters)
-        radiance3 = _bounce_sweep(state, scene, cfg, k0, k1).radiance3
+        radiance3 = sweep(state, True)
         passes = [radiance3[:, s * n:(s + 1) * n] for s in range(s_total)]
     else:
         for s in range(s_total):
             state = init_rays(o3, d3, pid * s_total + s)
-            passes.append(_bounce_sweep(state, scene, cfg, k0, k1).radiance3)
+            passes.append(sweep(state, False))
     total3 = passes[0]
     for p in passes[1:]:
         total3 = total3 + p

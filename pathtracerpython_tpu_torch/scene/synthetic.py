@@ -50,6 +50,23 @@ def quad_mesh(p0, p1, p2, p3, path: str = "quad") -> ObjMesh:
     )
 
 
+def grid_light(nx: int, nz: int, y: float, x0: float, x1: float, z0: float,
+               z1: float, path: str = "grid_light") -> ObjMesh:
+    """A flat light of nx * nz quads (2 * nx * nz triangles) at height y
+    over [x0, x1] x [z0, z1], facing -y: a light mesh too large for the
+    fused NEE (more than 64 triangles) when nx * nz > 32."""
+    xs = np.linspace(x0, x1, nx + 1)
+    zs = np.linspace(z0, z1, nz + 1)
+    verts = [[x, y, z] for z in zs for x in xs]
+    faces = []
+    for j in range(nz):
+        for i in range(nx):
+            a = j * (nx + 1) + i
+            b, c, d = a + 1, a + nx + 2, a + nx + 1
+            faces += [[a, b, c], [a, c, d]]
+    return mesh_from_arrays(verts, faces, path=path)
+
+
 def box_field_scene(
     n_boxes: int = 64,
     extent: float = 8.0,

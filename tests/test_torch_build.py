@@ -12,7 +12,13 @@ import sys
 import pytest
 import torch
 
-from pathtracerpython_tpu_torch.kernels import build, intersect, nee
+from pathtracerpython_tpu_torch.kernels import (
+    build,
+    intersect,
+    nee,
+    sparse,
+    walker,
+)
 from pathtracerpython_tpu_torch.render.config import RenderConfig
 from pathtracerpython_tpu_torch.render.integrator import render
 from pathtracerpython_tpu_torch.scene import arrays, synthetic
@@ -50,8 +56,9 @@ def test_port_never_imports_jax():
     assert out["jax"] == []
     # the package __init__ alone pulls in no framework
     assert out["top_level"] == []
-    for name in ("scene.arrays", "ops.rng", "kernels.intersect",
-                 "kernels.nee", "kernels.build", "render.integrator"):
+    for name in ("scene.arrays", "ops.rng", "ops.sort", "kernels.intersect",
+                 "kernels.nee", "kernels.sparse", "kernels.walker",
+                 "kernels.build", "render.integrator"):
         assert f"pathtracerpython_tpu_torch.{name}" in out["modules"], name
     # importing every module builds and loads nothing
     assert out["library_loaded"] is False
@@ -66,7 +73,8 @@ def test_nvcc_flags_keep_plain_rounding():
 
 def test_sources_are_in_the_package():
     names = sorted(os.path.basename(p) for p in build._sources())
-    assert names == ["mt.cuh", "nearest.cu", "nee.cu"]
+    assert names == ["any_hit.cu", "cluster.cuh", "mt.cuh", "nearest.cu",
+                     "nee.cu", "sparse_nearest.cu", "walker_any_hit.cu"]
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
@@ -102,9 +110,13 @@ def test_cpu_render_runs_the_plain_versions(monkeypatch):
         raise AssertionError("the CPU path asked for the CUDA library")
 
     monkeypatch.setattr(build, "function", refuse)
-    monkeypatch.setattr(intersect, "LAUNCHES", 0)
-    monkeypatch.setattr(nee, "LAUNCHES", 0)
+    counters = [(intersect, "LAUNCHES"), (intersect, "ANY_HIT_LAUNCHES"),
+                (nee, "LAUNCHES"), (sparse, "LAUNCHES"), (walker, "LAUNCHES")]
+    for module, name in counters:
+        monkeypatch.setattr(module, name, 0)
     scene = arrays.pack_scene(synthetic.cornell_box_scene(6, 6), pad_to=32)
-    rad = render(scene, RenderConfig(n_samples=1, n_bounces=2), seed=0)
-    assert rad.device == torch.device("cpu") and rad.shape == (36, 3)
-    assert intersect.LAUNCHES == 0 and nee.LAUNCHES == 0
+    for accel in ("none", "hybrid"):
+        rad = render(scene, RenderConfig(n_samples=1, n_bounces=2,
+                                         accel=accel), seed=0)
+        assert rad.device == torch.device("cpu") and rad.shape == (36, 3)
+    assert all(getattr(module, name) == 0 for module, name in counters)

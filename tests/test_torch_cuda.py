@@ -19,7 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from pathtracerpython_tpu_torch.kernels import build, intersect, nee
+from pathtracerpython_tpu_torch.kernels import (
+    build,
+    intersect,
+    nee,
+    sparse,
+    walker,
+)
 from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
 from pathtracerpython_tpu_torch.ops.geometry import nearest_hit_cm, normalize3
 from pathtracerpython_tpu_torch.render.config import RenderConfig
@@ -47,9 +53,12 @@ def cuda():
 def _scene(name, cuda):
     if name == "cornell":
         desc, pad_to = synthetic.cornell_box_scene(40, 40), 32
-    else:  # 300 boxes: 3604 triangles, 15 shared-memory tiles
+    elif name == "boxfield300":  # 3604 triangles, 15 shared-memory tiles
         desc, pad_to = synthetic.box_field_scene(n_boxes=300, width=40,
                                                  height=40), 128
+    else:  # 2000 boxes: 24,004 triangles in 188 clusters, morton order
+        return arrays.pack_scene(synthetic.box_field_scene(
+            n_boxes=2000, width=40, height=40), tri_order="morton").to(cuda)
     return arrays.pack_scene(desc, pad_to=pad_to).to(cuda)
 
 
@@ -138,3 +147,86 @@ def test_failed_build_raises_on_the_card(cuda, tmp_path, monkeypatch):
     o3, d3u = _rays(scene)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         intersect.nearest_t_idx_cm(o3, d3u, scene)
+
+
+def _shadow_rays(scene, seed=1):
+    """Rays of ``_rays`` with windows of 0 to 12 units; every tenth lane is
+    parked (maxd = 0, as the NEE parks irrelevant lanes)."""
+    o3, d3u = _rays(scene, seed)
+    rs = np.random.default_rng(seed)
+    maxd = torch.from_numpy(rs.uniform(0.0, 12.0, o3.shape[1]).astype(
+        np.float32)).to(o3.device)
+    maxd[::10] = 0.0
+    return o3, d3u, maxd
+
+
+@pytest.mark.parametrize("name", ["cornell", "boxfield300"])
+def test_any_hit_kernel_matches_plain(cuda, name):
+    scene = _scene(name, cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    before = intersect.ANY_HIT_LAUNCHES
+    occ = intersect.any_hit_cm(o3, d3u, maxd, scene)
+    assert intersect.ANY_HIT_LAUNCHES == before + 1
+    plain = intersect.any_hit_plain(o3, d3u, maxd,
+                                    intersect.scene_tripack(scene))
+    torch.cuda.synchronize()
+    assert occ.dtype == torch.bool and occ.device.type == "cuda"
+    assert not bool(occ[::10].any())
+    assert (occ == plain).float().mean().item() >= MIN_AGREE
+    assert 0.05 < occ.float().mean().item() < 0.95
+
+
+def test_sparse_nearest_kernel_matches_plain_and_dense(cuda):
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u = _rays(scene)
+    before = sparse.LAUNCHES
+    t, idx = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene)
+    assert sparse.LAUNCHES == before + 1
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    r_blk = sparse.R_BLK_HYBRID_NEAREST
+    nrb = -(-o3.shape[1] // r_blk)
+    lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+        (nrb,), intersect.BIG, device=cuda), r_blk)
+    pt, pidx = sparse.sparse_nearest_plain(o3, d3u, tripack, aabb8, lists,
+                                           r_blk)
+    dt, didx = intersect.nearest_t_idx_cm(o3, d3u, scene)
+    torch.cuda.synchronize()
+    assert bool((t[idx < 0] == 0).all()) and (idx >= 0).any()
+    for want_t, want_idx in ((pt, pidx), (dt, didx)):
+        same = idx == want_idx
+        assert same.float().mean().item() >= MIN_AGREE
+        torch.testing.assert_close(t[same], want_t[same], rtol=T_RTOL,
+                                   atol=T_ATOL)
+
+
+def test_walker_any_hit_kernel_matches_plain_and_dense(cuda):
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    before = walker.LAUNCHES
+    occ = walker.walker_any_hit_cm(o3, d3u, maxd, scene)
+    assert walker.LAUNCHES == before + 1
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    lists = walker.walker_lists(aabb8, o3, d3u, maxd)
+    plain = walker.walker_any_hit_plain(o3, d3u, maxd, tripack, aabb8, lists,
+                                        walker.R_BLK)
+    dense = intersect.any_hit_cm(o3, d3u, maxd, scene)
+    torch.cuda.synchronize()
+    assert not bool(occ[::10].any())
+    assert (occ == plain).float().mean().item() >= MIN_AGREE
+    assert (occ == dense).float().mean().item() >= MIN_AGREE
+    assert 0.05 < occ.float().mean().item() < 0.95
+
+
+def test_hybrid_render_on_card_matches_cpu(cuda):
+    scene = arrays.pack_scene(synthetic.box_field_scene(
+        n_boxes=400, width=16, height=16), tri_order="morton")
+    cfg = RenderConfig(n_samples=2, n_bounces=3, batch_samples=True)
+    k5, k9 = sparse.LAUNCHES, walker.LAUNCHES
+    on_card = render(scene.to(cuda), cfg, seed=5)
+    assert sparse.LAUNCHES == k5 + 3 and walker.LAUNCHES == k9 + 3
+    on_cpu = render(scene, cfg, seed=5)
+    close = torch.isclose(on_card.cpu(), on_cpu, rtol=RENDER_TOL,
+                          atol=RENDER_TOL).all(dim=1)
+    assert close.float().mean().item() >= 0.99

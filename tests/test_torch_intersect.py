@@ -1,12 +1,16 @@
-"""K1, the dense nearest-hit sweep: the port's plain version against the JAX
-package's Pallas kernel, run in interpret mode on the CPU as
-tests/test_pallas.py runs it, plus the wrapper's input checks."""
+"""K1 and K4, the dense nearest-hit and any-hit sweeps: the port's plain
+versions against the JAX package's Pallas kernels, run in interpret mode on
+the CPU as tests/test_pallas.py runs them, plus the wrappers' input
+checks."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pathtracerpython_tpu.kernels.intersect_pallas import (
+    any_hit_pallas_cm as jax_any_hit_pallas_cm,
+)
 from pathtracerpython_tpu.kernels.intersect_pallas import (
     nearest_t_idx_cm as jax_nearest_t_idx_cm,
 )
@@ -24,6 +28,7 @@ from torch_parity import (
     T_ATOL,
     T_RTOL,
     bary_margin_f64,
+    occlusion_margin_f64,
     to_jax_desc,
 )
 
@@ -172,3 +177,46 @@ def test_wrapper_refuses_bad_inputs(fault):
         o3, d3 = o3.to("meta"), d3.to("meta")
     with pytest.raises(expected):
         intersect.nearest_t_idx_cm(o3, d3, scene)
+
+
+@pytest.mark.parametrize("name", ["cornell", "boxfield48"])
+def test_plain_any_hit_matches_jax_kernel(name):
+    desc, pad_to = _scenes()[name]
+    scene = arrays.pack_scene(desc, pad_to=pad_to)
+    ref_scene = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=pad_to)
+    o3, d3u = _rays(scene, seed=2)
+    maxd = np.random.default_rng(3).uniform(0.0, 25.0, o3.shape[1]).astype(
+        np.float32)
+    maxd[::7] = 0.0  # parked-style empty windows
+    got = intersect.any_hit_cm(torch.from_numpy(o3), torch.from_numpy(d3u),
+                               torch.from_numpy(maxd), scene).numpy()
+    want = np.asarray(jax_any_hit_pallas_cm(
+        jnp.asarray(o3), jnp.asarray(d3u), jnp.asarray(maxd), ref_scene))
+    assert got.dtype == np.bool_ and 0.05 < got.mean() < 0.95
+    assert not got[::7].any()
+    bad = np.nonzero(got != want)[0]
+    assert len(bad) <= 0.1 * len(got), f"{len(bad)} occlusion mismatches"
+    occ = scene.tri_occluder.numpy()
+    tris = [v.numpy()[occ] for v in (scene.tri_v0, scene.tri_v1,
+                                     scene.tri_v2)]
+    for r in bad:
+        margin = occlusion_margin_f64(*tris, o3[:, r], d3u[:, r], maxd[r])
+        assert abs(margin) < GRAZING_MARGIN, (r, margin)
+
+
+@pytest.mark.parametrize("fault", ["requires_grad", "maxd_shape", "dtype"])
+def test_any_hit_wrapper_refuses_bad_inputs(fault):
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32)
+    o3, d3 = _inputs()
+    maxd = torch.ones(8)
+    expected = ValueError
+    if fault == "requires_grad":
+        maxd.requires_grad_(True)
+        expected = RuntimeError
+    elif fault == "maxd_shape":
+        maxd = maxd[:5]
+    else:
+        maxd = maxd.double()
+        expected = TypeError
+    with pytest.raises(expected):
+        intersect.any_hit_cm(o3, d3, maxd, scene)

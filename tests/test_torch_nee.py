@@ -25,12 +25,7 @@ from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
 from pathtracerpython_tpu_torch.ops.geometry import nearest_hit_cm, normalize3
 from pathtracerpython_tpu_torch.render.integrator import arrival_side_normal
 from pathtracerpython_tpu_torch.scene import arrays, synthetic
-from torch_parity import (
-    GRAZING_MARGIN,
-    grid_light,
-    occlusion_margin_f64,
-    to_jax_desc,
-)
+from torch_parity import GRAZING_MARGIN, occlusion_margin_f64, to_jax_desc
 
 # mean cosine of lanes whose occlusion bits agree: float32 sums of three
 # terms of size <= 1, where the last bits of rsqrt may differ
@@ -40,7 +35,7 @@ MC_ATOL = 1e-5
 def _desc(n_light_tris):
     desc = synthetic.cornell_box_scene(24, 24)
     if n_light_tris == 8:
-        desc = dataclasses.replace(desc, light_mesh=grid_light(
+        desc = dataclasses.replace(desc, light_mesh=synthetic.grid_light(
             2, 2, 3.0, -0.45, 0.45, -24.3, -22.5))
     assert desc.light_mesh.num_triangles == n_light_tris
     return desc
@@ -149,7 +144,7 @@ def test_wrapper_refuses_bad_inputs(fault):
     desc = _desc(2)
     s_samples = 3
     if fault == "big_light":
-        desc = dataclasses.replace(desc, light_mesh=grid_light(
+        desc = dataclasses.replace(desc, light_mesh=synthetic.grid_light(
             6, 6, 3.0, -0.45, 0.45, -24.3, -22.5))  # 72 triangles
     scene = arrays.pack_scene(desc, pad_to=32)
     point3 = torch.zeros(3, 8)

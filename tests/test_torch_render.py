@@ -1,6 +1,7 @@
 """The port's fast-mode render on the CPU against the JAX package's
 ``render(..., backend="pallas", accel="none")`` (its Pallas kernels in
-interpret mode) on the Cornell stand-in, and the options the port refuses.
+interpret mode) on the Cornell stand-in, the options the first slice
+refused and the port now renders, and the options it still refuses.
 
 Tolerances: both renders run the same float32 estimator on the same random
 numbers, but XLA:CPU's rsqrt, sin and cos round differently from
@@ -26,7 +27,7 @@ from pathtracerpython_tpu_torch.render.integrator import (
     render_image,
 )
 from pathtracerpython_tpu_torch.scene import arrays, synthetic
-from torch_parity import grid_light, to_jax_desc
+from torch_parity import to_jax_desc
 
 RTOL = ATOL = 1e-4
 MIN_CLOSE = 0.99
@@ -130,41 +131,60 @@ def test_counter_space_is_checked():
         check_counter_space(2**16, 2**16)
 
 
-def _big_light_scene():
-    desc = dataclasses.replace(
-        synthetic.cornell_box_scene(8, 8),
-        light_mesh=grid_light(6, 6, 3.0, -0.45, 0.45, -24.3, -22.5),
+def _big_light_desc():
+    return dataclasses.replace(
+        synthetic.cornell_box_scene(4, 4),
+        light_mesh=synthetic.grid_light(6, 6, 3.0, -0.45, 0.45, -24.3,
+                                        -22.5),
     )
-    return arrays.pack_scene(desc, pad_to=32)
+
+
+# Options the first slice refused and the large-scene slice renders: each
+# now renders and is held against the JAX package.
+NOW_SUPPORTED = {
+    "accel_hybrid": dict(accel="hybrid"),
+    "accel_auto_large_scene": dict(),
+    "light_over_64_tris": dict(),
+    "nee_samples_over_8": dict(n_light_samples=9),
+    "sort_rays_on": dict(sort_rays="on"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOW_SUPPORTED))
+def test_formerly_refused_options_match_jax(case):
+    if case == "accel_auto_large_scene":
+        # 400 boxes: 4804 triangles >= 4096, so "auto" means the hybrid
+        desc = synthetic.box_field_scene(n_boxes=400, width=4, height=4)
+        scene = arrays.pack_scene(desc)
+        ref_scene = jax_arrays.pack_scene(to_jax_desc(desc))
+    else:
+        desc = (_big_light_desc() if case == "light_over_64_tris"
+                else synthetic.cornell_box_scene(4, 4))
+        scene = arrays.pack_scene(desc, pad_to=32)
+        ref_scene = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=32)
+    kw = dict(n_samples=1, n_bounces=1, **NOW_SUPPORTED[case])
+    got = render(scene, RenderConfig(**kw)).numpy()
+    want = np.asarray(jax_render(ref_scene, JaxConfig(
+        mode="fast", backend="pallas", **kw)))
+    share, max_diff = _share_close(got, want)
+    assert share >= MIN_CLOSE, (share, max_diff)
+    assert np.isfinite(got).all() and got.max() > 0
 
 
 UNSUPPORTED = {
     "reference_mode": dict(mode="reference"),
     "accel_sparse": dict(accel="sparse"),
     "accel_walker": dict(accel="walker"),
-    "accel_hybrid": dict(accel="hybrid"),
-    "accel_auto_large_scene": dict(),
-    "light_over_64_tris": dict(),
-    "nee_samples_over_8": dict(n_light_samples=9),
     "soft_visibility": dict(soft_vis_beta=0.05),
     "geom_axis": dict(geom_axis="geom", geom_axis_size=2),
-    "nee_cache_on": dict(nee_cache="on"),
-    "sort_rays_on": dict(sort_rays="on"),
+    "nee_cache_on": dict(nee_cache="on", accel="sparse"),
     "remat_bounces": dict(remat_bounces=True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_options_raise(case):
-    if case == "accel_auto_large_scene":
-        # 400 boxes: 4804 triangles >= 4096, so "auto" means the hybrid
-        scene = arrays.pack_scene(synthetic.box_field_scene(
-            n_boxes=400, width=4, height=4))
-    elif case == "light_over_64_tris":
-        scene = _big_light_scene()
-    else:
-        scene = arrays.pack_scene(synthetic.cornell_box_scene(4, 4),
-                                  pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(4, 4), pad_to=32)
     cfg = RenderConfig(n_samples=1, n_bounces=1, **UNSUPPORTED[case])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, cfg)

@@ -11,7 +11,6 @@ import numpy as np
 from pathtracerpython_tpu.scene import obj as jax_obj
 from pathtracerpython_tpu.scene import sdl as jax_sdl
 from pathtracerpython_tpu.scene.arrays import DATA_FIELDS
-from pathtracerpython_tpu_torch.scene import obj as port_obj
 
 # Tolerances of the kernels' plain versions against the JAX kernels in
 # interpret mode: the same float32 operations, but XLA:CPU may fuse a
@@ -45,21 +44,6 @@ def jax_leaves(scene) -> dict[str, np.ndarray]:
 
 def port_leaves(scene) -> dict[str, np.ndarray]:
     return {f: getattr(scene, f).cpu().numpy() for f in DATA_FIELDS}
-
-
-def grid_light(nx: int, nz: int, y: float, x0: float, x1: float, z0: float,
-               z1: float, path: str = "grid_light"):
-    """A flat light of nx * nz quads (2 * nx * nz triangles) facing -y."""
-    xs = np.linspace(x0, x1, nx + 1)
-    zs = np.linspace(z0, z1, nz + 1)
-    verts = [[x, y, z] for z in zs for x in xs]
-    faces = []
-    for j in range(nz):
-        for i in range(nx):
-            a = j * (nx + 1) + i
-            b, c, d = a + 1, a + nx + 2, a + nx + 1
-            faces += [[a, b, c], [a, c, d]]
-    return port_obj.mesh_from_arrays(verts, faces, path=path)
 
 
 def bary_margin_f64(v0, v1, v2, o, d) -> float:
