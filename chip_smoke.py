@@ -23,6 +23,13 @@ phase fails:
      each against its plain version on a subset of ray blocks, and against
      the dense K1 / K4 on the whole wavefront, which shows whether the
      hierarchy culls and that its per-ray gate drops no hit;
+   - on the same wavefronts K8 (walker nearest) against its plain version,
+     K1 and K5; K5 in blocks of 512 beside 1024; K6 (cluster-sparse
+     any-hit) against its plain version, K4 and K9; K7 (the any-hit that
+     reports the blocking cluster) against its plain version on the full
+     lists and on vote-ordered guess lists, and its two-pass protocol with
+     a cold cache, the cache it returned and the cache the render carries,
+     against K6;
 3. the full renders:
    - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
      radiance finite, non-negative and not constant; K1 and K2 launched
@@ -31,17 +38,28 @@ phase fails:
    - the 100k-triangle box field at 512x512, 2 spp, 3 bounces
      (accel="auto", the hybrid): the same radiance checks; K5 and K9
      launched once per bounce, K1, K2 and K4 never (the lists are
-     complete, so no dense fallback exists);
+     complete, so no dense fallback exists); the same render with
+     accel="sparse" (K5, K6), with nee_cache="on" added (K5, K7 twice per
+     bounce) and with accel="walker" (K8, K9), each within 1e-6 of the
+     hybrid's radiance, with its launch counts;
    - the 300-box field at 128x128 with accel="hybrid" against
      accel="none" on the card, a 400-box field's hybrid render on the
-     card against the CPU, and the Cornell stand-in with a 72-triangle
-     light (unfused NEE, K4 once per bounce);
+     card against the CPU (also sparse with the cache, and walker), and
+     the Cornell stand-in with a 72-triangle light (unfused NEE, K4 once
+     per bounce);
 4. timing: ms per render (CUDA events, 2 warm-up renders, median of 10)
    and Mrays/s counted two ways, for the Cornell cell, the 300-box field
-   and the 100k-triangle field.
+   and the 100k-triangle field through the hybrid, sparse, sparse with
+   the cache, and walker hierarchies.
 
-The next-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The next-to-last line is a JSON object with one entry per kernel: its
+launches on its main path, its error against its plain version, its time,
+the plain version's, and its bound: the larger of bytes (inputs read once,
+outputs written once) over 3.35 TB/s and ray-triangle pairs x flops per
+pair over 67 TFLOP/s (float32 outside the tensor cores), the pairs being
+what this run's data needs. No single PyTorch call computes a ray-triangle
+sweep, so ``library_ms`` is null. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -85,12 +103,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MIN_IDX_AGREE = 0.9999       # K1: share of lanes with the same winner
 T_RTOL = T_ATOL = 1e-6       # K1: t on lanes with the same winner
 GRAZING_MARGIN = 1e-5        # K1: float64 barycentric margin of a mismatch
-MIN_OCC_AGREE = 0.9999       # K2, K4, K9: share of equal occlusion bits
+MIN_OCC_AGREE = 0.9999       # K2, K4, K6, K7, K9: share of equal occlusion bits
+MIN_CL_AGREE = 0.9999        # K7: share of lanes with the same blocking cluster
+VARIANT_ATOL = 1e-6          # sparse / cached / walker render against hybrid
 MC_ATOL = 1e-5               # K2: mean cosine on lanes whose bits agree
 # Card against CPU at 32x32: the CPU's rsqrt, sin and cos round differently
 # in the last bit; the scene keeps those ulps from flipping discrete events.
 RENDER_RTOL = RENDER_ATOL = 1e-4
 MIN_PIXELS_CLOSE = 0.99
+
+# The card's published peaks (H100 SXM, 700 W): float32 outside the tensor
+# cores, and device memory.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Float adds, subtracts, multiplies and divides of one Möller–Trumbore
+# ray-triangle test in csrc/mt.cuh (comparisons and selects not counted):
+# 46 in mt_core (pvec 9, det 5, 1/det 1, tvec 3, u 6, qvec 9, v 6, t 6,
+# u + v 1), which the tile kernels K1, K2 and K4 run on edges precomputed
+# once per tile; the cluster walks K5-K9 form the two edges per pair, 6
+# more.
+FLOPS_PER_PAIR_TILE = 46
+FLOPS_PER_PAIR_ROW = 52
+C_TRI = 128
 
 
 def log(msg: str) -> None:
@@ -112,6 +146,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes: int, pairs: int, flops_per_pair: int) -> tuple[float, str]:
+    """The least milliseconds the card could take: ``nbytes`` over its
+    memory rate or ``pairs`` ray-triangle tests over its float32 peak,
+    whichever is larger, and which of the two it is."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = pairs * flops_per_pair / PEAK_FP32_FLOPS * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def report_row(label, err, ms, plain_ms, bound_, **extra) -> dict:
+    return {"label": label, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_[0], "bound_by": bound_[1], **extra}
 
 
 def timed_runs(fn, warmup: int, reps: int) -> list[float]:
@@ -180,12 +233,14 @@ def bary_margin_f64(tripack: np.ndarray, o, d, idx: int) -> float:
     return min(u, v, 1.0 - u - v)
 
 
-def wavefronts(scene, spp: int):
+def wavefronts(scene, spp: int, **cfg_kw):
     """Inputs of the kernels on the first and second bounce wavefronts of
-    the scene's batch_samples render, sorted and parked where the render
-    sorts (the cluster hierarchies): [(o3, d3u, point3, normal3, u_nee,
-    shadow)], ``shadow`` the unfused NEE's shadow rays of the wavefront
-    (``integrator.ShadowRays``: parked and sorted where the render does)."""
+    the scene's batch_samples render (``cfg_kw``: further RenderConfig
+    fields), sorted and parked where the render sorts (the cluster
+    hierarchies): [(o3, d3u, point3, normal3, u_nee, shadow, nee_cache)],
+    ``shadow`` the unfused NEE's shadow rays of the wavefront
+    (``integrator.ShadowRays``: parked and sorted where the render does),
+    ``nee_cache`` the occluder cache the wavefront's lanes carry."""
     from pathtracerpython_tpu_torch.ops import rng
     from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
     from pathtracerpython_tpu_torch.ops.geometry import (
@@ -197,7 +252,8 @@ def wavefronts(scene, spp: int):
     from pathtracerpython_tpu_torch.render.config import RenderConfig
 
     cfg = RenderConfig(n_samples=spp, n_bounces=2,
-                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+                       n_light_samples=NEE_SAMPLES, batch_samples=True,
+                       **cfg_kw)
     sort_bounds = (scene_bounds(scene)
                    if integrator._sort_enabled(scene, cfg) else None)
     w, h = scene.meta.width, scene.meta.height
@@ -218,7 +274,8 @@ def wavefronts(scene, spp: int):
         shadow = integrator.nee_shadow_rays(
             hit, u_nee, scene, cfg, shading,
             st.alive & hit.hit & ~hit.is_light, st.nee_occ_hint)
-        out.append((o3, normalize3(d3), hit.point3, shading, u_nee, shadow))
+        out.append((o3, normalize3(d3), hit.point3, shading, u_nee, shadow,
+                    st.nee_cache))
         state = integrator.bounce_step(state, b, scene, cfg, k0, k1,
                                        sort_bounds)
     return out
@@ -258,10 +315,14 @@ def check_k1(label, scene, o3, d3u, report) -> None:
                                         t_k, i_k, t_p, i_p)
     k_ms = cuda_ms(lambda: intersect.nearest_t_idx_cm(o3, d3u, scene), 10)
     p_ms = cuda_ms(lambda: intersect.nearest_t_idx_plain(o3, d3u, tripack), 3)
+    pairs = o3.shape[1] * int((tripack[:, 9] > 0.5).sum())
+    b = bound(tensor_bytes(o3, d3u, tripack, t_k, i_k), pairs,
+              FLOPS_PER_PAIR_TILE)
     log(f"[2] K1 {label}: {o3.shape[1]} lanes x {tripack.shape[0]} tris, "
         f"winners agree {agree:.6f} ({grazing} grazing), t max abs err "
-        f"{err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-    report.append((label, err, k_ms, p_ms))
+        f"{err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs)")
+    report.append(report_row(label, err, k_ms, p_ms, b))
 
 
 def check_k2(label, scene, point3, normal3, u, report) -> None:
@@ -286,11 +347,18 @@ def check_k2(label, scene, point3, normal3, u, report) -> None:
         point3, normal3, u, scene, NEE_SAMPLES), 10)
     p_ms = cuda_ms(lambda: nee.nee_mean_cos_plain(
         point3, normal3, u, tripack, lightpack, NEE_SAMPLES), 3)
+    # a sample that ends unoccluded needs every occluder, an occluded one
+    # at least one
+    occluders = int((tripack[:, 10] > 0.5).sum())
+    blocked = int((occ_p > 0.5).sum())
+    pairs = (occ_p.numel() - blocked) * occluders + blocked
+    b = bound(tensor_bytes(point3, normal3, u, tripack, lightpack, mc_k,
+                           occ_k), pairs, FLOPS_PER_PAIR_TILE)
     log(f"[2] K2 {label}: {point3.shape[1]} lanes x {NEE_SAMPLES} samples x "
-        f"{int((tripack[:, 10] > 0.5).sum())} occluders, occlusion agrees "
+        f"{occluders} occluders, occlusion agrees "
         f"{agree:.6f}, mean cos max abs err {err:.3g}; kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms")
-    report.append((label, err, k_ms, p_ms))
+        f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({pairs} pairs)")
+    report.append(report_row(label, err, k_ms, p_ms, b))
 
 
 def check_bits(what, occ, want) -> tuple[float, float]:
@@ -314,6 +382,17 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def dense_any_hit_pairs(maxd, occ, tripack) -> int:
+    """Ray-triangle pairs a dense any-hit needs on these lanes: a lane that
+    ends unoccluded (and is not parked) needs every occluder, an occluded
+    one at least one."""
+    from pathtracerpython_tpu_torch.kernels.intersect import T_MIN
+
+    occluders = int((tripack[:, 10] > 0.5).sum())
+    can = maxd - T_MIN > T_MIN
+    return int((can & ~occ).sum()) * occluders + int(occ.sum())
+
+
 def check_k4(label, scene, shadow, report) -> None:
     from pathtracerpython_tpu_torch.kernels import intersect
 
@@ -325,22 +404,27 @@ def check_k4(label, scene, shadow, report) -> None:
                                                           tripack))
     agree, err = check_bits(f"K4 {label}", occ, plain)
     k_ms = cuda_ms(lambda: intersect.any_hit_cm(o3, d3, maxd, scene), 10)
+    b = bound(tensor_bytes(o3, d3, maxd, tripack, occ),
+              dense_any_hit_pairs(maxd, plain, tripack), FLOPS_PER_PAIR_TILE)
     log(f"[2] K4 {label}: {o3.shape[1]} shadow lanes x "
         f"{int((tripack[:, 10] > 0.5).sum())} occluders, occluded "
         f"{occ.float().mean().item():.4f}, agrees with plain {agree:.6f}; "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-    report.append((label, err, k_ms, p_ms))
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by "
+        f"{b[1]}")
+    report.append(report_row(label, err, k_ms, p_ms, b))
 
 
-def block_subset(o3_rows, lists, r_blk, stride):
-    """Every ``stride``-th ray block of a wavefront: the rows [..., lanes]
-    of its lanes and its lists (a block's list concerns its own lanes
-    only, so the subset is a wavefront of its own)."""
+def block_subset(o3_rows, lists, r_blk, stride, blocks=None):
+    """Every ``stride``-th ray block of a wavefront (or the blocks of the
+    index tensor ``blocks``): the rows [..., lanes] of its lanes and its
+    lists (a block's list concerns its own lanes only, so the subset is a
+    wavefront of its own)."""
     from pathtracerpython_tpu_torch.kernels.sparse import BlockLists
 
     n = o3_rows[0].shape[-1]
-    blocks = torch.arange(0, lists.ncand.shape[0], stride,
-                          device=lists.ncand.device)
+    if blocks is None:
+        blocks = torch.arange(0, lists.ncand.shape[0], stride,
+                              device=lists.ncand.device)
     lanes = (blocks[:, None] * r_blk
              + torch.arange(r_blk, device=blocks.device)[None, :]).flatten()
     lanes = lanes[lanes < n]
@@ -348,99 +432,284 @@ def block_subset(o3_rows, lists, r_blk, stride):
     return lanes, rows, BlockLists(*(x[blocks].contiguous() for x in lists))
 
 
-def check_k5(label, scene, o3, d3u, stride, report) -> None:
+def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
+                       *, r_blk, wrapper, launch, plain, others=()):
+    """A cluster walk's nearest sweep (K5 or K8) on one wavefront: against
+    its plain version on every ``stride``-th ray block, against the dense
+    K1 (``dense``: its (t, idx, ms)) and against ``others`` [(name, t,
+    idx)] on all lanes. Returns the sweep's (t, idx)."""
     from pathtracerpython_tpu_torch.kernels import intersect, sparse
 
-    r_blk = sparse.R_BLK_HYBRID_NEAREST
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
     n = o3.shape[1]
     nrb = -(-n // r_blk)
-    lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+    make_lists = lambda: sparse.block_lists(aabb8, o3, d3u, torch.full(
         (nrb,), intersect.BIG, device=o3.device), r_blk)
-    t_k, i_k = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene)
+    lists = make_lists()
+    t_k, i_k = wrapper(o3, d3u, scene)
     lanes, (o_s, d_s), sub = block_subset([o3, d3u], lists, r_blk, stride)
-    (t_p, i_p), p_ms = once_ms(lambda: sparse.sparse_nearest_plain(
-        o_s, d_s, tripack, aabb8, sub, r_blk))
+    visits = []
+    (t_p, i_p), p_ms = once_ms(lambda: plain(o_s, d_s, tripack, aabb8, sub,
+                                             r_blk, visits))
     agree_p, grazing_p, err = check_winners(
-        f"K5 {label} against plain", tripack, o_s, d_s, t_k[lanes],
+        f"{name} {label} against plain", tripack, o_s, d_s, t_k[lanes],
         i_k[lanes], t_p, i_p)
-    (t_d, i_d), d_ms = once_ms(lambda: intersect.nearest_t_idx_cm(o3, d3u,
-                                                                  scene))
+    t_d, i_d, d_ms = dense
     agree_d, grazing_d, err_d = check_winners(
-        f"K5 {label} against K1", tripack, o3, d3u, t_k, i_k, t_d, i_d)
-    k_ms = cuda_ms(lambda: sparse.sparse_nearest_t_idx_cm(o3, d3u, scene), 10)
-    ks_ms = cuda_ms(lambda: sparse._launch(o_s, d_s, tripack, aabb8, sub,
-                                           r_blk), 10)
-    lists_ms = cuda_ms(lambda: sparse.block_lists(aabb8, o3, d3u, torch.full(
-        (nrb,), intersect.BIG, device=o3.device), r_blk), 10)
+        f"{name} {label} against K1", tripack, o3, d3u, t_k, i_k, t_d, i_d)
+    for other, t_o, i_o in others:
+        check_winners(f"{name} {label} against {other}", tripack, o3, d3u,
+                      t_k, i_k, t_o, i_o)
+    k_ms = cuda_ms(lambda: wrapper(o3, d3u, scene), 10)
+    ks_ms = cuda_ms(lambda: launch(o_s, d_s, tripack, aabb8, sub, r_blk), 10)
+    ka_ms = ks_ms if stride == 1 else cuda_ms(
+        lambda: launch(o3, d3u, tripack, aabb8, lists, r_blk), 10)
+    lists_ms = cuda_ms(make_lists, 10)
+    # the tail: the same launch without the 1% of blocks with the longest
+    # lists (a kernel is as slow as its slowest CTA)
+    cut = torch.quantile(lists.ncand.float(), 0.99)
+    short = torch.nonzero(lists.ncand <= cut).flatten()
+    _, (o_q, d_q), sub_q = block_subset([o3, d3u], lists, r_blk, 1, short)
+    kq_ms = cuda_ms(lambda: launch(o_q, d_q, tripack, aabb8, sub_q, r_blk),
+                    10)
+    pairs = int(torch.stack(visits).sum()) * C_TRI
+    b = bound(tensor_bytes(o_s, d_s, tripack, aabb8, *sub, t_p, i_p), pairs,
+              FLOPS_PER_PAIR_ROW)
     nc = lists.ncand.float()
-    log(f"[2] K5 {label}: {n} lanes in {nrb} blocks of {r_blk}, "
+    log(f"[2] {name} {label}: {n} lanes in {nrb} blocks of {r_blk}, "
         f"{aabb8.shape[0]} clusters, candidates per block mean "
         f"{nc.mean().item():.1f} max {int(nc.max().item())}, hit "
         f"{(i_k >= 0).float().mean().item():.4f}; against plain on "
         f"{sub.ncand.shape[0]} of {nrb} blocks ({o_s.shape[1]} lanes): "
         f"winners {agree_p:.6f} ({grazing_p} grazing), t max abs err "
-        f"{err:.3g}; against K1 on all lanes: winners {agree_d:.6f} "
-        f"({grazing_d} grazing), t max abs err {err_d:.3g}")
-    log(f"[2] K5 {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
-        f"lists {lists_ms:.3f} ms; on the subset kernel {ks_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms; dense K1 on all lanes {d_ms:.3f} ms")
-    report.append((label, max(err, err_d), ks_ms, p_ms, k_ms, d_ms))
+        f"{err:.3g}; against K1"
+        f"{''.join(' and ' + o[0] for o in others)} on all lanes: winners "
+        f"{agree_d:.6f} ({grazing_d} grazing), t max abs err {err_d:.3g}")
+    log(f"[2] {name} {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
+        f"lists {lists_ms:.3f} ms, kernel on all blocks {ka_ms:.3f} ms, on "
+        f"the {short.shape[0]} blocks with lists of at most {int(cut)} "
+        f"clusters (99%) {kq_ms:.3f} ms; on the subset kernel {ks_ms:.3f} "
+        f"ms, "
+        f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({pairs} pairs "
+        f"through the per-ray gate); dense K1 on all lanes {d_ms:.3f} ms")
+    report.append(report_row(label, max(err, err_d), ks_ms, p_ms, b,
+                             wrapper_ms=k_ms, kernel_all_ms=ka_ms,
+                             kernel_short99_ms=kq_ms, lists_ms=lists_ms,
+                             dense_ms=d_ms))
+    return t_k, i_k
 
 
-def check_k9(label, scene, shadow, stride, report) -> None:
-    from pathtracerpython_tpu_torch.kernels import intersect, sparse, walker
+def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
+                       *, r_blk, wrapper, launch, plain, others=()):
+    """A cluster walk's shadow any-hit (K6 or K9) on one wavefront: against
+    its plain version on every ``stride``-th ray block, against the dense
+    K4 (``dense``: its (occ, ms)) and against ``others`` [(name, occ)] on
+    all lanes. Returns the sweep's occlusion bits."""
+    from pathtracerpython_tpu_torch.kernels import sparse
 
-    r_blk = walker.R_BLK
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
     o3, d3, maxd = (x.contiguous() for x in (shadow.o3, shadow.d3,
                                               shadow.maxd))
     n = o3.shape[1]
-    lists = walker.walker_lists(aabb8, o3, d3, maxd)
-    occ = walker.walker_any_hit_cm(o3, d3, maxd, scene)
+    lists = sparse.window_lists(aabb8, o3, d3, maxd, r_blk)
+    nrb = lists.ncand.shape[0]
+    occ = wrapper(o3, d3, maxd, scene)
     lanes, (o_s, d_s, m_s), sub = block_subset([o3, d3, maxd], lists, r_blk,
                                                stride)
-    plain, p_ms = once_ms(lambda: walker.walker_any_hit_plain(
-        o_s, d_s, m_s, tripack, aabb8, sub, r_blk))
-    agree_p, err = check_bits(f"K9 {label} against plain", occ[lanes], plain)
-    dense, d_ms = once_ms(lambda: intersect.any_hit_cm(o3, d3, maxd, scene))
-    agree_d, err_d = check_bits(f"K9 {label} against K4", occ, dense)
-    k_ms = cuda_ms(lambda: walker.walker_any_hit_cm(o3, d3, maxd, scene), 10)
-    ks_ms = cuda_ms(lambda: walker._launch(o_s, d_s, m_s, tripack, aabb8,
-                                           sub, r_blk), 10)
+    visits = []
+    plain_occ, p_ms = once_ms(lambda: plain(o_s, d_s, m_s, tripack, aabb8,
+                                            sub, r_blk, visits))
+    agree_p, err = check_bits(f"{name} {label} against plain", occ[lanes],
+                              plain_occ)
+    dense_occ, d_ms = dense
+    agree_d, err_d = check_bits(f"{name} {label} against K4", occ, dense_occ)
+    for other, occ_o in others:
+        check_bits(f"{name} {label} against {other}", occ, occ_o)
+    k_ms = cuda_ms(lambda: wrapper(o3, d3, maxd, scene), 10)
+    ks_ms = cuda_ms(lambda: launch(o_s, d_s, m_s, tripack, aabb8, sub,
+                                   r_blk), 10)
+    ka_ms = ks_ms if stride == 1 else cuda_ms(
+        lambda: launch(o3, d3, maxd, tripack, aabb8, lists, r_blk), 10)
+    pairs = int(torch.stack(visits).sum()) * C_TRI
+    b = bound(tensor_bytes(o_s, d_s, m_s, tripack, aabb8, *sub, plain_occ),
+              pairs, FLOPS_PER_PAIR_ROW)
     parked = (maxd == 0).float().mean().item()
     nc = lists.ncand.float()
-    log(f"[2] K9 {label}: {n} shadow lanes ({parked:.4f} parked) in "
-        f"{lists.ncand.shape[0]} blocks of {r_blk}, candidates per block "
+    log(f"[2] {name} {label}: {n} shadow lanes ({parked:.4f} parked) in "
+        f"{nrb} blocks of {r_blk}, candidates per block "
         f"mean {nc.mean().item():.1f} max {int(nc.max().item())}, occluded "
         f"{occ.float().mean().item():.4f}; against plain on "
-        f"{sub.ncand.shape[0]} of {lists.ncand.shape[0]} blocks "
-        f"({o_s.shape[1]} lanes): {agree_p:.6f}; against K4 on all lanes: "
+        f"{sub.ncand.shape[0]} of {nrb} blocks "
+        f"({o_s.shape[1]} lanes): {agree_p:.6f}; against K4"
+        f"{''.join(' and ' + o[0] for o in others)} on all lanes: "
         f"{agree_d:.6f}")
-    log(f"[2] K9 {label} times: wrapper (lists + kernel) {k_ms:.3f} ms; on "
-        f"the subset kernel {ks_ms:.3f} ms, plain {p_ms:.3f} ms; dense K4 on "
-        f"all lanes {d_ms:.3f} ms")
-    report.append((label, max(err, err_d), ks_ms, p_ms, k_ms, d_ms))
+    log(f"[2] {name} {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
+        f"kernel on all blocks {ka_ms:.3f} ms; "
+        f"on the subset kernel {ks_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs through the per-ray gate); "
+        f"dense K4 on all lanes {d_ms:.3f} ms")
+    report.append(report_row(label, max(err, err_d), ks_ms, p_ms, b,
+                             wrapper_ms=k_ms, kernel_all_ms=ka_ms,
+                             dense_ms=d_ms))
+    return occ
+
+
+def check_clusters(what, cl, want) -> float:
+    """Blocking clusters equal on MIN_CL_AGREE of lanes; returns the
+    largest 0/1 mismatch."""
+    agree = (cl == want).float().mean().item()
+    if agree < MIN_CL_AGREE:
+        fail(f"{what}: blocking clusters agree on {agree:.6f} of lanes")
+    return (cl != want).float().max().item()
+
+
+def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
+    """K7 on one wavefront of shadow rays. The kernel against its plain
+    version on the full lists (every ``stride``-th block) and on the guess
+    lists of a warm cache (every block): bits and blocking clusters. The
+    two-pass protocol against K6's bits ``occ6``: with a cold cache, with
+    the cache that call returned, and with ``carried``, the cache the
+    render's lanes carry into this bounce (i32 per path lane, or None)."""
+    from pathtracerpython_tpu_torch.kernels import sparse
+    from pathtracerpython_tpu_torch.ops.sort import permute_minor
+
+    r_blk = sparse.R_BLK
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    o3, d3, maxd, rel = (x.contiguous() for x in (
+        shadow.o3, shadow.d3, shadow.maxd, shadow.relevant))
+    n = o3.shape[1]
+    lists = sparse.window_lists(aabb8, o3, d3, maxd, r_blk)
+    lanes, (o_s, d_s, m_s), sub = block_subset([o3, d3, maxd], lists, r_blk,
+                                               stride)
+    occ_k, cl_k = sparse._launch_any_hit_idx(o_s, d_s, m_s, tripack, aabb8,
+                                             sub, r_blk)
+    visits = []
+    (occ_p, cl_p), p_ms = once_ms(lambda: sparse.sparse_any_hit_idx_plain(
+        o_s, d_s, m_s, tripack, aabb8, sub, r_blk, visits))
+    agree_p, err = check_bits(f"K7 {label} against plain, full lists", occ_k,
+                              occ_p)
+    err = max(err, check_clusters(f"K7 {label} against plain, full lists",
+                                  cl_k, cl_p))
+    check_bits(f"K7 {label} full lists against K6", occ_k, occ6[lanes])
+    ks_ms = cuda_ms(lambda: sparse._launch_any_hit_idx(
+        o_s, d_s, m_s, tripack, aabb8, sub, r_blk), 10)
+    ka_ms = ks_ms if stride == 1 else cuda_ms(
+        lambda: sparse._launch_any_hit_idx(o3, d3, maxd, tripack, aabb8,
+                                           lists, r_blk), 10)
+    pairs = int(torch.stack(visits).sum()) * C_TRI
+    b = bound(tensor_bytes(o_s, d_s, m_s, tripack, aabb8, *sub, occ_p, cl_p),
+              pairs, FLOPS_PER_PAIR_ROW)
+
+    def protocol(what, guess):
+        run = lambda: sparse.sparse_any_hit_cached_cm(o3, d3, maxd, scene,
+                                                      guess, relevant=rel)
+        occ, cl = run()
+        check_bits(f"K7 {label} {what} cache against K6", occ, occ6)
+        if bool(((cl >= 0) != occ).any()):
+            fail(f"K7 {label} {what} cache: a blocking cluster without an "
+                 "occluded lane, or the reverse")
+        # pass 1 alone, kernel against plain, on every block
+        voting = torch.where(rel, guess, -1)
+        gl = sparse.guess_lists(voting, aabb8.shape[0], r_blk)
+        occ1, cl1 = sparse._launch_any_hit_idx(o3, d3, maxd, tripack, aabb8,
+                                               gl, r_blk)
+        occ1p, cl1p = sparse.sparse_any_hit_idx_plain(o3, d3, maxd, tripack,
+                                                      aabb8, gl, r_blk)
+        check_bits(f"K7 {label} {what} cache, pass 1 against plain", occ1,
+                   occ1p)
+        e = check_clusters(f"K7 {label} {what} cache, pass 1 against plain",
+                           cl1, cl1p)
+        open_ = int((~occ1 & rel).sum())
+        share = occ1[rel].float().mean().item()
+        ms = cuda_ms(run, 5)
+        log(f"[2] K7 {label} {what} cache: occlusion equal to K6; pass 1 "
+            f"resolves {share:.4f} of the relevant lanes "
+            f"({occ1[occ6].float().mean().item():.4f} of the occluded), "
+            f"{open_} lanes go to pass 2 "
+            f"({'compacted' if open_ <= sparse.pass2_size(n) else 'whole'}"
+            f", cap {sparse.pass2_size(n)}); both passes with lists "
+            f"{ms:.3f} ms")
+        return cl, e, ms
+
+    cold = torch.full((n,), -1, dtype=torch.int32, device=o3.device)
+    cl_cold, e_cold, cold_ms = protocol("cold", cold)
+    _, e_warm, warm_ms = protocol("returned", cl_cold)
+    carried_ms = None
+    if carried is not None:
+        guess = carried[None, :].expand(NEE_SAMPLES, -1).reshape(-1)
+        guess = permute_minor(guess, shadow.order).contiguous()
+        _, e_c, carried_ms = protocol("carried", guess)
+        err = max(err, e_c)
+    err = max(err, e_cold, e_warm)
+    log(f"[2] K7 {label}: {n} shadow lanes in {lists.ncand.shape[0]} blocks "
+        f"of {r_blk}; kernel against plain on the full lists of "
+        f"{sub.ncand.shape[0]} blocks ({o_s.shape[1]} lanes): bits "
+        f"{agree_p:.6f}, clusters equal; kernel on all blocks {ka_ms:.3f} "
+        f"ms; on the subset kernel {ks_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({pairs} pairs "
+        f"through the per-ray gate)")
+    report.append(report_row(label, err, ks_ms, p_ms, b,
+                             kernel_all_ms=ka_ms, cold_ms=cold_ms,
+                             warm_ms=warm_ms, carried_ms=carried_ms))
 
 
 def phase2_kernels(scenes, large) -> dict:
-    rows = {k: [] for k in ("K1", "K2", "K4", "K5", "K9")}
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse, walker
+
+    rows = {k: [] for k in ("K1", "K2", "K4", "K5", "K5@512", "K6", "K7",
+                            "K8", "K9")}
     for name, scene in scenes:
-        for b, (o3, d3u, p3, n3, u, shadow) in enumerate(
+        for b, (o3, d3u, p3, n3, u, shadow, _) in enumerate(
                 wavefronts(scene, CORNELL_SPP), start=1):
             label = f"{name} bounce {b}"
             check_k1(label, scene, o3, d3u, rows["K1"])
             check_k2(label, scene, p3, n3, u, rows["K2"])
             if name == "boxfield":
                 check_k4(label, scene, shadow, rows["K4"])
-    for b, (o3, d3u, _, _, _, shadow) in enumerate(
-            wavefronts(large, LARGE_SPP), start=1):
+    # the wavefronts of the sparse render with the occluder cache: the rays
+    # are every hierarchy's (the sweeps agree bit for bit), and the lanes
+    # carry the cache into the second bounce
+    r1024 = sparse.R_BLK_HYBRID_NEAREST
+    for b, (o3, d3u, _, _, _, shadow, cache) in enumerate(
+            wavefronts(large, LARGE_SPP, accel="sparse", nee_cache="on"),
+            start=1):
         stride = 1 if b == 1 else SUBSET_STRIDE
         label = f"large100k bounce {b}"
-        check_k5(label, large, o3, d3u, stride, rows["K5"])
-        check_k9(label, large, shadow, stride, rows["K9"])
+        (t_d, i_d), d_ms = once_ms(lambda: intersect.nearest_t_idx_cm(
+            o3, d3u, large))
+        dense = (t_d, i_d, d_ms)
+        t5, i5 = check_nearest_walk(
+            "K5", label, large, o3, d3u, stride, rows["K5"], dense,
+            r_blk=r1024, launch=sparse._launch,
+            plain=sparse.sparse_nearest_plain,
+            wrapper=lambda o, d, s: sparse.sparse_nearest_t_idx_cm(
+                o, d, s, r_blk=r1024))
+        check_nearest_walk(
+            "K5@512", label, large, o3, d3u, stride, rows["K5@512"], dense, r_blk=sparse.R_BLK, launch=sparse._launch,
+            plain=sparse.sparse_nearest_plain,
+            wrapper=sparse.sparse_nearest_t_idx_cm)
+        check_nearest_walk(
+            "K8", label, large, o3, d3u, stride, rows["K8"], dense,
+            r_blk=walker.R_BLK, launch=walker._launch_nearest,
+            plain=walker.walker_nearest_plain,
+            wrapper=walker.walker_nearest_t_idx_cm, others=[("K5", t5, i5)])
+        sh = [x.contiguous() for x in (shadow.o3, shadow.d3, shadow.maxd)]
+        dense = once_ms(lambda: intersect.any_hit_cm(*sh, large))
+        occ9 = check_any_hit_walk(
+            "K9", label, large, shadow, stride, rows["K9"], dense,
+            r_blk=walker.R_BLK, launch=walker._launch,
+            plain=walker.walker_any_hit_plain,
+            wrapper=walker.walker_any_hit_cm)
+        occ6 = check_any_hit_walk(
+            "K6", label, large, shadow, stride, rows["K6"], dense,
+            r_blk=sparse.R_BLK, launch=sparse._launch_any_hit,
+            plain=sparse.sparse_any_hit_plain,
+            wrapper=sparse.sparse_any_hit_cm, others=[("K9", occ9)])
+        check_k7(label, large, shadow, cache if b > 1 else None, occ6,
+                 stride, rows["K7"])
     return rows
 
 
@@ -449,6 +718,8 @@ def reset_launches() -> None:
 
     intersect.LAUNCHES = intersect.ANY_HIT_LAUNCHES = 0
     nee.LAUNCHES = sparse.LAUNCHES = walker.LAUNCHES = 0
+    sparse.ANY_HIT_LAUNCHES = sparse.ANY_HIT_IDX_LAUNCHES = 0
+    walker.NEAREST_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -456,7 +727,8 @@ def read_launches() -> dict:
 
     return {"K1": intersect.LAUNCHES, "K2": nee.LAUNCHES,
             "K4": intersect.ANY_HIT_LAUNCHES, "K5": sparse.LAUNCHES,
-            "K9": walker.LAUNCHES}
+            "K6": sparse.ANY_HIT_LAUNCHES, "K7": sparse.ANY_HIT_IDX_LAUNCHES,
+            "K8": walker.NEAREST_LAUNCHES, "K9": walker.LAUNCHES}
 
 
 def check_radiance(label, rad, pixels) -> None:
@@ -511,7 +783,7 @@ def phase3_render(cornell, large) -> dict:
         grid_light,
     )
 
-    none = {"K1": 0, "K2": 0, "K4": 0, "K5": 0, "K9": 0}
+    none = dict.fromkeys(("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K9"), 0)
     cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
                        n_bounces=CORNELL_BOUNCES,
                        n_light_samples=NEE_SAMPLES, batch_samples=True)
@@ -521,7 +793,8 @@ def phase3_render(cornell, large) -> dict:
         {**none, "K1": CORNELL_BOUNCES, "K2": CORNELL_BOUNCES})
     check_radiance("Cornell stand-in", rad, CORNELL_SIZE * CORNELL_SIZE)
 
-    small_scene = pack_scene(cornell_box_scene(32, 32), pad_to=32)
+    small_scene = pack_scene(cornell_box_scene(32, 32), pad_to=32,
+                             device="cpu")
     small_cfg = RenderConfig(mode="fast", n_samples=2, n_bounces=4,
                              n_light_samples=NEE_SAMPLES, batch_samples=True)
     hold_close("Cornell 32x32x2spp card vs CPU",
@@ -540,9 +813,34 @@ def phase3_render(cornell, large) -> dict:
         "exists)")
     check_radiance("100k box field", rad, CORNELL_SIZE * CORNELL_SIZE)
 
+    # the same render through the other hierarchies. K7 runs twice per
+    # bounce, whatever the cache holds: pass 1 over the guess lists, then
+    # pass 2 over the full lists (compacted or whole)
+    variant_counts = {}
+    for what, kw, want in (
+        ("accel='sparse'", dict(accel="sparse"),
+         {"K5": LARGE_BOUNCES, "K6": LARGE_BOUNCES}),
+        ("accel='sparse', nee_cache='on'",
+         dict(accel="sparse", nee_cache="on"),
+         {"K5": LARGE_BOUNCES, "K7": 2 * LARGE_BOUNCES}),
+        ("accel='walker'", dict(accel="walker"),
+         {"K8": LARGE_BOUNCES, "K9": LARGE_BOUNCES}),
+    ):
+        rad_v, variant_counts[what] = render_counted(
+            f"100k box field, {what}", large,
+            dataclasses.replace(large_cfg, **kw), {**none, **want})
+        check_radiance(f"100k box field, {what}", rad_v,
+                       CORNELL_SIZE * CORNELL_SIZE)
+        diff = (rad_v - rad).abs().max().item()
+        log(f"[3] 100k box field, {what} against the hybrid render: max abs "
+            f"diff {diff:.3g} ({'equal' if diff == 0 else 'not equal'})")
+        if diff > VARIANT_ATOL:
+            fail(f"100k box field, {what}: max abs diff {diff} from the "
+                 f"hybrid render exceeds {VARIANT_ATOL}")
+
     size = HYBRID_CHECK_SIZE
     field = pack_scene(box_field_scene(n_boxes=FIELD_BOXES, width=size,
-                                       height=size)).to("cuda")
+                                       height=size))
     field_cfg = RenderConfig(mode="fast", n_samples=FIELD_SPP,
                              n_bounces=FIELD_BOUNCES,
                              n_light_samples=NEE_SAMPLES, batch_samples=True)
@@ -558,16 +856,21 @@ def phase3_render(cornell, large) -> dict:
                "the card", hybrid, dense)
 
     small_field = pack_scene(box_field_scene(n_boxes=400, width=32,
-                                             height=32), tri_order="morton")
-    hybrid_cfg = dataclasses.replace(small_cfg, n_bounces=3, accel="hybrid")
-    hold_close("box field 400 32x32x2spp hybrid card vs CPU",
-               render(small_field.to("cuda"), hybrid_cfg, seed=0).cpu(),
-               render(small_field, hybrid_cfg, seed=0))
+                                             height=32), tri_order="morton",
+                             device="cpu")
+    for what, kw in (("hybrid", dict(accel="hybrid")),
+                     ("sparse with the cache",
+                      dict(accel="sparse", nee_cache="on")),
+                     ("walker", dict(accel="walker"))):
+        field_cfg_v = dataclasses.replace(small_cfg, n_bounces=3, **kw)
+        hold_close(f"box field 400 32x32x2spp {what} card vs CPU",
+                   render(small_field.to("cuda"), field_cfg_v, seed=0).cpu(),
+                   render(small_field, field_cfg_v, seed=0))
 
     big_light = pack_scene(dataclasses.replace(
         cornell_box_scene(64, 64),
         light_mesh=grid_light(6, 6, 3.0, -0.45, 0.45, -24.3, -22.5),
-    ), pad_to=32).to("cuda")
+    ), pad_to=32)
     rad, light_counts = render_counted(
         f"Cornell stand-in 64x64 with a "
         f"{big_light.meta.n_light_triangles}-triangle light (unfused NEE)",
@@ -576,15 +879,19 @@ def phase3_render(cornell, large) -> dict:
     check_radiance("72-triangle light", rad, 64 * 64)
     return {"K1": cornell_counts["K1"], "K2": cornell_counts["K2"],
             "K4": light_counts["K4"], "K5": large_counts["K5"],
+            "K6": variant_counts["accel='sparse'"]["K6"],
+            "K7": variant_counts["accel='sparse', nee_cache='on'"]["K7"],
+            "K8": variant_counts["accel='walker'"]["K8"],
             "K9": large_counts["K9"]}
 
 
-def time_render(label, scene, spp, bounces) -> dict:
+def time_render(label, scene, spp, bounces, **cfg_kw) -> dict:
     from pathtracerpython_tpu_torch.render.config import RenderConfig
     from pathtracerpython_tpu_torch.render.integrator import render
 
     cfg = RenderConfig(mode="fast", n_samples=spp, n_bounces=bounces,
-                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+                       n_light_samples=NEE_SAMPLES, batch_samples=True,
+                       **cfg_kw)
     seeds = iter(range(1000))
     times = timed_runs(lambda: render(scene, cfg, seed=next(seeds)),
                       warmup=2, reps=10)
@@ -605,10 +912,10 @@ def time_render(label, scene, spp, bounces) -> dict:
     return row
 
 
-def profile_render(label, scene, spp, bounces, render_ms) -> dict:
-    """One render under torch.profiler: device-busy time split into K1, K2
-    and PyTorch's own kernels, the device's idle share against the untraced
-    median ``render_ms``, and the busiest kernels."""
+def profile_render(label, scene, spp, bounces, render_ms, **cfg_kw) -> dict:
+    """One render under torch.profiler: device-busy time split into the
+    port's kernels and PyTorch's own, the device's idle share against the
+    untraced median ``render_ms``, and the busiest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -616,7 +923,8 @@ def profile_render(label, scene, spp, bounces, render_ms) -> dict:
     from pathtracerpython_tpu_torch.render.integrator import render
 
     cfg = RenderConfig(n_samples=spp, n_bounces=bounces,
-                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+                       n_light_samples=NEE_SAMPLES, batch_samples=True,
+                       **cfg_kw)
     render(scene, cfg, seed=0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -629,9 +937,14 @@ def profile_render(label, scene, spp, bounces, render_ms) -> dict:
                if e.device_type == DeviceType.CUDA]
     if not kernels:
         fail(f"profile {label}: the trace shows no device kernel")
-    busy_us = {k: 0.0 for k in ("K1", "K2", "K4", "K5", "K9", "torch")}
+    busy_us = {k: 0.0 for k in ("K1", "K2", "K4", "K5", "K6", "K7", "K8",
+                                "K9", "torch")}
     for e in kernels:
         group = ("K5" if "sparse_nearest_kernel" in e.key else
+                 "K6" if "sparse_any_hit_kernel" in e.key else
+                 "K7" if ("sparse_any_hit_idx_kernel" in e.key
+                          or "blocking_cluster_kernel" in e.key) else
+                 "K8" if "walker_nearest_kernel" in e.key else
                  "K9" if "walker_any_hit_kernel" in e.key else
                  "K1" if "nearest_kernel" in e.key else
                  "K4" if "any_hit_kernel" in e.key else
@@ -645,7 +958,7 @@ def profile_render(label, scene, spp, bounces, render_ms) -> dict:
         **{f"{k}_ms": v / 1e3 for k, v in busy_us.items()},
     }
     split = ", ".join(f"{k} {row[f'{k}_ms']:.3f} ms" for k in busy_us
-                      if k != "torch")
+                      if k != "torch" and busy_us[k] > 0)
     log(f"[profile] {label}: device busy {busy_ms:.3f} ms of the untraced "
         f"{render_ms:.3f} ms (idle share {row['idle_share']:.3f}); {split}, "
         f"PyTorch kernels {row['torch_ms']:.3f} ms in "
@@ -666,15 +979,18 @@ def main() -> None:
         cornell_box_scene,
     )
 
+    # the scene constructors build on the card
     cornell = pack_scene(cornell_box_scene(CORNELL_SIZE, CORNELL_SIZE),
-                         pad_to=32).to("cuda")
+                         pad_to=32)
     field = pack_scene(box_field_scene(n_boxes=FIELD_BOXES,
                                        width=CORNELL_SIZE,
-                                       height=CORNELL_SIZE)).to("cuda")
+                                       height=CORNELL_SIZE))
     large = pack_scene(box_field_scene(n_boxes=LARGE_BOXES,
                                        width=CORNELL_SIZE,
                                        height=CORNELL_SIZE),
-                       tri_order="morton").to("cuda")
+                       tri_order="morton")
+    if large.device.type != "cuda":
+        fail(f"pack_scene built on {large.device}, not on the card")
     log(f"[2] scenes: Cornell stand-in ({cornell.meta.path}, "
         f"{cornell.meta.n_triangles} tris), box field "
         f"({field.meta.n_triangles} tris, {field.num_padded_triangles} "
@@ -683,25 +999,35 @@ def main() -> None:
         "is read")
     rows = phase2_kernels([("cornell", cornell), ("boxfield", field)], large)
     launches = phase3_render(cornell, large)
+    large_label = (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp "
+                   f"{LARGE_BOUNCES}b")
     cell_args = [
-        (f"cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp {CORNELL_BOUNCES}b",
-         cornell, CORNELL_SPP, CORNELL_BOUNCES),
-        (f"boxfield{FIELD_BOXES} {CORNELL_SIZE}^2 {FIELD_SPP}spp "
-         f"{FIELD_BOUNCES}b", field, FIELD_SPP, FIELD_BOUNCES),
-        (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp {LARGE_BOUNCES}b",
-         large, LARGE_SPP, LARGE_BOUNCES),
+        ((f"cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp {CORNELL_BOUNCES}b",
+          cornell, CORNELL_SPP, CORNELL_BOUNCES), {}),
+        ((f"boxfield{FIELD_BOXES} {CORNELL_SIZE}^2 {FIELD_SPP}spp "
+          f"{FIELD_BOUNCES}b", field, FIELD_SPP, FIELD_BOUNCES), {}),
+        ((large_label + " hybrid", large, LARGE_SPP, LARGE_BOUNCES), {}),
+        ((large_label + " sparse", large, LARGE_SPP, LARGE_BOUNCES),
+         dict(accel="sparse")),
+        ((large_label + " sparse+cache", large, LARGE_SPP, LARGE_BOUNCES),
+         dict(accel="sparse", nee_cache="on")),
+        ((large_label + " walker", large, LARGE_SPP, LARGE_BOUNCES),
+         dict(accel="walker")),
     ]
-    cells = [time_render(*args) for args in cell_args]
+    cells = [time_render(*args, **kw) for args, kw in cell_args]
     log("[4] cells " + json.dumps(cells))
     if "--profile" in sys.argv[1:]:
-        prof = [profile_render(*args, c["ms_per_render"])
-                for args, c in zip(cell_args, cells)]
+        prof = [profile_render(*args, c["ms_per_render"], **kw)
+                for (args, kw), c in zip(cell_args, cells)]
         log("[profile] " + json.dumps(prof))
+    log("[2] sweep x hierarchy " + json.dumps(
+        {k: [{f: r[f] for f in r if f not in ("err",)} for r in rows[k]]
+         for k in ("K5", "K5@512", "K8", "K6", "K7", "K9")}))
 
     # each kernel at its main path's first wavefront: K1, K2 the Cornell
-    # primary rays, K4 the 300-box field's first shadow rays, K5, K9 the
+    # primary rays, K4 the 300-box field's first shadow rays, K5 to K9 the
     # 100k field's first bounce (every block, the lists built beforehand
-    # for kernel and plain alike)
+    # for kernel and plain alike; K7 on the full lists)
     kernels = []
     for key, entry, src, replaces in (
         ("K1", "K1 nearest_t_idx_cm", "nearest.cu",
@@ -712,16 +1038,28 @@ def main() -> None:
          "pathtracerpython_tpu/kernels/intersect_pallas.py:599"),
         ("K5", "K5 sparse_nearest_t_idx_cm", "sparse_nearest.cu",
          "pathtracerpython_tpu/kernels/sparse_pallas.py:1694"),
+        ("K6", "K6 sparse_any_hit_cm", "sparse_any_hit.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1804"),
+        ("K7", "K7 sparse_any_hit_cached_cm", "sparse_any_hit_idx.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1182"),
+        ("K8", "K8 walker_nearest_t_idx_cm", "walker_nearest.cu",
+         "pathtracerpython_tpu/kernels/walker_pallas.py:340"),
         ("K9", "K9 walker_any_hit_cm", "walker_any_hit.cu",
          "pathtracerpython_tpu/kernels/walker_pallas.py:374"),
     ):
+        first = rows[key][0]
         kernels.append({
             "name": entry, "route": "cuda",
             "source": f"pathtracerpython_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(r[1] for r in rows[key]),
-            "ms": rows[key][0][2], "plain_ms": rows[key][0][3],
+            "max_abs_err": max(r["err"] for r in rows[key]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None,
         })
+    for k in kernels:
+        if k["launches"] < 1:
+            fail(f"{k['name']} was not launched on its main path")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

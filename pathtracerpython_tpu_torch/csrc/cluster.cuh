@@ -1,8 +1,9 @@
-// Device code shared by the cluster walks, the sparse nearest sweep K5
-// (sparse_nearest.cu) and the walker any-hit K9 (walker_any_hit.cu): the
-// per-ray slab test against a cluster's AABB, the staging of a cluster's
-// triangles into shared memory, and the mapping of a CTA onto a slice of
-// one ray block.
+// Device code shared by the cluster walks: the sparse sweeps K5
+// (sparse_nearest.cu), K6 (sparse_any_hit.cu) and K7
+// (sparse_any_hit_idx.cu), and the walker sweeps K8 (walker_nearest.cu) and
+// K9 (walker_any_hit.cu): the per-ray slab test against a cluster's AABB,
+// the staging of a cluster's triangles into shared memory, and the mapping
+// of a CTA onto a slice of one ray block.
 //
 // The slab arithmetic follows pathtracerpython_tpu/kernels/sparse_pallas.py
 // _inv_rows / _slab_rows_inv term for term: the direction's reciprocal with

@@ -1,5 +1,8 @@
-"""K5: the cluster-sparse nearest sweep, and the cluster hierarchy's
-candidate lists — CUDA kernel wrapper and plain version.
+"""The sparse hierarchy: K5, the cluster-sparse nearest sweep; K6, the
+cluster-sparse shadow any-hit; K7, the any-hit that also reports the
+blocking cluster, with the occluder cache's two passes around it; and the
+cluster hierarchy's candidate lists. CUDA kernel wrappers and plain
+versions.
 
 The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
 
@@ -10,21 +13,33 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
   clusters any of its rays can touch, by an interval slab test of the
   block's (origin box x direction box) family against every cluster AABB
   (``candidate_enter_hit``), sorted front to back by that conservative
-  entry bound (``block_lists``). The lists are complete (no cap), so
-  there is no overflow and no fallback;
-- **the sweep**: ``sparse_nearest_t_idx_cm`` walks each block's list per
-  ray; a ray tests a cluster only when its own slab test lets it through
-  with entry < best t + SLAB_EPS. The winner is the lexicographic
-  (t, global index) minimum, the dense K1's winner.
+  entry bound (``block_lists``; ``window_lists`` limits them to the block's
+  largest shadow window). The lists are complete (no cap), so there is no
+  overflow and no fallback;
+- **K5** ``sparse_nearest_t_idx_cm`` walks each block's list per ray; a ray
+  tests a cluster only when its own slab test lets it through with entry
+  < best t + SLAB_EPS. The winner is the lexicographic (t, global index)
+  minimum, the dense K1's winner. Blocks of ``R_BLK = 512`` rays for
+  ``accel="sparse"``, of ``R_BLK_HYBRID_NEAREST`` for the hybrid;
+- **K6** ``sparse_any_hit_cm``: whether an occluder triangle of a candidate
+  cluster blocks each shadow ray inside its window; the dense K4's bits;
+- **K7** ``sparse_any_hit_cached_cm``: K6's bits for any cache contents,
+  plus the first blocking cluster in visit order per lane, which is the
+  next bounce's cache. Pass 1 sweeps each block's ``K_GUESS`` most voted
+  cached clusters (``guess_lists``); pass 2 sweeps the full lists of the
+  lanes pass 1 left open, compacted when they fit ``n / CACHE_M_DIV``.
 
 Left behind as TPU machinery: the packed [seg|active|rb|cl] work words,
 the SMEM budgets (``W_PER_RB``, ``CHUNK_RB``, ``W_SMEM_ENTRIES``), grouping,
-the grid cascade, the interpret-mode caps and the two-pass and
-``REFINE_K`` protocols (off by default there).
+the grid cascade, the interpret-mode caps, and the truncated-list two-pass
+protocol of the uncached sweeps (``two_pass`` / ``PASS1_K``) with
+``REFINE_K``, both off by default there. The occluder cache's own two
+passes are ported (K7).
 
-On a CUDA tensor the wrapper launches ``csrc/sparse_nearest.cu`` (or
-raises); on a CPU tensor it runs ``sparse_nearest_plain``, the same walk in
-PyTorch, vectorized over ray blocks slot by slot. Forward only.
+On a CUDA tensor each wrapper launches its kernel (``csrc/sparse_nearest.cu``,
+``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``) or raises; on a
+CPU tensor it runs its plain version, the same walk in PyTorch, vectorized
+over ray blocks slot by slot. Forward only.
 """
 
 from __future__ import annotations
@@ -39,10 +54,12 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     BIG,
     IMAX,
     PLAIN_CHUNK_ELEMS,
+    T_MIN,
     check_input,
     mt_rows,
     scene_tripack,
 )
+from pathtracerpython_tpu_torch.ops.sort import PARK_DIR, PARK_ORIGIN
 
 # Scenes from this many padded triangles up resolve accel="auto" to
 # AUTO_LARGE, the hybrid: this sparse nearest sweep and the walker any-hit
@@ -51,11 +68,16 @@ SPARSE_MIN_TRIS = 4096
 AUTO_LARGE = "hybrid"
 C_TRI = 128        # triangles per cluster
 PACK_ROWS = 512    # the pack is padded to a multiple of this many rows
+R_BLK = 512        # rays per block of accel="sparse"'s sweeps (K5, K6, K7)
 R_BLK_HYBRID_NEAREST = 1024  # rays per block of the hybrid's nearest sweep
 SLAB_EPS = 1e-3    # conservative slack of every slab comparison
+K_GUESS = 8        # voted cached clusters per ray block in K7's pass 1
+CACHE_M_DIV = 2    # K7's pass 2 is compacted when it fits n / CACHE_M_DIV
 
-# Launches of the CUDA kernel since the count was last reset.
+# Launches of the CUDA kernels since the counts were last reset: K5, K6, K7.
 LAUNCHES = 0
+ANY_HIT_LAUNCHES = 0
+ANY_HIT_IDX_LAUNCHES = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
@@ -64,6 +86,25 @@ _ARGTYPES = [
     ctypes.c_int,                                     # r_blk
     ctypes.c_void_p, ctypes.c_void_p,                 # t_out, idx_out
     ctypes.c_int, ctypes.c_void_p,                    # device, stream
+]
+_ANY_HIT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
+    ctypes.c_int,                                       # n
+    ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
+    ctypes.c_int, ctypes.c_int,                         # n_cols, r_blk
+    ctypes.c_void_p,                                    # occ (zeroed)
+    ctypes.c_int, ctypes.c_void_p,                      # device, stream
+]
+_ANY_HIT_IDX_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
+    ctypes.c_int,                                       # n
+    ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
+    ctypes.c_int, ctypes.c_int,                         # n_cols, r_blk
+    ctypes.c_void_p,                                    # first_slot scratch
+    ctypes.c_void_p, ctypes.c_void_p,                   # occ_out, cl_out
+    ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
 
@@ -85,11 +126,13 @@ def use_sparse(accel: str, n_padded_tris: int) -> bool:
 
 
 class BlockLists(NamedTuple):
-    """Per ray block, the candidate clusters front to back: row b holds
-    block b's ``ncand[b]`` clusters and their entry bounds first."""
+    """Per ray block, the candidate clusters in visit order: row b holds
+    block b's ``ncand[b]`` clusters and their entry bounds first. The
+    width W is the cluster count C for the front-to-back lists, K_GUESS
+    for the vote-ordered guess lists (whose bounds are all 0)."""
 
-    ids: torch.Tensor    # i32[nrb, C]
-    keys: torch.Tensor   # f32[nrb, C]  conservative entry bound, >= 0
+    ids: torch.Tensor    # i32[nrb, W]
+    keys: torch.Tensor   # f32[nrb, W]  conservative entry bound, >= 0
     ncand: torch.Tensor  # i32[nrb]
 
 
@@ -186,6 +229,43 @@ def block_lists(aabb8, o3, d3, tmax_rb, r_blk: int) -> BlockLists:
     )
 
 
+def window_lists(aabb8, o3, d3_unit, maxd, r_blk: int) -> BlockLists:
+    """Every block's candidate clusters within the block's largest shadow
+    window ``maxd``, front to back (the any-hit lists of
+    ``grouped_worklist`` and ``walker_worklist``, uncapped)."""
+    nrb = -(-o3.shape[1] // r_blk)
+    tmax = pad_repeat_last(maxd, r_blk).reshape(nrb, r_blk).amax(dim=1)
+    return block_lists(aabb8, o3, d3_unit, tmax, r_blk)
+
+
+def guess_lists(guess_cl: torch.Tensor, n_clusters: int, r_blk: int = R_BLK,
+                k_guess: int = K_GUESS) -> BlockLists:
+    """Every block's ``k_guess`` most voted cached clusters
+    (``guess_worklist``): each lane votes its cached cluster ``guess_cl``
+    i32[N]; -1 and out-of-range guesses are dropped, and so are the pad
+    lanes of a ragged last block. Vote order, most shared first, ties to
+    the smaller cluster id (a stable sort: ``torch.topk`` promises no tie
+    order, ``lax.top_k`` this one). An any-hit needs no front-to-back
+    order, so every entry bound is 0."""
+    n = guess_cl.shape[0]
+    nrb = -(-n // r_blk)
+    gl = torch.cat([guess_cl, guess_cl.new_full((nrb * r_blk - n,), -1)])
+    gl = gl.reshape(nrb, r_blk).to(torch.int64)
+    col = torch.where((gl >= 0) & (gl < n_clusters), gl, n_clusters)
+    votes = torch.zeros((nrb, n_clusters + 1), dtype=torch.int32,
+                        device=guess_cl.device)
+    votes.scatter_add_(1, col, torch.ones_like(col, dtype=torch.int32))
+    votes = votes[:, :n_clusters]
+    k = min(k_guess, n_clusters)
+    order = torch.sort(-votes, dim=1, stable=True).indices[:, :k]
+    return BlockLists(
+        ids=order.to(torch.int32).contiguous(),
+        keys=torch.zeros((nrb, k), dtype=torch.float32,
+                         device=guess_cl.device),
+        ncand=(votes > 0).sum(dim=1, dtype=torch.int32).clamp_max(k),
+    )
+
+
 def lane_slab(box, o, inv):
     """Per-ray slab test of ``_slab_rows_inv``: box [..., 8], o and inv
     [3, ...] broadcast against it. Returns (hit, entry clamped to >= 0)."""
@@ -248,12 +328,14 @@ def by_block_chunks(fn, o3, rows, lists: BlockLists, r_blk: int):
 
 
 def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
-                         r_blk: int):
-    """The walk of ``csrc/sparse_nearest.cu`` in PyTorch: slot s of every
-    block's list at once, with the kernel's per-lane gate, (t, index) merge
-    and whole-walk stop (taken per block instead of per CTA, which changes
-    no result). Returns (t [N] — 0 on a miss, idx [N] int32 — -1 on a
-    miss)."""
+                         r_blk: int, visits: list | None = None):
+    """The walk of ``csrc/sparse_nearest.cu`` (and of
+    ``csrc/walker_nearest.cu``) in PyTorch: slot s of every block's list at
+    once, with the kernels' per-lane gate, (t, index) merge and whole-walk
+    stop (taken per block instead of per CTA or warp, which changes no
+    result). Returns (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss).
+    ``visits``: a list that receives, per chunk, the number of (ray,
+    cluster) visits the per-lane gate let through."""
     def walk(rows, chunk: BlockLists):
         o3c, d3c = rows
         n, nrb = o3c.shape[1], chunk.ncand.shape[0]
@@ -274,6 +356,8 @@ def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
             slab, enter0 = lane_slab(box, rays.o, rays.inv)
             needed = (walking[:, None, None] & rays.live & slab
                       & (enter0 < best_t + SLAB_EPS))
+            if visits is not None:
+                visits.append(needed.sum())
             hit, t = mt_rows(cluster_rows(tripack, cl), *rays.o, *rays.d)
             tkey = torch.where(hit, t, BIG)             # [nrb, C_TRI, r_blk]
             tile_t = tkey.amin(dim=1, keepdim=True)
@@ -293,31 +377,187 @@ def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
     return torch.where(idx >= 0, t, 0.0), idx
 
 
-def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene):
-    """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
-    length) through the cluster hierarchy, in blocks of
-    R_BLK_HYBRID_NEAREST rays; the result of the dense
-    ``nearest_t_idx_cm``: (t [N] — 0 on a miss, idx [N] int32 — -1 on a
-    miss)."""
+def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
+                 r_blk: int, visits: list | None = None):
+    """The any-hit walk of ``csrc/walker_any_hit.cu``,
+    ``csrc/sparse_any_hit.cu`` and ``csrc/sparse_any_hit_idx.cu`` in
+    PyTorch: slot s of every block's list at once, with the kernels'
+    per-lane gate, first-hit stop and whole-walk stop (taken per block,
+    which changes no result). Returns (occlusion bool[N], the first
+    blocking cluster in visit order i32[N], -1 where not occluded).
+    ``visits``: as in ``sparse_nearest_plain``."""
+    def walk(rows, chunk: BlockLists):
+        o3c, d3c, mdc = rows
+        n, nrb = o3c.shape[1], chunk.ncand.shape[0]
+        rays = block_rays(o3c, d3c, nrb, r_blk)
+        md = pad_repeat_last(mdc, r_blk).reshape(nrb, 1, r_blk)
+        t_cut = md - T_MIN
+        can = rays.live & (t_cut > T_MIN)   # a blocking hit is possible
+        open_ = can.clone()                 # not occluded yet
+        blocked = torch.full((nrb, 1, r_blk), -1, dtype=torch.int32,
+                             device=o3c.device)
+        walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
+        for s in range(int(chunk.ncand.max())):
+            key = chunk.keys[:, s][:, None, None]
+            walking = walking & (s < chunk.ncand) & (
+                open_ & (key <= md + SLAB_EPS)).flatten(1).any(dim=1)
+            if not bool(walking.any()):
+                break
+            cl = chunk.ids[:, s]
+            box = aabb8[cl.to(torch.int64)][:, None, None, :]
+            slab, enter0 = lane_slab(box, rays.o, rays.inv)
+            needed = (walking[:, None, None] & open_ & slab
+                      & (enter0 < md + SLAB_EPS))
+            if visits is not None:
+                visits.append(needed.sum())
+            tri = cluster_rows(tripack, cl)
+            hit, t = mt_rows(tri, *rays.o, *rays.d)
+            blocking = hit & (tri[..., 10:11] > 0.5) & (t < t_cut)
+            newly = needed & blocking.any(dim=1, keepdim=True)
+            blocked = torch.where(newly, cl[:, None, None], blocked)
+            open_ = open_ & ~newly
+        return [(can & ~open_).reshape(-1)[:n], blocked.reshape(-1)[:n]]
+
+    return by_block_chunks(walk, o3, [o3, d3_unit, maxd], lists, r_blk)
+
+
+def sparse_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8,
+                         lists: BlockLists, r_blk: int,
+                         visits: list | None = None) -> torch.Tensor:
+    """K6's plain version: occlusion bool[N] by ``any_hit_walk``. The
+    kernel tests a block's list slots in parallel; occlusion is an OR over
+    them, so the walk in order gives the same bits."""
+    return any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                        visits)[0]
+
+
+def sparse_any_hit_idx_plain(o3, d3_unit, maxd, tripack, aabb8,
+                             lists: BlockLists, r_blk: int,
+                             visits: list | None = None):
+    """K7's plain version: (occlusion bool[N], first blocking cluster in
+    visit order i32[N], -1 where not occluded) by ``any_hit_walk``."""
+    return any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                        visits)
+
+
+def check_rays(o3, d3_unit, scene, what: str, maxd=None):
+    """Check the ray inputs of a sweep; returns (n, tripack, aabb8)."""
     device = o3.device
     n = o3.shape[1] if o3.dim() == 2 else -1
     check_input("o3", o3, device, torch.float32, (3, None))
     check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
+    if maxd is not None:
+        check_input("maxd", maxd, device, torch.float32, (n,))
     tripack = pack_for_sparse(scene)
     check_input("scene triangles", tripack, device, torch.float32, (None, 12))
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no sparse nearest-hit kernel for device {device}")
+        raise ValueError(f"no {what} kernel for device {device}")
+    return n, tripack, cluster_aabbs(tripack)
+
+
+def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
+                            r_blk: int = R_BLK):
+    """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
+    length) through the cluster hierarchy, in blocks of ``r_blk`` rays
+    (the sparse hierarchy's R_BLK; the hybrid passes
+    R_BLK_HYBRID_NEAREST); the result of the dense ``nearest_t_idx_cm``:
+    (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss)."""
+    device = o3.device
+    n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse nearest-hit")
     if n == 0:
         return (torch.zeros(0, dtype=o3.dtype, device=device),
                 torch.zeros(0, dtype=torch.int32, device=device))
-    aabb8 = cluster_aabbs(tripack)
-    r_blk = R_BLK_HYBRID_NEAREST
     nrb = -(-n // r_blk)
     tmax = torch.full((nrb,), BIG, dtype=o3.dtype, device=device)
     lists = block_lists(aabb8, o3, d3_unit, tmax, r_blk)
     if device.type == "cpu":
         return sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists, r_blk)
     return _launch(o3, d3_unit, tripack, aabb8, lists, r_blk)
+
+
+def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
+                      maxd: torch.Tensor, scene) -> torch.Tensor:
+    """K6: whether an occluder triangle blocks each shadow ray o3/d3_unit
+    f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4, through the
+    cluster hierarchy in blocks of R_BLK rays; bool[N], the result of the
+    dense ``any_hit_cm``. Lanes with maxd = 0 (parked) are never
+    occluded."""
+    n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse any-hit",
+                                    maxd)
+    if n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=o3.device)
+    lists = window_lists(aabb8, o3, d3_unit, maxd, R_BLK)
+    if o3.device.type == "cpu":
+        return sparse_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8, lists,
+                                    R_BLK)
+    return _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, R_BLK)
+
+
+def pass2_size(n: int, r_blk: int = R_BLK, m_div: int = CACHE_M_DIV) -> int:
+    """Lanes of K7's compacted pass 2 for a wavefront of ``n``: n / m_div,
+    at least one block, in whole blocks (``_pass2_size`` on the wavefront
+    padded to whole blocks)."""
+    n_pad = -(-n // r_blk) * r_blk
+    m = max(r_blk, -(-n_pad // m_div))
+    return -(-m // r_blk) * r_blk
+
+
+def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
+                             maxd: torch.Tensor, scene,
+                             guess_cl: torch.Tensor,
+                             relevant: torch.Tensor | None = None):
+    """K7 with the occluder cache's two passes. ``guess_cl`` i32[N] is each
+    lane's cached blocking cluster (-1: none; any other content is safe).
+    Returns (occ bool[N], blocked_cl i32[N]: the cluster that proved each
+    occluded lane, -1 for the others).
+
+    ``occ`` is ``sparse_any_hit_cm``'s for any cache contents. Pass 1
+    sweeps each block's ``guess_lists``: its occlusions are real triangle
+    hits, so they are final. The lanes it left open re-sweep their full
+    candidate lists in pass 2: compacted to ``pass2_size(N)`` lanes (the
+    tail parked) when they fit, else the whole wavefront (a cold cache).
+    ``relevant`` bool[N] (optional): lanes whose result the caller
+    discards (False) do not vote and never reach pass 2, so exactness
+    holds on relevant lanes only.
+
+    Choosing the branch reads the open lanes' count on the host: one
+    synchronization per call, which the JAX package's ``lax.cond`` does
+    not pay."""
+    device = o3.device
+    n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "cached any-hit",
+                                    maxd)
+    check_input("guess_cl", guess_cl, device, torch.int32, (n,))
+    if relevant is not None:
+        check_input("relevant", relevant, device, torch.bool, (n,))
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.bool, device=device),
+                torch.zeros(0, dtype=torch.int32, device=device))
+    sweep = (sparse_any_hit_idx_plain if device.type == "cpu"
+             else _launch_any_hit_idx)
+
+    def run(o, d, md, lists):
+        return sweep(o, d, md, tripack, aabb8, lists, R_BLK)
+
+    if relevant is not None:
+        guess_cl = torch.where(relevant, guess_cl, -1)  # parked: no vote
+    occ1, cl1 = run(o3, d3_unit, maxd,
+                    guess_lists(guess_cl, aabb8.shape[0], R_BLK))
+    unfinished = ~occ1 if relevant is None else ~occ1 & relevant
+    sel = torch.nonzero(unfinished).flatten()  # stable; the host read
+    cnt, m = sel.shape[0], pass2_size(n)
+    if cnt > m:
+        return run(o3, d3_unit, maxd,
+                   window_lists(aabb8, o3, d3_unit, maxd, R_BLK))
+    # the survivors first, in lane order; the tail parked with window 1
+    o2 = o3.new_tensor(PARK_ORIGIN)[:, None].repeat(1, m)
+    d2 = o3.new_tensor(PARK_DIR)[:, None].repeat(1, m)
+    md2 = torch.ones(m, dtype=maxd.dtype, device=device)
+    o2[:, :cnt] = o3[:, sel]
+    d2[:, :cnt] = d3_unit[:, sel]
+    md2[:cnt] = maxd[sel]
+    occ2, cl2 = run(o2, d2, md2, window_lists(aabb8, o2, d2, md2, R_BLK))
+    return (occ1.index_copy(0, sel, occ2[:cnt]),
+            cl1.index_copy(0, sel, cl2[:cnt]))
 
 
 def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk):
@@ -336,3 +576,44 @@ def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk):
             f"sparse nearest-hit kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return t, idx
+
+
+def _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
+    global ANY_HIT_LAUNCHES
+    n = o3.shape[1]
+    # zeroed: the kernel's CTAs only ever set a lane
+    occ = torch.zeros(n, dtype=torch.bool, device=o3.device)
+    fn = build.function("ptt_sparse_any_hit", _ANY_HIT_ARGTYPES)
+    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
+             tripack.data_ptr(), aabb8.data_ptr(), lists.ids.data_ptr(),
+             lists.keys.data_ptr(), lists.ncand.data_ptr(),
+             lists.ids.shape[1], r_blk, occ.data_ptr(), o3.device.index,
+             stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sparse any-hit kernel launch failed: CUDA error {err}")
+    ANY_HIT_LAUNCHES += 1
+    return occ
+
+
+def _launch_any_hit_idx(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
+    global ANY_HIT_IDX_LAUNCHES
+    n = o3.shape[1]
+    device = o3.device
+    # scratch: each lane's first blocking list slot, taken by atomicMin
+    first_slot = torch.full((n,), IMAX, dtype=torch.int32, device=device)
+    occ = torch.empty(n, dtype=torch.bool, device=device)
+    blocked = torch.empty(n, dtype=torch.int32, device=device)
+    fn = build.function("ptt_sparse_any_hit_idx", _ANY_HIT_IDX_ARGTYPES)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
+             tripack.data_ptr(), aabb8.data_ptr(), lists.ids.data_ptr(),
+             lists.keys.data_ptr(), lists.ncand.data_ptr(),
+             lists.ids.shape[1], r_blk, first_slot.data_ptr(),
+             occ.data_ptr(), blocked.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"cached any-hit kernel launch failed: CUDA error {err}")
+    ANY_HIT_IDX_LAUNCHES += 1
+    return occ, blocked

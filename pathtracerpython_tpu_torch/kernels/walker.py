@@ -1,23 +1,26 @@
-"""K9: the walker any-hit for shadow rays — CUDA kernel wrapper and plain
-version.
+"""The walker hierarchy: K8, the walker nearest sweep, and K9, the walker
+any-hit for shadow rays. CUDA kernel wrappers and plain versions.
 
 The JAX package's ``kernels/walker_pallas.py`` walks, for each block of
-``R_BLK = 1280`` shadow rays, the block's front-to-back candidate clusters
-(``walker_worklist``: the sparse builder's interval slab test, limited to
-the block's largest occlusion window) and stops the whole walk once the
-next cluster's entry bound exceeds every unoccluded ray's window. The
-hybrid hierarchy runs it for the NEE's shadow rays.
+``R_BLK = 1280`` rays, the block's front-to-back candidate clusters
+(``walker_worklist``: the sparse lists' interval slab test, for shadow
+rays limited to the block's largest occlusion window) and stops the whole
+walk once the next cluster's entry bound exceeds what every ray can still
+use: its best t (K8), or the window of every unoccluded ray (K9).
+``accel="walker"`` runs both; the hybrid runs K9 for the NEE's shadow rays.
 
-The port keeps the lists (``walker_lists``, complete, so no overflow and
-no fallback) and the stop, compared in floats. Left behind as TPU
-machinery: the 128-column tiles with the AABB stashed in row 0
+The port keeps the lists (``nearest_lists``, ``walker_lists``: complete, so
+no overflow and no fallback) and the stop, compared in floats. Left behind
+as TPU machinery: the 128-column tiles with the AABB stashed in row 0
 (``_pack_walker``), the 19-bit quantized entry words and the flat SMEM list
-budget (``W_SMEM_MAX``); the kernel reads the [T, 12] pack and the
+budget (``W_SMEM_MAX``); the kernels read the [T, 12] pack and the
 [C, 8] AABBs directly.
 
-On a CUDA tensor the wrapper launches ``csrc/walker_any_hit.cu`` (or
-raises); on a CPU tensor it runs ``walker_any_hit_plain``, the same walk in
-PyTorch, vectorized over ray blocks slot by slot. Forward only.
+On a CUDA tensor each wrapper launches its kernel (``csrc/walker_nearest.cu``,
+``csrc/walker_any_hit.cu``) or raises; on a CPU tensor it runs its plain
+version: the walks of ``kernels/sparse.py`` (``sparse_nearest_plain``,
+``any_hit_walk``) on the walker's lists, since K8 computes K5's function
+and K9 K6's. Forward only.
 """
 
 from __future__ import annotations
@@ -27,28 +30,21 @@ import ctypes
 import torch
 
 from pathtracerpython_tpu_torch.kernels import build
-from pathtracerpython_tpu_torch.kernels.intersect import (
-    T_MIN,
-    check_input,
-    mt_rows,
-)
+from pathtracerpython_tpu_torch.kernels.intersect import BIG
 from pathtracerpython_tpu_torch.kernels.sparse import (
-    SLAB_EPS,
     BlockLists,
+    any_hit_walk,
     block_lists,
-    block_rays,
-    by_block_chunks,
-    cluster_aabbs,
-    cluster_rows,
-    lane_slab,
-    pack_for_sparse,
-    pad_repeat_last,
+    check_rays,
+    sparse_nearest_plain,
+    window_lists,
 )
 
-R_BLK = 1280  # shadow rays per block
+R_BLK = 1280  # rays per block
 
-# Launches of the CUDA kernel since the count was last reset.
+# Launches of the CUDA kernels since the counts were last reset: K9, K8.
 LAUNCHES = 0
+NEAREST_LAUNCHES = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
@@ -59,49 +55,63 @@ _ARGTYPES = [
     ctypes.c_void_p,                                    # occ_out
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
+_NEAREST_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
+    ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
+    ctypes.c_int, ctypes.c_int,                         # n_cols, r_blk
+    ctypes.c_void_p, ctypes.c_void_p,                   # t_out, idx_out
+    ctypes.c_int, ctypes.c_void_p,                      # device, stream
+]
+
+
+def nearest_lists(aabb8, o3, d3_unit) -> BlockLists:
+    """Every block's candidate clusters front to back, with no distance
+    limit (``walker_worklist`` with tmax = BIG, uncapped)."""
+    nrb = -(-o3.shape[1] // R_BLK)
+    tmax = torch.full((nrb,), BIG, dtype=o3.dtype, device=o3.device)
+    return block_lists(aabb8, o3, d3_unit, tmax, R_BLK)
 
 
 def walker_lists(aabb8, o3, d3_unit, maxd) -> BlockLists:
     """Every block's candidate clusters within the block's largest window
     ``maxd``, front to back (``walker_worklist``, uncapped)."""
-    nrb = -(-o3.shape[1] // R_BLK)
-    tmax = pad_repeat_last(maxd, R_BLK).reshape(nrb, R_BLK).amax(dim=1)
-    return block_lists(aabb8, o3, d3_unit, tmax, R_BLK)
+    return window_lists(aabb8, o3, d3_unit, maxd, R_BLK)
+
+
+def walker_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
+                         r_blk: int, visits: list | None = None):
+    """K8's plain version: ``sparse_nearest_plain``'s walk on the walker's
+    lists (the same gate, merge and stop; the kernel stops per warp, the
+    walk per block, which changes no result). Returns (t [N] — 0 on a
+    miss, idx [N] int32 — -1 on a miss)."""
+    return sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists, r_blk,
+                                visits)
 
 
 def walker_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8,
-                         lists: BlockLists, r_blk: int) -> torch.Tensor:
-    """The walk of ``csrc/walker_any_hit.cu`` in PyTorch: slot s of every
-    block's list at once, with the kernel's per-lane gate, first-hit stop
-    and whole-walk stop (taken per block instead of per CTA, which changes
-    no result). Returns occlusion bool[N]."""
-    def walk(rows, chunk: BlockLists):
-        o3c, d3c, mdc = rows
-        n, nrb = o3c.shape[1], chunk.ncand.shape[0]
-        rays = block_rays(o3c, d3c, nrb, r_blk)
-        md = pad_repeat_last(mdc, r_blk).reshape(nrb, 1, r_blk)
-        t_cut = md - T_MIN
-        can = rays.live & (t_cut > T_MIN)   # a blocking hit is possible
-        open_ = can.clone()                 # not occluded yet
-        walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
-        for s in range(int(chunk.ncand.max())):
-            key = chunk.keys[:, s][:, None, None]
-            walking = walking & (s < chunk.ncand) & (
-                open_ & (key <= md + SLAB_EPS)).flatten(1).any(dim=1)
-            if not bool(walking.any()):
-                break
-            cl = chunk.ids[:, s]
-            box = aabb8[cl.to(torch.int64)][:, None, None, :]
-            slab, enter0 = lane_slab(box, rays.o, rays.inv)
-            needed = (walking[:, None, None] & open_ & slab
-                      & (enter0 < md + SLAB_EPS))
-            tri = cluster_rows(tripack, cl)
-            hit, t = mt_rows(tri, *rays.o, *rays.d)
-            blocking = hit & (tri[..., 10:11] > 0.5) & (t < t_cut)
-            open_ = open_ & ~(needed & blocking.any(dim=1, keepdim=True))
-        return [(can & ~open_).reshape(-1)[:n]]
+                         lists: BlockLists, r_blk: int,
+                         visits: list | None = None) -> torch.Tensor:
+    """K9's plain version: occlusion bool[N] by ``any_hit_walk`` (the
+    kernel's per-lane gate, first-hit stop and whole-walk stop)."""
+    return any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                        visits)[0]
 
-    return by_block_chunks(walk, o3, [o3, d3_unit, maxd], lists, r_blk)[0]
+
+def walker_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene):
+    """K8: closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of
+    unit length) by walking each block of R_BLK rays' front-to-back
+    candidate list; the result of the dense ``nearest_t_idx_cm``: (t [N] —
+    0 on a miss, idx [N] int32 — -1 on a miss)."""
+    device = o3.device
+    n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "walker nearest-hit")
+    if n == 0:
+        return (torch.zeros(0, dtype=o3.dtype, device=device),
+                torch.zeros(0, dtype=torch.int32, device=device))
+    lists = nearest_lists(aabb8, o3, d3_unit)
+    if device.type == "cpu":
+        return walker_nearest_plain(o3, d3_unit, tripack, aabb8, lists, R_BLK)
+    return _launch_nearest(o3, d3_unit, tripack, aabb8, lists, R_BLK)
 
 
 def walker_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
@@ -111,20 +121,12 @@ def walker_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     cluster hierarchy in blocks of R_BLK rays; bool[N], the result of the
     dense ``any_hit_cm``. Lanes with maxd = 0 (parked) are never
     occluded."""
-    device = o3.device
-    n = o3.shape[1] if o3.dim() == 2 else -1
-    check_input("o3", o3, device, torch.float32, (3, None))
-    check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
-    check_input("maxd", maxd, device, torch.float32, (n,))
-    tripack = pack_for_sparse(scene)
-    check_input("scene triangles", tripack, device, torch.float32, (None, 12))
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no walker any-hit kernel for device {device}")
+    n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "walker any-hit",
+                                   maxd)
     if n == 0:
-        return torch.zeros(0, dtype=torch.bool, device=device)
-    aabb8 = cluster_aabbs(tripack)
+        return torch.zeros(0, dtype=torch.bool, device=o3.device)
     lists = walker_lists(aabb8, o3, d3_unit, maxd)
-    if device.type == "cpu":
+    if o3.device.type == "cpu":
         return walker_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8, lists,
                                     R_BLK)
     return _launch(o3, d3_unit, maxd, tripack, aabb8, lists, R_BLK)
@@ -146,3 +148,21 @@ def _launch(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
             f"walker any-hit kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return occ
+
+
+def _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk):
+    global NEAREST_LAUNCHES
+    n = o3.shape[1]
+    t = torch.empty(n, dtype=torch.float32, device=o3.device)
+    idx = torch.empty(n, dtype=torch.int32, device=o3.device)
+    fn = build.function("ptt_walker_nearest", _NEAREST_ARGTYPES)
+    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, tripack.data_ptr(),
+             aabb8.data_ptr(), lists.ids.data_ptr(), lists.keys.data_ptr(),
+             lists.ncand.data_ptr(), lists.ids.shape[1], r_blk,
+             t.data_ptr(), idx.data_ptr(), o3.device.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"walker nearest-hit kernel launch failed: CUDA error {err}")
+    NEAREST_LAUNCHES += 1
+    return t, idx

@@ -5,11 +5,14 @@ The fast branches of the JAX package's ``ops/geometry.py:nearest_hit_cm``
 and ``any_hit_within_cm``: the hierarchy ``accel`` resolves to picks the
 sweep (a CUDA kernel on the card, its plain version on the CPU):
 
-    resolved accel   nearest sweep              shadow any-hit
-    "none"           K1 kernels/intersect.py    K4 kernels/intersect.py
-    "hybrid"         K5 kernels/sparse.py       K9 kernels/walker.py
+    resolved accel   nearest sweep                  shadow any-hit
+    "none"           K1 kernels/intersect.py        K4 kernels/intersect.py
+    "sparse"         K5 kernels/sparse.py, r512     K6 kernels/sparse.py
+    "walker"         K8 kernels/walker.py           K9 kernels/walker.py
+    "hybrid"         K5 kernels/sparse.py, r1024    K9 kernels/walker.py
 
-"sparse" and "walker" (K6-K8) are not ported yet and raise.
+With ``nee_cache="on"`` the integrator replaces the sparse hierarchy's K6
+by the occluder-cached K7 (``kernels/sparse.py:sparse_any_hit_cached_cm``).
 """
 
 from __future__ import annotations
@@ -23,10 +26,15 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     nearest_t_idx_cm,
 )
 from pathtracerpython_tpu_torch.kernels.sparse import (
+    R_BLK_HYBRID_NEAREST,
     resolve_accel,
+    sparse_any_hit_cm,
     sparse_nearest_t_idx_cm,
 )
-from pathtracerpython_tpu_torch.kernels.walker import walker_any_hit_cm
+from pathtracerpython_tpu_torch.kernels.walker import (
+    walker_any_hit_cm,
+    walker_nearest_t_idx_cm,
+)
 from pathtracerpython_tpu_torch.ops.gather import cm_take
 from pathtracerpython_tpu_torch.scene.arrays import SceneTensors
 
@@ -55,25 +63,20 @@ class NearestHitCM(NamedTuple):
     is_light: torch.Tensor  # bool[N]
 
 
-def _resolve(accel: str, scene: SceneTensors) -> str:
-    resolved = resolve_accel(accel, scene.num_padded_triangles)
-    if resolved in ("sparse", "walker"):
-        raise NotImplementedError(
-            f"accel={accel!r} (the {resolved} hierarchy, kernels K6-K8) is "
-            "not ported to pathtracerpython_tpu_torch yet (ROADMAP.md queue "
-            "A, item 7: the next slice of the large-scene path)"
-        )
-    return resolved
-
-
 def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor, scene: SceneTensors,
                    accel: str = "none") -> NearestHitCM:
     """Closest hit of rays (o3, d3) [3, N] against the scene's triangles,
     through the sweep ``accel`` resolves to; ``d3`` need not be
     normalized. Every sweep gives the dense sweep's winner."""
     d3u = normalize3(d3)
-    if _resolve(accel, scene) == "hybrid":
+    resolved = resolve_accel(accel, scene.num_padded_triangles)
+    if resolved == "hybrid":
+        t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene,
+                                         r_blk=R_BLK_HYBRID_NEAREST)
+    elif resolved == "sparse":
         t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene)
+    elif resolved == "walker":
+        t, idx = walker_nearest_t_idx_cm(o3, d3u, scene)
     else:
         t, idx = nearest_t_idx_cm(o3, d3u, scene)
     found = idx >= 0
@@ -97,6 +100,9 @@ def any_hit_within_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     """Shadow occlusion bool[N] of rays (o3, d3_unit) [3, N] within
     ``max_dist`` [N], through the any-hit ``accel`` resolves to;
     ``d3_unit`` must be normalized."""
-    if _resolve(accel, scene) == "hybrid":
+    resolved = resolve_accel(accel, scene.num_padded_triangles)
+    if resolved == "sparse":
+        return sparse_any_hit_cm(o3, d3_unit, max_dist, scene)
+    if resolved in ("walker", "hybrid"):
         return walker_any_hit_cm(o3, d3_unit, max_dist, scene)
     return any_hit_cm(o3, d3_unit, max_dist, scene)

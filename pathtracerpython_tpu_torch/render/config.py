@@ -4,10 +4,11 @@ decides: CUDA kernels on the card, their plain versions on the CPU) and
 ``tile`` (the width of the XLA sweeps, which the port does not have).
 
 The port runs the fast-mode forward render, dense (``accel="none"``) or
-through the hybrid hierarchy (``"hybrid"``, and ``"auto"`` on large
-scenes). ``render`` refuses the values of the remaining fields that need
-parts not yet ported with ``NotImplementedError`` (see
-``render.integrator.check_supported``)."""
+through a cluster hierarchy: ``"sparse"``, ``"walker"`` or ``"hybrid"``
+(which ``"auto"`` selects on large scenes), with the sparse hierarchy's
+occluder cache on ``nee_cache="on"`` ("auto" is off). ``render`` refuses
+the values of the remaining fields that need parts not yet ported with
+``NotImplementedError`` (see ``render.integrator.check_supported``)."""
 
 from __future__ import annotations
 

@@ -6,9 +6,12 @@ The forward fast-mode path of the JAX package's ``render/integrator.py``:
         state = primary rays          (ops.camera)
         for each bounce:              (a Python loop)
             [sort + park]             (ops.sort, cluster hierarchies)
-            hit   = nearest_hit_cm    (K1 dense, or K5 for the hybrid)
+            hit   = nearest_hit_cm    (K1 dense; K5 sparse and hybrid; K8
+                                       walker)
             color = shade(hit)        (ambient + NEE: fused K2, or the
-                                       unfused NEE with K4 / K9)
+                                       unfused NEE with K4 dense, K6
+                                       sparse, K7 sparse with the occluder
+                                       cache, K9 walker and hybrid)
             state = scatter(hit)      (diffuse/specular branch, masked)
 
 Every per-ray vector is float32 [3, N]; dead rays are masked lanes. The
@@ -20,9 +23,8 @@ sorted render equals an unsorted one. The render runs on the device the
 scene lives on.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item (``check_supported``): reference mode, the sparse and walker
-hierarchies with the occluder cache, soft visibility, geometry sharding
-and rematerialized bounces.
+ROADMAP item (``check_supported``): reference mode, soft visibility,
+geometry sharding and rematerialized bounces.
 """
 
 from __future__ import annotations
@@ -36,7 +38,11 @@ from pathtracerpython_tpu_torch.kernels.nee import (
     MAX_LIGHT_SAMPLES,
     nee_mean_cos_fused,
 )
-from pathtracerpython_tpu_torch.kernels.sparse import resolve_accel, use_sparse
+from pathtracerpython_tpu_torch.kernels.sparse import (
+    resolve_accel,
+    sparse_any_hit_cached_cm,
+    use_sparse,
+)
 from pathtracerpython_tpu_torch.ops import rng
 from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
 from pathtracerpython_tpu_torch.ops.gather import cm_take
@@ -83,6 +89,9 @@ class RayState(NamedTuple):
     nee_occ_hint: torch.Tensor   # bool[N] every shadow sample of the lane
     #                              was occluded last bounce: an ordering
     #                              signal of the sorted NEE sweep only
+    nee_cache: torch.Tensor      # i32[N] the cluster that last blocked one
+    #                              of the lane's shadow rays, -1 = none:
+    #                              K7's guess (nee_cache="on" only)
 
 
 class Materials(NamedTuple):
@@ -107,13 +116,6 @@ def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
     semantics as the JAX package, naming the ROADMAP item that adds it."""
     if cfg.mode != "fast":
         _not_ported(f"mode={cfg.mode!r}", "item 6: reference mode")
-    resolved = resolve_accel(cfg.accel, scene.num_padded_triangles)
-    if cfg.nee_cache == "on" and resolved == "sparse":
-        _not_ported("nee_cache='on' (the sparse hierarchy's occluder cache, "
-                    "kernel K7)", "item 7: the large-scene slice")
-    if resolved in ("sparse", "walker"):
-        _not_ported(f"accel={cfg.accel!r} (resolves to {resolved!r}, "
-                    "kernels K6-K8)", "item 7: the large-scene slice")
     if cfg.soft_vis_beta > 0.0:
         _not_ported("soft_vis_beta > 0", "item 8: diff")
     if cfg.remat_bounces:
@@ -136,6 +138,15 @@ def _nee_sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
     cluster hierarchy's any-hit does."""
     return cfg.sort_nee != "off" and use_sparse(
         cfg.accel, scene.num_padded_triangles)
+
+
+def _nee_cache_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
+    """The occluder cache runs on the sparse hierarchy's hard-shadow
+    any-hit only, and only when asked for: "auto" is off."""
+    return (cfg.nee_cache == "on" and cfg.mode == "fast"
+            and cfg.geom_axis is None and cfg.soft_vis_beta == 0.0
+            and resolve_accel(cfg.accel, scene.num_padded_triangles)
+            == "sparse")
 
 
 def _fused_nee(scene: SceneTensors, cfg: RenderConfig) -> bool:
@@ -166,6 +177,7 @@ class ShadowRays(NamedTuple):
     order: torch.Tensor | None  # i64[S*N] lane s*N + i of sweep slot k,
     #                             None when unsorted
     cos: torch.Tensor    # f32[S, N] clamped cosine of each sample
+    relevant: torch.Tensor  # bool[S*N] the radiance reads the lane's bit
 
 
 def nee_shadow_rays(hit: NearestHitCM, u, scene: SceneTensors,
@@ -195,13 +207,13 @@ def nee_shadow_rays(hit: NearestHitCM, u, scene: SceneTensors,
     flat_o3 = point3[:, None, :].expand(3, s, n).reshape(3, s * n)
     flat_d3 = sdir3.reshape(3, s * n)
     flat_dist = dist.reshape(s * n)
+    rel_flat = relevant[None, :].expand(s, n).reshape(s * n)
     if not _nee_sort_enabled(scene, cfg):
-        return ShadowRays(flat_o3, flat_d3, flat_dist, None, cos)
+        return ShadowRays(flat_o3, flat_d3, flat_dist, None, cos, rel_flat)
     # park the irrelevant lanes only where the sort groups them into blocks
     # of their own: a parked origin in a mixed block widens the block's box
     # over the whole scene (the JAX package measured 31 s against 1.1 s per
     # render when parking without sorting)
-    rel_flat = relevant[None, :].expand(s, n).reshape(s * n)
     flat_o3 = torch.where(rel_flat[None, :], flat_o3,
                           flat_o3.new_tensor(PARK_ORIGIN)[:, None])
     flat_d3 = torch.where(rel_flat[None, :], flat_d3,
@@ -214,34 +226,52 @@ def nee_shadow_rays(hit: NearestHitCM, u, scene: SceneTensors,
                                  *scene_bounds(scene), occ_hint=hint_flat)
     return ShadowRays(permute_minor(flat_o3, order),
                       permute_minor(flat_d3, order),
-                      permute_minor(flat_dist, order), order, cos)
+                      permute_minor(flat_dist, order), order, cos,
+                      permute_minor(rel_flat, order))
 
 
 def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
-              cfg: RenderConfig, shading_normal3, relevant, occ_hint):
+              cfg: RenderConfig, shading_normal3, relevant, occ_hint,
+              nee_cache):
     """Direct light by next-event estimation: light_color x rgb x the mean
     unoccluded clamped cosine over ``cfg.n_light_samples`` light samples.
-    ``u``: [S*5, N] uniforms. Returns (direct3 [3, N], occ_hint).
+    ``u``: [S*5, N] uniforms. Returns (direct3 [3, N], occ_hint, nee_cache).
 
     Dense scenes with a light and a sample count that fit it take the
     fused kernel K2. Everything else takes the unfused NEE: the same
     estimator on the [S, N] shadow rays of ``nee_shadow_rays``, whose
-    occlusion runs through ``any_hit_within_cm`` (K4 dense, K9 for the
-    hybrid). ``relevant`` and ``occ_hint`` (last bounce's
-    all-samples-occluded bit, refreshed on return) only order and park the
-    sorted sweep's lanes: radiance is the same either way."""
+    occlusion runs through ``any_hit_within_cm`` (K4 dense, K6 sparse, K9
+    walker and hybrid) or, with the occluder cache, through K7.
+    ``relevant`` and ``occ_hint`` (last bounce's all-samples-occluded bit,
+    refreshed on return) only order and park the sorted sweep's lanes, and
+    ``nee_cache`` (each lane's last blocking cluster, refreshed on return)
+    only orders K7's work: radiance is the same either way."""
     if _fused_nee(scene, cfg):
         mean_cos = nee_mean_cos_fused(
             hit.point3, shading_normal3, u, scene, cfg.n_light_samples
         )[0][0]
         return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], \
-            occ_hint
+            occ_hint, nee_cache
 
     rays = nee_shadow_rays(hit, u, scene, cfg, shading_normal3, relevant,
                            occ_hint)
-    occ_flat = any_hit_within_cm(rays.o3.contiguous(), rays.d3.contiguous(),
-                                 rays.maxd.contiguous(), scene,
-                                 accel=cfg.accel)
+    sweep = [rays.o3.contiguous(), rays.d3.contiguous(),
+             rays.maxd.contiguous(), scene]
+    if _nee_cache_enabled(scene, cfg):
+        # the light samples of a shading point share its guess (they
+        # almost always share the occluder)
+        guess = nee_cache[None, :].expand(rays.cos.shape).reshape(-1)
+        if rays.order is not None:
+            guess = permute_minor(guess, rays.order)
+        occ_flat, blocked = sparse_any_hit_cached_cm(
+            *sweep, guess.contiguous(), relevant=rays.relevant.contiguous())
+        if rays.order is not None:
+            blocked = unpermute_minor(blocked, rays.order)
+        # any sample's blocker refreshes the cache, misses keep the guess
+        upd = blocked.reshape(rays.cos.shape).amax(dim=0)
+        nee_cache = torch.where(upd >= 0, upd, nee_cache)
+    else:
+        occ_flat = any_hit_within_cm(*sweep, accel=cfg.accel)
     if rays.order is not None:
         occ_flat = unpermute_minor(occ_flat, rays.order)
     occluded = occ_flat.reshape(rays.cos.shape)
@@ -249,22 +279,24 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
     occ_hint = occluded.all(dim=0)
     mean_cos = torch.where(occluded, 0.0, rays.cos).sum(dim=0) / float(
         rays.cos.shape[0])
-    return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], occ_hint
+    return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], \
+        occ_hint, nee_cache
 
 
 def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
           cfg: RenderConfig, prev_specular, shading_normal3, alive,
-          occ_hint):
-    """Per-bounce color ([3, N], occ_hint): surface hits pay ambient + NEE;
-    a light hit pays the light color only when the path arrived from the
-    camera or a specular bounce; a miss pays the background when
-    ``use_background`` is set, else 0. Where the shadow-lane sort runs, the
-    NEE parks the shadow rays of lanes whose direct term is discarded
-    (not ``alive``, missed, light hits)."""
+          occ_hint, nee_cache):
+    """Per-bounce color ([3, N], occ_hint, nee_cache): surface hits pay
+    ambient + NEE; a light hit pays the light color only when the path
+    arrived from the camera or a specular bounce; a miss pays the
+    background when ``use_background`` is set, else 0. Where the
+    shadow-lane sort runs, the NEE parks the shadow rays of lanes whose
+    direct term is discarded (not ``alive``, missed, light hits)."""
     relevant = alive & hit.hit & ~hit.is_light
     ambient3 = mat.rgb3 * (mat.ka * scene.ambient)[None, :]
-    direct3, occ_hint = shade_nee(hit, mat, u, scene, cfg, shading_normal3,
-                                  relevant, occ_hint)
+    direct3, occ_hint, nee_cache = shade_nee(
+        hit, mat, u, scene, cfg, shading_normal3, relevant, occ_hint,
+        nee_cache)
     surface3 = ambient3 + direct3
     light3 = torch.where(prev_specular[None, :], scene.light_color[:, None],
                          0.0)
@@ -273,7 +305,7 @@ def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
         miss3 = scene.background[:, None].expand_as(surface3)
     else:
         miss3 = torch.zeros_like(surface3)
-    return torch.where(hit.hit[None, :], color3, miss3), occ_hint
+    return torch.where(hit.hit[None, :], color3, miss3), occ_hint, nee_cache
 
 
 def arrival_side_normal(normal3, d_in3):
@@ -339,9 +371,9 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
     mat = resolve_materials(scene, hit.material)
     # one arrival-side normal for both direct light and scattering
     shading_n3 = arrival_side_normal(hit.normal3, normalize3(state.direction3))
-    color3, occ_hint = shade(hit, mat, u_nee, scene, cfg,
-                             state.prev_specular, shading_n3, state.alive,
-                             state.nee_occ_hint)
+    color3, occ_hint, nee_cache = shade(
+        hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
+        state.alive, state.nee_occ_hint, state.nee_cache)
     contrib3 = torch.where(
         state.alive[None, :], color3 * state.throughput[None, :], 0.0
     )
@@ -361,6 +393,7 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
         counters=state.counters,
         prev_specular=state.alive & chose_spec,
         nee_occ_hint=occ_hint,
+        nee_cache=nee_cache,
     )
 
 
@@ -377,6 +410,7 @@ def init_rays(origins3, directions3, counters) -> RayState:
         counters=counters.to(torch.int64),
         prev_specular=torch.ones(n, dtype=torch.bool, device=device),
         nee_occ_hint=torch.zeros(n, dtype=torch.bool, device=device),
+        nee_cache=torch.full((n,), -1, dtype=torch.int32, device=device),
     )
 
 

@@ -12,8 +12,11 @@ The packing matches ``pathtracerpython_tpu/scene/arrays.py`` leaf for leaf:
 - padding triangles are degenerate and sit at z = 1e8, so even unmasked
   arithmetic on them is inert.
 
-``SceneTensors`` is a frozen dataclass of tensors; ``.to(device)`` moves
-every leaf, and the render runs on the device the leaves live on.
+``SceneTensors`` is a frozen dataclass of tensors; the render runs on the
+device the leaves live on. The constructors (``pack_scene``, ``load_scene``,
+``from_jax_scene``, ``from_numpy_leaves``) build on the card unless the
+caller passes ``device="cpu"``: without a CUDA device they raise instead of
+falling back. ``.to(device)`` moves every leaf.
 """
 
 from __future__ import annotations
@@ -262,21 +265,39 @@ def _pack_numpy(
     return leaves, meta
 
 
-def from_numpy_leaves(leaves: dict[str, np.ndarray],
-                      meta: SceneMeta) -> SceneTensors:
-    """CPU ``SceneTensors`` from a dict of numpy leaves keyed by
-    DATA_FIELDS."""
+def resolve_device(device=None) -> torch.device:
+    """The device a scene is built on: ``device`` when given, else the
+    card. Without a CUDA device the default raises; it never falls back to
+    the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: scenes are built on the card by default; pass "
+            'device="cpu" to build (and render) on the CPU'
+        )
+    return torch.device("cuda")
+
+
+def from_numpy_leaves(leaves: dict[str, np.ndarray], meta: SceneMeta,
+                      device=None) -> SceneTensors:
+    """``SceneTensors`` on ``device`` (None: the card) from a dict of numpy
+    leaves keyed by DATA_FIELDS."""
+    device = resolve_device(device)
     missing = set(DATA_FIELDS) - set(leaves)
     if missing:
         raise ValueError(f"missing scene fields: {sorted(missing)}")
     return SceneTensors(
-        **{f: torch.from_numpy(np.array(leaves[f])) for f in DATA_FIELDS},
+        **{f: torch.from_numpy(np.array(leaves[f])).to(device)
+           for f in DATA_FIELDS},
         meta=meta,
     )
 
 
-def from_jax_scene(leaves: dict[str, np.ndarray], meta) -> SceneTensors:
-    """Build the port's scene from the numpy leaves of a JAX ``SceneArrays``
+def from_jax_scene(leaves: dict[str, np.ndarray], meta,
+                   device=None) -> SceneTensors:
+    """Build the port's scene on ``device`` (None: the card) from the numpy
+    leaves of a JAX ``SceneArrays``
     (``{f: np.asarray(getattr(scene, f)) for f in DATA_FIELDS}``) and its
     ``SceneMeta``, so both packages render the very same buffers. Takes
     only numpy arrays and plain attributes; never imports jax."""
@@ -284,27 +305,29 @@ def from_jax_scene(leaves: dict[str, np.ndarray], meta) -> SceneTensors:
         **{f.name: getattr(meta, f.name)
            for f in dataclasses.fields(SceneMeta)}
     )
-    return from_numpy_leaves(leaves, port_meta)
+    return from_numpy_leaves(leaves, port_meta, device=device)
 
 
 def pack_scene(
     desc: SceneDescription, pad_to: int = 128, dtype=np.float32,
-    tri_order: str | None = None,
+    tri_order: str | None = None, device=None,
 ) -> SceneTensors:
-    """Pack a parsed SDL scene into padded SoA CPU tensors.
+    """Pack a parsed SDL scene into padded SoA tensors on ``device``: the
+    card when None (a ``RuntimeError`` without one), the CPU for
+    ``device="cpu"``.
 
     ``tri_order`` spatially sorts the triangle buffer: "morton" (centroid
-    z-order) or "median" (median-split BVH leaves). Move the result to the
-    card with ``.to("cuda")``.
+    z-order) or "median" (median-split BVH leaves).
     """
+    device = resolve_device(device)  # refuse before the packing work
     leaves, meta = _pack_numpy(desc, pad_to, dtype, tri_order)
-    return from_numpy_leaves(leaves, meta)
+    return from_numpy_leaves(leaves, meta, device=device)
 
 
 def load_scene(
     path: str, pad_to: int = 128, dtype=np.float32,
-    tri_order: str | None = None,
+    tri_order: str | None = None, device=None,
 ) -> SceneTensors:
-    """Parse an SDL file and pack it."""
+    """Parse an SDL file and pack it on ``device`` (None: the card)."""
     return pack_scene(load_sdl(path), pad_to=pad_to, dtype=dtype,
-                      tri_order=tri_order)
+                      tri_order=tri_order, device=device)

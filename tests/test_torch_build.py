@@ -74,7 +74,9 @@ def test_nvcc_flags_keep_plain_rounding():
 def test_sources_are_in_the_package():
     names = sorted(os.path.basename(p) for p in build._sources())
     assert names == ["any_hit.cu", "cluster.cuh", "mt.cuh", "nearest.cu",
-                     "nee.cu", "sparse_nearest.cu", "walker_any_hit.cu"]
+                     "nee.cu", "sparse_any_hit.cu", "sparse_any_hit_idx.cu",
+                     "sparse_nearest.cu", "walker_any_hit.cu",
+                     "walker_nearest.cu"]
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
@@ -114,7 +116,8 @@ def test_cpu_render_runs_the_plain_versions(monkeypatch):
                 (nee, "LAUNCHES"), (sparse, "LAUNCHES"), (walker, "LAUNCHES")]
     for module, name in counters:
         monkeypatch.setattr(module, name, 0)
-    scene = arrays.pack_scene(synthetic.cornell_box_scene(6, 6), pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(6, 6), pad_to=32,
+                              device="cpu")
     for accel in ("none", "hybrid"):
         rad = render(scene, RenderConfig(n_samples=1, n_bounces=2,
                                          accel=accel), seed=0)

@@ -58,8 +58,9 @@ def _scene(name, cuda):
                                                  height=40), 128
     else:  # 2000 boxes: 24,004 triangles in 188 clusters, morton order
         return arrays.pack_scene(synthetic.box_field_scene(
-            n_boxes=2000, width=40, height=40), tri_order="morton").to(cuda)
-    return arrays.pack_scene(desc, pad_to=pad_to).to(cuda)
+            n_boxes=2000, width=40, height=40), tri_order="morton",
+            device=cuda)
+    return arrays.pack_scene(desc, pad_to=pad_to, device=cuda)
 
 
 def _rays(scene, seed=0):
@@ -122,7 +123,8 @@ def test_nee_kernel_matches_plain(cuda, name, s_samples):
 
 
 def test_render_on_card_matches_cpu(cuda):
-    scene = arrays.pack_scene(synthetic.cornell_box_scene(16, 16), pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(16, 16), pad_to=32,
+                              device="cpu")
     cfg = RenderConfig(n_samples=2, n_bounces=3, batch_samples=True)
     k1, k2 = intersect.LAUNCHES, nee.LAUNCHES
     on_card = render(scene.to(cuda), cfg, seed=5)
@@ -180,11 +182,11 @@ def test_sparse_nearest_kernel_matches_plain_and_dense(cuda):
     scene = _scene("boxfield2000", cuda)
     o3, d3u = _rays(scene)
     before = sparse.LAUNCHES
-    t, idx = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene)
+    r_blk = sparse.R_BLK_HYBRID_NEAREST
+    t, idx = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene, r_blk=r_blk)
     assert sparse.LAUNCHES == before + 1
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
-    r_blk = sparse.R_BLK_HYBRID_NEAREST
     nrb = -(-o3.shape[1] // r_blk)
     lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
         (nrb,), intersect.BIG, device=cuda), r_blk)
@@ -219,14 +221,111 @@ def test_walker_any_hit_kernel_matches_plain_and_dense(cuda):
     assert 0.05 < occ.float().mean().item() < 0.95
 
 
-def test_hybrid_render_on_card_matches_cpu(cuda):
+def _launch_counts():
+    return {"K5": sparse.LAUNCHES, "K6": sparse.ANY_HIT_LAUNCHES,
+            "K7": sparse.ANY_HIT_IDX_LAUNCHES, "K8": walker.NEAREST_LAUNCHES,
+            "K9": walker.LAUNCHES}
+
+
+@pytest.mark.parametrize("options,launches", [
+    (dict(), dict(K5=3, K9=3)),                      # "auto": the hybrid
+    (dict(accel="sparse"), dict(K5=3, K6=3)),
+    (dict(accel="sparse", nee_cache="on"), dict(K5=3, K7=6)),
+    (dict(accel="walker"), dict(K8=3, K9=3)),
+])
+def test_hierarchy_render_on_card_matches_cpu(cuda, options, launches):
     scene = arrays.pack_scene(synthetic.box_field_scene(
-        n_boxes=400, width=16, height=16), tri_order="morton")
-    cfg = RenderConfig(n_samples=2, n_bounces=3, batch_samples=True)
-    k5, k9 = sparse.LAUNCHES, walker.LAUNCHES
+        n_boxes=400, width=16, height=16), tri_order="morton", device="cpu")
+    cfg = RenderConfig(n_samples=2, n_bounces=3, batch_samples=True,
+                       **options)
+    before = _launch_counts()
     on_card = render(scene.to(cuda), cfg, seed=5)
-    assert sparse.LAUNCHES == k5 + 3 and walker.LAUNCHES == k9 + 3
+    after = _launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **dict.fromkeys(after, 0), **launches}
     on_cpu = render(scene, cfg, seed=5)
     close = torch.isclose(on_card.cpu(), on_cpu, rtol=RENDER_TOL,
                           atol=RENDER_TOL).all(dim=1)
     assert close.float().mean().item() >= 0.99
+
+
+def test_pack_scene_builds_on_the_card_by_default(cuda):
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32)
+    assert scene.device.type == "cuda"
+
+
+def test_walker_nearest_kernel_matches_plain_dense_and_sparse(cuda):
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u = _rays(scene)
+    before = walker.NEAREST_LAUNCHES
+    t, idx = walker.walker_nearest_t_idx_cm(o3, d3u, scene)
+    assert walker.NEAREST_LAUNCHES == before + 1
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    lists = walker.nearest_lists(aabb8, o3, d3u)
+    plain = walker.walker_nearest_plain(o3, d3u, tripack, aabb8, lists,
+                                        walker.R_BLK)
+    dense = intersect.nearest_t_idx_cm(o3, d3u, scene)
+    sparse5 = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene)
+    torch.cuda.synchronize()
+    assert bool((t[idx < 0] == 0).all()) and (idx >= 0).any()
+    for want_t, want_idx in (plain, dense, sparse5):
+        same = idx == want_idx
+        assert same.float().mean().item() >= MIN_AGREE
+        torch.testing.assert_close(t[same], want_t[same], rtol=T_RTOL,
+                                   atol=T_ATOL)
+
+
+def test_sparse_any_hit_kernel_matches_plain_dense_and_walker(cuda):
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    before = sparse.ANY_HIT_LAUNCHES
+    occ = sparse.sparse_any_hit_cm(o3, d3u, maxd, scene)
+    assert sparse.ANY_HIT_LAUNCHES == before + 1
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    lists = sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK)
+    plain = sparse.sparse_any_hit_plain(o3, d3u, maxd, tripack, aabb8, lists,
+                                        sparse.R_BLK)
+    dense = intersect.any_hit_cm(o3, d3u, maxd, scene)
+    walked = walker.walker_any_hit_cm(o3, d3u, maxd, scene)
+    torch.cuda.synchronize()
+    assert not bool(occ[::10].any())
+    for want in (plain, dense, walked):
+        assert (occ == want).float().mean().item() >= MIN_AGREE
+    assert 0.05 < occ.float().mean().item() < 0.95
+
+
+def test_cached_any_hit_kernel_matches_plain_and_uncached(cuda):
+    """K7 against its plain version on the full lists and on the guess
+    lists of the cache it returned: bits and blocking clusters, the same in
+    two runs; its two passes against K6 for a cold, a returned and a random
+    cache."""
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    n = o3.shape[1]
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    want = sparse.sparse_any_hit_cm(o3, d3u, maxd, scene)
+    cold = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    before = sparse.ANY_HIT_IDX_LAUNCHES
+    occ, cl = sparse.sparse_any_hit_cached_cm(o3, d3u, maxd, scene, cold)
+    assert sparse.ANY_HIT_IDX_LAUNCHES == before + 2   # pass 1 and pass 2
+    assert torch.equal(occ, want) and torch.equal(cl >= 0, occ)
+    rs = np.random.default_rng(3)
+    garbage = torch.from_numpy(rs.integers(-3, 3 * aabb8.shape[0], n).astype(
+        np.int32)).to(cuda)
+    for guess in (cl, garbage):
+        occ2, cl2 = sparse.sparse_any_hit_cached_cm(o3, d3u, maxd, scene,
+                                                    guess)
+        assert torch.equal(occ2, want) and torch.equal(cl2 >= 0, occ2)
+    for lists in (sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK),
+                  sparse.guess_lists(cl, aabb8.shape[0])):
+        args = (o3, d3u, maxd, tripack, aabb8, lists, sparse.R_BLK)
+        k_occ, k_cl = sparse._launch_any_hit_idx(*args)
+        again = sparse._launch_any_hit_idx(*args)
+        p_occ, p_cl = sparse.sparse_any_hit_idx_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k_occ, again[0]) and torch.equal(k_cl, again[1])
+        assert (k_occ == p_occ).float().mean().item() >= MIN_AGREE
+        assert (k_cl == p_cl).float().mean().item() >= MIN_AGREE

@@ -73,7 +73,7 @@ def _rays(scene, seed=0):
 @pytest.mark.parametrize("name", ["cornell", "boxfield48"])
 def test_plain_nearest_matches_jax_kernel(name):
     desc, pad_to = _scenes()[name]
-    scene = arrays.pack_scene(desc, pad_to=pad_to)
+    scene = arrays.pack_scene(desc, pad_to=pad_to, device="cpu")
     ref_scene = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=pad_to)
     o3, d3u = _rays(scene)
     t, idx = intersect.nearest_t_idx_cm(torch.from_numpy(o3),
@@ -107,7 +107,7 @@ def test_duplicate_triangle_smallest_index_wins():
     desc = synthetic.cornell_box_scene(8, 8)
     back = desc.objects[4]
     desc.objects = [back, back] + desc.objects[5:]
-    scene = arrays.pack_scene(desc, pad_to=32)
+    scene = arrays.pack_scene(desc, pad_to=32, device="cpu")
     ref_scene = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=32)
     tri = scene.tri_v0[:2] + scene.tri_v1[:2] + scene.tri_v2[:2]
     centers = (tri / 3.0).numpy()
@@ -124,7 +124,8 @@ def test_duplicate_triangle_smallest_index_wins():
 
 
 def test_nearest_hit_record():
-    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32,
+                              device="cpu")
     o3, d3u = _rays(scene)
     o3, d3 = torch.from_numpy(o3), torch.from_numpy(d3u) * 3.0
     hit = nearest_hit_cm(o3, d3, scene)
@@ -158,7 +159,8 @@ def _inputs(n=8):
     "requires_grad", "dtype", "shape", "mismatch", "noncontiguous", "device",
 ])
 def test_wrapper_refuses_bad_inputs(fault):
-    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32,
+                              device="cpu")
     o3, d3 = _inputs()
     expected = ValueError
     if fault == "requires_grad":
@@ -182,7 +184,7 @@ def test_wrapper_refuses_bad_inputs(fault):
 @pytest.mark.parametrize("name", ["cornell", "boxfield48"])
 def test_plain_any_hit_matches_jax_kernel(name):
     desc, pad_to = _scenes()[name]
-    scene = arrays.pack_scene(desc, pad_to=pad_to)
+    scene = arrays.pack_scene(desc, pad_to=pad_to, device="cpu")
     ref_scene = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=pad_to)
     o3, d3u = _rays(scene, seed=2)
     maxd = np.random.default_rng(3).uniform(0.0, 25.0, o3.shape[1]).astype(
@@ -206,7 +208,8 @@ def test_plain_any_hit_matches_jax_kernel(name):
 
 @pytest.mark.parametrize("fault", ["requires_grad", "maxd_shape", "dtype"])
 def test_any_hit_wrapper_refuses_bad_inputs(fault):
-    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32,
+                              device="cpu")
     o3, d3 = _inputs()
     maxd = torch.ones(8)
     expected = ValueError

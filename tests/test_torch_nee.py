@@ -91,7 +91,7 @@ def _shadow_ray_f64(scene, p, u5):
 @pytest.mark.parametrize("s_samples", [1, 3])
 def test_plain_nee_matches_jax_kernel(s_samples, n_light_tris):
     desc = _desc(n_light_tris)
-    scene = arrays.pack_scene(desc, pad_to=32)
+    scene = arrays.pack_scene(desc, pad_to=32, device="cpu")
     ref_scene = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=32)
     point3, normal3 = _shading_points(scene)
     n = point3.shape[1]
@@ -128,7 +128,7 @@ def test_plain_nee_matches_jax_kernel(s_samples, n_light_tris):
 
 
 def test_light_pack_holds_cumulative_area():
-    scene = arrays.pack_scene(_desc(8), pad_to=32)
+    scene = arrays.pack_scene(_desc(8), pad_to=32, device="cpu")
     pack = nee.light_pack(scene)
     assert tuple(pack.shape) == (8, 12)
     torch.testing.assert_close(pack[:, 9], torch.cumsum(scene.light_area, 0))
@@ -146,7 +146,7 @@ def test_wrapper_refuses_bad_inputs(fault):
     if fault == "big_light":
         desc = dataclasses.replace(desc, light_mesh=synthetic.grid_light(
             6, 6, 3.0, -0.45, 0.45, -24.3, -22.5))  # 72 triangles
-    scene = arrays.pack_scene(desc, pad_to=32)
+    scene = arrays.pack_scene(desc, pad_to=32, device="cpu")
     point3 = torch.zeros(3, 8)
     normal3 = torch.zeros(3, 8)
     normal3[1] = 1.0

@@ -1,15 +1,18 @@
 """The large-scene render path on the CPU: the hybrid hierarchy (K5 nearest,
-K9 any-hit) with wavefront sorting, relevance parking and the shadow-lane
-sort, and the unfused NEE with the dense any-hit K4, against the JAX
-package's ``render(..., backend="pallas")`` (its Pallas kernels in
-interpret mode) and against the port's own dense render.
+K9 any-hit), the sparse hierarchy (K5, K6; K7 with the occluder cache) and
+the walker hierarchy (K8, K9), with wavefront sorting, relevance parking
+and the shadow-lane sort, and the unfused NEE with the dense any-hit K4,
+against the JAX package's ``render(..., backend="pallas")`` (its Pallas
+kernels in interpret mode) and against the port's own dense render.
 
 Tolerances: as tests/test_torch_render.py, radiance within rtol = atol =
 1e-4 on >= 99% of pixels against JAX (XLA:CPU rounds rsqrt, sin and cos
 unlike PyTorch in the last bit). Within the port the hierarchy and the
 sort change no arithmetic of any lane: the hybrid equals the dense render
 to atol 1e-6 (the bound of tests/test_walker.py for the JAX package), and
-a sorted render equals an unsorted one exactly."""
+a sorted render equals an unsorted one exactly. The sparse, cached and
+walker renders are held to 1e-6 of the hybrid's and, on the CPU, where
+every sweep returns the same winners and bits, asserted equal."""
 
 import dataclasses
 
@@ -36,7 +39,7 @@ def _pair(desc, **pack):
     jax_pack = dict(pack)
     if jax_pack.pop("tri_order", None) == "morton":
         jax_pack["morton_order"] = True
-    return (arrays.pack_scene(desc, **pack),
+    return (arrays.pack_scene(desc, **pack, device="cpu"),
             jax_arrays.pack_scene(to_jax_desc(desc), **jax_pack))
 
 
@@ -65,6 +68,79 @@ def _against_jax(pair, seed=5, **cfg):
 def test_hybrid_matches_jax(field, spp, batch):
     _against_jax(field, accel="hybrid", n_samples=spp, n_bounces=2,
                  batch_samples=batch)
+
+
+VARIANTS = {
+    "sparse": dict(accel="sparse"),
+    "sparse_cached": dict(accel="sparse", nee_cache="on"),
+    "walker": dict(accel="walker"),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_hierarchy_matches_jax(field, variant):
+    _against_jax(field, n_samples=2, n_bounces=2, batch_samples=True,
+                 **VARIANTS[variant])
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_hierarchy_equals_hybrid_render(field, variant):
+    """Same winners, same occlusion bits, same permutations: the same
+    radiance, whichever hierarchy sweeps."""
+    scene, _ = field
+    cfg = RenderConfig(accel="hybrid", n_samples=2, n_bounces=3,
+                       batch_samples=True)
+    hybrid = render(scene, cfg, seed=2)
+    other = render(scene, dataclasses.replace(cfg, **VARIANTS[variant]),
+                   seed=2)
+    np.testing.assert_allclose(other.numpy(), hybrid.numpy(), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(other, hybrid)
+
+
+@pytest.mark.parametrize("knob", ["sort_nee", "nee_hint"])
+def test_cache_changes_no_radiance_sorted_or_not(field, knob):
+    """The cache travels with the lanes through the wavefront sort and the
+    shadow-lane sort; unsorted, or with the occlusion hint leading the
+    sort, the render is the same."""
+    scene, _ = field
+    cfg = RenderConfig(accel="sparse", nee_cache="on", n_samples=1,
+                       n_bounces=3)
+    flipped = dataclasses.replace(
+        cfg, **{knob: "off" if knob == "sort_nee" else "on"})
+    uncached = dataclasses.replace(cfg, nee_cache="off")
+    want = render(scene, uncached, seed=9)
+    assert torch.equal(render(scene, cfg, seed=9), want)
+    assert torch.equal(render(scene, flipped, seed=9), want)
+
+
+def test_cache_is_carried_and_refreshed(field, monkeypatch):
+    """Bounce 1 starts cold (-1 everywhere); bounce 2's guesses are the
+    clusters bounce 1 reported, carried through the sort with their
+    lanes."""
+    from pathtracerpython_tpu_torch.render import integrator
+
+    scene, _ = field
+    guesses = []
+    real = integrator.sparse_any_hit_cached_cm
+
+    def spy(o3, d3, maxd, sc, guess, relevant=None):
+        guesses.append(guess.clone())
+        return real(o3, d3, maxd, sc, guess, relevant=relevant)
+
+    monkeypatch.setattr(integrator, "sparse_any_hit_cached_cm", spy)
+    render(scene, RenderConfig(accel="sparse", nee_cache="on", n_samples=1,
+                               n_bounces=2), seed=1)
+    assert len(guesses) == 2
+    assert (guesses[0] == -1).all()
+    assert (guesses[1] >= 0).float().mean() > 0.05
+    assert int(guesses[1].max()) < 8 and guesses[1].dtype == torch.int32
+    # "auto" is off, and the walker hierarchy runs uncached
+    guesses.clear()
+    render(scene, RenderConfig(accel="sparse", n_samples=1, n_bounces=1))
+    render(scene, RenderConfig(accel="walker", nee_cache="on", n_samples=1,
+                               n_bounces=1))
+    assert guesses == []
 
 
 def test_hybrid_equals_dense_render(field):

@@ -94,7 +94,8 @@ def test_sdl_and_obj_parse_like_jax(sdl_path):
 
 @pytest.mark.parametrize("order", ["none", "median"])
 def test_load_scene_equals_jax(sdl_path, order):
-    port = arrays.load_scene(sdl_path, pad_to=32, tri_order=order)
+    port = arrays.load_scene(sdl_path, pad_to=32, tri_order=order,
+                             device="cpu")
     ref = jax_arrays.load_scene(sdl_path, pad_to=32, tri_order=order)
     got, want = port_leaves(port), jax_leaves(ref)
     for f in arrays.DATA_FIELDS:
@@ -118,7 +119,8 @@ ORDERS = ["none", "morton", "median"]
 @pytest.mark.parametrize("name", SCENES)
 def test_pack_scene_leaves_equal_jax(name, order):
     desc, pad_to = _descs()[name]
-    port = arrays.pack_scene(desc, pad_to=pad_to, tri_order=order)
+    port = arrays.pack_scene(desc, pad_to=pad_to, tri_order=order,
+                             device="cpu")
     ref = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=pad_to,
                                 tri_order=order)
     got, want = port_leaves(port), jax_leaves(ref)
@@ -134,7 +136,7 @@ def test_from_jax_scene_reproduces_leaves(name):
     desc, pad_to = _descs()[name]
     ref = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=pad_to,
                                 tri_order="morton")
-    port = arrays.from_jax_scene(jax_leaves(ref), ref.meta)
+    port = arrays.from_jax_scene(jax_leaves(ref), ref.meta, device="cpu")
     got, want = port_leaves(port), jax_leaves(ref)
     for f in arrays.DATA_FIELDS:
         assert got[f].dtype == want[f].dtype, f
@@ -148,21 +150,45 @@ def test_from_jax_scene_rejects_missing_fields():
     leaves = jax_leaves(ref)
     del leaves["light_area"]
     with pytest.raises(ValueError, match="light_area"):
-        arrays.from_jax_scene(leaves, ref.meta)
+        arrays.from_jax_scene(leaves, ref.meta, device="cpu")
 
 
 def test_pack_scene_rejects_incomplete_descriptions():
     desc = synthetic.cornell_box_scene(8, 8)
     with pytest.raises(ValueError, match="no light"):
-        arrays.pack_scene(dataclasses.replace(desc, light_mesh=None))
+        arrays.pack_scene(dataclasses.replace(desc, light_mesh=None),
+                          device="cpu")
     with pytest.raises(ValueError, match="no objects"):
-        arrays.pack_scene(dataclasses.replace(desc, objects=[]))
+        arrays.pack_scene(dataclasses.replace(desc, objects=[]), device="cpu")
     with pytest.raises(ValueError, match="tri_order"):
-        arrays.pack_scene(desc, tri_order="hilbert")
+        arrays.pack_scene(desc, tri_order="hilbert", device="cpu")
+
+
+def test_constructors_default_to_the_card_and_never_fall_back(sdl_path):
+    """Without ``device`` a scene is built on the card; where there is none
+    the constructors raise and say how to ask for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds on it")
+    desc = synthetic.cornell_box_scene(8, 8)
+    ref = jax_arrays.pack_scene(to_jax_desc(desc), pad_to=32)
+    calls = [
+        lambda **kw: arrays.pack_scene(desc, pad_to=32, **kw),
+        lambda **kw: arrays.load_scene(sdl_path, pad_to=32, **kw),
+        lambda **kw: arrays.from_jax_scene(jax_leaves(ref), ref.meta, **kw),
+        lambda **kw: arrays.from_numpy_leaves(
+            jax_leaves(ref), arrays.pack_scene(desc, pad_to=32,
+                                               device="cpu").meta, **kw),
+    ]
+    for build in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+        for device in ("cpu", torch.device("cpu")):
+            assert build(device=device).device == torch.device("cpu")
 
 
 def test_scene_to_device_moves_every_leaf():
-    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32)
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(8, 8), pad_to=32,
+                              device="cpu")
     moved = scene.to(torch.device("cpu"))
     assert moved.meta == scene.meta
     assert moved.device == torch.device("cpu")
@@ -172,7 +198,7 @@ def test_scene_to_device_moves_every_leaf():
 
 def test_cornell_stand_in_layout():
     desc = synthetic.cornell_box_scene(40, 40)
-    scene = arrays.pack_scene(desc, pad_to=32)
+    scene = arrays.pack_scene(desc, pad_to=32, device="cpu")
     assert scene.meta.n_triangles == 36
     assert scene.meta.n_light_triangles == 2
     assert int(scene.tri_occluder.sum()) == 34

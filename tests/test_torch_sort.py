@@ -19,7 +19,7 @@ from torch_parity import to_jax_desc
 @pytest.fixture(scope="module")
 def field():
     desc = synthetic.box_field_scene(n_boxes=80, width=24, height=24)
-    return (arrays.pack_scene(desc, tri_order="morton"),
+    return (arrays.pack_scene(desc, tri_order="morton", device="cpu"),
             jax_arrays.pack_scene(to_jax_desc(desc), morton_order=True))
 
 

@@ -27,6 +27,7 @@ from torch_parity import (
     T_ATOL,
     T_RTOL,
     bary_margin_f64,
+    decode_grouped,
     to_jax_desc,
 )
 
@@ -37,7 +38,7 @@ R_BLK = sparse.R_BLK_HYBRID_NEAREST
 def field():
     """box_field(80): 964 triangles in morton order, 8 clusters."""
     desc = synthetic.box_field_scene(n_boxes=80, width=24, height=24)
-    return (arrays.pack_scene(desc, tri_order="morton"),
+    return (arrays.pack_scene(desc, tri_order="morton", device="cpu"),
             jax_arrays.pack_scene(to_jax_desc(desc), morton_order=True))
 
 
@@ -106,23 +107,6 @@ def test_candidate_enter_hit_matches_jax(field, kind, r_blk):
         assert not jhit[0].any()
 
 
-def _decode_grouped(packs, nrb):
-    """Per-block cluster sets of ``grouped_worklist``'s G-cluster words:
-    word 0 is [seg][active][rb 14][cl 12], follower k is [valid][cl 12]."""
-    sets = [set() for _ in range(nrb)]
-    lead = np.asarray(packs[0])
-    for pos, word in enumerate(lead):
-        if not (word >> sp._ACT_BIT) & 1:
-            continue
-        rb = (word >> sp._CL_BITS) & ((1 << sp._RB_BITS) - 1)
-        sets[rb].add(int(word & ((1 << sp._CL_BITS) - 1)))
-        for follower in packs[1:]:
-            w = int(np.asarray(follower)[pos])
-            if (w >> sp._VAL_BIT) & 1:
-                sets[rb].add(w & ((1 << sp._CL_BITS) - 1))
-    return sets
-
-
 @pytest.mark.parametrize("kind", ["random", "primary", "parked"])
 def test_block_lists_match_grouped_worklist(field, kind):
     scene, ref = field
@@ -140,7 +124,7 @@ def test_block_lists_match_grouped_worklist(field, kind):
         w_cap=nrb * n_clusters, group=2)
     assert not bool(overflow)
     np.testing.assert_array_equal(lists.ncand.numpy(), np.asarray(jncand))
-    want = _decode_grouped(packs, nrb)
+    want = decode_grouped(packs, nrb)
     for b in range(nrb):
         k = int(lists.ncand[b])
         ids = lists.ids[b, :k].tolist()
@@ -173,7 +157,8 @@ def test_plain_sparse_nearest_matches_jax_kernel_and_dense(field, kind):
     scene, ref = field
     o3, d3u = _rays(scene, kind)
     t, idx = sparse.sparse_nearest_t_idx_cm(torch.from_numpy(o3),
-                                            torch.from_numpy(d3u), scene)
+                                            torch.from_numpy(d3u), scene,
+                                            r_blk=R_BLK)
     t, idx = t.numpy(), idx.numpy()
     assert idx.dtype == np.int32 and t.dtype == np.float32
     assert (idx >= 0).mean() > 0.1 and (idx < 0).any()

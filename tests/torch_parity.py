@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 
+from pathtracerpython_tpu.kernels import sparse_pallas as sp
 from pathtracerpython_tpu.scene import obj as jax_obj
 from pathtracerpython_tpu.scene import sdl as jax_sdl
 from pathtracerpython_tpu.scene.arrays import DATA_FIELDS
@@ -84,3 +85,22 @@ def occlusion_margin_f64(tri_v0, tri_v1, tri_v2, o, d, dist,
         best = max(best, min(u, v, 1.0 - u - v, t - t_min,
                              float(dist) - t_min - t))
     return best
+
+
+def decode_grouped(packs, nrb, ordered: bool = False):
+    """Per-block cluster sets (``ordered``: lists in visit order) of the JAX
+    package's G-cluster work words (``grouped_worklist``,
+    ``guess_worklist``): word 0 is [seg][active][rb 14][cl 12], follower k
+    is [valid][cl 12]."""
+    sets = [[] for _ in range(nrb)]
+    lead = np.asarray(packs[0])
+    for pos, word in enumerate(lead):
+        if not (word >> sp._ACT_BIT) & 1:
+            continue
+        rb = (word >> sp._CL_BITS) & ((1 << sp._RB_BITS) - 1)
+        sets[rb].append(int(word & ((1 << sp._CL_BITS) - 1)))
+        for follower in packs[1:]:
+            w = int(np.asarray(follower)[pos])
+            if (w >> sp._VAL_BIT) & 1:
+                sets[rb].append(w & ((1 << sp._CL_BITS) - 1))
+    return sets if ordered else [set(s) for s in sets]
