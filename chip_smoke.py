@@ -30,6 +30,20 @@ phase fails:
      lists and on vote-ordered guess lists, and its two-pass protocol with
      a cold cache, the cache it returned and the cache the render carries,
      against K6;
+   - K3, the Plücker form of the four sweeps that follow the ``mt_impl``
+     knob: dense nearest on the Cornell and box-field wavefronts, dense
+     any-hit on the box field's shadow rays, cluster-sparse nearest and
+     any-hit on the 100k field's sorted wavefronts; each against its plain
+     version (the bounds of K1 / K4), the sparse sweeps against the dense
+     Plücker sweep (max abs diff 0), and each against its classic twin
+     (winners or bits differ on < 0.2% of lanes, every such lane within
+     1e-4 of an edge in float64, t within 2e-4), with the classic twin's
+     time from the same run beside it;
+   - the probes P1 (classic, Plücker on the CUDA cores, Plücker with one
+     pass and with three passes of TF32 mma; 262,144 rays x 512 triangles)
+     and P2 (the classic test in float32 and bf16; 2^20 rays x 512
+     triangles): every variant against its plain version, then the probes'
+     own entry points, whose JSON lines are printed;
 3. the full renders:
    - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
      radiance finite, non-negative and not constant; K1 and K2 launched
@@ -47,17 +61,26 @@ phase fails:
      card against the CPU (also sparse with the cache, and walker), and
      the Cornell stand-in with a 72-triangle light (unfused NEE, K4 once
      per bounce);
+   - under ``mt_impl="plucker"``: the Cornell stand-in (K3's dense nearest
+     once per bounce, K1 never, K2 as before), the 100k field through
+     accel="sparse" (K3's sparse nearest and any-hit, K5 and K6 never) and
+     the hybrid (K3's sparse nearest, K9), and the 72-triangle-light
+     Cornell (K3's dense any-hit), each held against the classic render of
+     the same cell (mean abs diff < 1e-3, 99.9th percentile < 0.05) and,
+     at 32x32, against the CPU render;
 4. timing: ms per render (CUDA events, 2 warm-up renders, median of 10)
    and Mrays/s counted two ways, for the Cornell cell, the 300-box field
    and the 100k-triangle field through the hybrid, sparse, sparse with
-   the cache, and walker hierarchies.
+   the cache, and walker hierarchies (the last two with 5 timed renders),
+   and the Cornell, sparse and hybrid cells under ``mt_impl="plucker"``.
 
 The next-to-last line is a JSON object with one entry per kernel: its
 launches on its main path, its error against its plain version, its time,
 the plain version's, and its bound: the larger of bytes (inputs read once,
 outputs written once) over 3.35 TB/s and ray-triangle pairs x flops per
-pair over 67 TFLOP/s (float32 outside the tensor cores), the pairs being
-what this run's data needs. No single PyTorch call computes a ray-triangle
+pair over 67 TFLOP/s (float32 outside the tensor cores; 495 TFLOP/s for
+the TF32 mma of P1, twice the float32 rate for P2's packed bf16), the pairs
+being what this run's data needs. No single PyTorch call computes a ray-triangle
 sweep, so ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -107,6 +130,18 @@ MIN_OCC_AGREE = 0.9999       # K2, K4, K6, K7, K9: share of equal occlusion bits
 MIN_CL_AGREE = 0.9999        # K7: share of lanes with the same blocking cluster
 VARIANT_ATOL = 1e-6          # sparse / cached / walker render against hybrid
 MC_ATOL = 1e-5               # K2: mean cosine on lanes whose bits agree
+# K3 against its classic twin: the two forms round differently, so winners
+# and bits may differ, but only on rays that graze an edge (the contract of
+# the JAX package's tests/test_plucker.py).
+FORM_MIN_AGREE = 1.0 - 2e-3  # share of lanes with the same winner or bit
+FORM_MARGIN = 1e-4           # float64 barycentric margin of a mismatch
+FORM_T_TOL = 2e-4            # t on lanes with the same winner
+# A Plücker render against the classic render of the same cell.
+POP_MEAN = 1e-3              # mean abs radiance difference
+POP_Q999 = 0.05              # its 99.9th percentile
+# P1's TF32 variants against their plain versions: the tensor core sums the
+# eight products in its own order, so a side within an ulp of 0 may flip.
+MMA_MIN_AGREE = 0.999
 # Card against CPU at 32x32: the CPU's rsqrt, sin and cos round differently
 # in the last bit; the scene keeps those ulps from flipping discrete events.
 RENDER_RTOL = RENDER_ATOL = 1e-4
@@ -124,6 +159,18 @@ PEAK_BYTES_PER_S = 3.35e12
 # more.
 FLOPS_PER_PAIR_TILE = 46
 FLOPS_PER_PAIR_ROW = 52
+# The Plücker test of csrc/plucker.cuh on a precomputed 36-column row: three
+# sides of 6 products and 5 adds (33), n.d 5, the numerator 8, 1 division.
+FLOPS_PER_PAIR_PLUCKER = 47
+# P1's mma variants: per pair 3 sides x K = 8 x 2 on the tensor cores (the
+# two pad columns included, as the instruction computes them) per pass, and
+# the 14 float32 operations of the plane on the CUDA cores.
+PEAK_TF32_FLOPS = 495e12
+MMA_FLOPS_PER_PAIR = 48
+PLANE_FLOPS_PER_PAIR = 14
+# P2's packed bf16 on the CUDA cores: two values a lane, so twice the
+# float32 rate (the card's data sheet has no row of its own for it).
+PEAK_BF16_CORE_FLOPS = 2 * PEAK_FP32_FLOPS
 C_TRI = 128
 
 
@@ -160,6 +207,14 @@ def bound(nbytes: int, pairs: int, flops_per_pair: int) -> tuple[float, str]:
     by_ops = pairs * flops_per_pair / PEAK_FP32_FLOPS * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
+
+
+def bound_ops(nbytes: int, ops_ms: float) -> tuple[float, str]:
+    """``bound`` for work whose operations are of more than one type:
+    ``ops_ms`` is the sum of each type's count over its peak rate."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= by_bytes else (by_bytes,
+                                                               "bytes")
 
 
 def report_row(label, err, ms, plain_ms, bound_, **extra) -> dict:
@@ -281,13 +336,16 @@ def wavefronts(scene, spp: int, **cfg_kw):
     return out
 
 
-def check_winners(what, tripack, o3, d3u, t, idx, want_t, want_idx):
-    """K1's bounds: winners equal on MIN_IDX_AGREE of lanes, every
-    mismatch grazing, t within T_RTOL/T_ATOL on equal winners. Returns
-    (share of equal winners, grazing mismatches, t max abs error)."""
+def check_winners(what, tripack, o3, d3u, t, idx, want_t, want_idx,
+                  min_agree=MIN_IDX_AGREE, margin=GRAZING_MARGIN,
+                  t_tol=T_RTOL):
+    """K1's bounds (or looser ones given): winners equal on ``min_agree``
+    of lanes, every mismatch within ``margin`` of an edge, t within
+    rtol = atol = ``t_tol`` on equal winners. Returns (share of equal
+    winners, grazing mismatches, t max abs error)."""
     same = idx == want_idx
     agree = same.float().mean().item()
-    if agree < MIN_IDX_AGREE:
+    if agree < min_agree:
         fail(f"{what}: winners agree on {agree:.6f} of lanes")
     bad = torch.nonzero(~same).flatten().cpu().numpy()
     if len(bad):
@@ -297,11 +355,11 @@ def check_winners(what, tripack, o3, d3u, t, idx, want_t, want_idx):
         for r in bad:
             margins = [abs(bary_margin_f64(pack, o_np[:, r], d_np[:, r], i))
                        for i in (ik[r], ip[r]) if i >= 0]
-            if not margins or min(margins) >= GRAZING_MARGIN:
+            if not margins or min(margins) >= margin:
                 fail(f"{what}: lane {r} winners {ik[r]} vs {ip[r]} is not "
                      f"grazing (margins {margins})")
-    if not torch.allclose(t[same], want_t[same], rtol=T_RTOL, atol=T_ATOL):
-        fail(f"{what}: t differs beyond rtol/atol {T_RTOL}")
+    if not torch.allclose(t[same], want_t[same], rtol=t_tol, atol=t_tol):
+        fail(f"{what}: t differs beyond rtol/atol {t_tol}")
     return agree, len(bad), (t[same] - want_t[same]).abs().max().item()
 
 
@@ -323,6 +381,115 @@ def check_k1(label, scene, o3, d3u, report) -> None:
         f"{err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
         f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs)")
     report.append(report_row(label, err, k_ms, p_ms, b))
+    return t_k, i_k, k_ms
+
+
+def check_form_bits(what, scene, o3, d3, maxd, occ, classic) -> float:
+    """K3's any-hit bits against its classic twin's: equal on
+    FORM_MIN_AGREE of lanes (the population bound of the JAX package's
+    tests/test_plucker.py). Of up to 64 lanes that differ it reports how
+    many have an occluder whose verdict is within FORM_MARGIN of flipping
+    in float64 by the edge and window measure; a ray that runs in a
+    triangle's plane, where both forms divide rounding noise by rounding
+    noise, is not caught by that measure. Returns the share of equal
+    bits."""
+    same = occ == classic
+    agree = same.float().mean().item()
+    if agree < FORM_MIN_AGREE:
+        fail(f"{what}: bits agree with the classic form on {agree:.6f} of "
+             "lanes")
+    bad = torch.nonzero(~same).flatten()
+    near_edge = 0
+    if len(bad):
+        tri = [x[scene.tri_occluder].double() for x in (
+            scene.tri_v0, scene.tri_v1, scene.tri_v2)]
+        v0, e1, e2 = tri[0], tri[1] - tri[0], tri[2] - tri[0]
+        for r in bad[:64].tolist():
+            o, d = o3[:, r].double(), d3[:, r].double()
+            pv = torch.linalg.cross(d.expand_as(e2), e2)
+            det = (e1 * pv).sum(dim=1)
+            det = torch.where(det.abs() < 1e-300, 1e-300, det)
+            tv = o - v0
+            qv = torch.linalg.cross(tv, e1)
+            u = (tv * pv).sum(dim=1) / det
+            v = (qv * d).sum(dim=1) / det
+            t = (qv * e2).sum(dim=1) / det
+            md = float(maxd[r])
+            # how far each occluder is from blocking (> 0) or not (< 0)
+            room = torch.stack([u, v, 1.0 - u - v, t - 1e-4,
+                                md - 1e-4 - t]).amin(dim=0)
+            near_edge += room.abs().min().item() < FORM_MARGIN
+    log(f"[2] {what} against the classic form: {len(bad)} of "
+        f"{occ.shape[0]} lanes differ; of the first {min(len(bad), 64)}, "
+        f"{near_edge} have an occluder within {FORM_MARGIN} of flipping")
+    return agree
+
+
+def check_k3_nearest(label, scene, o3, d3u, report, classic) -> None:
+    """K3's dense nearest sweep on one wavefront: against its plain version
+    under K1's bounds and against K1 (``classic``: its (t, idx, ms)) under
+    the forms' contract."""
+    from pathtracerpython_tpu_torch.kernels import intersect
+
+    tripack = intersect.scene_tripack(scene)
+    pack36 = intersect.scene_plucker_pack(scene)
+    run = lambda: intersect.nearest_t_idx_cm(o3, d3u, scene,
+                                             mt_impl="plucker")
+    t_k, i_k = run()
+    t_p, i_p = intersect.nearest_t_idx_plucker_plain(o3, d3u, pack36)
+    agree, grazing, err = check_winners(
+        f"K3 nearest {label} against plain", tripack, o3, d3u, t_k, i_k,
+        t_p, i_p)
+    t_c, i_c, c_ms = classic
+    agree_c, grazing_c, err_c = check_winners(
+        f"K3 nearest {label} against K1", tripack, o3, d3u, t_k, i_k, t_c,
+        i_c, min_agree=FORM_MIN_AGREE, margin=FORM_MARGIN, t_tol=FORM_T_TOL)
+    k_ms = cuda_ms(run, 10)
+    p_ms = cuda_ms(lambda: intersect.nearest_t_idx_plucker_plain(
+        o3, d3u, pack36), 3)
+    pairs = o3.shape[1] * int((tripack[:, 9] > 0.5).sum())
+    b = bound(tensor_bytes(o3, d3u, pack36, t_k, i_k), pairs,
+              FLOPS_PER_PAIR_PLUCKER)
+    log(f"[2] K3 nearest {label}: {o3.shape[1]} lanes x {pack36.shape[0]} "
+        f"tris, against plain: winners {agree:.6f} ({grazing} grazing), t "
+        f"max abs err {err:.3g}; against K1: winners {agree_c:.6f} "
+        f"({grazing_c} grazing), t max abs diff {err_c:.3g}; kernel "
+        f"{k_ms:.3f} ms (K1 {c_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
+        f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs)")
+    report.append(report_row(label, err, k_ms, p_ms, b, classic_ms=c_ms,
+                             classic_agree=agree_c))
+
+
+def check_k3_any_hit(label, scene, shadow, report, classic) -> None:
+    """K3's dense any-hit on one wavefront of shadow rays: against its
+    plain version under K4's bound and against K4 (``classic``: its (occ,
+    ms)) under the forms' contract."""
+    from pathtracerpython_tpu_torch.kernels import intersect
+
+    pack36 = intersect.scene_plucker_pack(scene)
+    o3, d3, maxd = (x.contiguous() for x in (shadow.o3, shadow.d3,
+                                              shadow.maxd))
+    run = lambda: intersect.any_hit_cm(o3, d3, maxd, scene,
+                                       mt_impl="plucker")
+    occ = run()
+    plain, p_ms = once_ms(lambda: intersect.any_hit_plucker_plain(
+        o3, d3, maxd, pack36))
+    agree, err = check_bits(f"K3 any-hit {label}", occ, plain)
+    occ_c, c_ms = classic
+    agree_c = check_form_bits(f"K3 any-hit {label}", scene, o3, d3, maxd,
+                              occ, occ_c)
+    k_ms = cuda_ms(run, 10)
+    occluders = int((pack36[:, 31] > 0.5).sum())
+    can = maxd - 1e-4 > 1e-4
+    pairs = int((can & ~plain).sum()) * occluders + int(plain.sum())
+    b = bound(tensor_bytes(o3, d3, maxd, pack36, occ), pairs,
+              FLOPS_PER_PAIR_PLUCKER)
+    log(f"[2] K3 any-hit {label}: {o3.shape[1]} shadow lanes x {occluders} "
+        f"occluders, agrees with plain {agree:.6f}, with K4 {agree_c:.6f}; "
+        f"kernel {k_ms:.3f} ms (K4 {c_ms:.3f} ms), plain {p_ms:.3f} ms, "
+        f"bound {b[0]:.4f} ms by {b[1]}")
+    report.append(report_row(label, err, k_ms, p_ms, b, classic_ms=c_ms,
+                             classic_agree=agree_c))
 
 
 def check_k2(label, scene, point3, normal3, u, report) -> None:
@@ -412,6 +579,7 @@ def check_k4(label, scene, shadow, report) -> None:
         f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by "
         f"{b[1]}")
     report.append(report_row(label, err, k_ms, p_ms, b))
+    return occ, k_ms
 
 
 def block_subset(o3_rows, lists, r_blk, stride, blocks=None):
@@ -433,15 +601,20 @@ def block_subset(o3_rows, lists, r_blk, stride, blocks=None):
 
 
 def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
-                       *, r_blk, wrapper, launch, plain, others=()):
-    """A cluster walk's nearest sweep (K5 or K8) on one wavefront: against
-    its plain version on every ``stride``-th ray block, against the dense
-    K1 (``dense``: its (t, idx, ms)) and against ``others`` [(name, t,
-    idx)] on all lanes. Returns the sweep's (t, idx)."""
+                       *, r_blk, wrapper, launch, plain, others=(),
+                       pack=None, dense_name="K1",
+                       flops=FLOPS_PER_PAIR_ROW):
+    """A cluster walk's nearest sweep (K5, K8 or K3's) on one wavefront:
+    against its plain version on every ``stride``-th ray block, against the
+    dense sweep ``dense_name`` (``dense``: its (t, idx, ms)) and against
+    ``others`` [(name, t, idx)] on all lanes. ``pack``: the pack that
+    ``launch`` and ``plain`` read, when it is not the [T, 12] one.
+    Returns the sweep's (t, idx)."""
     from pathtracerpython_tpu_torch.kernels import intersect, sparse
 
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
+    rows_pack = tripack if pack is None else pack
     n = o3.shape[1]
     nrb = -(-n // r_blk)
     make_lists = lambda: sparse.block_lists(aabb8, o3, d3u, torch.full(
@@ -450,32 +623,34 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
     t_k, i_k = wrapper(o3, d3u, scene)
     lanes, (o_s, d_s), sub = block_subset([o3, d3u], lists, r_blk, stride)
     visits = []
-    (t_p, i_p), p_ms = once_ms(lambda: plain(o_s, d_s, tripack, aabb8, sub,
+    (t_p, i_p), p_ms = once_ms(lambda: plain(o_s, d_s, rows_pack, aabb8, sub,
                                              r_blk, visits))
     agree_p, grazing_p, err = check_winners(
         f"{name} {label} against plain", tripack, o_s, d_s, t_k[lanes],
         i_k[lanes], t_p, i_p)
     t_d, i_d, d_ms = dense
     agree_d, grazing_d, err_d = check_winners(
-        f"{name} {label} against K1", tripack, o3, d3u, t_k, i_k, t_d, i_d)
+        f"{name} {label} against {dense_name}", tripack, o3, d3u, t_k, i_k,
+        t_d, i_d)
     for other, t_o, i_o in others:
         check_winners(f"{name} {label} against {other}", tripack, o3, d3u,
                       t_k, i_k, t_o, i_o)
     k_ms = cuda_ms(lambda: wrapper(o3, d3u, scene), 10)
-    ks_ms = cuda_ms(lambda: launch(o_s, d_s, tripack, aabb8, sub, r_blk), 10)
+    ks_ms = cuda_ms(lambda: launch(o_s, d_s, rows_pack, aabb8, sub, r_blk),
+                    10)
     ka_ms = ks_ms if stride == 1 else cuda_ms(
-        lambda: launch(o3, d3u, tripack, aabb8, lists, r_blk), 10)
+        lambda: launch(o3, d3u, rows_pack, aabb8, lists, r_blk), 10)
     lists_ms = cuda_ms(make_lists, 10)
     # the tail: the same launch without the 1% of blocks with the longest
     # lists (a kernel is as slow as its slowest CTA)
     cut = torch.quantile(lists.ncand.float(), 0.99)
     short = torch.nonzero(lists.ncand <= cut).flatten()
     _, (o_q, d_q), sub_q = block_subset([o3, d3u], lists, r_blk, 1, short)
-    kq_ms = cuda_ms(lambda: launch(o_q, d_q, tripack, aabb8, sub_q, r_blk),
+    kq_ms = cuda_ms(lambda: launch(o_q, d_q, rows_pack, aabb8, sub_q, r_blk),
                     10)
     pairs = int(torch.stack(visits).sum()) * C_TRI
-    b = bound(tensor_bytes(o_s, d_s, tripack, aabb8, *sub, t_p, i_p), pairs,
-              FLOPS_PER_PAIR_ROW)
+    b = bound(tensor_bytes(o_s, d_s, rows_pack, aabb8, *sub, t_p, i_p), pairs,
+              flops)
     nc = lists.ncand.float()
     log(f"[2] {name} {label}: {n} lanes in {nrb} blocks of {r_blk}, "
         f"{aabb8.shape[0]} clusters, candidates per block mean "
@@ -483,7 +658,7 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
         f"{(i_k >= 0).float().mean().item():.4f}; against plain on "
         f"{sub.ncand.shape[0]} of {nrb} blocks ({o_s.shape[1]} lanes): "
         f"winners {agree_p:.6f} ({grazing_p} grazing), t max abs err "
-        f"{err:.3g}; against K1"
+        f"{err:.3g}; against {dense_name}"
         f"{''.join(' and ' + o[0] for o in others)} on all lanes: winners "
         f"{agree_d:.6f} ({grazing_d} grazing), t max abs err {err_d:.3g}")
     log(f"[2] {name} {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
@@ -492,7 +667,8 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
         f"clusters (99%) {kq_ms:.3f} ms; on the subset kernel {ks_ms:.3f} "
         f"ms, "
         f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({pairs} pairs "
-        f"through the per-ray gate); dense K1 on all lanes {d_ms:.3f} ms")
+        f"through the per-ray gate); dense {dense_name} on all lanes "
+        f"{d_ms:.3f} ms")
     report.append(report_row(label, max(err, err_d), ks_ms, p_ms, b,
                              wrapper_ms=k_ms, kernel_all_ms=ka_ms,
                              kernel_short99_ms=kq_ms, lists_ms=lists_ms,
@@ -501,15 +677,19 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
 
 
 def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
-                       *, r_blk, wrapper, launch, plain, others=()):
-    """A cluster walk's shadow any-hit (K6 or K9) on one wavefront: against
-    its plain version on every ``stride``-th ray block, against the dense
-    K4 (``dense``: its (occ, ms)) and against ``others`` [(name, occ)] on
-    all lanes. Returns the sweep's occlusion bits."""
+                       *, r_blk, wrapper, launch, plain, others=(),
+                       pack=None, dense_name="K4",
+                       flops=FLOPS_PER_PAIR_ROW):
+    """A cluster walk's shadow any-hit (K6, K9 or K3's) on one wavefront:
+    against its plain version on every ``stride``-th ray block, against the
+    dense any-hit ``dense_name`` (``dense``: its (occ, ms)) and against
+    ``others`` [(name, occ)] on all lanes. ``pack``: as in
+    ``check_nearest_walk``. Returns the sweep's occlusion bits."""
     from pathtracerpython_tpu_torch.kernels import sparse
 
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
+    tripack = tripack if pack is None else pack
     o3, d3, maxd = (x.contiguous() for x in (shadow.o3, shadow.d3,
                                               shadow.maxd))
     n = o3.shape[1]
@@ -524,7 +704,8 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
     agree_p, err = check_bits(f"{name} {label} against plain", occ[lanes],
                               plain_occ)
     dense_occ, d_ms = dense
-    agree_d, err_d = check_bits(f"{name} {label} against K4", occ, dense_occ)
+    agree_d, err_d = check_bits(f"{name} {label} against {dense_name}", occ,
+                                dense_occ)
     for other, occ_o in others:
         check_bits(f"{name} {label} against {other}", occ, occ_o)
     k_ms = cuda_ms(lambda: wrapper(o3, d3, maxd, scene), 10)
@@ -534,7 +715,7 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
         lambda: launch(o3, d3, maxd, tripack, aabb8, lists, r_blk), 10)
     pairs = int(torch.stack(visits).sum()) * C_TRI
     b = bound(tensor_bytes(o_s, d_s, m_s, tripack, aabb8, *sub, plain_occ),
-              pairs, FLOPS_PER_PAIR_ROW)
+              pairs, flops)
     parked = (maxd == 0).float().mean().item()
     nc = lists.ncand.float()
     log(f"[2] {name} {label}: {n} shadow lanes ({parked:.4f} parked) in "
@@ -542,14 +723,14 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
         f"mean {nc.mean().item():.1f} max {int(nc.max().item())}, occluded "
         f"{occ.float().mean().item():.4f}; against plain on "
         f"{sub.ncand.shape[0]} of {nrb} blocks "
-        f"({o_s.shape[1]} lanes): {agree_p:.6f}; against K4"
+        f"({o_s.shape[1]} lanes): {agree_p:.6f}; against {dense_name}"
         f"{''.join(' and ' + o[0] for o in others)} on all lanes: "
         f"{agree_d:.6f}")
     log(f"[2] {name} {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
         f"kernel on all blocks {ka_ms:.3f} ms; "
         f"on the subset kernel {ks_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
         f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs through the per-ray gate); "
-        f"dense K4 on all lanes {d_ms:.3f} ms")
+        f"dense {dense_name} on all lanes {d_ms:.3f} ms")
     report.append(report_row(label, max(err, err_d), ks_ms, p_ms, b,
                              wrapper_ms=k_ms, kernel_all_ms=ka_ms,
                              dense_ms=d_ms))
@@ -656,19 +837,184 @@ def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
                              warm_ms=warm_ms, carried_ms=carried_ms))
 
 
+def check_k3_sparse(label, scene, o3, d3u, shadow, stride, rows, k5, occ6):
+    """K3's cluster-sparse sweeps on one sorted wavefront of the large
+    scene: each against its plain version on every ``stride``-th block,
+    against the dense Plücker sweep on all lanes (bit for bit, the nearest
+    sweep at blocks of 512 and 1024), and against its classic twin
+    (``k5``: K5's (t, idx) at blocks of 512; ``occ6``: K6's bits) under
+    the forms' contract."""
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse
+
+    tripack = sparse.pack_for_sparse(scene)
+    pack36 = intersect.scene_plucker_pack(scene, sparse.PACK_ROWS)
+    plucker = dict(pack=pack36, dense_name="K3",
+                   flops=FLOPS_PER_PAIR_PLUCKER)
+    (t_d, i_d), d_ms = once_ms(lambda: intersect.nearest_t_idx_cm(
+        o3, d3u, scene, mt_impl="plucker"))
+    t3, i3 = check_nearest_walk(
+        "K3 sparse nearest", label, scene, o3, d3u, stride,
+        rows["K3 sparse nearest"], (t_d, i_d, d_ms), r_blk=sparse.R_BLK,
+        launch=sparse._launch_plucker,
+        plain=sparse.sparse_nearest_plucker_plain,
+        wrapper=lambda o, d, s: sparse.sparse_nearest_t_idx_cm(
+            o, d, s, mt_impl="plucker"), **plucker)
+    t3h, i3h = sparse.sparse_nearest_t_idx_cm(
+        o3, d3u, scene, r_blk=sparse.R_BLK_HYBRID_NEAREST, mt_impl="plucker")
+    for r_blk, t, i in ((sparse.R_BLK, t3, i3),
+                        (sparse.R_BLK_HYBRID_NEAREST, t3h, i3h)):
+        diff = (t - t_d).abs().max().item()
+        if diff != 0.0 or not bool((i == i_d).all()):
+            fail(f"K3 sparse nearest {label}, blocks of {r_blk}: not equal "
+                 f"to the dense Plücker sweep (t max abs diff {diff})")
+    agree_c, grazing_c, err_c = check_winners(
+        f"K3 sparse nearest {label} against K5", tripack, o3, d3u, t3, i3,
+        *k5, min_agree=FORM_MIN_AGREE, margin=FORM_MARGIN, t_tol=FORM_T_TOL)
+    classic_ms = rows["K5@512"][-1]["kernel_all_ms"]
+    rows["K3 sparse nearest"][-1].update(classic_ms=classic_ms,
+                                         classic_agree=agree_c)
+    log(f"[2] K3 sparse nearest {label}: equal to the dense Plücker sweep "
+        f"at blocks of 512 and 1024 (max abs diff 0); against K5: winners "
+        f"{agree_c:.6f} ({grazing_c} grazing), t max abs diff {err_c:.3g}; "
+        f"kernel on all blocks "
+        f"{rows['K3 sparse nearest'][-1]['kernel_all_ms']:.3f} ms (K5 "
+        f"{classic_ms:.3f} ms)")
+
+    sh = [x.contiguous() for x in (shadow.o3, shadow.d3, shadow.maxd)]
+    dense = once_ms(lambda: intersect.any_hit_cm(*sh, scene,
+                                                 mt_impl="plucker"))
+    occ3 = check_any_hit_walk(
+        "K3 sparse any-hit", label, scene, shadow, stride,
+        rows["K3 sparse any-hit"], dense, r_blk=sparse.R_BLK,
+        launch=sparse._launch_plucker_any_hit,
+        plain=sparse.sparse_any_hit_plucker_plain,
+        wrapper=lambda o, d, m, s: sparse.sparse_any_hit_cm(
+            o, d, m, s, mt_impl="plucker"), **plucker)
+    if not bool((occ3 == dense[0]).all()):
+        fail(f"K3 sparse any-hit {label}: not equal to the dense Plücker "
+             "any-hit")
+    agree_c = check_form_bits(f"K3 sparse any-hit {label}", scene, *sh, occ3,
+                              occ6)
+    classic_ms = rows["K6"][-1]["kernel_all_ms"]
+    rows["K3 sparse any-hit"][-1].update(classic_ms=classic_ms,
+                                         classic_agree=agree_c)
+    log(f"[2] K3 sparse any-hit {label}: equal to the dense Plücker any-hit "
+        f"(max abs diff 0); bits agree with K6 on {agree_c:.6f} of lanes; "
+        f"kernel on all blocks "
+        f"{rows['K3 sparse any-hit'][-1]['kernel_all_ms']:.3f} ms (K6 "
+        f"{classic_ms:.3f} ms)")
+
+
+def check_probes(rows) -> None:
+    """Every variant of P1 and P2 at the probes' default sizes against its
+    plain version, with times and bounds."""
+    from pathtracerpython_tpu_torch.kernels.intersect import plucker_pack
+    from pathtracerpython_tpu_torch.probes import bf16_probe, mma_probe
+
+    n, t_count = 262144, 512
+    o3, d3, tripack = mma_probe.make_inputs(n, t_count, 0, "cuda")
+    pack36 = plucker_pack(tripack)
+    pairs = n * t_count
+    for variant in mma_probe.VARIANTS:
+        run = lambda: mma_probe.probe(o3, d3, tripack, variant, pack36)
+        got = run()
+        want, p_ms = once_ms(lambda: mma_probe.probe_plain(o3, d3, tripack,
+                                                           variant))
+        diff = mma_probe.compare(tripack, o3, d3, got, want)
+        on_mma = "tf32" in variant
+        agree = 1.0 - diff["winner_diff_share"]
+        if agree < (MMA_MIN_AGREE if on_mma else MIN_IDX_AGREE):
+            fail(f"P1 {variant}: winners agree with the plain version on "
+                 f"{agree:.6f} of rays")
+        if diff["max_t_err"] > 1e-5:
+            fail(f"P1 {variant}: t differs from the plain version by "
+                 f"{diff['max_t_err']}")
+        k_ms = cuda_ms(run, 10)
+        nbytes = tensor_bytes(o3, d3, tripack if variant == "mt" else pack36,
+                              *got)
+        if on_mma:
+            passes = 3 if variant == "plucker_3xtf32" else 1
+            b = bound_ops(nbytes, pairs * 1e3 * (
+                passes * MMA_FLOPS_PER_PAIR / PEAK_TF32_FLOPS
+                + PLANE_FLOPS_PER_PAIR / PEAK_FP32_FLOPS))
+        else:
+            b = bound(nbytes, pairs, FLOPS_PER_PAIR_TILE if variant == "mt"
+                      else FLOPS_PER_PAIR_PLUCKER)
+        log(f"[2] P1 {variant}: {n} rays x {t_count} tris, winners agree "
+            f"with plain {agree:.6f}, t max abs err {diff['max_t_err']:.3g}; "
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} ms "
+            f"by {b[1]}")
+        rows[f"P1 {variant}"].append(report_row(
+            "probe tile", diff["max_t_err"], k_ms, p_ms, b))
+
+    n = 1 << 20
+    o3, d3, tripack = bf16_probe.make_inputs(n, t_count, 0, "cuda")
+    pairs = n * t_count
+    for variant, peak in (("f32", PEAK_FP32_FLOPS),
+                          ("bf16", PEAK_BF16_CORE_FLOPS)):
+        run = lambda: bf16_probe.hit_count(o3, d3, tripack, variant)
+        got = run()
+        want, p_ms = once_ms(lambda: bf16_probe.hit_count_plain(
+            o3, d3, tripack, variant))
+        same = (got == want).float().mean().item()
+        err = (got - want).abs().max().item()
+        if same < MIN_OCC_AGREE:
+            fail(f"P2 {variant}: hit counts agree with the plain version on "
+                 f"{same:.6f} of rays (max abs diff {err})")
+        k_ms = cuda_ms(run, 10)
+        b = bound_ops(tensor_bytes(o3, d3, tripack, got),
+                      pairs * FLOPS_PER_PAIR_TILE / peak * 1e3)
+        log(f"[2] P2 {variant}: {n} rays x {t_count} tris, hit counts agree "
+            f"with plain on {same:.6f} of rays, max abs diff {err:.3g}; "
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} ms "
+            f"by {b[1]}")
+        rows[f"P2 {variant}"].append(report_row("probe tile", err, k_ms,
+                                                p_ms, b))
+
+
+def pack_build_cost(scene) -> None:
+    """What deriving the Plücker packs costs: device kernels and ms of one
+    ``plucker_pack`` of the scene's padded pack. A render pays it once per
+    scene (``scene_plucker_pack`` caches), not once per bounce."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse
+
+    tripack = sparse.pack_for_sparse(scene)
+    ms = cuda_ms(lambda: intersect.plucker_pack(tripack), 5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        intersect.plucker_pack(tripack)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    log(f"[2] Plücker packs of {tripack.shape[0]} rows: {launches} device "
+        f"kernels, {ms:.3f} ms, once per scene")
+
+
+K3_KEYS = ("K3 nearest", "K3 any-hit", "K3 sparse nearest",
+           "K3 sparse any-hit")
+P1_KEYS = ("P1 mt", "P1 plucker_fma", "P1 plucker_tf32", "P1 plucker_3xtf32")
+P2_KEYS = ("P2 f32", "P2 bf16")
+
+
 def phase2_kernels(scenes, large) -> dict:
     from pathtracerpython_tpu_torch.kernels import intersect, sparse, walker
 
     rows = {k: [] for k in ("K1", "K2", "K4", "K5", "K5@512", "K6", "K7",
-                            "K8", "K9")}
+                            "K8", "K9", *K3_KEYS, *P1_KEYS, *P2_KEYS)}
     for name, scene in scenes:
         for b, (o3, d3u, p3, n3, u, shadow, _) in enumerate(
                 wavefronts(scene, CORNELL_SPP), start=1):
             label = f"{name} bounce {b}"
-            check_k1(label, scene, o3, d3u, rows["K1"])
+            k1 = check_k1(label, scene, o3, d3u, rows["K1"])
+            check_k3_nearest(label, scene, o3, d3u, rows["K3 nearest"], k1)
             check_k2(label, scene, p3, n3, u, rows["K2"])
             if name == "boxfield":
-                check_k4(label, scene, shadow, rows["K4"])
+                k4 = check_k4(label, scene, shadow, rows["K4"])
+                check_k3_any_hit(label, scene, shadow, rows["K3 any-hit"],
+                                 k4)
     # the wavefronts of the sparse render with the occluder cache: the rays
     # are every hierarchy's (the sweeps agree bit for bit), and the lanes
     # carry the cache into the second bounce
@@ -687,8 +1033,9 @@ def phase2_kernels(scenes, large) -> dict:
             plain=sparse.sparse_nearest_plain,
             wrapper=lambda o, d, s: sparse.sparse_nearest_t_idx_cm(
                 o, d, s, r_blk=r1024))
-        check_nearest_walk(
-            "K5@512", label, large, o3, d3u, stride, rows["K5@512"], dense, r_blk=sparse.R_BLK, launch=sparse._launch,
+        k5 = check_nearest_walk(
+            "K5@512", label, large, o3, d3u, stride, rows["K5@512"], dense,
+            r_blk=sparse.R_BLK, launch=sparse._launch,
             plain=sparse.sparse_nearest_plain,
             wrapper=sparse.sparse_nearest_t_idx_cm)
         check_nearest_walk(
@@ -710,6 +1057,9 @@ def phase2_kernels(scenes, large) -> dict:
             wrapper=sparse.sparse_any_hit_cm, others=[("K9", occ9)])
         check_k7(label, large, shadow, cache if b > 1 else None, occ6,
                  stride, rows["K7"])
+        check_k3_sparse(label, large, o3, d3u, shadow, stride, rows, k5, occ6)
+    pack_build_cost(large)
+    check_probes(rows)
     return rows
 
 
@@ -720,6 +1070,8 @@ def reset_launches() -> None:
     nee.LAUNCHES = sparse.LAUNCHES = walker.LAUNCHES = 0
     sparse.ANY_HIT_LAUNCHES = sparse.ANY_HIT_IDX_LAUNCHES = 0
     walker.NEAREST_LAUNCHES = 0
+    intersect.PLUCKER_LAUNCHES = intersect.PLUCKER_ANY_HIT_LAUNCHES = 0
+    sparse.PLUCKER_LAUNCHES = sparse.PLUCKER_ANY_HIT_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -728,7 +1080,11 @@ def read_launches() -> dict:
     return {"K1": intersect.LAUNCHES, "K2": nee.LAUNCHES,
             "K4": intersect.ANY_HIT_LAUNCHES, "K5": sparse.LAUNCHES,
             "K6": sparse.ANY_HIT_LAUNCHES, "K7": sparse.ANY_HIT_IDX_LAUNCHES,
-            "K8": walker.NEAREST_LAUNCHES, "K9": walker.LAUNCHES}
+            "K8": walker.NEAREST_LAUNCHES, "K9": walker.LAUNCHES,
+            "K3 nearest": intersect.PLUCKER_LAUNCHES,
+            "K3 any-hit": intersect.PLUCKER_ANY_HIT_LAUNCHES,
+            "K3 sparse nearest": sparse.PLUCKER_LAUNCHES,
+            "K3 sparse any-hit": sparse.PLUCKER_ANY_HIT_LAUNCHES}
 
 
 def check_radiance(label, rad, pixels) -> None:
@@ -770,6 +1126,40 @@ def hold_close(label, got, want) -> None:
         fail(f"{label}: agree on only {share:.4f} of pixels")
 
 
+def hold_population(label, got, want) -> None:
+    """A Plücker render against the classic render of the same cell: the
+    estimator and the random numbers are the same, only grazing winners
+    differ, so the radiance differs on few pixels."""
+    diff = (got - want).abs()
+    mean = diff.mean().item()
+    q999 = torch.quantile(diff.flatten(), 0.999).item()
+    differing = (diff.amax(dim=1) > 0).float().mean().item()
+    log(f"[3] {label}: mean abs diff {mean:.3g}, 99.9th percentile "
+        f"{q999:.3g}, max {diff.max().item():.3g}, pixels that differ "
+        f"{differing:.6f}")
+    if mean >= POP_MEAN or q999 >= POP_Q999:
+        fail(f"{label}: mean abs diff {mean} (limit {POP_MEAN}), 99.9th "
+             f"percentile {q999} (limit {POP_Q999})")
+
+
+def phase3_probes() -> dict:
+    """The probes through their own entry points at their default sizes,
+    with the launch counts set to 0 just before and read just after; their
+    JSON lines are printed. P1's entry asserts its gate itself."""
+    from pathtracerpython_tpu_torch.probes import bf16_probe, mma_probe
+
+    launches = {}
+    for key, module in (("P1", mma_probe), ("P2", bf16_probe)):
+        for variant in module.VARIANTS:
+            module.LAUNCHES[variant] = 0
+        for row in module.run():
+            log(f"[3] {key} " + json.dumps(row))
+        for variant in module.VARIANTS:
+            launches[f"{key} {variant}"] = module.LAUNCHES[variant]
+    log(f"[3] probes: launches {launches}")
+    return launches
+
+
 def phase3_render(cornell, large) -> dict:
     """The main paths, each driven with the launch counts set to 0 just
     before it and read just after; returns each kernel's launches in its
@@ -783,7 +1173,8 @@ def phase3_render(cornell, large) -> dict:
         grid_light,
     )
 
-    none = dict.fromkeys(("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K9"), 0)
+    none = dict.fromkeys(("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K9",
+                          *K3_KEYS), 0)
     cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
                        n_bounces=CORNELL_BOUNCES,
                        n_light_samples=NEE_SAMPLES, batch_samples=True)
@@ -792,14 +1183,25 @@ def phase3_render(cornell, large) -> dict:
         f"{CORNELL_BOUNCES} bounces", cornell, cfg,
         {**none, "K1": CORNELL_BOUNCES, "K2": CORNELL_BOUNCES})
     check_radiance("Cornell stand-in", rad, CORNELL_SIZE * CORNELL_SIZE)
+    plucker_counts = {}
+    rad_p, plucker_counts["cornell"] = render_counted(
+        "Cornell stand-in, mt_impl='plucker'", cornell,
+        dataclasses.replace(cfg, mt_impl="plucker"),
+        {**none, "K3 nearest": CORNELL_BOUNCES, "K2": CORNELL_BOUNCES})
+    check_radiance("Cornell stand-in, mt_impl='plucker'", rad_p,
+                   CORNELL_SIZE * CORNELL_SIZE)
+    hold_population("Cornell stand-in, Plücker against classic", rad_p, rad)
 
     small_scene = pack_scene(cornell_box_scene(32, 32), pad_to=32,
                              device="cpu")
     small_cfg = RenderConfig(mode="fast", n_samples=2, n_bounces=4,
                              n_light_samples=NEE_SAMPLES, batch_samples=True)
-    hold_close("Cornell 32x32x2spp card vs CPU",
-               render(small_scene.to("cuda"), small_cfg, seed=0).cpu(),
-               render(small_scene, small_cfg, seed=0))
+    for what, c in (("", small_cfg),
+                    (" mt_impl='plucker'",
+                     dataclasses.replace(small_cfg, mt_impl="plucker"))):
+        hold_close(f"Cornell 32x32x2spp{what} card vs CPU",
+                   render(small_scene.to("cuda"), c, seed=0).cpu(),
+                   render(small_scene, c, seed=0))
 
     large_cfg = RenderConfig(mode="fast", n_samples=LARGE_SPP,
                              n_bounces=LARGE_BOUNCES,
@@ -816,7 +1218,8 @@ def phase3_render(cornell, large) -> dict:
     # the same render through the other hierarchies. K7 runs twice per
     # bounce, whatever the cache holds: pass 1 over the guess lists, then
     # pass 2 over the full lists (compacted or whole)
-    variant_counts = {}
+    variant_counts, variant_rad = {"accel='auto'": large_counts}, {
+        "accel='auto'": rad}
     for what, kw, want in (
         ("accel='sparse'", dict(accel="sparse"),
          {"K5": LARGE_BOUNCES, "K6": LARGE_BOUNCES}),
@@ -829,6 +1232,7 @@ def phase3_render(cornell, large) -> dict:
         rad_v, variant_counts[what] = render_counted(
             f"100k box field, {what}", large,
             dataclasses.replace(large_cfg, **kw), {**none, **want})
+        variant_rad[what] = rad_v
         check_radiance(f"100k box field, {what}", rad_v,
                        CORNELL_SIZE * CORNELL_SIZE)
         diff = (rad_v - rad).abs().max().item()
@@ -837,6 +1241,24 @@ def phase3_render(cornell, large) -> dict:
         if diff > VARIANT_ATOL:
             fail(f"100k box field, {what}: max abs diff {diff} from the "
                  f"hybrid render exceeds {VARIANT_ATOL}")
+
+    # the same cells under the knob: the sparse hierarchy runs both of K3's
+    # sparse sweeps; the hybrid its nearest sweep and the classic K9
+    for what, kw, want in (
+        ("accel='sparse'", dict(accel="sparse"),
+         {"K3 sparse nearest": LARGE_BOUNCES,
+          "K3 sparse any-hit": LARGE_BOUNCES}),
+        ("accel='auto'", {},
+         {"K3 sparse nearest": LARGE_BOUNCES, "K9": LARGE_BOUNCES}),
+    ):
+        label = f"100k box field, {what}, mt_impl='plucker'"
+        rad_v, plucker_counts[what] = render_counted(
+            label, large,
+            dataclasses.replace(large_cfg, mt_impl="plucker", **kw),
+            {**none, **want})
+        check_radiance(label, rad_v, CORNELL_SIZE * CORNELL_SIZE)
+        hold_population(f"100k box field, {what}, Plücker against classic",
+                        rad_v, variant_rad[what])
 
     size = HYBRID_CHECK_SIZE
     field = pack_scene(box_field_scene(n_boxes=FIELD_BOXES, width=size,
@@ -861,7 +1283,11 @@ def phase3_render(cornell, large) -> dict:
     for what, kw in (("hybrid", dict(accel="hybrid")),
                      ("sparse with the cache",
                       dict(accel="sparse", nee_cache="on")),
-                     ("walker", dict(accel="walker"))):
+                     ("walker", dict(accel="walker")),
+                     ("sparse mt_impl='plucker'",
+                      dict(accel="sparse", mt_impl="plucker")),
+                     ("hybrid mt_impl='plucker'",
+                      dict(accel="hybrid", mt_impl="plucker"))):
         field_cfg_v = dataclasses.replace(small_cfg, n_bounces=3, **kw)
         hold_close(f"box field 400 32x32x2spp {what} card vs CPU",
                    render(small_field.to("cuda"), field_cfg_v, seed=0).cpu(),
@@ -877,7 +1303,21 @@ def phase3_render(cornell, large) -> dict:
         big_light, dataclasses.replace(cfg, n_samples=1),
         {**none, "K1": CORNELL_BOUNCES, "K4": CORNELL_BOUNCES})
     check_radiance("72-triangle light", rad, 64 * 64)
-    return {"K1": cornell_counts["K1"], "K2": cornell_counts["K2"],
+    rad_p, plucker_counts["light"] = render_counted(
+        "Cornell stand-in 64x64 with the 72-triangle light, "
+        "mt_impl='plucker'", big_light,
+        dataclasses.replace(cfg, n_samples=1, mt_impl="plucker"),
+        {**none, "K3 nearest": CORNELL_BOUNCES,
+         "K3 any-hit": CORNELL_BOUNCES})
+    check_radiance("72-triangle light, mt_impl='plucker'", rad_p, 64 * 64)
+    hold_population("72-triangle light, Plücker against classic", rad_p, rad)
+    return {"K3 nearest": plucker_counts["cornell"]["K3 nearest"],
+            "K3 any-hit": plucker_counts["light"]["K3 any-hit"],
+            "K3 sparse nearest":
+                plucker_counts["accel='sparse'"]["K3 sparse nearest"],
+            "K3 sparse any-hit":
+                plucker_counts["accel='sparse'"]["K3 sparse any-hit"],
+            "K1": cornell_counts["K1"], "K2": cornell_counts["K2"],
             "K4": light_counts["K4"], "K5": large_counts["K5"],
             "K6": variant_counts["accel='sparse'"]["K6"],
             "K7": variant_counts["accel='sparse', nee_cache='on'"]["K7"],
@@ -885,7 +1325,7 @@ def phase3_render(cornell, large) -> dict:
             "K9": large_counts["K9"]}
 
 
-def time_render(label, scene, spp, bounces, **cfg_kw) -> dict:
+def time_render(label, scene, spp, bounces, reps: int = 10, **cfg_kw) -> dict:
     from pathtracerpython_tpu_torch.render.config import RenderConfig
     from pathtracerpython_tpu_torch.render.integrator import render
 
@@ -894,7 +1334,7 @@ def time_render(label, scene, spp, bounces, **cfg_kw) -> dict:
                        **cfg_kw)
     seeds = iter(range(1000))
     times = timed_runs(lambda: render(scene, cfg, seed=next(seeds)),
-                      warmup=2, reps=10)
+                      warmup=2, reps=reps)
     ms = statistics.median(times)
     pixels = scene.meta.width * scene.meta.height
     segments = pixels * spp * bounces
@@ -903,16 +1343,51 @@ def time_render(label, scene, spp, bounces, **cfg_kw) -> dict:
         "cell": label, "triangles": scene.meta.n_triangles,
         "padded_triangles": scene.num_padded_triangles,
         "ms_per_render": ms, "ms_min": min(times), "ms_max": max(times),
+        "timed_renders": reps,
         "mrays_per_s_all": all_rays / (ms * 1e3),
         "mrays_per_s_segments": segments / (ms * 1e3),
     }
-    log(f"[4] {label}: {ms:.3f} ms/render (median of 10; min {min(times):.3f},"
+    log(f"[4] {label}: {ms:.3f} ms/render (median of {reps}; min {min(times):.3f},"
         f" max {max(times):.3f}); {row['mrays_per_s_all']:.2f} Mrays/s all "
         f"rays, {row['mrays_per_s_segments']:.2f} Mrays/s path segments")
     return row
 
 
-def profile_render(label, scene, spp, bounces, render_ms, **cfg_kw) -> dict:
+def time_in_turns(label, scene, spp, bounces, **cfg_kw) -> list[dict]:
+    """A cell in its classic and its Plücker form, timed in turns on the
+    same card in one run (classic, Plücker, Plücker, classic; 5 renders a
+    turn after 2 warm-up renders each, median of each form's 10), which is
+    how two versions are compared: a cell timed minutes apart meets another
+    host load."""
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    label = label.removesuffix(" plucker")
+    seeds = iter(range(1000))
+    runs = {}
+    for form in ("classic", "plucker"):
+        cfg = RenderConfig(mode="fast", n_samples=spp, n_bounces=bounces,
+                           n_light_samples=NEE_SAMPLES, batch_samples=True,
+                           mt_impl=form, **cfg_kw)
+        runs[form] = (lambda cfg=cfg: render(scene, cfg, seed=next(seeds)))
+    times = {"classic": [], "plucker": []}
+    for form in ("classic", "plucker"):
+        timed_runs(runs[form], warmup=2, reps=0)
+    for form in ("classic", "plucker", "plucker", "classic"):
+        times[form] += timed_runs(runs[form], warmup=0, reps=5)
+    rows = []
+    for form in ("classic", "plucker"):
+        ms = statistics.median(times[form])
+        rows.append({"cell": f"{label} {form}, in turns",
+                     "ms_per_render": ms, "ms_min": min(times[form]),
+                     "ms_max": max(times[form]), "timed_renders": 10})
+        log(f"[4] {label} {form}, in turns: {ms:.3f} ms/render (median of "
+            f"10; min {min(times[form]):.3f}, max {max(times[form]):.3f})")
+    return rows
+
+
+def profile_render(label, scene, spp, bounces, render_ms, reps: int = 10,
+                   **cfg_kw) -> dict:
     """One render under torch.profiler: device-busy time split into the
     port's kernels and PyTorch's own, the device's idle share against the
     untraced median ``render_ms``, and the busiest kernels."""
@@ -937,10 +1412,11 @@ def profile_render(label, scene, spp, bounces, render_ms, **cfg_kw) -> dict:
                if e.device_type == DeviceType.CUDA]
     if not kernels:
         fail(f"profile {label}: the trace shows no device kernel")
-    busy_us = {k: 0.0 for k in ("K1", "K2", "K4", "K5", "K6", "K7", "K8",
-                                "K9", "torch")}
+    busy_us = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7",
+                                "K8", "K9", "torch")}
     for e in kernels:
-        group = ("K5" if "sparse_nearest_kernel" in e.key else
+        group = ("K3" if "PluckerForm" in e.key else
+                 "K5" if "sparse_nearest_kernel" in e.key else
                  "K6" if "sparse_any_hit_kernel" in e.key else
                  "K7" if ("sparse_any_hit_idx_kernel" in e.key
                           or "blocking_cluster_kernel" in e.key) else
@@ -998,7 +1474,7 @@ def main() -> None:
         f"{large.num_padded_triangles} padded, morton order); no scene file "
         "is read")
     rows = phase2_kernels([("cornell", cornell), ("boxfield", field)], large)
-    launches = phase3_render(cornell, large)
+    launches = {**phase3_render(cornell, large), **phase3_probes()}
     large_label = (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp "
                    f"{LARGE_BOUNCES}b")
     cell_args = [
@@ -1010,24 +1486,40 @@ def main() -> None:
         ((large_label + " sparse", large, LARGE_SPP, LARGE_BOUNCES),
          dict(accel="sparse")),
         ((large_label + " sparse+cache", large, LARGE_SPP, LARGE_BOUNCES),
-         dict(accel="sparse", nee_cache="on")),
+         dict(accel="sparse", nee_cache="on", reps=5)),
         ((large_label + " walker", large, LARGE_SPP, LARGE_BOUNCES),
-         dict(accel="walker")),
+         dict(accel="walker", reps=5)),
+        ((f"cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp {CORNELL_BOUNCES}b "
+          "plucker", cornell, CORNELL_SPP, CORNELL_BOUNCES),
+         dict(mt_impl="plucker")),
+        ((large_label + " sparse plucker", large, LARGE_SPP, LARGE_BOUNCES),
+         dict(accel="sparse", mt_impl="plucker")),
+        ((large_label + " hybrid plucker", large, LARGE_SPP, LARGE_BOUNCES),
+         dict(mt_impl="plucker")),
     ]
     cells = [time_render(*args, **kw) for args, kw in cell_args]
     log("[4] cells " + json.dumps(cells))
+    turns = [row for (args, kw) in cell_args if kw.get("mt_impl")
+             for row in time_in_turns(*args, **{
+                 k: v for k, v in kw.items() if k != "mt_impl"})]
+    log("[4] classic and Plücker in turns " + json.dumps(turns))
     if "--profile" in sys.argv[1:]:
         prof = [profile_render(*args, c["ms_per_render"], **kw)
                 for (args, kw), c in zip(cell_args, cells)]
         log("[profile] " + json.dumps(prof))
     log("[2] sweep x hierarchy " + json.dumps(
         {k: [{f: r[f] for f in r if f not in ("err",)} for r in rows[k]]
-         for k in ("K5", "K5@512", "K8", "K6", "K7", "K9")}))
+         for k in ("K5", "K5@512", "K8", "K6", "K7", "K9",
+                   "K3 sparse nearest", "K3 sparse any-hit")}))
+    log("[2] K3 beside its classic twins " + json.dumps(
+        {k: [{f: r[f] for f in ("label", "ms", "classic_ms", "classic_agree")}
+             for r in rows[k]] for k in ("K3 nearest", "K3 any-hit")}))
 
     # each kernel at its main path's first wavefront: K1, K2 the Cornell
     # primary rays, K4 the 300-box field's first shadow rays, K5 to K9 the
     # 100k field's first bounce (every block, the lists built beforehand
-    # for kernel and plain alike; K7 on the full lists)
+    # for kernel and plain alike; K7 on the full lists); K3's four sweeps
+    # beside their classic twins' wavefronts; P1 and P2 on their own tiles
     kernels = []
     for key, entry, src, replaces in (
         ("K1", "K1 nearest_t_idx_cm", "nearest.cu",
@@ -1046,6 +1538,20 @@ def main() -> None:
          "pathtracerpython_tpu/kernels/walker_pallas.py:340"),
         ("K9", "K9 walker_any_hit_cm", "walker_any_hit.cu",
          "pathtracerpython_tpu/kernels/walker_pallas.py:374"),
+        ("K3 nearest", "K3 nearest_t_idx_cm mt_impl=plucker", "nearest.cu",
+         "pathtracerpython_tpu/kernels/intersect_pallas.py:489"),
+        ("K3 any-hit", "K3 any_hit_cm mt_impl=plucker", "any_hit.cu",
+         "pathtracerpython_tpu/kernels/intersect_pallas.py:599"),
+        ("K3 sparse nearest", "K3 sparse_nearest_t_idx_cm mt_impl=plucker",
+         "sparse_nearest.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1694"),
+        ("K3 sparse any-hit", "K3 sparse_any_hit_cm mt_impl=plucker",
+         "sparse_any_hit.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1804"),
+        *((key, f"{key} probes.mma_probe", "probe_plucker.cu",
+           "scripts/mxu_probe.py:136") for key in P1_KEYS),
+        *((key, f"{key} probes.bf16_probe", "probe_bf16.cu",
+           "scripts/bf16_probe.py:82") for key in P2_KEYS),
     ):
         first = rows[key][0]
         kernels.append({

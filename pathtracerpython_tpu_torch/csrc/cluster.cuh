@@ -70,14 +70,18 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ box,
 }
 
 // Starts the asynchronous copy (cp.async, 16 bytes a thread at a time) of
-// cluster ``cl``'s 128 packed rows into ``dst``; every thread of the CTA
-// takes part. The rows of a cluster are contiguous in the pack and 16-byte
-// aligned (6144 bytes each cluster, the pack from a PyTorch allocation).
+// cluster ``cl``'s 128 packed rows of ``Cols`` floats into ``dst``; every
+// thread of the CTA takes part. The rows of a cluster are contiguous in the
+// pack and 16-byte aligned (6144 bytes each cluster of the 12-column pack,
+// 18432 of the 36-column Plücker pack; the pack from a PyTorch allocation).
+template <int Cols = kPackCols>
 __device__ __forceinline__ void stage_cluster(float* dst,
                                               const float* __restrict__ pack,
                                               int cl) {
-  const float* src = pack + static_cast<size_t>(cl) * kClusterFloats;
-  for (int k = threadIdx.x; k < kClusterFloats / 4; k += blockDim.x)
+  constexpr int kFloats = kClusterTris * Cols;
+  static_assert(kFloats % 4 == 0, "a cluster is copied 16 bytes at a time");
+  const float* src = pack + static_cast<size_t>(cl) * kFloats;
+  for (int k = threadIdx.x; k < kFloats / 4; k += blockDim.x)
     __pipeline_memcpy_async(dst + 4 * k, src + 4 * k, 16);
   __pipeline_commit();
 }

@@ -103,4 +103,42 @@ __device__ __forceinline__ bool mt_hit_row(const float* p, float ox,
                  t_out);
 }
 
+// The classic form as the sweeps' template parameter (nearest.cu,
+// any_hit.cu, sparse_nearest.cu, sparse_any_hit.cu); PluckerForm
+// (plucker.cuh) is the other. A form names its pack layout, its
+// shared-memory tile, what it keeps per ray, and the pair test against a
+// tile row or a staged packed row.
+struct ClassicForm {
+  using Tile = TriTile;
+  struct Ray {
+    float ox, oy, oz, dx, dy, dz;
+  };
+  static constexpr int kCols = kPackCols;
+  static constexpr int kValid = kValidCol;
+  static constexpr int kOccluder = kOccluderCol;
+
+  static __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                                 float dx, float dy,
+                                                 float dz) {
+    return Ray{ox, oy, oz, dx, dy, dz};
+  }
+  static __device__ __forceinline__ void load(Tile& tile,
+                                              const float* __restrict__ pack,
+                                              int base, int rows,
+                                              int mask_col) {
+    load_tile(tile, pack, base, rows, mask_col);
+  }
+  static __device__ __forceinline__ bool use(const Tile& tile, int j) {
+    return tile.use[j];
+  }
+  static __device__ __forceinline__ bool hit(const Tile& tile, int j,
+                                             const Ray& r, float& t_out) {
+    return mt_hit(tile, j, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t_out);
+  }
+  static __device__ __forceinline__ bool hit_row(const float* p, const Ray& r,
+                                                 float& t_out) {
+    return mt_hit_row(p, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t_out);
+  }
+};
+
 }  // namespace ptt

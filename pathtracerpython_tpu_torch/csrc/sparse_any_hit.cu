@@ -1,9 +1,13 @@
-// K6: cluster-sparse shadow any-hit over each ray block's candidate
-// clusters, the slots of a block's list taken in parallel.
+// K6 and K3's cluster-sparse any-hit: shadow any-hit over each ray block's
+// candidate clusters, the slots of a block's list taken in parallel, in the
+// classic form (K6) and in the Plücker form (K3, plucker.cuh: the staged
+// rows are the 36-column Plücker pack's); the form is the kernel's template
+// parameter, the walk is the same.
 //
 // Replaces the TPU kernel pathtracerpython_tpu/kernels/sparse_pallas.py
 // _any_hit_chunk (the pallas_call over _make_grouped_any_hit_kernel, and the
-// ungrouped _sparse_any_hit_kernel).
+// ungrouped _sparse_any_hit_kernel; under MT_IMPL = "plucker" over
+// _make_grouped_any_hit_kernel_plucker).
 //
 // Input: blocks of r_blk shadow rays, each with its maximum distance maxd,
 // and per block the clusters any of its rays can touch within the block's
@@ -42,11 +46,13 @@
 
 #include "cluster.cuh"
 #include "mt.cuh"
+#include "plucker.cuh"
 
 namespace {
 
 constexpr int kSlotLanes = 8;  // CTAs that share one slice's list
 
+template <class Form>
 __global__ void __launch_bounds__(ptt::kThreads)
 sparse_any_hit_kernel(const float* __restrict__ o3,
                       const float* __restrict__ d3,
@@ -57,7 +63,7 @@ sparse_any_hit_kernel(const float* __restrict__ o3,
                       const float* __restrict__ keys,
                       const int* __restrict__ ncand, int n_cols, int r_blk,
                       unsigned char* occ) {
-  __shared__ __align__(16) float buf[2][ptt::kClusterFloats];
+  __shared__ __align__(16) float buf[2][ptt::kClusterTris * Form::kCols];
   const ptt::BlockSlice me = ptt::block_slice(r_blk, n);
   const int count = ncand[me.block];
   const int first = blockIdx.y;
@@ -77,13 +83,14 @@ sparse_any_hit_kernel(const float* __restrict__ o3,
     md = maxd[me.lane];
   }
   const ptt::SlabRay ray = ptt::make_slab_ray(ox, oy, oz, dx, dy, dz);
+  const typename Form::Ray pair_ray = Form::make_ray(ox, oy, oz, dx, dy, dz);
   // t > T_MIN and t < md - T_MIN cannot both hold unless md - T_MIN > T_MIN
   const float t_cut = md - ptt::kTMin;
   bool open = me.live && t_cut > ptt::kTMin;  // not occluded, can still be
   const volatile unsigned char* marks = occ;
 
   const size_t row = static_cast<size_t>(me.block) * n_cols;
-  ptt::stage_cluster(buf[0], tripack, ids[row + first]);
+  ptt::stage_cluster<Form::kCols>(buf[0], tripack, ids[row + first]);
   int cur = 0;
   for (int s = first; s < count; s += step) {
     const int cl = ids[row + s];
@@ -93,16 +100,17 @@ sparse_any_hit_kernel(const float* __restrict__ o3,
     // buf[cur ^ 1], read in the previous step
     if (!__syncthreads_or(open && keys[row + s] <= md + ptt::kSlabEps)) break;
     if (s + step < count)
-      ptt::stage_cluster(buf[cur ^ 1], tripack, ids[row + s + step]);
+      ptt::stage_cluster<Form::kCols>(buf[cur ^ 1], tripack,
+                                      ids[row + s + step]);
     float enter;
     if (open && ptt::slab_hit(aabb8 + cl * ptt::kAabbCols, ray, enter) &&
         enter < md + ptt::kSlabEps) {
       const float* tile = buf[cur];
       for (int j = 0; j < ptt::kClusterTris; ++j) {
-        const float* p = tile + j * ptt::kPackCols;
+        const float* p = tile + j * Form::kCols;
         float t;
-        if (p[ptt::kValidCol] > 0.5f && p[ptt::kOccluderCol] > 0.5f &&
-            ptt::mt_hit_row(p, ox, oy, oz, dx, dy, dz, t) && t < t_cut) {
+        if (p[Form::kValid] > 0.5f && p[Form::kOccluder] > 0.5f &&
+            Form::hit_row(p, pair_ray, t) && t < t_cut) {
           open = false;
           occ[me.lane] = 1;
           break;
@@ -112,6 +120,23 @@ sparse_any_hit_kernel(const float* __restrict__ o3,
     cur ^= 1;
   }
   ptt::wait_staged();  // no copy left in flight
+}
+
+template <class Form>
+int launch_sparse_any_hit(const float* o3, const float* d3, const float* maxd,
+                          int n, const float* pack, const float* aabb8,
+                          const int* ids, const float* keys, const int* ncand,
+                          int n_cols, int r_blk, unsigned char* occ,
+                          int device, void* stream) {
+  if (n <= 0 || n_cols < 1 || r_blk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(ptt::slice_ctas(n, r_blk), kSlotLanes);
+  sparse_any_hit_kernel<Form><<<grid, ptt::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      o3, d3, maxd, n, pack, aabb8, ids, keys, ncand, n_cols, r_blk, occ);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -130,13 +155,19 @@ extern "C" int ptt_sparse_any_hit(const float* o3, const float* d3,
                                   const int* ncand, int n_cols, int r_blk,
                                   unsigned char* occ, int device,
                                   void* stream) {
-  if (n <= 0 || n_cols < 1 || r_blk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(ptt::slice_ctas(n, r_blk), kSlotLanes);
-  sparse_any_hit_kernel<<<grid, ptt::kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      o3, d3, maxd, n, tripack, aabb8, ids, keys, ncand, n_cols, r_blk, occ);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sparse_any_hit<ptt::ClassicForm>(
+      o3, d3, maxd, n, tripack, aabb8, ids, keys, ncand, n_cols, r_blk, occ,
+      device, stream);
+}
+
+// The same in the Plücker form; pack36: float32 [C * 128, 36], 16-byte
+// aligned (kernels/intersect.py: plucker_pack of the padded pack).
+extern "C" int ptt_plucker_sparse_any_hit(
+    const float* o3, const float* d3, const float* maxd, int n,
+    const float* pack36, const float* aabb8, const int* ids,
+    const float* keys, const int* ncand, int n_cols, int r_blk,
+    unsigned char* occ, int device, void* stream) {
+  return launch_sparse_any_hit<ptt::PluckerForm>(
+      o3, d3, maxd, n, pack36, aabb8, ids, keys, ncand, n_cols, r_blk, occ,
+      device, stream);
 }

@@ -1,9 +1,14 @@
-// K5: cluster-sparse nearest hit over each ray block's front-to-back
-// candidate clusters.
+// K5 and K3's cluster-sparse nearest sweep: nearest hit over each ray
+// block's front-to-back candidate clusters, in the classic form (K5) and in
+// the Plücker form (K3, plucker.cuh: the staged rows are the 36-column
+// Plücker pack's, 18 KB a cluster and buffer); the form is the kernel's
+// template parameter, the walk and the merge are the same, so the Plücker
+// walk gives the dense Plücker sweep's bits.
 //
 // Replaces the TPU kernel pathtracerpython_tpu/kernels/sparse_pallas.py
 // _nearest_chunk (the pallas_call over _make_grouped_nearest_kernel, and
-// the ungrouped _sparse_nearest_kernel).
+// the ungrouped _sparse_nearest_kernel; under MT_IMPL = "plucker" over
+// _make_grouped_nearest_kernel_plucker).
 //
 // Input: a ray block of r_blk rays shares one list of clusters (128
 // triangles each), the clusters any ray of the block can touch, sorted by a
@@ -34,9 +39,11 @@
 
 #include "cluster.cuh"
 #include "mt.cuh"
+#include "plucker.cuh"
 
 namespace {
 
+template <class Form>
 __global__ void __launch_bounds__(ptt::kThreads)
 sparse_nearest_kernel(const float* __restrict__ o3,
                       const float* __restrict__ d3, int n,
@@ -46,7 +53,7 @@ sparse_nearest_kernel(const float* __restrict__ o3,
                       const float* __restrict__ keys,
                       const int* __restrict__ ncand, int r_blk,
                       float* __restrict__ t_out, int* __restrict__ idx_out) {
-  __shared__ __align__(16) float buf[2][ptt::kClusterFloats];
+  __shared__ __align__(16) float buf[2][ptt::kClusterTris * Form::kCols];
   const ptt::BlockSlice me = ptt::block_slice(r_blk, n);
   const size_t stride = static_cast<size_t>(n);
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
@@ -59,12 +66,13 @@ sparse_nearest_kernel(const float* __restrict__ o3,
     dz = d3[2 * stride + me.lane];
   }
   const ptt::SlabRay ray = ptt::make_slab_ray(ox, oy, oz, dx, dy, dz);
+  const typename Form::Ray pair_ray = Form::make_ray(ox, oy, oz, dx, dy, dz);
   float best_t = ptt::kBig;
   int best_idx = -1;
 
   const int count = ncand[me.block];
   const size_t row = static_cast<size_t>(me.block) * n_clusters;
-  if (count > 0) ptt::stage_cluster(buf[0], tripack, ids[row]);
+  if (count > 0) ptt::stage_cluster<Form::kCols>(buf[0], tripack, ids[row]);
   int cur = 0;
   for (int s = 0; s < count; ++s) {
     const int cl = ids[row + s];
@@ -74,17 +82,17 @@ sparse_nearest_kernel(const float* __restrict__ o3,
     if (!__syncthreads_or(me.live && keys[row + s] <= best_t + ptt::kSlabEps))
       break;
     if (s + 1 < count)
-      ptt::stage_cluster(buf[cur ^ 1], tripack, ids[row + s + 1]);
+      ptt::stage_cluster<Form::kCols>(buf[cur ^ 1], tripack,
+                                      ids[row + s + 1]);
     float enter;
     if (me.live && ptt::slab_hit(aabb8 + cl * ptt::kAabbCols, ray, enter) &&
         enter < best_t + ptt::kSlabEps) {
       const int base = cl * ptt::kClusterTris;
       const float* tile = buf[cur];
       for (int j = 0; j < ptt::kClusterTris; ++j) {
-        const float* p = tile + j * ptt::kPackCols;
+        const float* p = tile + j * Form::kCols;
         float t;
-        if (p[ptt::kValidCol] > 0.5f &&
-            ptt::mt_hit_row(p, ox, oy, oz, dx, dy, dz, t) &&
+        if (p[Form::kValid] > 0.5f && Form::hit_row(p, pair_ray, t) &&
             (t < best_t || (t == best_t && base + j < best_idx))) {
           best_t = t;
           best_idx = base + j;
@@ -98,6 +106,23 @@ sparse_nearest_kernel(const float* __restrict__ o3,
     t_out[me.lane] = best_idx >= 0 ? best_t : 0.0f;
     idx_out[me.lane] = best_idx;
   }
+}
+
+template <class Form>
+int launch_sparse_nearest(const float* o3, const float* d3, int n,
+                          const float* pack, const float* aabb8,
+                          int n_clusters, const int* ids, const float* keys,
+                          const int* ncand, int r_blk, float* t_out,
+                          int* idx_out, int device, void* stream) {
+  if (n <= 0 || n_clusters < 1 || r_blk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  sparse_nearest_kernel<Form><<<ptt::slice_ctas(n, r_blk), ptt::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      o3, d3, n, pack, aabb8, n_clusters, ids, keys, ncand, r_blk, t_out,
+      idx_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -114,13 +139,20 @@ extern "C" int ptt_sparse_nearest(const float* o3, const float* d3, int n,
                                   const float* keys, const int* ncand,
                                   int r_blk, float* t_out, int* idx_out,
                                   int device, void* stream) {
-  if (n <= 0 || n_clusters < 1 || r_blk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  sparse_nearest_kernel<<<ptt::slice_ctas(n, r_blk), ptt::kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  return launch_sparse_nearest<ptt::ClassicForm>(
       o3, d3, n, tripack, aabb8, n_clusters, ids, keys, ncand, r_blk, t_out,
-      idx_out);
-  return static_cast<int>(cudaGetLastError());
+      idx_out, device, stream);
+}
+
+// The same in the Plücker form; pack36: float32 [C * 128, 36], 16-byte
+// aligned (kernels/intersect.py: plucker_pack of the padded pack). The
+// clusters, their AABBs and the lists are the classic pack's.
+extern "C" int ptt_plucker_sparse_nearest(
+    const float* o3, const float* d3, int n, const float* pack36,
+    const float* aabb8, int n_clusters, const int* ids, const float* keys,
+    const int* ncand, int r_blk, float* t_out, int* idx_out, int device,
+    void* stream) {
+  return launch_sparse_nearest<ptt::PluckerForm>(
+      o3, d3, n, pack36, aabb8, n_clusters, ids, keys, ncand, r_blk, t_out,
+      idx_out, device, stream);
 }

@@ -1,5 +1,6 @@
-"""K1 and K4: the dense nearest-hit and any-hit sweeps — CUDA kernel
-wrappers and plain versions.
+"""K1, K4 and the dense half of K3: the dense nearest-hit and any-hit
+sweeps in the classic and the Plücker form — CUDA kernel wrappers and plain
+versions.
 
 ``nearest_t_idx_cm`` (K1) has the signature of the JAX package's
 ``kernels/intersect_pallas.py:nearest_t_idx_cm``, ``any_hit_cm`` (K4) that of
@@ -10,11 +11,25 @@ its plain version, the same arithmetic in PyTorch: Möller–Trumbore in
 smallest index winning ties (K1), or any occluder hit with
 t < maxd - 1e-4 (K4). Forward only: inputs that require grad are refused,
 since a silent zero gradient would be a fault.
+
+**The in-triangle test has two forms** (K3), chosen by ``MT_IMPL``, the
+JAX package's knob of the same name, or by the ``mt_impl`` keyword of a
+sweep, which overrides it: ``"classic"`` is Möller–Trumbore; ``"plucker"``
+decides inside/outside by the signs of three edge side products (edge
+direction | edge moment) · (o x d | d) and takes t from the triangle's
+plane, t = n·(v0 - o) / (n·d) with n = e1 x e2 unnormalized
+(``plucker_rows``, after ``_plucker_block``). The merges are unchanged. The
+two forms round differently, so winners and occlusion bits may differ on
+rays that graze a triangle's edge, and nowhere else. The knob is read at
+every call. The dense sweeps here and the cluster-sparse sweeps K5 and K6
+(``kernels/sparse.py``) follow it; the fused NEE (K2), the cached any-hit
+(K7) and the walker sweeps (K8, K9) stay classic, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -29,9 +44,19 @@ IMAX = 2**31 - 1
 # one temporary stays under this many elements.
 PLAIN_CHUNK_ELEMS = 1 << 24
 
-# Launches of the CUDA kernels since the counts were last reset: K1, K4.
+# The in-triangle test of the sweeps that follow the knob: "classic" or
+# "plucker". Read at every call; a sweep's ``mt_impl`` keyword overrides it.
+MT_IMPL = "classic"
+MT_IMPLS = ("classic", "plucker")
+
+# Launches of the CUDA kernels since the counts were last reset: K1, K4,
+# and K3's dense nearest and any-hit.
 LAUNCHES = 0
 ANY_HIT_LAUNCHES = 0
+PLUCKER_LAUNCHES = 0
+PLUCKER_ANY_HIT_LAUNCHES = 0
+
+PLUCKER_COLS = 36  # e0 (8) | e1 (8) | e2 (8) | n v0 valid occluder 0x4 (12)
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
@@ -91,21 +116,142 @@ def mt_rows(tri: torch.Tensor, ox, oy, oz, dx, dy, dz):
     return hit, t
 
 
+def resolve_mt_impl(mt_impl: str | None) -> str:
+    """The form a sweep runs: its ``mt_impl`` keyword, or the module's
+    ``MT_IMPL`` when that is None."""
+    impl = MT_IMPL if mt_impl is None else mt_impl
+    if impl not in MT_IMPLS:
+        raise ValueError(f"mt_impl={impl!r}: expected one of {MT_IMPLS}")
+    return impl
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b along the last axis of [..., 3], each component one product
+    minus another, in ``jnp.cross``'s order."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def plucker_pack(tripack: torch.Tensor) -> torch.Tensor:
+    """The Plücker operands of a [T, 12] pack as one f32[T, 36] pack, the
+    layout the Plücker kernels read: per edge (v0v1, v1v2, v2v0) eight
+    columns direction | moment a x b | 0 0, then n = e1 x e2 unnormalized |
+    v0 | valid | occluder | 0 0 0 0. A zero (pad) row gives a zero row."""
+    v0, v1, v2 = tripack[:, 0:3], tripack[:, 3:6], tripack[:, 6:9]
+    zeros = tripack.new_zeros((tripack.shape[0], 4))
+    edges = [
+        torch.cat([b - a, _cross(a, b), zeros[:, :2]], dim=1)
+        for a, b in ((v0, v1), (v1, v2), (v2, v0))
+    ]
+    n = _cross(v1 - v0, v2 - v0)
+    return torch.cat([*edges, n, v0, tripack[:, 9:11], zeros],
+                     dim=1).contiguous()
+
+
+def plucker_packs(tripack: torch.Tensor):
+    """``_plucker_packs``: ([e0, e1, e2] each f32[T, 8], nv f32[T, 12]),
+    views of ``plucker_pack``'s columns."""
+    pack = plucker_pack(tripack)
+    return [pack[:, 8 * k:8 * k + 8] for k in range(3)], pack[:, 24:36]
+
+
+# The Plücker packs of the scene swept last, so that a render derives them
+# once and not once per bounce: keyed by the identity and version of the
+# scene's triangle tensors, which the entry keeps alive.
+_plucker_cache: dict = {}
+
+
+def scene_plucker_pack(scene, row_multiple: int = 1) -> torch.Tensor:
+    """``plucker_pack`` of the scene's triangles, padded with zero rows to
+    a multiple of ``row_multiple``; cached while the scene's triangle
+    tensors stay the same objects, unmodified."""
+    leaves = (scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_valid,
+              scene.tri_occluder)
+    key = tuple((id(x), x._version) for x in leaves)
+    if _plucker_cache.get("key") != key:
+        _plucker_cache.clear()
+        _plucker_cache.update(key=key, leaves=leaves)
+    pack = _plucker_cache.get(row_multiple)
+    if pack is None:
+        tripack = scene_tripack(scene)
+        pad = (-tripack.shape[0]) % row_multiple
+        if pad:
+            tripack = torch.cat([tripack, tripack.new_zeros((pad, 12))])
+        pack = _plucker_cache[row_multiple] = plucker_pack(tripack)
+    return pack
+
+
+def plucker_inside(s0, s1, s2):
+    """Inside when the three edge side products have one sign."""
+    return ((s0 >= 0.0) & (s1 >= 0.0) & (s2 >= 0.0)) | (
+        (s0 <= 0.0) & (s1 <= 0.0) & (s2 <= 0.0))
+
+
+def plucker_plane(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
+    """The plane half of the Plücker test: (not parallel & t > T_MIN &
+    valid, t) with t = n·(v0 - o) / (n·d), n unnormalized."""
+    col = lambda c: pack[..., c:c + 1]
+    nx, ny, nz = col(24), col(25), col(26)
+    nd = nx * dx + ny * dy + nz * dz          # = -det of the classic form
+    not_par = torch.abs(nd) > DET_EPS
+    t = (nx * (col(27) - ox) + ny * (col(28) - oy)
+         + nz * (col(29) - oz)) / torch.where(not_par, nd, 1.0)
+    return not_par & (t > T_MIN) & (col(30) > 0.5), t
+
+
+def plucker_rows(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
+    """The Plücker test of [..., T, 36] pack rows against [..., 1, R] ray
+    rows -> (hit [..., T, R] incl. the valid column, t [..., T, R]);
+    ``_plucker_block``, with each side product written out as six products
+    summed left to right (the two pad columns contribute nothing), which is
+    the order of ``csrc/plucker.cuh``."""
+    col = lambda c: pack[..., c:c + 1]
+    # the ray's moment o x d, once per ray
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+
+    def side(c):
+        return (col(c) * mx + col(c + 1) * my + col(c + 2) * mz
+                + col(c + 3) * dx + col(c + 4) * dy + col(c + 5) * dz)
+
+    # pad and degenerate rows have all-zero sides, so they count as inside:
+    # the plane's parallel test and the valid column are what rejects them
+    plane, t = plucker_plane(pack, ox, oy, oz, dx, dy, dz)
+    return plucker_inside(side(0), side(8), side(16)) & plane, t
+
+
+class PairTest(NamedTuple):
+    """A form of the ray-triangle test for the plain sweeps: ``rows(pack
+    rows [..., T, cols], ox, oy, oz, dx, dy, dz) -> (hit, t)`` on its own
+    pack layout, and the pack's occluder column."""
+
+    rows: Callable
+    occluder_col: int
+
+
+CLASSIC = PairTest(mt_rows, 10)
+PLUCKER = PairTest(plucker_rows, 31)
+
+
 def chunk_rows(n_rays: int) -> int:
     """Triangle rows per plain-sweep chunk for ``n_rays`` lanes."""
     return max(1, PLAIN_CHUNK_ELEMS // max(n_rays, 1))
 
 
 def nearest_t_idx_plain(o3: torch.Tensor, d3_unit: torch.Tensor,
-                        tripack: torch.Tensor):
-    """(t [N] — 0 on a miss, idx [N] int32 — -1 on a miss)."""
+                        tripack: torch.Tensor, pair: PairTest = CLASSIC):
+    """(t [N] — 0 on a miss, idx [N] int32 — -1 on a miss); ``tripack`` in
+    the layout of ``pair``."""
     n = o3.shape[1]
     rays = [o3[k:k + 1] for k in range(3)] + [d3_unit[k:k + 1] for k in range(3)]
     best_t = torch.full((1, n), BIG, dtype=o3.dtype, device=o3.device)
     best_idx = torch.full((1, n), -1, dtype=torch.int32, device=o3.device)
     step = chunk_rows(n)
     for lo in range(0, tripack.shape[0], step):
-        hit, t = mt_rows(tripack[lo:lo + step], *rays)
+        hit, t = pair.rows(tripack[lo:lo + step], *rays)
         # the tile merge of intersect_pallas.py:_merge_nearest_tile: the
         # chunk minimum, the smallest index attaining it, then a strict <
         key = torch.where(hit, t, BIG)
@@ -144,87 +290,138 @@ def check_input(name: str, x: torch.Tensor, device: torch.device,
         )
 
 
-def nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene):
+def nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
+                     mt_impl: str | None = None):
     """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
-    length) against the scene's triangles. Returns (t [N] — 0 on a miss,
-    idx [N] int32 — -1 on a miss)."""
+    length) against the scene's triangles, in the form ``mt_impl`` (None:
+    the module's ``MT_IMPL``). Returns (t [N] — 0 on a miss, idx [N] int32
+    — -1 on a miss)."""
+    plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n = o3.shape[1] if o3.dim() == 2 else -1
     check_input("o3", o3, device, torch.float32, (3, None))
     check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
-    tripack = scene_tripack(scene)
-    check_input("scene triangles", tripack, device, torch.float32, (None, 12))
+    pack = scene_plucker_pack(scene) if plucker else scene_tripack(scene)
+    check_input("scene triangles", pack, device, torch.float32,
+                (None, PLUCKER_COLS if plucker else 12))
     if device.type == "cpu":
-        return nearest_t_idx_plain(o3, d3_unit, tripack)
+        plain = nearest_t_idx_plucker_plain if plucker else nearest_t_idx_plain
+        return plain(o3, d3_unit, pack)
     if device.type != "cuda":
         raise ValueError(f"no nearest-hit kernel for device {device}")
-    return _launch(o3, d3_unit, tripack)
+    return (_launch_plucker if plucker else _launch)(o3, d3_unit, pack)
 
 
-def _launch(o3, d3_unit, tripack):
-    global LAUNCHES
+def _launch_nearest(o3, d3_unit, pack, entry: str):
     n = o3.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=o3.device)
     idx = torch.empty(n, dtype=torch.int32, device=o3.device)
     if n == 0:
-        return t, idx
-    fn = build.function("ptt_nearest_t_idx", _ARGTYPES)
+        return t, idx, False
+    fn = build.function(entry, _ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
-    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, tripack.data_ptr(),
-             tripack.shape[0], t.data_ptr(), idx.data_ptr(),
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, pack.data_ptr(),
+             pack.shape[0], t.data_ptr(), idx.data_ptr(),
              o3.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"nearest-hit kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
+    return t, idx, True
+
+
+def _launch(o3, d3_unit, tripack):
+    global LAUNCHES
+    t, idx, launched = _launch_nearest(o3, d3_unit, tripack,
+                                       "ptt_nearest_t_idx")
+    LAUNCHES += launched
+    return t, idx
+
+
+def _launch_plucker(o3, d3_unit, pack36):
+    global PLUCKER_LAUNCHES
+    t, idx, launched = _launch_nearest(o3, d3_unit, pack36,
+                                       "ptt_plucker_nearest_t_idx")
+    PLUCKER_LAUNCHES += launched
     return t, idx
 
 
 def any_hit_plain(o3: torch.Tensor, d3_unit: torch.Tensor,
-                  maxd: torch.Tensor, tripack: torch.Tensor) -> torch.Tensor:
+                  maxd: torch.Tensor, tripack: torch.Tensor,
+                  pair: PairTest = CLASSIC) -> torch.Tensor:
     """Occlusion bool[N] of rays o3/d3_unit within maxd, chunked over the
-    occluder rows."""
+    occluder rows; ``tripack`` in the layout of ``pair``."""
     rays = [o3[k:k + 1] for k in range(3)] + [d3_unit[k:k + 1] for k in range(3)]
-    occluders = tripack[tripack[:, 10] > 0.5]
+    occluders = tripack[tripack[:, pair.occluder_col] > 0.5]
     limit = maxd[None, :] - T_MIN
     blocked = torch.zeros_like(limit, dtype=torch.bool)
     step = chunk_rows(o3.shape[1])
     for lo in range(0, occluders.shape[0], step):
-        hit, t = mt_rows(occluders[lo:lo + step], *rays)
+        hit, t = pair.rows(occluders[lo:lo + step], *rays)
         blocked = blocked | (hit & (t < limit)).any(dim=0, keepdim=True)
     return blocked[0]
 
 
+def nearest_t_idx_plucker_plain(o3, d3_unit, pack36):
+    """K3's dense nearest sweep, plain: ``nearest_t_idx_plain``'s merge over
+    ``plucker_rows`` of a ``plucker_pack``."""
+    return nearest_t_idx_plain(o3, d3_unit, pack36, PLUCKER)
+
+
+def any_hit_plucker_plain(o3, d3_unit, maxd, pack36) -> torch.Tensor:
+    """K3's dense any-hit, plain: ``any_hit_plain``'s merge over
+    ``plucker_rows`` of a ``plucker_pack``."""
+    return any_hit_plain(o3, d3_unit, maxd, pack36, PLUCKER)
+
+
 def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
-               scene) -> torch.Tensor:
+               scene, mt_impl: str | None = None) -> torch.Tensor:
     """Whether an occluder triangle of the scene blocks each shadow ray
-    o3/d3_unit f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4;
-    bool[N]. Lanes with maxd = 0 (parked) are never occluded."""
+    o3/d3_unit f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4, in
+    the form ``mt_impl`` (None: the module's ``MT_IMPL``); bool[N]. Lanes
+    with maxd = 0 (parked) are never occluded."""
+    plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n = o3.shape[1] if o3.dim() == 2 else -1
     check_input("o3", o3, device, torch.float32, (3, None))
     check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
     check_input("maxd", maxd, device, torch.float32, (n,))
-    tripack = scene_tripack(scene)
-    check_input("scene triangles", tripack, device, torch.float32, (None, 12))
+    pack = scene_plucker_pack(scene) if plucker else scene_tripack(scene)
+    check_input("scene triangles", pack, device, torch.float32,
+                (None, PLUCKER_COLS if plucker else 12))
     if device.type == "cpu":
-        return any_hit_plain(o3, d3_unit, maxd, tripack)
+        plain = any_hit_plucker_plain if plucker else any_hit_plain
+        return plain(o3, d3_unit, maxd, pack)
     if device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {device}")
-    return _launch_any_hit(o3, d3_unit, maxd, tripack)
+    return (_launch_plucker_any_hit if plucker else _launch_any_hit)(
+        o3, d3_unit, maxd, pack)
+
+
+def _launch_occlusion(o3, d3_unit, maxd, pack, entry: str):
+    n = o3.shape[1]
+    occ = torch.empty(n, dtype=torch.bool, device=o3.device)
+    if n == 0:
+        return occ, False
+    fn = build.function(entry, _ANY_HIT_ARGTYPES)
+    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
+             pack.data_ptr(), pack.shape[0], occ.data_ptr(),
+             o3.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
+    return occ, True
 
 
 def _launch_any_hit(o3, d3_unit, maxd, tripack):
     global ANY_HIT_LAUNCHES
-    n = o3.shape[1]
-    occ = torch.empty(n, dtype=torch.bool, device=o3.device)
-    if n == 0:
-        return occ
-    fn = build.function("ptt_any_hit", _ANY_HIT_ARGTYPES)
-    stream = torch.cuda.current_stream(o3.device).cuda_stream
-    err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
-             tripack.data_ptr(), tripack.shape[0], occ.data_ptr(),
-             o3.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"any-hit kernel launch failed: CUDA error {err}")
-    ANY_HIT_LAUNCHES += 1
+    occ, launched = _launch_occlusion(o3, d3_unit, maxd, tripack,
+                                      "ptt_any_hit")
+    ANY_HIT_LAUNCHES += launched
+    return occ
+
+
+def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36):
+    global PLUCKER_ANY_HIT_LAUNCHES
+    occ, launched = _launch_occlusion(o3, d3_unit, maxd, pack36,
+                                      "ptt_plucker_any_hit")
+    PLUCKER_ANY_HIT_LAUNCHES += launched
     return occ

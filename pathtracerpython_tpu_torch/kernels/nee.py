@@ -9,6 +9,8 @@ operation by operation: compare-and-count light pick on the cumulative
 areas, sqrt-trick barycentrics from uniform rows 5s+1 and 5s+2, direction
 by rsqrt(max(sq, 1e-30)) and distance by sqrt(sq + 1e-24), clamped
 cosine, occluder sweep with t < dist - 1e-4, then the mean. Forward only.
+Its occluder sweep is classic Möller–Trumbore whatever the ``MT_IMPL`` knob
+of ``kernels/intersect.py`` says: ``nee_pallas.py`` has no Plücker body.
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
   cached clusters (``guess_lists``); pass 2 sweeps the full lists of the
   lanes pass 1 left open, compacted when they fit ``n / CACHE_M_DIV``.
 
+**K3, the Plücker form.** K5 and K6 follow the ``MT_IMPL`` knob of
+``kernels/intersect.py`` (or their ``mt_impl`` keyword), as
+``_sparse_plucker`` makes the JAX package's sparse sweeps follow it: under
+"plucker" the same walks test a ray against the 36-column Plücker rows
+(``scene_plucker_pack``; clusters, AABBs and lists stay the classic
+pack's) and give the dense Plücker sweep's result bit for bit. K7 has no
+Plücker form and stays classic under the knob, as in the JAX package.
+
 Left behind as TPU machinery: the packed [seg|active|rb|cl] work words,
 the SMEM budgets (``W_PER_RB``, ``CHUNK_RB``, ``W_SMEM_ENTRIES``), grouping,
 the grid cascade, the interpret-mode caps, and the truncated-list two-pass
@@ -37,7 +45,8 @@ protocol of the uncached sweeps (``two_pass`` / ``PASS1_K``) with
 passes are ported (K7).
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/sparse_nearest.cu``,
-``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``) or raises; on a
+``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``; the first two
+hold both forms) or raises; on a
 CPU tensor it runs its plain version, the same walk in PyTorch, vectorized
 over ray blocks slot by slot. Forward only.
 """
@@ -52,11 +61,15 @@ import torch
 from pathtracerpython_tpu_torch.kernels import build
 from pathtracerpython_tpu_torch.kernels.intersect import (
     BIG,
+    CLASSIC,
     IMAX,
     PLAIN_CHUNK_ELEMS,
+    PLUCKER,
     T_MIN,
+    PairTest,
     check_input,
-    mt_rows,
+    resolve_mt_impl,
+    scene_plucker_pack,
     scene_tripack,
 )
 from pathtracerpython_tpu_torch.ops.sort import PARK_DIR, PARK_ORIGIN
@@ -74,10 +87,13 @@ SLAB_EPS = 1e-3    # conservative slack of every slab comparison
 K_GUESS = 8        # voted cached clusters per ray block in K7's pass 1
 CACHE_M_DIV = 2    # K7's pass 2 is compacted when it fits n / CACHE_M_DIV
 
-# Launches of the CUDA kernels since the counts were last reset: K5, K6, K7.
+# Launches of the CUDA kernels since the counts were last reset: K5, K6, K7,
+# and K3's cluster-sparse nearest and any-hit.
 LAUNCHES = 0
 ANY_HIT_LAUNCHES = 0
 ANY_HIT_IDX_LAUNCHES = 0
+PLUCKER_LAUNCHES = 0
+PLUCKER_ANY_HIT_LAUNCHES = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
@@ -305,9 +321,9 @@ def block_rays(o3, d3, nrb: int, r_blk: int) -> BlockRays:
 
 
 def cluster_rows(tripack, ids_s: torch.Tensor) -> torch.Tensor:
-    """The packed rows [nrb, C_TRI, 12] of cluster ids_s[b] per block."""
+    """The packed rows [nrb, C_TRI, cols] of cluster ids_s[b] per block."""
     c = tripack.shape[0] // C_TRI
-    return tripack.reshape(c, C_TRI, 12)[ids_s.to(torch.int64)]
+    return tripack.reshape(c, C_TRI, -1)[ids_s.to(torch.int64)]
 
 
 def by_block_chunks(fn, o3, rows, lists: BlockLists, r_blk: int):
@@ -328,14 +344,16 @@ def by_block_chunks(fn, o3, rows, lists: BlockLists, r_blk: int):
 
 
 def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
-                         r_blk: int, visits: list | None = None):
+                         r_blk: int, visits: list | None = None,
+                         pair: PairTest = CLASSIC):
     """The walk of ``csrc/sparse_nearest.cu`` (and of
     ``csrc/walker_nearest.cu``) in PyTorch: slot s of every block's list at
     once, with the kernels' per-lane gate, (t, index) merge and whole-walk
     stop (taken per block instead of per CTA or warp, which changes no
     result). Returns (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss).
     ``visits``: a list that receives, per chunk, the number of (ray,
-    cluster) visits the per-lane gate let through."""
+    cluster) visits the per-lane gate let through. ``pair``: the form of
+    the ray-triangle test, with ``tripack`` in its layout."""
     def walk(rows, chunk: BlockLists):
         o3c, d3c = rows
         n, nrb = o3c.shape[1], chunk.ncand.shape[0]
@@ -358,7 +376,7 @@ def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
                       & (enter0 < best_t + SLAB_EPS))
             if visits is not None:
                 visits.append(needed.sum())
-            hit, t = mt_rows(cluster_rows(tripack, cl), *rays.o, *rays.d)
+            hit, t = pair.rows(cluster_rows(tripack, cl), *rays.o, *rays.d)
             tkey = torch.where(hit, t, BIG)             # [nrb, C_TRI, r_blk]
             tile_t = tkey.amin(dim=1, keepdim=True)
             gidx = (cl[:, None, None] * C_TRI
@@ -378,14 +396,15 @@ def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
 
 
 def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
-                 r_blk: int, visits: list | None = None):
+                 r_blk: int, visits: list | None = None,
+                 pair: PairTest = CLASSIC):
     """The any-hit walk of ``csrc/walker_any_hit.cu``,
     ``csrc/sparse_any_hit.cu`` and ``csrc/sparse_any_hit_idx.cu`` in
     PyTorch: slot s of every block's list at once, with the kernels'
     per-lane gate, first-hit stop and whole-walk stop (taken per block,
     which changes no result). Returns (occlusion bool[N], the first
     blocking cluster in visit order i32[N], -1 where not occluded).
-    ``visits``: as in ``sparse_nearest_plain``."""
+    ``visits`` and ``pair``: as in ``sparse_nearest_plain``."""
     def walk(rows, chunk: BlockLists):
         o3c, d3c, mdc = rows
         n, nrb = o3c.shape[1], chunk.ncand.shape[0]
@@ -411,8 +430,9 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
             if visits is not None:
                 visits.append(needed.sum())
             tri = cluster_rows(tripack, cl)
-            hit, t = mt_rows(tri, *rays.o, *rays.d)
-            blocking = hit & (tri[..., 10:11] > 0.5) & (t < t_cut)
+            hit, t = pair.rows(tri, *rays.o, *rays.d)
+            occluder = tri[..., pair.occluder_col:pair.occluder_col + 1] > 0.5
+            blocking = hit & occluder & (t < t_cut)
             newly = needed & blocking.any(dim=1, keepdim=True)
             blocked = torch.where(newly, cl[:, None, None], blocked)
             open_ = open_ & ~newly
@@ -423,12 +443,31 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
 
 def sparse_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8,
                          lists: BlockLists, r_blk: int,
-                         visits: list | None = None) -> torch.Tensor:
+                         visits: list | None = None,
+                         pair: PairTest = CLASSIC) -> torch.Tensor:
     """K6's plain version: occlusion bool[N] by ``any_hit_walk``. The
     kernel tests a block's list slots in parallel; occlusion is an OR over
     them, so the walk in order gives the same bits."""
     return any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
-                        visits)[0]
+                        visits, pair)[0]
+
+
+def sparse_nearest_plucker_plain(o3, d3_unit, pack36, aabb8,
+                                 lists: BlockLists, r_blk: int,
+                                 visits: list | None = None):
+    """K3's cluster-sparse nearest sweep, plain: ``sparse_nearest_plain``'s
+    walk with the Plücker test on a ``plucker_pack``."""
+    return sparse_nearest_plain(o3, d3_unit, pack36, aabb8, lists, r_blk,
+                                visits, PLUCKER)
+
+
+def sparse_any_hit_plucker_plain(o3, d3_unit, maxd, pack36, aabb8,
+                                 lists: BlockLists, r_blk: int,
+                                 visits: list | None = None) -> torch.Tensor:
+    """K3's cluster-sparse any-hit, plain: ``sparse_any_hit_plain``'s walk
+    with the Plücker test on a ``plucker_pack``."""
+    return sparse_any_hit_plain(o3, d3_unit, maxd, pack36, aabb8, lists,
+                                r_blk, visits, PLUCKER)
 
 
 def sparse_any_hit_idx_plain(o3, d3_unit, maxd, tripack, aabb8,
@@ -456,12 +495,14 @@ def check_rays(o3, d3_unit, scene, what: str, maxd=None):
 
 
 def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
-                            r_blk: int = R_BLK):
+                            r_blk: int = R_BLK, mt_impl: str | None = None):
     """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
     length) through the cluster hierarchy, in blocks of ``r_blk`` rays
     (the sparse hierarchy's R_BLK; the hybrid passes
-    R_BLK_HYBRID_NEAREST); the result of the dense ``nearest_t_idx_cm``:
+    R_BLK_HYBRID_NEAREST); the result of the dense ``nearest_t_idx_cm`` in
+    the same form ``mt_impl`` (None: ``intersect.MT_IMPL``), bit for bit:
     (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss)."""
+    plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse nearest-hit")
     if n == 0:
@@ -470,23 +511,40 @@ def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
     nrb = -(-n // r_blk)
     tmax = torch.full((nrb,), BIG, dtype=o3.dtype, device=device)
     lists = block_lists(aabb8, o3, d3_unit, tmax, r_blk)
+    if plucker:
+        # the clusters and their boxes are the classic pack's; only the
+        # rows a ray is tested against change
+        pack36 = scene_plucker_pack(scene, PACK_ROWS)
+        sweep = (sparse_nearest_plucker_plain if device.type == "cpu"
+                 else _launch_plucker)
+        return sweep(o3, d3_unit, pack36, aabb8, lists, r_blk)
     if device.type == "cpu":
         return sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists, r_blk)
     return _launch(o3, d3_unit, tripack, aabb8, lists, r_blk)
 
 
 def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
-                      maxd: torch.Tensor, scene) -> torch.Tensor:
+                      maxd: torch.Tensor, scene,
+                      mt_impl: str | None = None) -> torch.Tensor:
     """K6: whether an occluder triangle blocks each shadow ray o3/d3_unit
     f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4, through the
     cluster hierarchy in blocks of R_BLK rays; bool[N], the result of the
-    dense ``any_hit_cm``. Lanes with maxd = 0 (parked) are never
-    occluded."""
+    dense ``any_hit_cm`` in the same form ``mt_impl`` (None:
+    ``intersect.MT_IMPL``). Lanes with maxd = 0 (parked) are never
+    occluded. The cached any-hit K7 (``sparse_any_hit_cached_cm``) has no
+    Plücker form and stays classic under the knob, as in the JAX
+    package."""
+    plucker = resolve_mt_impl(mt_impl) == "plucker"
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse any-hit",
                                     maxd)
     if n == 0:
         return torch.zeros(0, dtype=torch.bool, device=o3.device)
     lists = window_lists(aabb8, o3, d3_unit, maxd, R_BLK)
+    if plucker:
+        pack36 = scene_plucker_pack(scene, PACK_ROWS)
+        sweep = (sparse_any_hit_plucker_plain if o3.device.type == "cpu"
+                 else _launch_plucker_any_hit)
+        return sweep(o3, d3_unit, maxd, pack36, aabb8, lists, R_BLK)
     if o3.device.type == "cpu":
         return sparse_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8, lists,
                                     R_BLK)
@@ -560,40 +618,67 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
             cl1.index_copy(0, sel, cl2[:cnt]))
 
 
-def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk):
-    global LAUNCHES
+def _launch_nearest(o3, d3_unit, pack, aabb8, lists, r_blk, entry: str):
     n = o3.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=o3.device)
     idx = torch.empty(n, dtype=torch.int32, device=o3.device)
-    fn = build.function("ptt_sparse_nearest", _ARGTYPES)
+    fn = build.function(entry, _ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
-    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, tripack.data_ptr(),
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, pack.data_ptr(),
              aabb8.data_ptr(), aabb8.shape[0], lists.ids.data_ptr(),
              lists.keys.data_ptr(), lists.ncand.data_ptr(), r_blk,
              t.data_ptr(), idx.data_ptr(), o3.device.index, stream)
     if err != 0:
-        raise RuntimeError(
-            f"sparse nearest-hit kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
     return t, idx
 
 
-def _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
-    global ANY_HIT_LAUNCHES
+def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk):
+    global LAUNCHES
+    out = _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk,
+                          "ptt_sparse_nearest")
+    LAUNCHES += 1
+    return out
+
+
+def _launch_plucker(o3, d3_unit, pack36, aabb8, lists, r_blk):
+    global PLUCKER_LAUNCHES
+    out = _launch_nearest(o3, d3_unit, pack36, aabb8, lists, r_blk,
+                          "ptt_plucker_sparse_nearest")
+    PLUCKER_LAUNCHES += 1
+    return out
+
+
+def _launch_occlusion(o3, d3_unit, maxd, pack, aabb8, lists, r_blk,
+                      entry: str):
     n = o3.shape[1]
     # zeroed: the kernel's CTAs only ever set a lane
     occ = torch.zeros(n, dtype=torch.bool, device=o3.device)
-    fn = build.function("ptt_sparse_any_hit", _ANY_HIT_ARGTYPES)
+    fn = build.function(entry, _ANY_HIT_ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
-             tripack.data_ptr(), aabb8.data_ptr(), lists.ids.data_ptr(),
+             pack.data_ptr(), aabb8.data_ptr(), lists.ids.data_ptr(),
              lists.keys.data_ptr(), lists.ncand.data_ptr(),
              lists.ids.shape[1], r_blk, occ.data_ptr(), o3.device.index,
              stream)
     if err != 0:
-        raise RuntimeError(
-            f"sparse any-hit kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
+    return occ
+
+
+def _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
+    global ANY_HIT_LAUNCHES
+    occ = _launch_occlusion(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                            "ptt_sparse_any_hit")
     ANY_HIT_LAUNCHES += 1
+    return occ
+
+
+def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk):
+    global PLUCKER_ANY_HIT_LAUNCHES
+    occ = _launch_occlusion(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk,
+                            "ptt_plucker_sparse_any_hit")
+    PLUCKER_ANY_HIT_LAUNCHES += 1
     return occ
 
 

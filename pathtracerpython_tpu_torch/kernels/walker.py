@@ -16,6 +16,11 @@ as TPU machinery: the 128-column tiles with the AABB stashed in row 0
 budget (``W_SMEM_MAX``); the kernels read the [T, 12] pack and the
 [C, 8] AABBs directly.
 
+Both sweeps are classic Möller–Trumbore only: the JAX package's
+``walker_pallas.py`` has no Plücker body, so they do not follow the
+``MT_IMPL`` knob of ``kernels/intersect.py``, and the hybrid under
+"plucker" is the Plücker nearest sweep with the classic K9.
+
 On a CUDA tensor each wrapper launches its kernel (``csrc/walker_nearest.cu``,
 ``csrc/walker_any_hit.cu``) or raises; on a CPU tensor it runs its plain
 version: the walks of ``kernels/sparse.py`` (``sparse_nearest_plain``,

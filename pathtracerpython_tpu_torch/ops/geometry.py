@@ -13,6 +13,12 @@ sweep (a CUDA kernel on the card, its plain version on the CPU):
 
 With ``nee_cache="on"`` the integrator replaces the sparse hierarchy's K6
 by the occluder-cached K7 (``kernels/sparse.py:sparse_any_hit_cached_cm``).
+
+``mt_impl`` (None: ``kernels.intersect.MT_IMPL``) picks the form of the
+in-triangle test, "classic" or "plucker" (K3), in the sweeps that have
+both: K1, K4, K5 and K6. The walker sweeps K8 and K9 are classic only, so
+under "plucker" the hybrid runs the Plücker nearest sweep and the classic
+K9, and the walker hierarchy is unchanged, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,21 +70,23 @@ class NearestHitCM(NamedTuple):
 
 
 def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor, scene: SceneTensors,
-                   accel: str = "none") -> NearestHitCM:
+                   accel: str = "none",
+                   mt_impl: str | None = None) -> NearestHitCM:
     """Closest hit of rays (o3, d3) [3, N] against the scene's triangles,
     through the sweep ``accel`` resolves to; ``d3`` need not be
-    normalized. Every sweep gives the dense sweep's winner."""
+    normalized. Every sweep gives the dense sweep's winner in its form."""
     d3u = normalize3(d3)
     resolved = resolve_accel(accel, scene.num_padded_triangles)
     if resolved == "hybrid":
         t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene,
-                                         r_blk=R_BLK_HYBRID_NEAREST)
+                                         r_blk=R_BLK_HYBRID_NEAREST,
+                                         mt_impl=mt_impl)
     elif resolved == "sparse":
-        t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene)
+        t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene, mt_impl=mt_impl)
     elif resolved == "walker":
         t, idx = walker_nearest_t_idx_cm(o3, d3u, scene)
     else:
-        t, idx = nearest_t_idx_cm(o3, d3u, scene)
+        t, idx = nearest_t_idx_cm(o3, d3u, scene, mt_impl=mt_impl)
     found = idx >= 0
     safe_idx = idx.clamp_min(0)
     point3 = o3 + d3u * t[None, :]
@@ -96,13 +104,15 @@ def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor, scene: SceneTensors,
 
 def any_hit_within_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
                       max_dist: torch.Tensor, scene: SceneTensors,
-                      accel: str = "none") -> torch.Tensor:
+                      accel: str = "none",
+                      mt_impl: str | None = None) -> torch.Tensor:
     """Shadow occlusion bool[N] of rays (o3, d3_unit) [3, N] within
     ``max_dist`` [N], through the any-hit ``accel`` resolves to;
     ``d3_unit`` must be normalized."""
     resolved = resolve_accel(accel, scene.num_padded_triangles)
     if resolved == "sparse":
-        return sparse_any_hit_cm(o3, d3_unit, max_dist, scene)
+        return sparse_any_hit_cm(o3, d3_unit, max_dist, scene,
+                                 mt_impl=mt_impl)
     if resolved in ("walker", "hybrid"):
         return walker_any_hit_cm(o3, d3_unit, max_dist, scene)
-    return any_hit_cm(o3, d3_unit, max_dist, scene)
+    return any_hit_cm(o3, d3_unit, max_dist, scene, mt_impl=mt_impl)

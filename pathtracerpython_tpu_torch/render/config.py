@@ -8,7 +8,12 @@ through a cluster hierarchy: ``"sparse"``, ``"walker"`` or ``"hybrid"``
 (which ``"auto"`` selects on large scenes), with the sparse hierarchy's
 occluder cache on ``nee_cache="on"`` ("auto" is off). ``render`` refuses
 the values of the remaining fields that need parts not yet ported with
-``NotImplementedError`` (see ``render.integrator.check_supported``)."""
+``NotImplementedError`` (see ``render.integrator.check_supported``).
+
+One field the JAX package does not have: ``mt_impl``, the form of the
+in-triangle test ("classic" or "plucker") in the sweeps that have both.
+None, the default, follows the knob ``kernels.intersect.MT_IMPL``, which
+is how the JAX package selects it."""
 
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ class RenderConfig:
     #                              launches, n_samples x the live ray state)
     geom_axis: str | None = None
     geom_axis_size: int = 0
+    mt_impl: str | None = None  # None: follow kernels.intersect.MT_IMPL
 
     def __post_init__(self):
         def need(ok: bool, what: str):
@@ -48,6 +54,8 @@ class RenderConfig:
         for name in ("sort_rays", "nee_cache", "nee_hint", "sort_nee"):
             value = getattr(self, name)
             need(value in ("auto", "on", "off"), f"{name}={value!r}")
+        need(self.mt_impl in (None, "classic", "plucker"),
+             f"mt_impl={self.mt_impl!r}")
         need(self.soft_vis_beta >= 0.0, "soft_vis_beta must be >= 0")
         need(not (self.soft_vis_beta > 0.0 and self.mode == "reference"),
              "soft visibility is a fast-mode feature")

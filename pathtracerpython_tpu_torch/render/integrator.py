@@ -7,11 +7,13 @@ The forward fast-mode path of the JAX package's ``render/integrator.py``:
         for each bounce:              (a Python loop)
             [sort + park]             (ops.sort, cluster hierarchies)
             hit   = nearest_hit_cm    (K1 dense; K5 sparse and hybrid; K8
-                                       walker)
+                                       walker; K3's Plücker form of K1
+                                       and K5 under mt_impl="plucker")
             color = shade(hit)        (ambient + NEE: fused K2, or the
                                        unfused NEE with K4 dense, K6
                                        sparse, K7 sparse with the occluder
-                                       cache, K9 walker and hybrid)
+                                       cache, K9 walker and hybrid; K3's
+                                       Plücker form of K4 and K6)
             state = scatter(hit)      (diffuse/specular branch, masked)
 
 Every per-ray vector is float32 [3, N]; dead rays are masked lanes. The
@@ -271,7 +273,8 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
         upd = blocked.reshape(rays.cos.shape).amax(dim=0)
         nee_cache = torch.where(upd >= 0, upd, nee_cache)
     else:
-        occ_flat = any_hit_within_cm(*sweep, accel=cfg.accel)
+        occ_flat = any_hit_within_cm(*sweep, accel=cfg.accel,
+                                     mt_impl=cfg.mt_impl)
     if rays.order is not None:
         occ_flat = unpermute_minor(occ_flat, rays.order)
     occluded = occ_flat.reshape(rays.cos.shape)
@@ -367,7 +370,8 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
     u_nee = rng.uniforms(nk0, nk1, state.counters, cfg.n_light_samples * 5)
     u_scatter = rng.uniforms(sk0, sk1, state.counters, 3)
 
-    hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel)
+    hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
+                         mt_impl=cfg.mt_impl)
     mat = resolve_materials(scene, hit.material)
     # one arrival-side normal for both direct light and scattering
     shading_n3 = arrival_side_normal(hit.normal3, normalize3(state.direction3))

@@ -58,7 +58,8 @@ def test_port_never_imports_jax():
     assert out["top_level"] == []
     for name in ("scene.arrays", "ops.rng", "ops.sort", "kernels.intersect",
                  "kernels.nee", "kernels.sparse", "kernels.walker",
-                 "kernels.build", "render.integrator"):
+                 "kernels.build", "render.integrator", "probes.mma_probe",
+                 "probes.bf16_probe"):
         assert f"pathtracerpython_tpu_torch.{name}" in out["modules"], name
     # importing every module builds and loads nothing
     assert out["library_loaded"] is False
@@ -74,9 +75,10 @@ def test_nvcc_flags_keep_plain_rounding():
 def test_sources_are_in_the_package():
     names = sorted(os.path.basename(p) for p in build._sources())
     assert names == ["any_hit.cu", "cluster.cuh", "mt.cuh", "nearest.cu",
-                     "nee.cu", "sparse_any_hit.cu", "sparse_any_hit_idx.cu",
-                     "sparse_nearest.cu", "walker_any_hit.cu",
-                     "walker_nearest.cu"]
+                     "nee.cu", "plucker.cuh", "probe_bf16.cu",
+                     "probe_plucker.cu", "sparse_any_hit.cu",
+                     "sparse_any_hit_idx.cu", "sparse_nearest.cu",
+                     "walker_any_hit.cu", "walker_nearest.cu"]
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
@@ -113,13 +115,19 @@ def test_cpu_render_runs_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(build, "function", refuse)
     counters = [(intersect, "LAUNCHES"), (intersect, "ANY_HIT_LAUNCHES"),
-                (nee, "LAUNCHES"), (sparse, "LAUNCHES"), (walker, "LAUNCHES")]
+                (nee, "LAUNCHES"), (sparse, "LAUNCHES"), (walker, "LAUNCHES"),
+                (intersect, "PLUCKER_LAUNCHES"),
+                (intersect, "PLUCKER_ANY_HIT_LAUNCHES"),
+                (sparse, "PLUCKER_LAUNCHES"),
+                (sparse, "PLUCKER_ANY_HIT_LAUNCHES")]
     for module, name in counters:
         monkeypatch.setattr(module, name, 0)
     scene = arrays.pack_scene(synthetic.cornell_box_scene(6, 6), pad_to=32,
                               device="cpu")
-    for accel in ("none", "hybrid"):
+    for accel, mt_impl in (("none", None), ("hybrid", None),
+                           ("none", "plucker"), ("sparse", "plucker")):
         rad = render(scene, RenderConfig(n_samples=1, n_bounces=2,
-                                         accel=accel), seed=0)
+                                         accel=accel, mt_impl=mt_impl),
+                     seed=0)
         assert rad.device == torch.device("cpu") and rad.shape == (36, 3)
     assert all(getattr(module, name) == 0 for module, name in counters)

@@ -329,3 +329,162 @@ def test_cached_any_hit_kernel_matches_plain_and_uncached(cuda):
         assert torch.equal(k_occ, again[0]) and torch.equal(k_cl, again[1])
         assert (k_occ == p_occ).float().mean().item() >= MIN_AGREE
         assert (k_cl == p_cl).float().mean().item() >= MIN_AGREE
+
+
+# K3, the Plücker form, and the probes P1 and P2.
+
+
+@pytest.mark.parametrize("name", ["cornell", "boxfield300"])
+def test_plucker_nearest_kernel_matches_plain(cuda, name):
+    scene = _scene(name, cuda)
+    o3, d3u = _rays(scene)
+    before, classic = intersect.PLUCKER_LAUNCHES, intersect.LAUNCHES
+    t, idx = intersect.nearest_t_idx_cm(o3, d3u, scene, mt_impl="plucker")
+    assert intersect.PLUCKER_LAUNCHES == before + 1
+    assert intersect.LAUNCHES == classic
+    pt, pidx = intersect.nearest_t_idx_plucker_plain(
+        o3, d3u, intersect.scene_plucker_pack(scene))
+    torch.cuda.synchronize()
+    assert bool((t[idx < 0] == 0).all()) and bool((idx >= 0).any())
+    same = idx == pidx
+    assert same.float().mean().item() >= MIN_AGREE
+    torch.testing.assert_close(t[same], pt[same], rtol=T_RTOL, atol=T_ATOL)
+    # the classic form's winners but for grazing rays
+    _, cidx = intersect.nearest_t_idx_cm(o3, d3u, scene)
+    assert (idx == cidx).float().mean().item() >= 1.0 - 2e-3
+
+
+def test_plucker_any_hit_kernel_matches_plain(cuda):
+    scene = _scene("boxfield300", cuda)
+    o3, d3u = _rays(scene)
+    maxd = torch.full((o3.shape[1],), 6.0, device=cuda)
+    maxd[::7] = 0.0  # parked lanes
+    before = intersect.PLUCKER_ANY_HIT_LAUNCHES
+    occ = intersect.any_hit_cm(o3, d3u, maxd, scene, mt_impl="plucker")
+    assert intersect.PLUCKER_ANY_HIT_LAUNCHES == before + 1
+    plain = intersect.any_hit_plucker_plain(
+        o3, d3u, maxd, intersect.scene_plucker_pack(scene))
+    torch.cuda.synchronize()
+    assert occ.dtype == torch.bool and bool(occ.any())
+    assert not bool(occ[::7].any())
+    assert (occ == plain).float().mean().item() >= MIN_AGREE
+    classic = intersect.any_hit_cm(o3, d3u, maxd, scene)
+    assert (occ == classic).float().mean().item() >= 1.0 - 2e-3
+
+
+@pytest.mark.parametrize("r_blk", [512, 1024])
+def test_plucker_sparse_nearest_kernel(cuda, r_blk):
+    scene = _scene("large", cuda)
+    o3, d3u = _rays(scene)
+    before = sparse.PLUCKER_LAUNCHES
+    t, idx = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene, r_blk=r_blk,
+                                            mt_impl="plucker")
+    assert sparse.PLUCKER_LAUNCHES == before + 1
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    nrb = -(-o3.shape[1] // r_blk)
+    lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+        (nrb,), intersect.BIG, device=cuda), r_blk)
+    pt, pidx = sparse.sparse_nearest_plucker_plain(
+        o3, d3u, intersect.scene_plucker_pack(scene, sparse.PACK_ROWS), aabb8,
+        lists, r_blk)
+    td, idxd = intersect.nearest_t_idx_cm(o3, d3u, scene, mt_impl="plucker")
+    torch.cuda.synchronize()
+    assert (idx == pidx).float().mean().item() >= MIN_AGREE
+    # the dense Plücker sweep's bits
+    assert torch.equal(idx, idxd) and torch.equal(t, td)
+
+
+def test_plucker_sparse_any_hit_kernel(cuda):
+    scene = _scene("large", cuda)
+    o3, d3u = _rays(scene)
+    maxd = torch.full((o3.shape[1],), 8.0, device=cuda)
+    maxd[::5] = 0.0
+    before = sparse.PLUCKER_ANY_HIT_LAUNCHES
+    occ = sparse.sparse_any_hit_cm(o3, d3u, maxd, scene, mt_impl="plucker")
+    assert sparse.PLUCKER_ANY_HIT_LAUNCHES == before + 1
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    lists = sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK)
+    plain = sparse.sparse_any_hit_plucker_plain(
+        o3, d3u, maxd, intersect.scene_plucker_pack(scene, sparse.PACK_ROWS),
+        aabb8, lists, sparse.R_BLK)
+    dense = intersect.any_hit_cm(o3, d3u, maxd, scene, mt_impl="plucker")
+    torch.cuda.synchronize()
+    assert bool(occ.any())
+    assert (occ == plain).float().mean().item() >= MIN_AGREE
+    assert torch.equal(occ, dense)
+
+
+@pytest.mark.parametrize("accel,want", [
+    ("none", {"dense": 3}), ("sparse", {"sparse": 3, "sparse_any": 3}),
+    ("hybrid", {"sparse": 3})])
+def test_plucker_render_on_card_matches_cpu(cuda, accel, want):
+    if accel == "none":
+        scene = arrays.pack_scene(synthetic.cornell_box_scene(16, 16),
+                                  pad_to=32, device="cpu")
+    else:
+        scene = arrays.pack_scene(synthetic.box_field_scene(
+            n_boxes=400, width=16, height=16), tri_order="morton",
+            device="cpu")
+    cfg = RenderConfig(accel=accel, mt_impl="plucker", n_samples=2,
+                       n_bounces=3, batch_samples=True)
+    read = lambda: {"dense": intersect.PLUCKER_LAUNCHES,
+                    "dense_any": intersect.PLUCKER_ANY_HIT_LAUNCHES,
+                    "sparse": sparse.PLUCKER_LAUNCHES,
+                    "sparse_any": sparse.PLUCKER_ANY_HIT_LAUNCHES,
+                    "K1": intersect.LAUNCHES, "K5": sparse.LAUNCHES,
+                    "K6": sparse.ANY_HIT_LAUNCHES}
+    before = read()
+    on_card = render(scene.to(cuda), cfg, seed=5)
+    after = read()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == want
+    on_cpu = render(scene, cfg, seed=5)
+    close = torch.isclose(on_card.cpu(), on_cpu, rtol=RENDER_TOL,
+                          atol=RENDER_TOL).all(dim=1)
+    assert close.float().mean().item() >= 0.99
+
+
+def test_mt_impl_on_a_cuda_tensor_never_runs_the_plain_version(cuda,
+                                                                monkeypatch):
+    scene = _scene("cornell", cuda)
+    o3, d3u = _rays(scene)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(intersect, "nearest_t_idx_plucker_plain", refuse)
+    monkeypatch.setattr(intersect, "nearest_t_idx_plain", refuse)
+    intersect.nearest_t_idx_cm(o3, d3u, scene, mt_impl="plucker")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("variant", ["mt", "plucker_fma", "plucker_tf32",
+                                     "plucker_3xtf32"])
+def test_mma_probe_kernel_matches_plain(cuda, variant):
+    from pathtracerpython_tpu_torch.probes import mma_probe
+
+    o3, d3, tripack = mma_probe.make_inputs(40000 + 77, 300, 1, cuda)
+    before = mma_probe.LAUNCHES[variant]
+    got = mma_probe.probe(o3, d3, tripack, variant)
+    assert mma_probe.LAUNCHES[variant] == before + 1
+    want = mma_probe.probe_plain(o3, d3, tripack, variant)
+    torch.cuda.synchronize()
+    diff = mma_probe.compare(tripack, o3, d3, got, want)
+    assert 1.0 - diff["winner_diff_share"] >= MIN_AGREE, diff
+    assert diff["max_t_err"] <= 1e-5, diff
+    assert bool((got[1] != mma_probe.IMAX).any())
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+def test_bf16_probe_kernel_matches_plain(cuda, variant):
+    from pathtracerpython_tpu_torch.probes import bf16_probe
+
+    o3, d3, tripack = bf16_probe.make_inputs(50001, 300, 1, cuda)
+    before = bf16_probe.LAUNCHES[variant]
+    got = bf16_probe.hit_count(o3, d3, tripack, variant)
+    assert bf16_probe.LAUNCHES[variant] == before + 1
+    want = bf16_probe.hit_count_plain(o3, d3, tripack, variant)
+    torch.cuda.synchronize()
+    assert got.sum().item() > 0
+    assert (got == want).float().mean().item() >= MIN_AGREE

@@ -10,8 +10,10 @@ import numpy as np
 
 from pathtracerpython_tpu.kernels import sparse_pallas as sp
 from pathtracerpython_tpu.scene import obj as jax_obj
+from pathtracerpython_tpu.scene import arrays as jax_arrays
 from pathtracerpython_tpu.scene import sdl as jax_sdl
 from pathtracerpython_tpu.scene.arrays import DATA_FIELDS
+from pathtracerpython_tpu_torch.scene import arrays as port_arrays
 
 # Tolerances of the kernels' plain versions against the JAX kernels in
 # interpret mode: the same float32 operations, but XLA:CPU may fuse a
@@ -36,6 +38,16 @@ def to_jax_desc(desc):
         for o in desc.objects
     ]
     return jax_sdl.SceneDescription(**fields)
+
+
+def pack_pair(desc, **pack):
+    """(the port's packing on the CPU, the JAX package's packing) of one
+    description; ``tri_order="morton"`` is JAX's ``morton_order=True``."""
+    jax_pack = dict(pack)
+    if jax_pack.pop("tri_order", None) == "morton":
+        jax_pack["morton_order"] = True
+    return (port_arrays.pack_scene(desc, **pack, device="cpu"),
+            jax_arrays.pack_scene(to_jax_desc(desc), **jax_pack))
 
 
 def jax_leaves(scene) -> dict[str, np.ndarray]:
