@@ -24,6 +24,22 @@ rays that graze a triangle's edge, and nowhere else. The knob is read at
 every call. The dense sweeps here and the cluster-sparse sweeps K5 and K6
 (``kernels/sparse.py``) follow it; the fused NEE (K2), the cached any-hit
 (K7) and the walker sweeps (K8, K9) stay classic, as in the JAX package.
+
+**The any-hit kernels cull by boxes**: a lane tests a block of occluder
+rows only when its segment, up to its limit, meets the block's AABB under
+the slab test of ``_aabb_cull_rows`` (``aabb_cull_rows``). The kernels do
+so at two sizes, the tile of ``TILE_ROWS`` rows and a group of
+``CULL_GROUP`` rows (``cull_boxes``, ``scene_cull_boxes``;
+``csrc/aabb.cuh``), on a scene of one tile too: measured on the card, the
+group level pays there as well, where the TPU kernels' ``_use_cull`` keeps
+one block un-culled. The boxes are grown a little at build time and the
+limit is stretched by ``CULL_REACH``, so that no pair is skipped that a
+conditioned pair test (|det| >= 1e-3 |e1||e2|) accepts: the result does not
+change by one bit. Below that conditioning (a ray within 1e-3 rad of a
+triangle's plane, or a triangle that thin) the pair test's own u, v and t
+are rounding noise, and a culled sweep may drop a hit that the un-culled
+one reports, here as in the JAX package. ``any_hit_plain`` without ``cull`` is the oracle; with ``cull`` it
+masks pairs as the kernel does.
 """
 
 from __future__ import annotations
@@ -35,6 +51,7 @@ import torch
 
 from pathtracerpython_tpu_torch.kernels import build
 
+OCCLUDER_COL = 10  # of the [T, 12] pack; 9 is valid
 DET_EPS = 1e-7  # |det| > DET_EPS: not parallel
 T_MIN = 1e-4    # forward near-clip, t > T_MIN
 BIG = 3.0e38    # "no hit yet"
@@ -58,6 +75,18 @@ PLUCKER_ANY_HIT_LAUNCHES = 0
 
 PLUCKER_COLS = 36  # e0 (8) | e1 (8) | e2 (8) | n v0 valid occluder 0x4 (12)
 
+TILE_ROWS = 256          # rows a block stages at a time (csrc/mt.cuh kTile)
+CULL_GROUP = 2           # rows a group box (csrc/aabb.cuh kGroup; PERF.md)
+CULL_SLACK = 1e-3        # absolute slack in t of the slab test
+# A culled sweep's slab tests run up to the lane's limit times CULL_REACH:
+# the pair tests' t carries an error that grows with t, which the absolute
+# slack alone does not cover for far origins.
+CULL_REACH = 1.001
+# A box is grown by CULL_PAD * max(1, |min|, |max|) per component: the pair
+# tests accept rays that pass a triangle's edge by their own rounding error
+# (about 1e-6 of the coordinates), the boxes must not reject them.
+CULL_PAD = 1e-4
+
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
     ctypes.c_void_p, ctypes.c_int,                    # tripack, t_count
@@ -68,7 +97,8 @@ _ANY_HIT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
     ctypes.c_int,                                       # n
     ctypes.c_void_p, ctypes.c_int,                      # tripack, t_count
-    ctypes.c_void_p,                                    # occ_out
+    ctypes.c_void_p, ctypes.c_void_p,                   # tile, group boxes
+    ctypes.c_void_p, ctypes.c_void_p,                   # occ_out, stats
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
@@ -157,30 +187,132 @@ def plucker_packs(tripack: torch.Tensor):
     return [pack[:, 8 * k:8 * k + 8] for k in range(3)], pack[:, 24:36]
 
 
-# The Plücker packs of the scene swept last, so that a render derives them
-# once and not once per bounce: keyed by the identity and version of the
-# scene's triangle tensors, which the entry keeps alive.
-_plucker_cache: dict = {}
+# What a sweep derives from the scene swept last (the Plücker packs, the
+# cull boxes), so that a render derives it once and not once per bounce:
+# keyed by the identity and version of the scene's triangle tensors, which
+# the entry keeps alive.
+_scene_cache: dict = {}
+
+
+def _scene_derived(scene, name, make):
+    """``make()`` cached under ``name`` while the scene's triangle tensors
+    stay the same objects, unmodified."""
+    leaves = (scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_valid,
+              scene.tri_occluder)
+    key = tuple((id(x), x._version) for x in leaves)
+    if _scene_cache.get("key") != key:
+        _scene_cache.clear()
+        _scene_cache.update(key=key, leaves=leaves)
+    if name not in _scene_cache:
+        _scene_cache[name] = make()
+    return _scene_cache[name]
 
 
 def scene_plucker_pack(scene, row_multiple: int = 1) -> torch.Tensor:
     """``plucker_pack`` of the scene's triangles, padded with zero rows to
-    a multiple of ``row_multiple``; cached while the scene's triangle
-    tensors stay the same objects, unmodified."""
-    leaves = (scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_valid,
-              scene.tri_occluder)
-    key = tuple((id(x), x._version) for x in leaves)
-    if _plucker_cache.get("key") != key:
-        _plucker_cache.clear()
-        _plucker_cache.update(key=key, leaves=leaves)
-    pack = _plucker_cache.get(row_multiple)
-    if pack is None:
+    a multiple of ``row_multiple``; cached per scene."""
+    def make():
         tripack = scene_tripack(scene)
         pad = (-tripack.shape[0]) % row_multiple
         if pad:
             tripack = torch.cat([tripack, tripack.new_zeros((pad, 12))])
-        pack = _plucker_cache[row_multiple] = plucker_pack(tripack)
-    return pack
+        return plucker_pack(tripack)
+
+    return _scene_derived(scene, ("plucker", row_multiple), make)
+
+
+def block_aabbs(tripack: torch.Tensor, block: int,
+                mask_col: int | None = None) -> torch.Tensor:
+    """``_block_aabbs``: the AABB of every block of ``block`` rows of a
+    [T, 12] pack, f32[C, 8] = min.xyz | max.xyz | 0 | 0 over the block's
+    valid rows; an inverted box (min > max) for a block with none.
+    ``mask_col`` names a pack column that must be > 0.5 besides valid, as in
+    ``load_tile``: 10 for the rows a shadow sweep tests. A ragged last
+    block counts the rows it has."""
+    pad = (-tripack.shape[0]) % block
+    if pad:
+        tripack = torch.cat([tripack, tripack.new_zeros((pad, 12))])
+    c = tripack.shape[0] // block
+    tp = tripack.reshape(c, block, 12)
+    use = tp[:, :, 9] > 0.5
+    if mask_col is not None:
+        use = use & (tp[:, :, mask_col] > 0.5)
+    use = use[:, :, None, None]
+    vs = tp[:, :, 0:9].reshape(c, block, 3, 3)    # [C, B, vertex, xyz]
+    vmin = torch.where(use, vs, BIG).amin(dim=(1, 2))
+    vmax = torch.where(use, vs, -BIG).amax(dim=(1, 2))
+    return torch.cat([vmin, vmax, vmin.new_zeros((c, 2))], dim=1)
+
+
+def aabb_cull_rows(aabb: torch.Tensor, o_rows, d_rows, bound):
+    """``_aabb_cull_rows``: the slab test of boxes ``aabb`` [..., 8] against
+    rays given as three origin and three direction rows, up to ``bound``.
+    A box's column k, shaped [..., 1], broadcasts against the rows. Returns
+    (hit, nonempty [..., 1]); a block is swept where both hold."""
+    enter = exit_ = None
+    for k in range(3):
+        d_k = d_rows[k]
+        tiny = torch.where(d_k >= 0, 1e-12, -1e-12).to(d_k.dtype)
+        inv = 1.0 / torch.where(d_k.abs() < 1e-12, tiny, d_k)
+        lo = (aabb[..., k:k + 1] - o_rows[k]) * inv
+        hi = (aabb[..., k + 3:k + 4] - o_rows[k]) * inv
+        tn, tf = torch.minimum(lo, hi), torch.maximum(lo, hi)
+        enter = tn if enter is None else torch.maximum(enter, tn)
+        exit_ = tf if exit_ is None else torch.minimum(exit_, tf)
+    hit = (exit_ >= torch.clamp_min(enter, 0.0) - CULL_SLACK) & (
+        enter <= bound + CULL_SLACK)
+    return hit, aabb[..., 0:1] <= aabb[..., 3:4]
+
+
+class CullBoxes(NamedTuple):
+    """The boxes of a culled any-hit sweep over a [T, 12] pack: ``tile``
+    f32[ceil(T / TILE_ROWS), 8] and ``group`` f32[ceil(T / CULL_GROUP), 8],
+    over the valid occluder rows, grown by ``CULL_PAD``."""
+
+    tile: torch.Tensor
+    group: torch.Tensor
+
+
+def grow_boxes(aabb8: torch.Tensor) -> torch.Tensor:
+    """Every non-empty box grown by CULL_PAD * max(1, |min|, |max|) per
+    component. A box that holds another still holds it when both are
+    grown."""
+    lo, hi = aabb8[:, 0:3], aabb8[:, 3:6]
+    nonempty = lo[:, 0:1] <= hi[:, 0:1]
+    pad = CULL_PAD * torch.clamp_min(torch.maximum(lo.abs(), hi.abs()), 1.0)
+    return torch.cat([torch.where(nonempty, lo - pad, lo),
+                      torch.where(nonempty, hi + pad, hi), aabb8[:, 6:]],
+                     dim=1).contiguous()
+
+
+def cull_boxes(tripack: torch.Tensor) -> CullBoxes:
+    """The tile and group boxes of a [T, 12] pack's shadow sweep."""
+    return CullBoxes(
+        grow_boxes(block_aabbs(tripack, TILE_ROWS, OCCLUDER_COL)),
+        grow_boxes(block_aabbs(tripack, CULL_GROUP, OCCLUDER_COL)))
+
+
+def scene_cull_boxes(scene) -> CullBoxes:
+    """``cull_boxes`` of the scene's triangles, cached per scene."""
+    return _scene_derived(scene, "cull",
+                          lambda: cull_boxes(scene_tripack(scene)))
+
+
+def cull_pairs(cull: CullBoxes, lo: int, hi: int, o_rows, d_rows,
+               bound) -> torch.Tensor:
+    """bool[hi - lo, N]: the (row, lane) pairs of pack rows [lo, hi) that a
+    culled sweep tests, which are those whose tile box and whose group box
+    the lane's segment meets up to ``bound`` times ``CULL_REACH``."""
+    keep = None
+    bound = bound * CULL_REACH
+    for boxes, block in ((cull.tile, TILE_ROWS), (cull.group, CULL_GROUP)):
+        first = lo // block
+        hit, nonempty = aabb_cull_rows(boxes[first:(hi - 1) // block + 1],
+                                       o_rows, d_rows, bound)
+        rows = torch.arange(lo, hi, device=boxes.device) // block - first
+        meets = (hit & nonempty)[rows]
+        keep = meets if keep is None else keep & meets
+    return keep
 
 
 def plucker_inside(s0, s1, s2):
@@ -346,17 +478,31 @@ def _launch_plucker(o3, d3_unit, pack36):
 
 def any_hit_plain(o3: torch.Tensor, d3_unit: torch.Tensor,
                   maxd: torch.Tensor, tripack: torch.Tensor,
-                  pair: PairTest = CLASSIC) -> torch.Tensor:
+                  pair: PairTest = CLASSIC, cull: CullBoxes | None = None,
+                  tested: list | None = None) -> torch.Tensor:
     """Occlusion bool[N] of rays o3/d3_unit within maxd, chunked over the
-    occluder rows; ``tripack`` in the layout of ``pair``."""
+    occluder rows; ``tripack`` in the layout of ``pair``. Without ``cull``
+    every lane meets every occluder: the oracle. With ``cull`` (the boxes
+    of the [T, 12] pack of the same rows) a pair counts only where the
+    culled kernel tests it, and ``tested`` gets each chunk's number of such
+    pairs."""
     rays = [o3[k:k + 1] for k in range(3)] + [d3_unit[k:k + 1] for k in range(3)]
-    occluders = tripack[tripack[:, pair.occluder_col] > 0.5]
+    occluder = tripack[:, pair.occluder_col] > 0.5
+    rows = tripack[occluder] if cull is None else tripack
     limit = maxd[None, :] - T_MIN
     blocked = torch.zeros_like(limit, dtype=torch.bool)
     step = chunk_rows(o3.shape[1])
-    for lo in range(0, occluders.shape[0], step):
-        hit, t = pair.rows(occluders[lo:lo + step], *rays)
-        blocked = blocked | (hit & (t < limit)).any(dim=0, keepdim=True)
+    for lo in range(0, rows.shape[0], step):
+        hit, t = pair.rows(rows[lo:lo + step], *rays)
+        blocking = hit & (t < limit)
+        if cull is not None:
+            keep = (cull_pairs(cull, lo, lo + hit.shape[0], rays[:3], rays[3:],
+                               maxd[None, :])
+                    & occluder[lo:lo + step, None] & (limit > T_MIN))
+            blocking = blocking & keep
+            if tested is not None:
+                tested.append(int(keep.sum()))
+        blocked = blocked | blocking.any(dim=0, keepdim=True)
     return blocked[0]
 
 
@@ -366,10 +512,11 @@ def nearest_t_idx_plucker_plain(o3, d3_unit, pack36):
     return nearest_t_idx_plain(o3, d3_unit, pack36, PLUCKER)
 
 
-def any_hit_plucker_plain(o3, d3_unit, maxd, pack36) -> torch.Tensor:
+def any_hit_plucker_plain(o3, d3_unit, maxd, pack36, cull=None,
+                          tested=None) -> torch.Tensor:
     """K3's dense any-hit, plain: ``any_hit_plain``'s merge over
     ``plucker_rows`` of a ``plucker_pack``."""
-    return any_hit_plain(o3, d3_unit, maxd, pack36, PLUCKER)
+    return any_hit_plain(o3, d3_unit, maxd, pack36, PLUCKER, cull, tested)
 
 
 def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
@@ -393,35 +540,59 @@ def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {device}")
     return (_launch_plucker_any_hit if plucker else _launch_any_hit)(
-        o3, d3_unit, maxd, pack)
+        o3, d3_unit, maxd, pack, scene_cull_boxes(scene))
 
 
-def _launch_occlusion(o3, d3_unit, maxd, pack, entry: str):
+def cull_pointers(cull: CullBoxes, stats: torch.Tensor | None):
+    """The (tile boxes, group boxes, stats) arguments of a culled
+    kernel. ``stats``: an int64[3] CUDA tensor that the kernel's
+    counting instance adds to (``cull_stats``), or None for the instance
+    that only sweeps."""
+    return (cull.tile.data_ptr(), cull.group.data_ptr(),
+            None if stats is None else stats.data_ptr())
+
+
+def cull_stats(stats: torch.Tensor, n: int, t_count: int) -> dict:
+    """What the counting instance of a culled kernel added to ``stats`` in
+    one launch over ``n`` lanes and ``t_count`` rows: the pairs it tested,
+    and the shares of (block, tile) and (warp, group) steps it skipped, by
+    the cull or because no lane was open any more."""
+    staged, walked, pairs = stats.tolist()
+    blocks = -(-n // TILE_ROWS)       # CTAs of TILE_ROWS lanes, 8 warps each
+    tiles, groups = -(-t_count // TILE_ROWS), -(-t_count // CULL_GROUP)
+    return {"pairs_tested": pairs,
+            "tiles_skipped": 1.0 - staged / (blocks * tiles),
+            "groups_skipped": 1.0 - walked / (blocks * 8 * groups)}
+
+
+def _launch_occlusion(o3, d3_unit, maxd, pack, entry: str, cull: CullBoxes,
+                      stats: torch.Tensor | None = None):
     n = o3.shape[1]
     occ = torch.empty(n, dtype=torch.bool, device=o3.device)
     if n == 0:
         return occ, False
     fn = build.function(entry, _ANY_HIT_ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
+    tile, group, counters = cull_pointers(cull, stats)
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
-             pack.data_ptr(), pack.shape[0], occ.data_ptr(),
-             o3.device.index, stream)
+             pack.data_ptr(), pack.shape[0], tile, group, occ.data_ptr(),
+             counters, o3.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
     return occ, True
 
 
-def _launch_any_hit(o3, d3_unit, maxd, tripack):
+def _launch_any_hit(o3, d3_unit, maxd, tripack, cull, stats=None):
     global ANY_HIT_LAUNCHES
     occ, launched = _launch_occlusion(o3, d3_unit, maxd, tripack,
-                                      "ptt_any_hit")
+                                      "ptt_any_hit", cull, stats)
     ANY_HIT_LAUNCHES += launched
     return occ
 
 
-def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36):
+def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36, cull, stats=None):
     global PLUCKER_ANY_HIT_LAUNCHES
     occ, launched = _launch_occlusion(o3, d3_unit, maxd, pack36,
-                                      "ptt_plucker_any_hit")
+                                      "ptt_plucker_any_hit", cull, stats)
     PLUCKER_ANY_HIT_LAUNCHES += launched
     return occ

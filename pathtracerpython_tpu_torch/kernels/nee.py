@@ -11,6 +11,11 @@ by rsqrt(max(sq, 1e-30)) and distance by sqrt(sq + 1e-24), clamped
 cosine, occluder sweep with t < dist - 1e-4, then the mean. Forward only.
 Its occluder sweep is classic Möller–Trumbore whatever the ``MT_IMPL`` knob
 of ``kernels/intersect.py`` says: ``nee_pallas.py`` has no Plücker body.
+The kernel culls the sweep by the tile and group boxes of
+``kernels/intersect.py:scene_cull_boxes``, per sample, with the sample's
+distance as the bound (``_nee_body`` under ``cull=True``);
+``nee_mean_cos_plain`` without ``cull`` is the oracle, with ``cull`` it
+masks pairs as the kernel does. The bits are the same.
 """
 
 from __future__ import annotations
@@ -21,10 +26,15 @@ import torch
 
 from pathtracerpython_tpu_torch.kernels import build
 from pathtracerpython_tpu_torch.kernels.intersect import (
+    OCCLUDER_COL,
     T_MIN,
+    CullBoxes,
     check_input,
     chunk_rows,
+    cull_pairs,
+    cull_pointers,
     mt_rows,
+    scene_cull_boxes,
     scene_tripack,
 )
 
@@ -41,7 +51,8 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int,                         # n, s_samples
     ctypes.c_void_p, ctypes.c_int,                      # tripack, t_count
     ctypes.c_void_p, ctypes.c_int,                      # lightpack, l_count
-    ctypes.c_void_p, ctypes.c_void_p,                   # mc_out, occ_out
+    ctypes.c_void_p, ctypes.c_void_p,                   # tile, group boxes
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # mc_out, occ_out, stats
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
@@ -58,15 +69,20 @@ def light_pack(scene) -> torch.Tensor:
 
 
 def nee_mean_cos_plain(point3, normal3, u, tripack, lightpack,
-                       s_samples: int):
-    """(mean_cos [1, N], occ [S, N]) in plain PyTorch."""
+                       s_samples: int, cull: CullBoxes | None = None,
+                       tested: list | None = None):
+    """(mean_cos [1, N], occ [S, N]) in plain PyTorch. Without ``cull``
+    every sample meets every occluder: the oracle. With ``cull`` (the
+    pack's boxes) a pair counts only where the culled kernel tests it, and
+    ``tested`` gets each chunk's number of such pairs."""
     n = point3.shape[1]
     n_light = lightpack.shape[0]
     total = lightpack[n_light - 1, 9]
     px, py, pz = (point3[k:k + 1] for k in range(3))
     nx, ny, nz = (normal3[k:k + 1] for k in range(3))
     # the occlusion sweep only ever keeps occluder rows (valid included)
-    occluders = tripack[tripack[:, 10] > 0.5]
+    occluder = tripack[:, OCCLUDER_COL] > 0.5
+    occluders = tripack[occluder] if cull is None else tripack
     step = chunk_rows(n)
     acc = None
     occ = []
@@ -93,8 +109,15 @@ def nee_mean_cos_plain(point3, normal3, u, tripack, lightpack,
         blocked = torch.zeros_like(x, dtype=torch.bool)
         for lo in range(0, occluders.shape[0], step):
             hit, t = mt_rows(occluders[lo:lo + step], px, py, pz, sx, sy, sz)
-            blocked = blocked | (hit & (t < dist - T_MIN)).any(
-                dim=0, keepdim=True)
+            blocking = hit & (t < dist - T_MIN)
+            if cull is not None:
+                keep = (cull_pairs(cull, lo, lo + hit.shape[0], (px, py, pz),
+                                   (sx, sy, sz), dist)
+                        & occluder[lo:lo + step, None])
+                blocking = blocking & keep
+                if tested is not None:
+                    tested.append(int(keep.sum()))
+            blocked = blocked | blocking.any(dim=0, keepdim=True)
         term = torch.where(blocked, 0.0, cos)
         acc = term if acc is None else acc + term
         occ.append(blocked.to(point3.dtype))
@@ -130,10 +153,12 @@ def nee_mean_cos_fused(point3: torch.Tensor, normal3: torch.Tensor,
                                   s_samples)
     if device.type != "cuda":
         raise ValueError(f"no NEE kernel for device {device}")
-    return _launch(point3, normal3, u, tripack, lightpack, s_samples)
+    return _launch(point3, normal3, u, tripack, lightpack, s_samples,
+                   scene_cull_boxes(scene))
 
 
-def _launch(point3, normal3, u, tripack, lightpack, s_samples):
+def _launch(point3, normal3, u, tripack, lightpack, s_samples, cull,
+            stats=None):
     global LAUNCHES
     n = point3.shape[1]
     mc = torch.empty((1, n), dtype=torch.float32, device=point3.device)
@@ -143,10 +168,12 @@ def _launch(point3, normal3, u, tripack, lightpack, s_samples):
         return mc, occ
     fn = build.function("ptt_nee_mean_cos", _ARGTYPES)
     stream = torch.cuda.current_stream(point3.device).cuda_stream
+    tile, group, counters = cull_pointers(cull, stats)
     err = fn(point3.data_ptr(), normal3.data_ptr(), u.data_ptr(), n,
              s_samples, tripack.data_ptr(), tripack.shape[0],
-             lightpack.data_ptr(), lightpack.shape[0], mc.data_ptr(),
-             occ.data_ptr(), point3.device.index, stream)
+             lightpack.data_ptr(), lightpack.shape[0], tile, group,
+             mc.data_ptr(), occ.data_ptr(), counters, point3.device.index,
+             stream)
     if err != 0:
         raise RuntimeError(f"NEE kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -67,6 +67,7 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     PLUCKER,
     T_MIN,
     PairTest,
+    block_aabbs,
     check_input,
     resolve_mt_impl,
     scene_plucker_pack,
@@ -165,13 +166,7 @@ def pack_for_sparse(scene) -> torch.Tensor:
 def cluster_aabbs(tripack: torch.Tensor, c_tri: int = C_TRI) -> torch.Tensor:
     """Per-cluster AABBs f32[C, 8] = (min.xyz | max.xyz | 0 | 0) over the
     valid rows; a cluster without one gets an inverted box."""
-    c = tripack.shape[0] // c_tri
-    tp = tripack.reshape(c, c_tri, 12)
-    valid = (tp[:, :, 9:10] > 0.5)[..., None]
-    vs = tp[:, :, 0:9].reshape(c, c_tri, 3, 3)
-    vmin = torch.where(valid, vs, BIG).amin(dim=(1, 2))
-    vmax = torch.where(valid, vs, -BIG).amax(dim=(1, 2))
-    return torch.cat([vmin, vmax, vmin.new_zeros((c, 2))], dim=1)
+    return block_aabbs(tripack, c_tri)
 
 
 def pad_repeat_last(x: torch.Tensor, mult: int) -> torch.Tensor:

@@ -74,7 +74,7 @@ def test_nvcc_flags_keep_plain_rounding():
 
 def test_sources_are_in_the_package():
     names = sorted(os.path.basename(p) for p in build._sources())
-    assert names == ["any_hit.cu", "cluster.cuh", "mt.cuh", "nearest.cu",
+    assert names == ["aabb.cuh", "any_hit.cu", "cluster.cuh", "mt.cuh", "nearest.cu",
                      "nee.cu", "plucker.cuh", "probe_bf16.cu",
                      "probe_plucker.cu", "sparse_any_hit.cu",
                      "sparse_any_hit_idx.cu", "sparse_nearest.cu",
