@@ -16,22 +16,32 @@ phase fails:
    - K1 (dense nearest hit), K2 (fused NEE) and K4 (dense any-hit, on the
      unfused NEE's shadow rays) on the first and second bounce wavefronts
      of the 512x512x4spp render (1,048,576 lanes), for the Cornell stand-in
-     and a 300-box field (3,604 triangles, still dense). K2, K4 and K3's
-     dense any-hit cull their sweep by boxes: each is held against its
-     un-culled plain version bit for bit (max abs diff 0 on every lane; a
-     lane that differs is printed with its ray, limit and blocking
-     triangle), and its counting instance reports the pairs it tested and
-     the shares of tiles and groups it skipped; the same on a
-     morton-ordered pack of the box field, whose bits must be the
-     scene-order run's; K4 and K3's dense any-hit also on the wavefronts of
-     the 300-box field's render with 9 NEE samples (256x256, 589,824 shadow
+     and a 300-box field (3,604 triangles, still dense). Every dense sweep
+     culls by boxes. K1 and K3's dense nearest (bound: the lane's running
+     best t) are held against their culled plain model run on the card
+     (winners and t equal on every lane, max abs diff 0; a lane that
+     differs is printed with its ray, both winners and their barycentric
+     margins) and against their un-culled plain version under K1's bounds
+     below, with the number of lanes that differ. K2, K4 and K3's dense
+     any-hit are held against their un-culled plain version bit for bit
+     (max abs diff 0 on every lane; a lane that differs is printed with its
+     ray, limit and blocking triangle). Each counting instance gives the
+     same result and reports the pairs it tested and the shares of tiles
+     and groups it skipped. The same on a morton-ordered pack of the box
+     field, whose bits and t must be the scene-order run's, the winners
+     naming the same triangles (but for a tie on an edge two triangles
+     share); K4 and K3's dense any-hit also on the wavefronts of the
+     300-box field's render with 9 NEE samples (256x256, 589,824 shadow
      lanes), the multi-tile render that launches K4;
    - K5 (cluster-sparse nearest) and K9 (walker any-hit) on the sorted,
      parked first and second bounce wavefronts of the 100k-triangle box
      field at 512x512x2spp (524,288 path lanes, 1,572,864 shadow lanes):
      each against its plain version on a subset of ray blocks, and against
      the dense K1 / K4 on the whole wavefront, which shows whether the
-     hierarchy culls and that its per-ray gate drops no hit;
+     hierarchy culls and that its per-ray gate drops no hit. The culled
+     dense K1 there is held against its un-culled plain version on every
+     SUBSET_STRIDE-th block of 1024 lanes, and its time is printed beside
+     K5 at 1024 and 512 and K8 on the same wavefront;
    - on the same wavefronts K8 (walker nearest) against its plain version,
      K1 and K5; K5 in blocks of 512 beside 1024; K6 (cluster-sparse
      any-hit) against its plain version, K4 and K9; K7 (the any-hit that
@@ -91,19 +101,22 @@ The next-to-last line is a JSON object with one entry per kernel: its
 launches on its main path, its error against its plain version, its time,
 the plain version's, and its bound: the larger of bytes (inputs read once,
 outputs written once) over 3.35 TB/s and ray-triangle pairs x flops per
-pair over 67 TFLOP/s (float32 outside the tensor cores; 495 TFLOP/s for
-the TF32 mma of P1, twice the float32 rate for P2's packed bf16), the pairs
-being what this run's data needs. For the culled sweeps K2, K4 and K3's
-dense any-hit that is: for a lane that ends unoccluded the occluders whose
+pair over 67 TFLOP/s (float32 outside the tensor cores; 495 TFLOP/s for the
+TF32 mma of P1, twice the float32 rate for P2's packed bf16), the pairs
+being what this run's data needs. For the culled sweeps that is: in K2, K4
+and K3's dense any-hit, for a lane that ends unoccluded the occluders whose
 own box its segment meets under the kernels' slab test, for an occluded
-lane one; the kernels' groups hold those boxes, so a kernel cannot test
-fewer, and the run fails if any kernel reads under its bound. The earlier
-reckoning (an unoccluded lane needs every occluder) stays in those rows as
-``all_pairs_bound_ms``. The library is built with -fmad=false, so the 67
-TFLOP/s, which count a fused multiply-add as two, are twice what its
-un-fused code can reach. No single PyTorch call computes a ray-triangle
-sweep, so ``library_ms`` is null. The last line is
-``{"ok": true, "device": {...}}``.
+lane one; in K1 and K3's dense nearest, for a lane that hits the valid rows
+whose own box its ray meets up to its winner's t, for a lane that misses
+those its whole ray meets. The kernels' groups hold those boxes, so a
+kernel cannot test fewer, and the run fails if any kernel reads under its
+bound. The earlier reckoning (every occluder for an unoccluded lane, every
+row for a nearest lane) stays in those rows as ``all_pairs_bound_ms``,
+beside the pairs tested, needed and all and the shares of tiles and groups
+skipped. The library is built with -fmad=false, so the 67 TFLOP/s, which
+count a fused multiply-add as two, are twice what its un-fused code can
+reach. No single PyTorch call computes a ray-triangle sweep, so
+``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -200,6 +213,7 @@ PLANE_FLOPS_PER_PAIR = 14
 # float32 rate (the card's data sheet has no row of its own for it).
 PEAK_BF16_CORE_FLOPS = 2 * PEAK_FP32_FLOPS
 C_TRI = 128
+OCCLUDER_COL = 10  # of the [T, 12] pack (kernels/intersect.py)
 
 
 def log(msg: str) -> None:
@@ -391,25 +405,196 @@ def check_winners(what, tripack, o3, d3u, t, idx, want_t, want_idx,
     return agree, len(bad), (t[same] - want_t[same]).abs().max().item()
 
 
-def check_k1(label, scene, o3, d3u, report) -> None:
+def hold_winners(what, tripack, o3, d3u, t, idx, want_t, want_idx) -> None:
+    """Winners and t equal to ``want`` on every lane (max abs diff 0); else
+    print up to 8 lanes that differ, each with its ray, both winners, their
+    t and their float64 barycentric margins, and fail."""
+    bad = torch.nonzero((idx != want_idx) | (t != want_t)).flatten()
+    if not len(bad):
+        return
+    pack = tripack.cpu().numpy()
+    for r in bad[:8].tolist():
+        o, d = o3[:, r].cpu().numpy(), d3u[:, r].cpu().numpy()
+        margins = [None if i < 0 else bary_margin_f64(pack, o, d, i)
+                   for i in (int(idx[r]), int(want_idx[r]))]
+        log(f"[2] {what}: lane {r} o {o.tolist()} d {d.tolist()}: kernel "
+            f"{int(idx[r])} at t {float(t[r])!r}, model {int(want_idx[r])} at "
+            f"t {float(want_t[r])!r}; barycentric margins {margins}")
+    fail(f"{what}: winners or t differ from the culled model on {len(bad)} "
+         f"of {idx.numel()} lanes")
+
+
+def hold_same_triangles(what, packs, pair, o3, d3u, t, idx, ref) -> int:
+    """The winners of another pack of the same triangles. ``packs``: this
+    sweep's ([T, 12] pack, pack in the layout of ``pair``); ``ref`` = (t,
+    idx, [T, 12] pack, pack) of the scene-order sweep of the same rays. t
+    equal on every lane; the rows named equal in their vertices, but where
+    both named triangles are hit at that very t (a ray through an edge two
+    triangles share: each pack's smallest index wins). Returns the number
+    of such tie lanes."""
+    tripack, pack = packs
+    ref_t, ref_idx, ref_tripack, ref_pack = ref
+    diff = (t - ref_t).abs().max().item()
+    if diff != 0.0 or not torch.equal(idx < 0, ref_idx < 0):
+        fail(f"{what}: t differs from the scene-order pack's (max abs diff "
+             f"{diff})")
+    rows = tripack[idx.clamp_min(0).long(), 0:9]
+    ref_rows = ref_tripack[ref_idx.clamp_min(0).long(), 0:9]
+    other = torch.nonzero((idx >= 0) & (rows != ref_rows).any(dim=1))
+    for r in other.flatten().tolist():
+        rays = [o3[k:k + 1, r:r + 1] for k in range(3)] + [
+            d3u[k:k + 1, r:r + 1] for k in range(3)]
+        both = torch.stack([pack[int(idx[r])], ref_pack[int(ref_idx[r])]])
+        h, tt = pair.rows(both, *rays)
+        if not (bool(h.all()) and bool((tt == t[r]).all())):
+            fail(f"{what}: lane {r} names row {int(idx[r])}, not the "
+                 f"triangle of scene-order row {int(ref_idx[r])}")
+    return len(other)
+
+
+def nearest_bounds(tripack, o3, d3u, t, idx, nbytes, flops) -> dict:
+    """The bound of a culled nearest sweep whose winners are (t, idx): per
+    lane the valid rows whose own grown box its ray meets up to its
+    winner's t (the whole ray for a lane that misses), the bound stretched
+    as the kernels stretch it. The lane's running best never falls below
+    its winner's t, and a group box holds its rows' own boxes, so a kernel
+    cannot test fewer. Beside it the earlier reckoning, every valid row for
+    every lane, as ``all_pairs_bound_ms``."""
+    from pathtracerpython_tpu_torch.kernels import intersect
+
+    reach = torch.where(idx >= 0, t, intersect.BIG)
+    needed = int(own_box_counts(tripack, o3, d3u, reach, mask_col=None).sum())
+    every = o3.shape[1] * int((tripack[:, 9] > 0.5).sum())
+    return {"bound": bound(nbytes, needed, flops), "pairs_needed": needed,
+            "pairs_all": every,
+            "all_pairs_bound_ms": bound(nbytes, every, flops)[0]}
+
+
+def check_nearest(form, label, scene, o3, d3u, report, classic=None,
+                  reference=None):
+    """K1 (``form`` "classic") or K3's dense nearest ("plucker") on one
+    wavefront. The kernel against the culled plain model on the card:
+    winners and t equal on every lane. Against the un-culled plain version
+    under K1's bounds, with the number of lanes that differ (or, with
+    ``reference`` = (t, idx, [T, 12] pack, pack) of the scene-order sweep
+    of the same triangles, against those: ``hold_same_triangles``). The
+    counting instance gives the same winners and counts what it culled;
+    the bound is ``nearest_bounds``. ``classic``: K1's (t, idx, ms) of the
+    same rays, which K3's are held against under the forms' contract.
+    Returns ((t, idx, ms), the reference of another pack's sweep)."""
+    from pathtracerpython_tpu_torch.kernels import intersect
+
+    plucker = form == "plucker"
+    name = "K3 nearest" if plucker else "K1"
+    tripack = intersect.scene_tripack(scene)
+    pack = intersect.scene_plucker_pack(scene) if plucker else tripack
+    pair = intersect.PLUCKER if plucker else intersect.CLASSIC
+    launch = intersect._launch_plucker if plucker else intersect._launch
+    cull = intersect.nearest_cull_boxes(tripack)
+    run = lambda: intersect.nearest_t_idx_cm(o3, d3u, scene, mt_impl=form)
+    t_k, i_k = run()
+    tested = []
+    t_m, i_m = intersect.nearest_t_idx_plain(o3, d3u, pack, pair, cull,
+                                             tested)
+    hold_winners(f"{name} {label}", tripack, o3, d3u, t_k, i_k, t_m, i_m)
+    if reference is None:
+        (t_p, i_p), p_ms = once_ms(lambda: intersect.nearest_t_idx_plain(
+            o3, d3u, pack, pair))
+        agree, grazing, err = check_winners(
+            f"{name} {label} against the un-culled plain version", tripack,
+            o3, d3u, t_k, i_k, t_p, i_p)
+        against = (f"against the un-culled plain version winners "
+                   f"{agree:.6f} ({int((i_k != i_p).sum())} lanes differ, "
+                   f"{grazing} grazing), t max abs err {err:.3g}")
+    else:
+        p_ms, err = None, 0.0
+        ties = hold_same_triangles(f"{name} {label}", (tripack, pack), pair,
+                                   o3, d3u, t_k, i_k, reference)
+        against = (f"t equal to the scene-order pack's on every lane, the "
+                   f"same triangles but on {ties} lanes through a shared "
+                   "edge")
+    more = {}
+    if classic is not None:
+        t_c, i_c, c_ms = classic
+        agree_c, grazing_c, err_c = check_winners(
+            f"K3 nearest {label} against K1", tripack, o3, d3u, t_k, i_k,
+            t_c, i_c, min_agree=FORM_MIN_AGREE, margin=FORM_MARGIN,
+            t_tol=FORM_T_TOL)
+        more = dict(classic_ms=c_ms, classic_agree=agree_c)
+        against += (f"; against K1 winners {agree_c:.6f} ({grazing_c} "
+                    f"grazing), t max abs diff {err_c:.3g}")
+    k_ms = cuda_ms(run, 10)
+    extras, (t_c2, i_c2) = count_culled(
+        lambda cull_, stats: launch(o3, d3u, pack, cull_, stats), tripack,
+        o3.shape[1], cull)
+    hold_winners(f"{name} {label}, counting instance", tripack, o3, d3u,
+                 t_c2, i_c2, t_m, i_m)
+    if extras["pairs_tested"] != tested[0]:
+        log(f"[2] {name} {label}: the counting instance tested "
+            f"{extras['pairs_tested']} pairs, the culled model {tested[0]}")
+    bounds = nearest_bounds(
+        tripack, o3, d3u, t_m, i_m, tensor_bytes(o3, d3u, pack, t_k, i_k),
+        FLOPS_PER_PAIR_PLUCKER if plucker else FLOPS_PER_PAIR_TILE)
+    row = culled_row(name, label, err, k_ms, p_ms, bounds, extras,
+                     model_pairs=tested[0], **more)
+    valid = int((tripack[:, 9] > 0.5).sum())
+    log(f"[2] {name} {label}: {o3.shape[1]} lanes x {valid} rows, hit "
+        f"{(i_k >= 0).float().mean().item():.4f}, equal to the culled model "
+        f"on every lane (max abs diff 0); {against}; kernel {k_ms:.3f} ms, "
+        + ("" if classic is None else f"K1 {classic[2]:.3f} ms, ")
+        + ("" if p_ms is None else f"plain {p_ms:.3f} ms; ")
+        + culled_text(row))
+    report.append(row)
+    return (t_k, i_k, k_ms), (t_k, i_k, tripack, pack)
+
+
+def check_large_dense(label, scene, o3, d3u, r_blk, report):
+    """Dense K1, culled, on one wavefront of the 100k field, where it is the
+    whole-wavefront reference of K5 and K8: against the un-culled plain
+    version on every SUBSET_STRIDE-th ray block of ``r_blk`` lanes, its
+    counting instance on that subset against the whole wavefront's winners,
+    timed on all lanes and on the subset, with the subset's bound. Returns
+    (t, idx, ms on all lanes)."""
     from pathtracerpython_tpu_torch.kernels import intersect
 
     tripack = intersect.scene_tripack(scene)
-    t_k, i_k = intersect.nearest_t_idx_cm(o3, d3u, scene)
-    t_p, i_p = intersect.nearest_t_idx_plain(o3, d3u, tripack)
-    agree, grazing, err = check_winners(f"K1 {label}", tripack, o3, d3u,
-                                        t_k, i_k, t_p, i_p)
-    k_ms = cuda_ms(lambda: intersect.nearest_t_idx_cm(o3, d3u, scene), 10)
-    p_ms = cuda_ms(lambda: intersect.nearest_t_idx_plain(o3, d3u, tripack), 3)
-    pairs = o3.shape[1] * int((tripack[:, 9] > 0.5).sum())
-    b = bound(tensor_bytes(o3, d3u, tripack, t_k, i_k), pairs,
-              FLOPS_PER_PAIR_TILE)
-    log(f"[2] K1 {label}: {o3.shape[1]} lanes x {tripack.shape[0]} tris, "
-        f"winners agree {agree:.6f} ({grazing} grazing), t max abs err "
-        f"{err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-        f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs)")
-    report.append(report_row(label, err, k_ms, p_ms, b))
-    return t_k, i_k, k_ms
+    cull = intersect.scene_nearest_cull_boxes(scene)
+    run = lambda: intersect.nearest_t_idx_cm(o3, d3u, scene)
+    t_k, i_k = run()
+    n = o3.shape[1]
+    blocks = torch.arange(0, -(-n // r_blk), SUBSET_STRIDE, device=o3.device)
+    lanes = (blocks[:, None] * r_blk
+             + torch.arange(r_blk, device=o3.device)[None, :]).flatten()
+    lanes = lanes[lanes < n]
+    o_s, d_s = o3[:, lanes].contiguous(), d3u[:, lanes].contiguous()
+    (t_p, i_p), p_ms = once_ms(lambda: intersect.nearest_t_idx_plain(
+        o_s, d_s, tripack))
+    agree, grazing, err = check_winners(
+        f"K1 {label} against the un-culled plain version", tripack, o_s, d_s,
+        t_k[lanes], i_k[lanes], t_p, i_p)
+    ka_ms = cuda_ms(run, 10)
+    ks_ms = cuda_ms(lambda: intersect._launch(o_s, d_s, tripack, cull), 10)
+    extras, (t_c, i_c) = count_culled(
+        lambda cull_, stats: intersect._launch(o_s, d_s, tripack, cull_,
+                                               stats),
+        tripack, o_s.shape[1], cull)
+    hold_winners(f"K1 {label}, counting instance on the subset", tripack,
+                 o_s, d_s, t_c, i_c, t_k[lanes], i_k[lanes])
+    bounds = nearest_bounds(tripack, o_s, d_s, t_c, i_c,
+                            tensor_bytes(o_s, d_s, tripack, t_c, i_c),
+                            FLOPS_PER_PAIR_TILE)
+    row = culled_row("K1", label, err, ks_ms, p_ms, bounds, extras,
+                     kernel_all_ms=ka_ms, subset_lanes=o_s.shape[1])
+    valid = int((tripack[:, 9] > 0.5).sum())
+    log(f"[2] K1 {label}: {n} lanes x {valid} rows, hit "
+        f"{(i_k >= 0).float().mean().item():.4f}; on {o_s.shape[1]} lanes "
+        f"(every {SUBSET_STRIDE}th block of {r_blk}) against the un-culled "
+        f"plain version winners {agree:.6f} ({int((i_k[lanes] != i_p).sum())}"
+        f" lanes differ, {grazing} grazing), t max abs err {err:.3g}; kernel "
+        f"on all lanes {ka_ms:.3f} ms; on the subset kernel {ks_ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms; " + culled_text(row))
+    report.append(row)
+    return t_k, i_k, ka_ms
 
 
 def check_form_bits(what, scene, o3, d3, maxd, occ, classic) -> float:
@@ -453,51 +638,17 @@ def check_form_bits(what, scene, o3, d3, maxd, occ, classic) -> float:
     return agree
 
 
-def check_k3_nearest(label, scene, o3, d3u, report, classic) -> None:
-    """K3's dense nearest sweep on one wavefront: against its plain version
-    under K1's bounds and against K1 (``classic``: its (t, idx, ms)) under
-    the forms' contract."""
+def own_box_counts(tripack, o3, d3, bound,
+                   mask_col=OCCLUDER_COL) -> torch.Tensor:
+    """i64[N]: for every lane, the occluder rows (every valid row with
+    ``mask_col`` None) whose own box (the kernels' grown box of that one
+    row) the lane's segment meets up to ``bound`` under the kernels' slab
+    test (the limit stretched as the kernels stretch it). A culled any-hit
+    sweep cannot test fewer pairs for a lane that ends unoccluded: its
+    groups hold these boxes."""
     from pathtracerpython_tpu_torch.kernels import intersect
 
-    tripack = intersect.scene_tripack(scene)
-    pack36 = intersect.scene_plucker_pack(scene)
-    run = lambda: intersect.nearest_t_idx_cm(o3, d3u, scene,
-                                             mt_impl="plucker")
-    t_k, i_k = run()
-    t_p, i_p = intersect.nearest_t_idx_plucker_plain(o3, d3u, pack36)
-    agree, grazing, err = check_winners(
-        f"K3 nearest {label} against plain", tripack, o3, d3u, t_k, i_k,
-        t_p, i_p)
-    t_c, i_c, c_ms = classic
-    agree_c, grazing_c, err_c = check_winners(
-        f"K3 nearest {label} against K1", tripack, o3, d3u, t_k, i_k, t_c,
-        i_c, min_agree=FORM_MIN_AGREE, margin=FORM_MARGIN, t_tol=FORM_T_TOL)
-    k_ms = cuda_ms(run, 10)
-    p_ms = cuda_ms(lambda: intersect.nearest_t_idx_plucker_plain(
-        o3, d3u, pack36), 3)
-    pairs = o3.shape[1] * int((tripack[:, 9] > 0.5).sum())
-    b = bound(tensor_bytes(o3, d3u, pack36, t_k, i_k), pairs,
-              FLOPS_PER_PAIR_PLUCKER)
-    log(f"[2] K3 nearest {label}: {o3.shape[1]} lanes x {pack36.shape[0]} "
-        f"tris, against plain: winners {agree:.6f} ({grazing} grazing), t "
-        f"max abs err {err:.3g}; against K1: winners {agree_c:.6f} "
-        f"({grazing_c} grazing), t max abs diff {err_c:.3g}; kernel "
-        f"{k_ms:.3f} ms (K1 {c_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
-        f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs)")
-    report.append(report_row(label, err, k_ms, p_ms, b, classic_ms=c_ms,
-                             classic_agree=agree_c))
-
-
-def own_box_counts(tripack, o3, d3, bound) -> torch.Tensor:
-    """i64[N]: for every lane, the occluder rows whose own box (the
-    kernels' grown box of that one row) the lane's segment meets up to
-    ``bound`` under the kernels' slab test (the limit stretched as the
-    kernels stretch it). A culled sweep cannot test fewer
-    pairs for a lane that ends unoccluded: its groups hold these boxes."""
-    from pathtracerpython_tpu_torch.kernels import intersect
-
-    boxes = intersect.grow_boxes(
-        intersect.block_aabbs(tripack, 1, intersect.OCCLUDER_COL))
+    boxes = intersect.grow_boxes(intersect.block_aabbs(tripack, 1, mask_col))
     boxes = boxes[boxes[:, 0] <= boxes[:, 3]]
     bound = bound * intersect.CULL_REACH
     o_rows = [o3[k:k + 1] for k in range(3)]
@@ -552,14 +703,14 @@ def hold_bits(what, got, want, tripack, o3, d3, limit) -> None:
          f"on {len(bad)} of {got.numel()} lanes")
 
 
-def count_culled(launch, tripack, n) -> tuple:
+def count_culled(launch, tripack, n, boxes) -> tuple:
     """What a culled kernel's counting instance counts. ``launch(cull,
-    stats)`` runs the kernel over ``n`` lanes. Returns (the row's extras,
-    the counting instance's output)."""
+    stats)`` runs the kernel over ``n`` lanes with ``boxes``. Returns (the
+    row's extras, the counting instance's output)."""
     from pathtracerpython_tpu_torch.kernels import intersect
 
     stats = torch.zeros(3, dtype=torch.int64, device=tripack.device)
-    counted = launch(intersect.cull_boxes(tripack), stats)
+    counted = launch(boxes, stats)
     torch.cuda.synchronize()
     return {"g": intersect.CULL_GROUP,
             **intersect.cull_stats(stats, n, tripack.shape[0])}, counted
@@ -616,7 +767,7 @@ def check_k2(label, scene, point3, normal3, u, shadow, counts, report,
     extras, (_, occ_c) = count_culled(
         lambda cull, stats: nee._launch(point3, normal3, u, tripack,
                                         lightpack, NEE_SAMPLES, cull, stats),
-        tripack, point3.shape[1])
+        tripack, point3.shape[1], intersect.cull_boxes(tripack))
     hold_bits(f"K2 {label}, counting instance", occ_c > 0.5, occ_p > 0.5,
               tripack, *sh)
     occluders = int((tripack[:, 10] > 0.5).sum())
@@ -691,7 +842,7 @@ def check_dense_any_hit(form, label, scene, shadow, counts, report,
     k_ms = cuda_ms(run, 10)
     extras, counted = count_culled(
         lambda cull, stats: launch(o3, d3, maxd, pack, cull, stats), tripack,
-        o3.shape[1])
+        o3.shape[1], intersect.cull_boxes(tripack))
     hold_bits(f"{name} {label}, counting instance", counted, plain, tripack,
               o3, d3, maxd)
     occluders = int((tripack[:, 10] > 0.5).sum())
@@ -1124,18 +1275,24 @@ def pack_build_cost(scene) -> None:
 
 
 def cull_build_cost(scene) -> None:
-    """What deriving the cull boxes costs: ms of one ``cull_boxes`` of the
-    scene's pack (tile and group tables). A render pays it once per scene
-    (``scene_cull_boxes`` caches), not once per bounce."""
+    """What deriving the cull boxes costs: ms of one ``cull_boxes`` and of
+    one ``nearest_cull_boxes`` of the scene's pack (tile and group tables).
+    A render pays each once per scene (``scene_cull_boxes``,
+    ``scene_nearest_cull_boxes`` cache them), not once per bounce."""
     from pathtracerpython_tpu_torch.kernels import intersect
 
     tripack = intersect.scene_tripack(scene)
     ms = cuda_ms(lambda: intersect.cull_boxes(tripack), 5)
+    near_ms = cuda_ms(lambda: intersect.nearest_cull_boxes(tripack), 5)
     log(f"[2] cull boxes of {tripack.shape[0]} rows (tiles of "
         f"{intersect.TILE_ROWS}, groups of {intersect.CULL_GROUP} rows): "
-        f"{ms:.3f} ms, once per scene")
+        f"{ms:.3f} ms for the shadow sweeps', {near_ms:.3f} ms for the "
+        "nearest sweep's, each once per scene")
 
 
+# What the culled sweeps' rows add to their entries of the kernels line.
+CULL_KEYS = ("all_pairs_bound_ms", "pairs_tested", "pairs_needed",
+             "pairs_all", "tiles_skipped", "groups_skipped")
 K3_KEYS = ("K3 nearest", "K3 any-hit", "K3 sparse nearest",
            "K3 sparse any-hit")
 P1_KEYS = ("P1 mt", "P1 plucker_fma", "P1 plucker_tf32", "P1 plucker_3xtf32")
@@ -1150,13 +1307,16 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
 
     rows = {k: [] for k in ("K1", "K2", "K4", "K5", "K5@512", "K6", "K7",
                             "K8", "K9", *K3_KEYS, *P1_KEYS, *P2_KEYS,
-                            "K2 morton", "K4 morton")}
+                            "K1 morton", "K3 nearest morton", "K2 morton",
+                            "K4 morton", "K1 large100k")}
     for name, scene in scenes:
         for b, (o3, d3u, p3, n3, u, shadow, _) in enumerate(
                 wavefronts(scene, CORNELL_SPP), start=1):
             label = f"{name} bounce {b}"
-            k1 = check_k1(label, scene, o3, d3u, rows["K1"])
-            check_k3_nearest(label, scene, o3, d3u, rows["K3 nearest"], k1)
+            k1, ref1 = check_nearest("classic", label, scene, o3, d3u,
+                                     rows["K1"])
+            _, ref3 = check_nearest("plucker", label, scene, o3, d3u,
+                                    rows["K3 nearest"], classic=k1)
             # the fused NEE's samples are the unfused NEE's shadow rays
             counts = own_box_counts(
                 intersect.scene_tripack(scene), shadow.o3.contiguous(),
@@ -1170,6 +1330,10 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
                 # the same triangles in morton order: the tile level at
                 # work, and the order must not change a bit
                 label = f"{name} morton bounce {b}"
+                check_nearest("classic", label, morton, o3, d3u,
+                              rows["K1 morton"], reference=ref1)
+                check_nearest("plucker", label, morton, o3, d3u,
+                              rows["K3 nearest morton"], reference=ref3)
                 check_k2(label, morton, p3, n3, u, shadow, counts,
                          rows["K2 morton"], reference=k2)
                 check_dense_any_hit("classic", label, morton, shadow, counts,
@@ -1195,9 +1359,8 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
             start=1):
         stride = 1 if b == 1 else SUBSET_STRIDE
         label = f"large100k bounce {b}"
-        (t_d, i_d), d_ms = once_ms(lambda: intersect.nearest_t_idx_cm(
-            o3, d3u, large))
-        dense = (t_d, i_d, d_ms)
+        dense = check_large_dense(label, large, o3, d3u, r1024,
+                                  rows["K1 large100k"])
         t5, i5 = check_nearest_walk(
             "K5", label, large, o3, d3u, stride, rows["K5"], dense,
             r_blk=r1024, launch=sparse._launch,
@@ -1229,6 +1392,12 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
         check_k7(label, large, shadow, cache if b > 1 else None, occ6,
                  stride, rows["K7"])
         check_k3_sparse(label, large, o3, d3u, shadow, stride, rows, k5, occ6)
+        log(f"[2] {label}, one wavefront's nearest sweep: dense K1 (culled) "
+            f"{rows['K1 large100k'][-1]['kernel_all_ms']:.3f} ms, K5@1024 "
+            f"{rows['K5'][-1]['kernel_all_ms']:.3f} ms, K5@512 "
+            f"{rows['K5@512'][-1]['kernel_all_ms']:.3f} ms, K8 "
+            f"{rows['K8'][-1]['kernel_all_ms']:.3f} ms (kernels on all "
+            "blocks, lists built beforehand)")
     pack_build_cost(large)
     cull_build_cost(scenes[-1][1])
     check_probes(rows)
@@ -1715,7 +1884,9 @@ def main() -> None:
              for r in rows[k]] for k in ("K3 nearest", "K3 any-hit")}))
     log("[2] culled sweeps " + json.dumps(
         {k: [{f: r[f] for f in r if f != "err"} for r in rows[k]]
-         for k in ("K2", "K4", "K3 any-hit", "K2 morton", "K4 morton")}))
+         for k in ("K1", "K3 nearest", "K2", "K4", "K3 any-hit", "K1 morton",
+                   "K3 nearest morton", "K2 morton", "K4 morton",
+                   "K1 large100k")}))
 
     # each kernel at its main path's first wavefront: K1, K2 the Cornell
     # primary rays, K4 the first shadow rays of the 300-box field's render
@@ -1769,8 +1940,7 @@ def main() -> None:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
-            **({"all_pairs_bound_ms": first["all_pairs_bound_ms"]}
-               if "all_pairs_bound_ms" in first else {}),
+            **{k: first[k] for k in CULL_KEYS if k in first},
         })
     for k in kernels:
         if k["launches"] < 1:

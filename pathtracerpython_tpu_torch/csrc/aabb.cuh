@@ -1,19 +1,21 @@
-// The AABB cull of the dense occluder sweeps: K2 (nee.cu), K4 and K3's
-// dense any-hit (any_hit.cu, both forms).
+// The AABB cull of the dense sweeps: the occluder sweeps K2 (nee.cu), K4
+// and K3's dense any-hit (any_hit.cu), and the nearest sweeps K1 and K3's
+// dense nearest (nearest.cu), each in both forms.
 //
 // Replaces pathtracerpython_tpu/kernels/intersect_pallas.py _aabb_cull_rows
-// (with _block_aabbs on the PyTorch side, kernels/intersect.py: cull_boxes)
-// as _any_hit_kernel_cull and nee_pallas.py _nee_body use it: a block of
-// occluder rows is swept only where an open ray's segment meets the block's
-// box. The slab arithmetic follows _aabb_cull_rows term for term: the
-// direction's reciprocal with |d| clamped to 1e-12 (sign kept), per axis
-// (box - o) * inv, the entry as the max of the three near times and the exit
-// as the min of the three far times, and an overlap when
+// (with _block_aabbs on the PyTorch side, kernels/intersect.py: cull_boxes,
+// nearest_cull_boxes) as _any_hit_kernel_cull, nee_pallas.py _nee_body and
+// _nearest_kernel_cull use it: a block of rows is swept only where an open
+// ray's segment meets the block's box. The slab arithmetic follows
+// _aabb_cull_rows term for term: the direction's reciprocal with |d|
+// clamped to 1e-12 (sign kept), per axis (box - o) * inv, the entry as the
+// max of the three near times and the exit as the min of the three far
+// times, and an overlap when
 //     exit >= max(entry, 0) - 1e-3   and   entry <= bound + 1e-3,
-// where bound is the ray's limit (maxd in K4, a sample's distance in K2)
-// times kCullReach: the pair test's t carries an error that grows with t,
-// which an absolute slack alone does not cover for far origins. A box with
-// min > max holds no row and is never met.
+// where bound is the ray's limit (maxd in K4, a sample's distance in K2,
+// the running best t in K1) times kCullReach: the pair test's t carries an
+// error that grows with t, which an absolute slack alone does not cover for
+// far origins. A box with min > max holds no row and is never met.
 //
 // The TPU kernel decides per (ray block, triangle block of 512 rows): it has
 // no control flow per lane, and a predicate around its triangle loop stalls

@@ -25,21 +25,25 @@ every call. The dense sweeps here and the cluster-sparse sweeps K5 and K6
 (``kernels/sparse.py``) follow it; the fused NEE (K2), the cached any-hit
 (K7) and the walker sweeps (K8, K9) stay classic, as in the JAX package.
 
-**The any-hit kernels cull by boxes**: a lane tests a block of occluder
-rows only when its segment, up to its limit, meets the block's AABB under
-the slab test of ``_aabb_cull_rows`` (``aabb_cull_rows``). The kernels do
-so at two sizes, the tile of ``TILE_ROWS`` rows and a group of
-``CULL_GROUP`` rows (``cull_boxes``, ``scene_cull_boxes``;
-``csrc/aabb.cuh``), on a scene of one tile too: measured on the card, the
-group level pays there as well, where the TPU kernels' ``_use_cull`` keeps
-one block un-culled. The boxes are grown a little at build time and the
-limit is stretched by ``CULL_REACH``, so that no pair is skipped that a
-conditioned pair test (|det| >= 1e-3 |e1||e2|) accepts: the result does not
-change by one bit. Below that conditioning (a ray within 1e-3 rad of a
-triangle's plane, or a triangle that thin) the pair test's own u, v and t
-are rounding noise, and a culled sweep may drop a hit that the un-culled
-one reports, here as in the JAX package. ``any_hit_plain`` without ``cull`` is the oracle; with ``cull`` it
-masks pairs as the kernel does.
+**Every dense kernel culls by boxes**: a lane tests a block of rows only
+when its segment, up to its limit, meets the block's AABB under the slab
+test of ``_aabb_cull_rows`` (``aabb_cull_rows``). The any-hit kernels cull
+over the occluder rows up to the segment's end (``cull_boxes``,
+``scene_cull_boxes``), the nearest kernels over every valid row, the
+light's too, up to the lane's running best t (``nearest_cull_boxes``,
+``scene_nearest_cull_boxes``; the bound of ``_nearest_kernel_cull``). The
+kernels do so at two sizes, the tile of ``TILE_ROWS`` rows and a group of
+``CULL_GROUP`` rows (``csrc/aabb.cuh``), on a scene of one tile too:
+measured on the card, the group level pays there as well, where the TPU
+kernels' ``_use_cull`` keeps one block un-culled. The boxes are grown a
+little at build time and the limit is stretched by ``CULL_REACH``, so that
+no pair is skipped that a conditioned pair test (|det| >= 1e-3 |e1||e2|)
+accepts: the result does not change by one bit. Below that conditioning
+(a ray within 1e-3 rad of a triangle's plane, or a triangle that thin) the
+pair test's own u, v and t are rounding noise, and a culled sweep may drop
+a hit that the un-culled one reports, here as in the JAX package.
+``any_hit_plain`` and ``nearest_t_idx_plain`` without ``cull`` are the
+oracles; with ``cull`` they test the pairs the kernel tests.
 """
 
 from __future__ import annotations
@@ -90,7 +94,9 @@ CULL_PAD = 1e-4
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
     ctypes.c_void_p, ctypes.c_int,                    # tripack, t_count
+    ctypes.c_void_p, ctypes.c_void_p,                 # tile, group boxes
     ctypes.c_void_p, ctypes.c_void_p,                 # t_out, idx_out
+    ctypes.c_void_p,                                  # stats
     ctypes.c_int, ctypes.c_void_p,                    # device, stream
 ]
 _ANY_HIT_ARGTYPES = [
@@ -265,9 +271,10 @@ def aabb_cull_rows(aabb: torch.Tensor, o_rows, d_rows, bound):
 
 
 class CullBoxes(NamedTuple):
-    """The boxes of a culled any-hit sweep over a [T, 12] pack: ``tile``
+    """The boxes of a culled sweep over a [T, 12] pack: ``tile``
     f32[ceil(T / TILE_ROWS), 8] and ``group`` f32[ceil(T / CULL_GROUP), 8],
-    over the valid occluder rows, grown by ``CULL_PAD``."""
+    over the rows the sweep tests (valid occluders for any-hit, every valid
+    row for nearest), grown by ``CULL_PAD``."""
 
     tile: torch.Tensor
     group: torch.Tensor
@@ -285,17 +292,32 @@ def grow_boxes(aabb8: torch.Tensor) -> torch.Tensor:
                      dim=1).contiguous()
 
 
-def cull_boxes(tripack: torch.Tensor) -> CullBoxes:
-    """The tile and group boxes of a [T, 12] pack's shadow sweep."""
-    return CullBoxes(
-        grow_boxes(block_aabbs(tripack, TILE_ROWS, OCCLUDER_COL)),
-        grow_boxes(block_aabbs(tripack, CULL_GROUP, OCCLUDER_COL)))
+def cull_boxes(tripack: torch.Tensor,
+               mask_col: int | None = OCCLUDER_COL) -> CullBoxes:
+    """The tile and group boxes of a [T, 12] pack's shadow sweep, or, with
+    ``mask_col`` None, over every valid row."""
+    return CullBoxes(grow_boxes(block_aabbs(tripack, TILE_ROWS, mask_col)),
+                     grow_boxes(block_aabbs(tripack, CULL_GROUP, mask_col)))
+
+
+def nearest_cull_boxes(tripack: torch.Tensor) -> CullBoxes:
+    """The tile and group boxes of a [T, 12] pack's nearest sweep: over
+    every valid row, the mask of ``_block_aabbs``, so that a ray finds the
+    light's rows, which are no occluders."""
+    return cull_boxes(tripack, mask_col=None)
 
 
 def scene_cull_boxes(scene) -> CullBoxes:
     """``cull_boxes`` of the scene's triangles, cached per scene."""
     return _scene_derived(scene, "cull",
                           lambda: cull_boxes(scene_tripack(scene)))
+
+
+def scene_nearest_cull_boxes(scene) -> CullBoxes:
+    """``nearest_cull_boxes`` of the scene's triangles, cached per scene
+    beside the shadow sweep's."""
+    return _scene_derived(scene, "nearest cull",
+                          lambda: nearest_cull_boxes(scene_tripack(scene)))
 
 
 def cull_pairs(cull: CullBoxes, lo: int, hi: int, o_rows, d_rows,
@@ -358,14 +380,15 @@ def plucker_rows(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
 class PairTest(NamedTuple):
     """A form of the ray-triangle test for the plain sweeps: ``rows(pack
     rows [..., T, cols], ox, oy, oz, dx, dy, dz) -> (hit, t)`` on its own
-    pack layout, and the pack's occluder column."""
+    pack layout, and the pack's occluder and valid columns."""
 
     rows: Callable
     occluder_col: int
+    valid_col: int
 
 
-CLASSIC = PairTest(mt_rows, 10)
-PLUCKER = PairTest(plucker_rows, 31)
+CLASSIC = PairTest(mt_rows, 10, 9)
+PLUCKER = PairTest(plucker_rows, 31, 30)
 
 
 def chunk_rows(n_rays: int) -> int:
@@ -374,9 +397,16 @@ def chunk_rows(n_rays: int) -> int:
 
 
 def nearest_t_idx_plain(o3: torch.Tensor, d3_unit: torch.Tensor,
-                        tripack: torch.Tensor, pair: PairTest = CLASSIC):
+                        tripack: torch.Tensor, pair: PairTest = CLASSIC,
+                        cull: CullBoxes | None = None,
+                        tested: list | None = None):
     """(t [N] — 0 on a miss, idx [N] int32 — -1 on a miss); ``tripack`` in
-    the layout of ``pair``."""
+    the layout of ``pair``. Without ``cull`` every lane tests every row:
+    the oracle. With ``cull`` (the ``nearest_cull_boxes`` of the [T, 12]
+    pack of the same rows) it gives the culled kernel's result exactly, and
+    ``tested`` gets the number of pairs it tests (``_nearest_culled``)."""
+    if cull is not None:
+        return _nearest_culled(o3, d3_unit, tripack, pair, cull, tested)
     n = o3.shape[1]
     rays = [o3[k:k + 1] for k in range(3)] + [d3_unit[k:k + 1] for k in range(3)]
     best_t = torch.full((1, n), BIG, dtype=o3.dtype, device=o3.device)
@@ -395,6 +425,48 @@ def nearest_t_idx_plain(o3: torch.Tensor, d3_unit: torch.Tensor,
         better = (chunk_min < best_t) & (chunk_idx != IMAX)
         best_t = torch.where(better, chunk_min, best_t)
         best_idx = torch.where(better, chunk_idx, best_idx)
+    idx = best_idx[0]
+    return torch.where(idx >= 0, best_t[0], 0.0), idx
+
+
+def _nearest_culled(o3, d3_unit, pack, pair: PairTest, cull: CullBoxes,
+                    tested: list | None):
+    """The culled nearest kernel's model: the groups of ``CULL_GROUP`` rows
+    in index order, vectorised over lanes. A lane tests a group's valid
+    rows only where its ray meets the group's box up to its running best t
+    times ``CULL_REACH`` (``aabb_cull_rows``, float32), and takes a hit whose
+    t is strictly below its best. Checking the group box alone is exact: a
+    group met at its bound is met by its span, mid and tile too, which hold
+    it and were tested at a bound no smaller, so the kernel tests the same
+    pairs. Where the pair test is conditioned (|det| >= 1e-3 |e1||e2|) the
+    winner is the un-culled sweep's; below that the pair test's t is noise
+    and a culled sweep, here, on the card and in ``_nearest_kernel_cull``,
+    can pass over a "hit" that the un-culled sweep takes."""
+    n = o3.shape[1]
+    o_rows = [o3[k:k + 1] for k in range(3)]
+    d_rows = [d3_unit[k:k + 1] for k in range(3)]
+    best_t = torch.full((1, n), BIG, dtype=o3.dtype, device=o3.device)
+    best_idx = torch.full((1, n), -1, dtype=torch.int32, device=o3.device)
+    valid = pack[:, pair.valid_col] > 0.5
+    pad = (-pack.shape[0]) % CULL_GROUP
+    per_group = torch.cat([valid, valid.new_zeros(pad)]).reshape(
+        -1, CULL_GROUP).sum(dim=1)
+    count = torch.zeros((), dtype=torch.int64, device=o3.device)
+    step = max(1, chunk_rows(n) // CULL_GROUP) * CULL_GROUP
+    for lo in range(0, pack.shape[0], step):
+        hit, t = pair.rows(pack[lo:lo + step], *o_rows, *d_rows)
+        for g0 in range(0, hit.shape[0], CULL_GROUP):
+            g = (lo + g0) // CULL_GROUP
+            meets, nonempty = aabb_cull_rows(cull.group[g:g + 1], o_rows,
+                                             d_rows, best_t * CULL_REACH)
+            meets = meets & nonempty
+            count = count + meets.sum() * per_group[g]
+            for r in range(g0, min(g0 + CULL_GROUP, hit.shape[0])):
+                better = meets & hit[r:r + 1] & (t[r:r + 1] < best_t)
+                best_t = torch.where(better, t[r:r + 1], best_t)
+                best_idx = torch.where(better, lo + r, best_idx)
+    if tested is not None:
+        tested.append(int(count))
     idx = best_idx[0]
     return torch.where(idx >= 0, best_t[0], 0.0), idx
 
@@ -441,10 +513,12 @@ def nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
         return plain(o3, d3_unit, pack)
     if device.type != "cuda":
         raise ValueError(f"no nearest-hit kernel for device {device}")
-    return (_launch_plucker if plucker else _launch)(o3, d3_unit, pack)
+    return (_launch_plucker if plucker else _launch)(
+        o3, d3_unit, pack, scene_nearest_cull_boxes(scene))
 
 
-def _launch_nearest(o3, d3_unit, pack, entry: str):
+def _launch_nearest(o3, d3_unit, pack, entry: str, cull: CullBoxes,
+                    stats: torch.Tensor | None = None):
     n = o3.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=o3.device)
     idx = torch.empty(n, dtype=torch.int32, device=o3.device)
@@ -452,26 +526,28 @@ def _launch_nearest(o3, d3_unit, pack, entry: str):
         return t, idx, False
     fn = build.function(entry, _ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
+    tile, group, counters = cull_pointers(cull, stats)
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, pack.data_ptr(),
-             pack.shape[0], t.data_ptr(), idx.data_ptr(),
-             o3.device.index, stream)
+             pack.shape[0], tile, group, t.data_ptr(), idx.data_ptr(),
+             counters, o3.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
     return t, idx, True
 
 
-def _launch(o3, d3_unit, tripack):
+def _launch(o3, d3_unit, tripack, cull, stats=None):
     global LAUNCHES
     t, idx, launched = _launch_nearest(o3, d3_unit, tripack,
-                                       "ptt_nearest_t_idx")
+                                       "ptt_nearest_t_idx", cull, stats)
     LAUNCHES += launched
     return t, idx
 
 
-def _launch_plucker(o3, d3_unit, pack36):
+def _launch_plucker(o3, d3_unit, pack36, cull, stats=None):
     global PLUCKER_LAUNCHES
     t, idx, launched = _launch_nearest(o3, d3_unit, pack36,
-                                       "ptt_plucker_nearest_t_idx")
+                                       "ptt_plucker_nearest_t_idx", cull,
+                                       stats)
     PLUCKER_LAUNCHES += launched
     return t, idx
 

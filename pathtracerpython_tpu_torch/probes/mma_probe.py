@@ -127,9 +127,9 @@ _PAIRS = {
     "mt": CLASSIC,
     "plucker_fma": PLUCKER,
     "plucker_tf32": PairTest(
-        functools.partial(plucker_rows_tf32, split=False), 31),
+        functools.partial(plucker_rows_tf32, split=False), 31, 30),
     "plucker_3xtf32": PairTest(
-        functools.partial(plucker_rows_tf32, split=True), 31),
+        functools.partial(plucker_rows_tf32, split=True), 31, 30),
 }
 
 

@@ -3,6 +3,7 @@ its top-level package imports nothing heavy, the CUDA build uses the flags
 that keep the kernels' rounding equal to their plain versions, a failed
 build raises, and a CPU render never touches the build."""
 
+import ctypes
 import json
 import os
 import shutil
@@ -79,6 +80,39 @@ def test_sources_are_in_the_package():
                      "probe_plucker.cu", "sparse_any_hit.cu",
                      "sparse_any_hit_idx.cu", "sparse_nearest.cu",
                      "walker_any_hit.cu", "walker_nearest.cu"]
+
+
+def _c_parameters(source: str, entry: str) -> list[str]:
+    """The parameter declarations of ``extern "C" int entry(...)`` in
+    ``csrc/source``."""
+    with open(os.path.join(build.CSRC_DIR, source)) as f:
+        text = f.read()
+    head = text.index(f'extern "C" int {entry}(')
+    body = text[text.index("(", head) + 1:text.index(")", head)]
+    return [" ".join(p.split()) for p in body.split(",")]
+
+
+@pytest.mark.parametrize("source,entry,argtypes", [
+    ("nearest.cu", "ptt_nearest_t_idx", intersect._ARGTYPES),
+    ("nearest.cu", "ptt_plucker_nearest_t_idx", intersect._ARGTYPES),
+    ("any_hit.cu", "ptt_any_hit", intersect._ANY_HIT_ARGTYPES),
+    ("any_hit.cu", "ptt_plucker_any_hit", intersect._ANY_HIT_ARGTYPES),
+])
+def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
+    """ctypes passes what ``argtypes`` says, whatever the C entry declares:
+    a pointer where the entry takes an int (or the reverse) would be cut or
+    misread without an error. The dense sweeps' entries take their cull
+    boxes and counters: o3, d3, (maxd,) n, pack, t_count, tile boxes, group
+    boxes, outputs, stats, device, stream."""
+    params = _c_parameters(source, entry)
+    assert len(params) == len(argtypes), params
+    for decl, argtype in zip(params, argtypes):
+        want = ctypes.c_void_p if "*" in decl else ctypes.c_int
+        assert argtype is want, (decl, argtype)
+    names = [decl.split("*")[-1].split()[-1] for decl in params]
+    assert names[names.index("t_count") + 1:][:2] == ["tile_boxes",
+                                                      "group_boxes"]
+    assert names[-3:] == ["stats", "device", "stream"]
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):

@@ -555,3 +555,67 @@ def test_culled_nee_kernel_equals_unculled_plain(cuda, s_samples, order):
     assert torch.equal(occ, pocc)
     torch.cuda.synchronize()
     assert 0 < int(stats[2]) < 0.5 * occ.numel() * tripack.shape[0]
+
+
+# The box cull of K1 and K3's dense nearest: the culled kernels give the
+# culled plain model's winners and t on every lane (max abs diff 0), and the
+# un-culled plain version's under the bounds above, in scene order and in
+# morton order.
+
+
+@pytest.mark.parametrize("order", ["scene", "morton"])
+@pytest.mark.parametrize("form", ["classic", "plucker"])
+def test_culled_nearest_kernel_equals_culled_model(cuda, form, order):
+    scene = _field(order, cuda)
+    o3, d3u = _rays(scene)
+    tripack = intersect.scene_tripack(scene)
+    plucker = form == "plucker"
+    pack = intersect.scene_plucker_pack(scene) if plucker else tripack
+    pair = intersect.PLUCKER if plucker else intersect.CLASSIC
+    launch = intersect._launch_plucker if plucker else intersect._launch
+    cull = intersect.nearest_cull_boxes(tripack)
+    model = []
+    mt, midx = intersect.nearest_t_idx_plain(o3, d3u, pack, pair, cull, model)
+    t, idx = intersect.nearest_t_idx_cm(o3, d3u, scene, mt_impl=form)
+    assert torch.equal(idx, midx) and torch.equal(t, mt)
+    pt, pidx = intersect.nearest_t_idx_plain(o3, d3u, pack, pair)
+    same = idx == pidx
+    assert same.float().mean().item() >= MIN_AGREE
+    torch.testing.assert_close(t[same], pt[same], rtol=T_RTOL, atol=T_ATOL)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    ct, cidx = launch(o3, d3u, pack, cull, stats)
+    assert torch.equal(cidx, midx) and torch.equal(ct, mt)
+    torch.cuda.synchronize()
+    counted = intersect.cull_stats(stats, o3.shape[1], pack.shape[0])
+    assert counted["pairs_tested"] == model[0]
+    every = o3.shape[1] * int((tripack[:, 9] > 0.5).sum())
+    assert 0 < counted["pairs_tested"] < 0.05 * every
+    assert 0.0 <= counted["tiles_skipped"] < 1.0
+    assert 0.5 < counted["groups_skipped"] < 1.0
+
+
+@pytest.mark.parametrize("entry", ["ptt_nearest_t_idx",
+                                   "ptt_plucker_nearest_t_idx"])
+def test_nearest_entry_refuses_null_boxes(cuda, entry):
+    """cudaErrorInvalidValue (1) for a pack of rows without its boxes; the
+    wrapper would raise on it."""
+    scene = _scene("cornell", cuda)
+    o3, d3u = _rays(scene)
+    pack = (intersect.scene_plucker_pack(scene) if "plucker" in entry
+            else intersect.scene_tripack(scene))
+    cull = intersect.nearest_cull_boxes(intersect.scene_tripack(scene))
+    n = o3.shape[1]
+    t = torch.empty(n, device=cuda)
+    idx = torch.empty(n, dtype=torch.int32, device=cuda)
+    fn = build.function(entry, intersect._ARGTYPES)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for tile, group in ((None, cull.group.data_ptr()),
+                        (cull.tile.data_ptr(), None)):
+        assert fn(o3.data_ptr(), d3u.data_ptr(), n, pack.data_ptr(),
+                  pack.shape[0], tile, group, t.data_ptr(), idx.data_ptr(),
+                  None, cuda.index or 0, stream) == 1
+    none = torch.empty((0, 8), device=cuda)   # no allocation: a null pointer
+    assert none.data_ptr() == 0
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        intersect._launch_nearest(o3, d3u, pack, entry,
+                                  intersect.CullBoxes(none, cull.group))

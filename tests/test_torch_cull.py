@@ -2,7 +2,10 @@
 any-hit): the port's boxes and slab test against the JAX package's
 ``_block_aabbs`` and ``_aabb_cull_rows``, the plain model of the culled sweep
 against the un-culled plain versions (the cull must not change one bit), and
-against the JAX package's culled Pallas kernels in interpret mode.
+against the JAX package's culled Pallas kernels in interpret mode; and the
+property that makes the cull exact, for the occluder sweeps' bound and for
+the nearest sweep's (``test_conditioned_hits_meet_their_boxes_at_their_own_t``;
+the nearest sweep's other cases are in ``test_torch_nearest_cull.py``).
 
 Tolerances: boxes and booleans equal; mean cosine within 1e-6 (the same
 float32 sums on the same bits)."""
@@ -451,6 +454,38 @@ def _aimed_pairs(kind, n, seed):
     return tri, o, d / d.norm(dim=1, keepdim=True).clamp_min(1e-20)
 
 
+def _conditioned_hits(kind, form, own_t):
+    """65,536 seeded pairs of ``kind`` in ``form``: (accepted, conditioned,
+    meets, the rays, the own boxes, the bound), each flat over the pairs.
+    The bound is a shadow segment's end beyond the hit (its t + 1e-4 + up
+    to 2e-3), or with ``own_t`` the hit's own t: the bound of a nearest
+    sweep whose best is that hit, the tightest at which a row can still
+    win."""
+    n = 1 << 16
+    tri, o, d = _aimed_pairs(kind, n, seed=len(kind))
+    rows12 = torch.zeros(n, 12)
+    rows12[:, 0:9], rows12[:, 9:11] = tri.reshape(n, 9), 1.0
+    pack, rows = ((intersect.plucker_pack(rows12), intersect.plucker_rows)
+                  if form == "plucker" else (rows12, intersect.mt_rows))
+    rays = [x[:, k].reshape(n, 1, 1) for x in (o, d) for k in range(3)]
+    hit, t = rows(pack[:, None, :], *rays)
+    if own_t:
+        bound = t
+        accepted = hit.flatten()
+    else:
+        slack = torch.from_numpy(np.random.default_rng(1).uniform(
+            0.0, 2.0, n).astype(np.float32)).reshape(n, 1, 1)
+        bound = t + 1e-4 + slack * 1e-3
+        accepted = (hit & (t < bound - 1e-4)).flatten()
+    own = _own_boxes(rows12)[:, None, :]
+    meets, nonempty = intersect.aabb_cull_rows(
+        own, rays[:3], rays[3:], bound * intersect.CULL_REACH)
+    meets = (meets & nonempty).flatten()
+    conditioned = _conditioning(tri, d) >= COND
+    assert int((accepted & conditioned).sum()) > n // 16
+    return accepted, conditioned, meets, rays, own, bound
+
+
 @pytest.mark.parametrize("form", ["classic", "plucker"])
 @pytest.mark.parametrize("kind", ["general", "flat", "sliver", "grazing",
                                   "far"])
@@ -460,32 +495,30 @@ def test_conditioned_hits_meet_their_boxes(kind, form):
     is conditioned meets its own grown box within the culled sweeps' bound,
     slivers, grazing rays and origins thousands of units away included."""
     n = 1 << 16
-    tri, o, d = _aimed_pairs(kind, n, seed=len(kind))
-    rows12 = torch.zeros(n, 12)
-    rows12[:, 0:9], rows12[:, 9:11] = tri.reshape(n, 9), 1.0
-    pack, rows = ((intersect.plucker_pack(rows12), intersect.plucker_rows)
-                  if form == "plucker" else (rows12, intersect.mt_rows))
-    rays = [x[:, k].reshape(n, 1, 1) for x in (o, d) for k in range(3)]
-    hit, t = rows(pack[:, None, :], *rays)
-    slack = torch.from_numpy(np.random.default_rng(1).uniform(
-        0.0, 2.0, n).astype(np.float32)).reshape(n, 1, 1)
-    bound = t + 1e-4 + slack * 1e-3
-    accepted = (hit & (t < bound - 1e-4)).flatten()
-    meets, nonempty = intersect.aabb_cull_rows(
-        _own_boxes(rows12)[:, None, :], rays[:3], rays[3:],
-        bound * intersect.CULL_REACH)
-    meets = (meets & nonempty).flatten()
-    conditioned = _conditioning(tri, d) >= COND
-    assert int((accepted & conditioned).sum()) > n // 16
+    accepted, conditioned, meets, rays, own, bound = _conditioned_hits(
+        kind, form, own_t=False)
     assert not bool((accepted & conditioned & ~meets).any())
     if kind == "far" and form == "classic":
         # the stretch is needed: the absolute slack alone loses such hits
-        short, _ = intersect.aabb_cull_rows(
-            _own_boxes(rows12)[:, None, :], rays[:3], rays[3:], bound)
+        short, _ = intersect.aabb_cull_rows(own, rays[:3], rays[3:], bound)
         assert bool((accepted & conditioned & ~short.flatten()).any())
     if kind in ("sliver", "grazing"):
         # these kinds do reach below COND, where the property ends
         assert int((accepted & ~conditioned).sum()) > n // 16
+
+
+@pytest.mark.parametrize("form", ["classic", "plucker"])
+@pytest.mark.parametrize("kind", ["general", "flat", "sliver", "grazing",
+                                  "far"])
+def test_conditioned_hits_meet_their_boxes_at_their_own_t(kind, form):
+    """The culled nearest sweep's property (``csrc/nearest.cu``): every
+    accepted, conditioned hit meets its own grown box with the bound at its
+    own t, stretched by ``CULL_REACH``. A lane whose best t is at or above
+    a row's t then walks that row's group, so the cull passes over no
+    winner."""
+    accepted, conditioned, meets, _, _, _ = _conditioned_hits(
+        kind, form, own_t=True)
+    assert not bool((accepted & conditioned & ~meets).any())
 
 
 def test_ill_conditioned_hits_are_dropped_by_the_reference_cull_too():
