@@ -43,7 +43,16 @@ phase fails:
      SUBSET_STRIDE-th block of 1024 lanes, and its time is printed beside
      K5 at 1024 and 512 and K8 on the same wavefront;
    - on the same wavefronts K8 (walker nearest) against its plain version,
-     K1 and K5; K5 in blocks of 512 beside 1024; K6 (cluster-sparse
+     K1 and K5; K5 in blocks of 512 beside 1024. K5, K8 and K3's sparse
+     nearest walk each block's list in units of WALK_SEGMENT slots on many
+     CTAs (the split walk): their counting instances give the units
+     launched and stopped before their first slot, which must be the units
+     the lists give, and their (ray, cluster) visits, which must lie in
+     their band (at least what each lane needs up to its winner, at most
+     what the units visit when each starts from nothing) and are printed
+     beside the serial walk's; with each wavefront's longest list and the
+     blocks that hold a missing live lane, straddle two direction octants
+     or hold the park edge. K6 (cluster-sparse
      any-hit) against its plain version, K4 and K9; K7 (the any-hit that
      reports the blocking cluster) against its plain version on the full
      lists and on vote-ordered guess lists, and its two-pass protocol with
@@ -881,6 +890,40 @@ def block_subset(o3_rows, lists, r_blk, stride, blocks=None):
     return lanes, rows, BlockLists(*(x[blocks].contiguous() for x in lists))
 
 
+def tail_causes(o3, d3u, idx, lists, r_blk) -> dict:
+    """What makes a block's walk long, counted over a wavefront's blocks and
+    over the 1% of blocks with the longest lists: a live lane that misses
+    (its bound stays BIG, so no stop ever passes it), live lanes in more
+    than one direction octant (the block's direction box crosses an axis:
+    its entry bound is -BIG there, so its list holds much of the scene with
+    bound 0), and parked lanes beside live ones (the park edge: the origin
+    box reaches PARK_ORIGIN)."""
+    from pathtracerpython_tpu_torch.kernels import sparse
+    from pathtracerpython_tpu_torch.ops.sort import PARK_ORIGIN
+
+    nrb = lists.ncand.shape[0]
+    cut = lambda x: sparse.pad_repeat_last(x, r_blk).reshape(nrb, r_blk)
+    live = o3[1] != PARK_ORIGIN[1]
+    octant = ((d3u > 0).long()
+              * torch.tensor([[1], [2], [4]], device=d3u.device)).sum(dim=0)
+    oct_b = cut(torch.where(live, octant, -1))
+    causes = {
+        "a missing live lane": cut(live & (idx < 0)).any(dim=1),
+        "two octants": ((oct_b.amax(dim=1) >= 0)
+                        & (torch.where(oct_b >= 0, oct_b, 8).amin(dim=1)
+                           != oct_b.amax(dim=1))),
+        "the park edge": cut(~live).any(dim=1) & cut(live).any(dim=1),
+    }
+    longest = lists.ncand > torch.quantile(lists.ncand.float(), 0.99)
+    return {"blocks": nrb, "longest_list": int(lists.ncand.max()),
+            "blocks_over_one_segment": int(
+                (lists.ncand > sparse.WALK_SEGMENT).sum()),
+            "blocks_with": {k: int(v.sum()) for k, v in causes.items()},
+            "longest_1pct_blocks": int(longest.sum()),
+            "longest_1pct_with": {k: int((v & longest).sum())
+                                  for k, v in causes.items()}}
+
+
 def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
                        *, r_blk, wrapper, launch, plain, others=(),
                        pack=None, dense_name="K1",
@@ -888,8 +931,12 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
     """A cluster walk's nearest sweep (K5, K8 or K3's) on one wavefront:
     against its plain version on every ``stride``-th ray block, against the
     dense sweep ``dense_name`` (``dense``: its (t, idx, ms)) and against
-    ``others`` [(name, t, idx)] on all lanes. ``pack``: the pack that
-    ``launch`` and ``plain`` read, when it is not the [T, 12] one.
+    ``others`` [(name, t, idx)] on all lanes. ``pack``: the Plücker pack
+    that ``launch`` and ``plain`` read, when it is not the [T, 12] one. The
+    split walk's counting instance on the same blocks: its winners the
+    timed instance's, its units those the lists give, its visits inside
+    their band (``walk_visit_band``) beside the serial walk's; on all
+    blocks the units launched and stopped at once, and ``tail_causes``.
     Returns the sweep's (t, idx)."""
     from pathtracerpython_tpu_torch.kernels import intersect, sparse
 
@@ -929,9 +976,30 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
     _, (o_q, d_q), sub_q = block_subset([o3, d3u], lists, r_blk, 1, short)
     kq_ms = cuda_ms(lambda: launch(o_q, d_q, rows_pack, aabb8, sub_q, r_blk),
                     10)
-    pairs = int(torch.stack(visits).sum()) * C_TRI
+    serial_visits = int(torch.stack(visits).sum())
+    pairs = serial_visits * C_TRI
     b = bound(tensor_bytes(o_s, d_s, rows_pack, aabb8, *sub, t_p, i_p), pairs,
               flops)
+    # the counting instance on the subset, then on all blocks
+    stats = torch.zeros(3, dtype=torch.int64, device=o3.device)
+    t_c, i_c = launch(o_s, d_s, rows_pack, aabb8, sub, r_blk, stats)
+    if not (torch.equal(i_c, i_k[lanes]) and torch.equal(t_c, t_k[lanes])):
+        fail(f"{name} {label}: the counting instance's winners differ")
+    counted = sparse.walk_stats(stats)
+    pair = intersect.CLASSIC if pack is None else intersect.PLUCKER
+    floor, ceiling = sparse.walk_visit_band(o_s, d_s, rows_pack, aabb8, sub,
+                                            r_blk, t_p, i_p,
+                                            sparse.WALK_SEGMENT, pair)
+    if counted["units_launched"] != sparse.walk_units(sub, r_blk):
+        fail(f"{name} {label}: {counted['units_launched']} units launched, "
+             f"the lists give {sparse.walk_units(sub, r_blk)}")
+    if not floor <= counted["visits"] <= ceiling:
+        fail(f"{name} {label}: {counted['visits']} visits outside their band "
+             f"[{floor}, {ceiling}]")
+    stats.zero_()
+    launch(o3, d3u, rows_pack, aabb8, lists, r_blk, stats)
+    counted_all = sparse.walk_stats(stats)
+    causes = tail_causes(o3, d3u, i_k, lists, r_blk)
     nc = lists.ncand.float()
     log(f"[2] {name} {label}: {n} lanes in {nrb} blocks of {r_blk}, "
         f"{aabb8.shape[0]} clusters, candidates per block mean "
@@ -950,10 +1018,23 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
         f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({pairs} pairs "
         f"through the per-ray gate); dense {dense_name} on all lanes "
         f"{d_ms:.3f} ms")
+    log(f"[2] {name} {label} split walk (units of {sparse.WALK_SEGMENT} "
+        f"slots): on the subset {counted['units_launched']} units, "
+        f"{counted['units_stopped_at_once']} stopped at once, visits "
+        f"{counted['visits']} (serial walk {serial_visits}, band [{floor}, "
+        f"{ceiling}]); on all blocks {counted_all['units_launched']} units, "
+        f"{counted_all['units_stopped_at_once']} stopped at once, visits "
+        f"{counted_all['visits']}; blocks {json.dumps(causes)}")
     report.append(report_row(label, max(err, err_d), ks_ms, p_ms, b,
                              wrapper_ms=k_ms, kernel_all_ms=ka_ms,
                              kernel_short99_ms=kq_ms, lists_ms=lists_ms,
-                             dense_ms=d_ms))
+                             dense_ms=d_ms, visits=counted["visits"],
+                             serial_visits=serial_visits,
+                             visits_floor=floor, visits_ceiling=ceiling,
+                             units=counted_all["units_launched"],
+                             units_stopped_at_once=counted_all[
+                                 "units_stopped_at_once"],
+                             visits_all=counted_all["visits"], **causes))
     return t_k, i_k
 
 

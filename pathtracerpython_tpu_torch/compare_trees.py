@@ -1,28 +1,35 @@
 """Hold two checkouts of the port against each other on one card, in turns.
 
     python -m pathtracerpython_tpu_torch.compare_trees --other DIR \\
-        [--out FILE] [--work DIR]
+        [--out FILE] [--work DIR] [--cells NAME ...]
 
 ``DIR`` is the root of another checkout (a ``git archive`` of the parent
 commit, say). The checkout that holds this file is "change", the other
 "parent". Each runs in its own process, which imports that checkout's
 ``pathtracerpython_tpu_torch`` and builds its kernels, in the order parent,
 change, change, parent, so that a drift of the card or the host over the
-call falls on both sides. Each run:
+call falls on both sides. Each run, for each cell (``--cells``: a subset,
+by name; default all):
 
-- times the dense nearest kernel (K1, and K3's dense nearest under
-  ``mt_impl="plucker"``) on the first and second bounce wavefronts of the
-  Cornell stand-in (512x512, 4 spp) and the 300-box field (512x512,
-  4 spp): the kernel's own launch with its pack (and boxes, where the
-  checkout culls) built beforehand, CUDA events, 3 samples of the mean of
-  20 launches after 3 warm-up launches;
-- renders the Cornell cell (512x512, 4 spp, 4 bounces) and the boxfield300
-  cell (512x512, 2 spp, 3 bounces), 3 NEE samples, seed 0, in both forms.
+- times the nearest kernels on the first and second bounce wavefronts of
+  the cell's batch_samples render (3 NEE samples), sorted and parked where
+  the render sorts: on the Cornell stand-in (512x512, 4 spp) and the
+  300-box field (512x512, 4 spp) the dense sweep (K1, and K3's dense
+  nearest under ``mt_impl="plucker"``); on the 100k-triangle box field in
+  morton order (512x512, 2 spp) the cluster walks K5 in blocks of 1024 and
+  of 512, K3's sparse nearest in blocks of 512 and K8. Each is the kernel's
+  own launch with its pack, boxes and lists built beforehand, CUDA events,
+  3 samples of the mean of 20 launches after 3 warm-up launches;
+- renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
+  bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
+  forms; the 100k field (512x512, 2 spp, 3 bounces) through the hybrid,
+  sparse, sparse with the occluder cache and walker hierarchies, and
+  sparse and hybrid under ``mt_impl="plucker"``.
 
-It prints, and writes to ``FILE`` as JSON, every run's times by wavefront
-and the largest absolute difference of each render between every change
-run and every parent run, and between the two runs of each checkout. Needs
-a CUDA device; nothing here runs on the CPU.
+It prints, and writes to ``FILE`` as JSON, every run's times by wavefront,
+the largest absolute difference of each render between every change run
+and every parent run, and between the two runs of each checkout. Needs a
+CUDA device; nothing here runs on the CPU.
 """
 
 from __future__ import annotations
@@ -36,40 +43,51 @@ import sys
 
 THIS_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORDER = ("parent", "change", "change", "parent")
-FORMS = ("classic", "plucker")
+FORMS = {"classic": {"mt_impl": "classic"}, "plucker": {"mt_impl": "plucker"}}
 NEE_SAMPLES = 3
-# (name, (scene constructor, its keywords), pack keywords, spp, bounces)
-CELLS = (("cornell", ("cornell_box_scene", {}), {"pad_to": 32}, 4, 4),
-         ("boxfield300", ("box_field_scene", {"n_boxes": 300}), {}, 2, 3))
-WAVEFRONT_SPP = 4
+# name: (scene constructor and its keywords, pack keywords, spp of the
+# timed wavefronts, render spp, render bounces, renders by name)
+CELLS = {
+    "cornell": (("cornell_box_scene", {}), {"pad_to": 32}, 4, 4, 4, FORMS),
+    "boxfield300": (("box_field_scene", {"n_boxes": 300}), {}, 4, 2, 3,
+                    FORMS),
+    "large100k": (("box_field_scene", {"n_boxes": 8333}),
+                  {"tri_order": "morton"}, 2, 2, 3, {
+                      "hybrid": {},
+                      "sparse": {"accel": "sparse"},
+                      "sparse+cache": {"accel": "sparse", "nee_cache": "on"},
+                      "walker": {"accel": "walker"},
+                      "sparse plucker": {"accel": "sparse",
+                                         "mt_impl": "plucker"},
+                      "hybrid plucker": {"mt_impl": "plucker"},
+                  }),
+}
 
 
-def _scene(synthetic, arrays, cell):
-    _, (ctor, kw), pack_kw, _, _ = cell
-    desc = getattr(synthetic, ctor)(width=512, height=512, **kw)
-    return arrays.pack_scene(desc, **pack_kw)
+def _scene(port, cell):
+    (ctor, kw), pack_kw = CELLS[cell][:2]
+    desc = getattr(port["scene.synthetic"], ctor)(width=512, height=512, **kw)
+    return port["scene.arrays"].pack_scene(desc, **pack_kw)
 
 
-def _wavefronts(port, scene):
+def _wavefronts(port, scene, spp):
     """(o3, d3 unit) of the first and second bounce wavefronts of the
-    scene's batch_samples render at WAVEFRONT_SPP, as the render forms
-    them."""
+    scene's batch_samples render at ``spp``, as the render forms them."""
     import torch
 
     rng, camera = port["ops.rng"], port["ops.camera"]
     geometry, integrator = port["ops.geometry"], port["render.integrator"]
     cfg = port["render.config"].RenderConfig(
-        n_samples=WAVEFRONT_SPP, n_bounces=2, n_light_samples=NEE_SAMPLES,
+        n_samples=spp, n_bounces=2, n_light_samples=NEE_SAMPLES,
         batch_samples=True)
     bounds = (port["ops.sort"].scene_bounds(scene)
               if integrator._sort_enabled(scene, cfg) else None)
     w, h = scene.meta.width, scene.meta.height
     origins, dirs = camera.make_primary_rays(scene.eye, scene.ortho, w, h)
     pid = torch.arange(w * h, device=scene.device)
-    counters = torch.cat([pid * WAVEFRONT_SPP + s
-                          for s in range(WAVEFRONT_SPP)])
-    state = integrator.init_rays(origins.T.repeat(1, WAVEFRONT_SPP),
-                                 dirs.T.repeat(1, WAVEFRONT_SPP), counters)
+    counters = torch.cat([pid * spp + s for s in range(spp)])
+    state = integrator.init_rays(origins.T.repeat(1, spp),
+                                 dirs.T.repeat(1, spp), counters)
     k0, k1 = rng.key_from_seed(0)
     out = []
     for b in range(2):
@@ -79,17 +97,52 @@ def _wavefronts(port, scene):
     return out
 
 
-def _kernel(intersect, scene, form):
-    """The checkout's dense nearest kernel as ``fn(o3, d3)``, its pack (and
-    its boxes, where it culls) built beforehand."""
+def _dense_kernels(port, scene, o3, d3):
+    """The checkout's dense nearest kernel in each form as ``fn()``, its
+    pack (and its boxes, where it culls) built beforehand."""
+    intersect = port["kernels.intersect"]
     tripack = intersect.scene_tripack(scene)
-    plucker = form == "plucker"
-    pack = intersect.scene_plucker_pack(scene) if plucker else tripack
-    launch = intersect._launch_plucker if plucker else intersect._launch
-    if hasattr(intersect, "nearest_cull_boxes"):
-        cull = intersect.nearest_cull_boxes(tripack)
-        return lambda o3, d3: launch(o3, d3, pack, cull)
-    return lambda o3, d3: launch(o3, d3, pack)
+    out = {}
+    for form in ("classic", "plucker"):
+        plucker = form == "plucker"
+        pack = intersect.scene_plucker_pack(scene) if plucker else tripack
+        launch = intersect._launch_plucker if plucker else intersect._launch
+        if hasattr(intersect, "nearest_cull_boxes"):
+            cull = intersect.nearest_cull_boxes(tripack)
+            out[form] = (lambda launch=launch, pack=pack, cull=cull:
+                         launch(o3, d3, pack, cull))
+        else:
+            out[form] = lambda launch=launch, pack=pack: launch(o3, d3, pack)
+    return out
+
+
+def _walk_kernels(port, scene, o3, d3):
+    """The checkout's cluster nearest walks as ``fn()``, their packs and
+    lists built beforehand."""
+    import torch
+
+    intersect, sparse = port["kernels.intersect"], port["kernels.sparse"]
+    walker = port["kernels.walker"]
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    pack36 = intersect.scene_plucker_pack(scene, sparse.PACK_ROWS)
+
+    def lists(r_blk):
+        nrb = -(-o3.shape[1] // r_blk)
+        return sparse.block_lists(aabb8, o3, d3, torch.full(
+            (nrb,), intersect.BIG, device=o3.device), r_blk)
+
+    l1024, l512 = lists(1024), lists(512)
+    lw = walker.nearest_lists(aabb8, o3, d3)
+    return {
+        "K5@1024": lambda: sparse._launch(o3, d3, tripack, aabb8, l1024,
+                                          1024),
+        "K5@512": lambda: sparse._launch(o3, d3, tripack, aabb8, l512, 512),
+        "K3 sparse nearest@512": lambda: sparse._launch_plucker(
+            o3, d3, pack36, aabb8, l512, 512),
+        "K8": lambda: walker._launch_nearest(o3, d3, tripack, aabb8, lw,
+                                             walker.R_BLK),
+    }
 
 
 def _ms(fn, reps: int = 20) -> float:
@@ -106,9 +159,9 @@ def _ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def worker(tree: str, out: str) -> None:
+def worker(tree: str, out: str, cells) -> None:
     """One run in one checkout: times to ``out`` + ".json", renders to
-    ``out`` + "_<cell>_<form>.pt"."""
+    ``out`` + "_<cell>_<render>.pt"."""
     sys.path[0] = tree   # not this file's directory, inside a package
     import importlib
 
@@ -121,32 +174,36 @@ def worker(tree: str, out: str) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison runs on the card")
     port = {m: importlib.import_module(f"pathtracerpython_tpu_torch.{m}")
-            for m in ("kernels.intersect", "ops.rng", "ops.camera",
-                      "ops.geometry", "ops.sort", "render.config",
-                      "render.integrator", "scene.arrays", "scene.synthetic")}
-    intersect = port["kernels.intersect"]
+            for m in ("kernels.intersect", "kernels.sparse", "kernels.walker",
+                      "ops.rng", "ops.camera", "ops.geometry", "ops.sort",
+                      "render.config", "render.integrator", "scene.arrays",
+                      "scene.synthetic")}
     times = {}
-    for cell in CELLS:
-        scene = _scene(port["scene.synthetic"], port["scene.arrays"], cell)
-        for b, (o3, d3) in enumerate(_wavefronts(port, scene), start=1):
-            for form in FORMS:
-                run = _kernel(intersect, scene, form)
+    for cell in cells:
+        scene = _scene(port, cell)
+        _, _, wave_spp, spp, bounces, renders = CELLS[cell]
+        kernels = _walk_kernels if cell == "large100k" else _dense_kernels
+        for b, (o3, d3) in enumerate(_wavefronts(port, scene, wave_spp),
+                                     start=1):
+            for name, run in kernels(port, scene, o3, d3).items():
                 for _ in range(3):
-                    run(o3, d3)
-                times[f"{cell[0]} bounce {b} {form}"] = [
-                    _ms(lambda: run(o3, d3)) for _ in range(3)]
+                    run()
+                times[f"{cell} bounce {b} {name}"] = [_ms(run)
+                                                      for _ in range(3)]
         cfg_cls = port["render.config"].RenderConfig
-        for form in FORMS:
-            cfg = cfg_cls(mode="fast", n_samples=cell[3], n_bounces=cell[4],
+        for name, kw in renders.items():
+            cfg = cfg_cls(mode="fast", n_samples=spp, n_bounces=bounces,
                           n_light_samples=NEE_SAMPLES, batch_samples=True,
-                          mt_impl=form)
+                          **kw)
             rad = port["render.integrator"].render(scene, cfg, seed=0)
-            torch.save(rad.cpu(), f"{out}_{cell[0]}_{form}.pt")
+            torch.save(rad.cpu(), f"{out}_{cell}_{name}.pt")
+        del scene
+        torch.cuda.empty_cache()
     with open(out + ".json", "w") as f:
         json.dump(times, f)
 
 
-def compare(other: str, work: str) -> dict:
+def compare(other: str, work: str, cells) -> dict:
     import torch
 
     os.makedirs(work, exist_ok=True)
@@ -155,7 +212,8 @@ def compare(other: str, work: str) -> dict:
     for k, side in enumerate(ORDER):
         out = os.path.join(work, f"run{k}_{side}")
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--worker", trees[side], "--out", out], check=True)
+                        "--worker", trees[side], "--out", out, "--cells",
+                        *cells], check=True)
         with open(out + ".json") as f:
             runs.append((side, out, json.load(f)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -170,16 +228,16 @@ def compare(other: str, work: str) -> dict:
         result["kernel_ms"][key]["median"] = {
             side: statistics.median(v)
             for side, v in result["kernel_ms"][key].items()}
-    for cell in CELLS:
-        for form in FORMS:
-            rad = [(side, torch.load(f"{out}_{cell[0]}_{form}.pt"))
+    for cell in cells:
+        for name in CELLS[cell][5]:
+            rad = [(side, torch.load(f"{out}_{cell}_{name}.pt"))
                    for side, out, _ in runs]
             diffs = {}
             for i, (si, ri) in enumerate(rad):
                 for j, (sj, rj) in enumerate(rad[i + 1:], start=i + 1):
                     diffs[f"run{i} {si} - run{j} {sj}"] = (
                         ri - rj).abs().max().item()
-            result["radiance_max_abs_diff"][f"{cell[0]} {form}"] = diffs
+            result["radiance_max_abs_diff"][f"{cell} {name}"] = diffs
     return result
 
 
@@ -190,15 +248,17 @@ def main() -> None:
     ap.add_argument("--work", default=os.path.join(THIS_ROOT, "build",
                                                    "compare_trees"),
                     help="directory for the runs' files")
+    ap.add_argument("--cells", nargs="+", choices=list(CELLS),
+                    default=list(CELLS), help="the cells to compare")
     ap.add_argument("--worker", metavar="TREE",
                     help="internal: one run in checkout TREE")
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.out)
+        worker(args.worker, args.out, args.cells)
         return
     if not args.other:
         ap.error("--other is required")
-    result = compare(args.other, args.work)
+    result = compare(args.other, args.work, args.cells)
     print(json.dumps(result), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -143,13 +143,4 @@ __device__ __forceinline__ void load_tile_boxes(
   union_boxes(boxes.span, kSpans, src, kSpanRows / kGroup, n_groups);
 }
 
-// Adds a warp's sum of ``count`` to ``*counter``.
-__device__ __forceinline__ void add_warp_count(unsigned long long* counter,
-                                               unsigned long long count) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if ((threadIdx.x & 31) == 0 && count) atomicAdd(counter, count);
-}
-
 }  // namespace ptt

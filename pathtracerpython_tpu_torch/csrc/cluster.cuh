@@ -2,8 +2,10 @@
 // (sparse_nearest.cu), K6 (sparse_any_hit.cu) and K7
 // (sparse_any_hit_idx.cu), and the walker sweeps K8 (walker_nearest.cu) and
 // K9 (walker_any_hit.cu): the per-ray slab test against a cluster's AABB,
-// the staging of a cluster's triangles into shared memory, and the mapping
-// of a CTA onto a slice of one ray block.
+// the staging of a cluster's triangles into shared memory, the mapping of a
+// CTA onto a slice of one ray block, and the split walk of the nearest
+// sweeps (K5 in both forms, K8): work units, the 64-bit merge and the bound
+// read.
 //
 // The slab arithmetic follows pathtracerpython_tpu/kernels/sparse_pallas.py
 // _inv_rows / _slab_rows_inv term for term: the direction's reciprocal with
@@ -19,6 +21,47 @@
 // clamped entry to a cluster is never below its block's bound; once the
 // bound exceeds what a ray can still use, no later cluster of the list is
 // needed by that ray.
+//
+// The split walk. A block's front-to-back list is cut into segments of
+// kSegment consecutive slots, and the unit of work is (slice of the block's
+// rays, segment): CTA (x, y) of the grid that walk_grid gives owns slice x
+// and the slots [y kSegment, (y + 1) kSegment) of its block's list, and
+// leaves at once when the list is shorter. The grid is sized from the list width
+// the host knows (C, or the walker's columns); which units hold slots is
+// read on the device from ncand, so the launch reads nothing back. Units
+// are numbered segment-major (y outermost), and the card starts CTAs in
+// about that order: every block's front segment first, so that the later
+// segments start from the bounds the front ones found. A block whose list
+// fits one segment is walked by one unit, as before the split.
+//
+// The merge. Each lane's best (t, global index) lives in a 64-bit word of a
+// scratch buffer, all ones ("no hit yet") before the launch: t's float bits
+// above the index's. A hit has t > T_MIN > 0, and the bits of positive
+// floats sort as unsigned integers in the order of their values, with equal
+// bits for equal values; indices are >= 0. So the unsigned order of the
+// words is the lexicographic (t, index) order, the one that the serial
+// walk's strict t < best_t, ties to the smaller index, realises. A unit
+// publishes a better best with atomicMin; the minimum does not depend on
+// the order of the atomics, so the word ends at the minimum over all
+// published hits whatever order the units ran in. A word still all ones
+// after the walk is a miss (t = 0, index -1).
+//
+// The bound. A lane's bound is the minimum of its own register (kept as a
+// word, starting at (kBig, 0): a hit replaces it only when t < kBig, as the
+// serial walk's did) and a relaxed read of its scratch word, refreshed once
+// per slot in units of blocks of more than one segment. The per-lane gate
+// (slab hit, entry < bound t + SLAB_EPS) and the stop (no lane of the CTA,
+// or warp, with the slot's block bound <= its bound t + SLAB_EPS) read that
+// bound. Why every cluster that can hold the winner is still visited: let w
+// be the lexicographic minimum over the hits of every cluster of the list,
+// which is the serial walk's (and the dense K1's) winner. Every register
+// and every word holds the initial value or a real hit, so never less than
+// w: a stale read only loosens a bound, never tightens it past w. The gate
+// rejects a cluster only when every hit in it has t above the bound's t
+// (SLAB_EPS covers the slab test's rounding), and w's t is at most that, so
+// the unit that owns w's slot visits w's cluster (nor can its stop come
+// before that slot: the slot's block bound is at most the ray's own entry).
+// There its register becomes w, is published, and no word goes below it.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -111,6 +154,96 @@ __device__ __forceinline__ BlockSlice block_slice(int r_blk, int n) {
 inline int slice_ctas(int n, int r_blk) {
   const int blocks = (n + r_blk - 1) / r_blk;
   return blocks * ((r_blk + kThreads - 1) / kThreads);
+}
+
+// Adds a warp's sum of ``count`` to ``*counter``.
+__device__ __forceinline__ void add_warp_count(unsigned long long* counter,
+                                               unsigned long long count) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_down_sync(0xffffffffu, count, off);
+  if ((threadIdx.x & 31) == 0 && count) atomicAdd(counter, count);
+}
+
+// ---- The split walk of the nearest sweeps (see the top of this file) ----
+
+// List slots per work unit. Measured against 32, 64 and 128 on the card,
+// the 100k field's first and second bounce (PERF.md, PR 7): 16 was the
+// fastest at both, every kernel.
+constexpr int kSegment = 16;
+constexpr unsigned long long kNoHitWord = ~0ull;  // scratch word: no hit yet
+
+// The counters a counting instance of K5 or K8 adds to, in this order.
+enum WalkCounter { kUnitsLaunched = 0, kUnitsStoppedAtOnce = 1, kVisits = 2 };
+
+// A lane's hit (t > T_MIN, index >= 0) as one word, ordered as (t, index).
+__device__ __forceinline__ unsigned long long hit_word(float t, int idx) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned int>(idx);
+}
+
+// The t of a word (kBig for a register that holds no hit yet).
+__device__ __forceinline__ float word_t(unsigned long long word) {
+  return __uint_as_float(static_cast<unsigned int>(word >> 32));
+}
+
+// The smaller of two words: the lexicographic (t, index) minimum.
+__device__ __forceinline__ unsigned long long word_min(unsigned long long a,
+                                                       unsigned long long b) {
+  return a < b ? a : b;
+}
+
+// A lane's register before any hit: a hit must have t < kBig to replace it.
+__device__ __forceinline__ unsigned long long start_word() {
+  return hit_word(kBig, 0);
+}
+
+// The relaxed read of a lane's scratch word: another CTA may lower it at
+// any time, and any value it held since the launch is a valid bound.
+__device__ __forceinline__ unsigned long long read_word(
+    const unsigned long long* words, int lane) {
+  return *reinterpret_cast<const volatile unsigned long long*>(words + lane);
+}
+
+// Publishes a lane's better best.
+__device__ __forceinline__ void publish_word(unsigned long long* words,
+                                             int lane,
+                                             unsigned long long best) {
+  atomicMin(words + lane, best);
+}
+
+// One unit of the split walk: this CTA's slice of a ray block and the
+// list slots [first, end) of the block's list, ``count`` long.
+struct WalkUnit {
+  BlockSlice me;
+  int count, first, end;
+  bool shared;  // the block's list spans more than one unit
+};
+
+__device__ __forceinline__ WalkUnit walk_unit(int r_blk, int n,
+                                              const int* __restrict__ ncand) {
+  const BlockSlice me = block_slice(r_blk, n);
+  const int count = ncand[me.block];
+  const int first = blockIdx.y * kSegment;
+  return WalkUnit{me, count, first, min(first + kSegment, count),
+                  count > kSegment};
+}
+
+// The grid of the split walk: the slices of the ray blocks, times the
+// segments of the longest list a block can have (``n_cols`` slots).
+inline dim3 walk_grid(int n, int r_blk, int n_cols) {
+  return dim3(slice_ctas(n, r_blk), (n_cols + kSegment - 1) / kSegment);
+}
+
+// The outputs of one lane from its merged word: t and index, or t = 0 and
+// index -1 where no unit published a hit.
+__device__ __forceinline__ void finish_lane(
+    const unsigned long long* __restrict__ words, int lane,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  const unsigned long long w = words[lane];
+  const bool hit = w != kNoHitWord;
+  t_out[lane] = hit ? word_t(w) : 0.0f;
+  idx_out[lane] = hit ? static_cast<int>(static_cast<unsigned int>(w)) : -1;
 }
 
 }  // namespace ptt

@@ -20,7 +20,11 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
   tests a cluster only when its own slab test lets it through with entry
   < best t + SLAB_EPS. The winner is the lexicographic (t, global index)
   minimum, the dense K1's winner. Blocks of ``R_BLK = 512`` rays for
-  ``accel="sparse"``, of ``R_BLK_HYBRID_NEAREST`` for the hybrid;
+  ``accel="sparse"``, of ``R_BLK_HYBRID_NEAREST`` for the hybrid. On the
+  card a block's list is walked in units of ``WALK_SEGMENT`` slots on many
+  CTAs at once, each lane's best merged by a 64-bit atomicMin on (t,
+  index) (``csrc/cluster.cuh``); ``sparse_nearest_plain(..., segment=)``
+  models that walk;
 - **K6** ``sparse_any_hit_cm``: whether an occluder triangle of a candidate
   cluster blocks each shadow ray inside its window; the dense K4's bits;
 - **K7** ``sparse_any_hit_cached_cm``: K6's bits for any cache contents,
@@ -85,6 +89,9 @@ PACK_ROWS = 512    # the pack is padded to a multiple of this many rows
 R_BLK = 512        # rays per block of accel="sparse"'s sweeps (K5, K6, K7)
 R_BLK_HYBRID_NEAREST = 1024  # rays per block of the hybrid's nearest sweep
 SLAB_EPS = 1e-3    # conservative slack of every slab comparison
+# List slots per unit of the split nearest walks (K5, K3's sparse nearest,
+# K8): csrc/cluster.cuh's kSegment, which the kernels are compiled with.
+WALK_SEGMENT = 16
 K_GUESS = 8        # voted cached clusters per ray block in K7's pass 1
 CACHE_M_DIV = 2    # K7's pass 2 is compacted when it fits n / CACHE_M_DIV
 
@@ -101,7 +108,9 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # tripack, aabb8, C
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
     ctypes.c_int,                                     # r_blk
+    ctypes.c_void_p,                                  # words (all ones)
     ctypes.c_void_p, ctypes.c_void_p,                 # t_out, idx_out
+    ctypes.c_void_p,                                  # stats (or null)
     ctypes.c_int, ctypes.c_void_p,                    # device, stream
 ]
 _ANY_HIT_ARGTYPES = [
@@ -338,17 +347,39 @@ def by_block_chunks(fn, o3, rows, lists: BlockLists, r_blk: int):
     return [torch.cat(parts, dim=-1) for parts in zip(*outs)]
 
 
+def segment_slots(count: int, segment: int | None, order=None):
+    """The slot ranges of a walk over lists of at most ``count`` slots, cut
+    into segments of ``segment`` slots (None: one segment) and taken in
+    ``order``, a sequence of segment numbers (None: front to back; numbers
+    past the lists' last segment are skipped)."""
+    size = max(count, 1) if segment is None else segment
+    n_seg = -(-count // size)
+    order = range(n_seg) if order is None else [k for k in order
+                                                 if k < n_seg]
+    return [range(k * size, min((k + 1) * size, count)) for k in order]
+
+
 def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
                          r_blk: int, visits: list | None = None,
-                         pair: PairTest = CLASSIC):
+                         pair: PairTest = CLASSIC, segment: int | None = None,
+                         order=None):
     """The walk of ``csrc/sparse_nearest.cu`` (and of
     ``csrc/walker_nearest.cu``) in PyTorch: slot s of every block's list at
-    once, with the kernels' per-lane gate, (t, index) merge and whole-walk
-    stop (taken per block instead of per CTA or warp, which changes no
-    result). Returns (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss).
-    ``visits``: a list that receives, per chunk, the number of (ray,
-    cluster) visits the per-lane gate let through. ``pair``: the form of
-    the ray-triangle test, with ``tripack`` in its layout."""
+    once, with the kernels' per-lane gate, (t, index) merge and stop (taken
+    per block instead of per CTA or warp, which changes no result). Returns
+    (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss). ``visits``: a
+    list that receives, per chunk and slot, the number of (ray, cluster)
+    visits the per-lane gate let through. ``pair``: the form of the
+    ray-triangle test, with ``tripack`` in its layout.
+
+    ``segment``: the kernels' split walk, modelled one unit at a time: each
+    block's list is cut into segments of ``segment`` slots (None: one
+    segment, the serial walk), walked in the ``order`` of their numbers
+    (None: front to back; see ``segment_slots``); each segment starts from
+    the best that the segments before it in that order merged, with its own
+    gate and stop. The merge is a minimum, so every order gives the serial
+    walk's result; the visits depend on the order, as the kernels' depend
+    on when their units run."""
     def walk(rows, chunk: BlockLists):
         o3c, d3c = rows
         n, nrb = o3c.shape[1], chunk.ncand.shape[0]
@@ -357,37 +388,82 @@ def sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists: BlockLists,
                             device=o3c.device)
         best_idx = torch.full((nrb, 1, r_blk), -1, dtype=torch.int32,
                               device=o3c.device)
-        walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
-        for s in range(int(chunk.ncand.max())):
-            key = chunk.keys[:, s][:, None, None]
-            walking = walking & (s < chunk.ncand) & (
-                rays.live & (key <= best_t + SLAB_EPS)).flatten(1).any(dim=1)
-            if not bool(walking.any()):
-                break
-            cl = chunk.ids[:, s]
-            box = aabb8[cl.to(torch.int64)][:, None, None, :]
-            slab, enter0 = lane_slab(box, rays.o, rays.inv)
-            needed = (walking[:, None, None] & rays.live & slab
-                      & (enter0 < best_t + SLAB_EPS))
-            if visits is not None:
-                visits.append(needed.sum())
-            hit, t = pair.rows(cluster_rows(tripack, cl), *rays.o, *rays.d)
-            tkey = torch.where(hit, t, BIG)             # [nrb, C_TRI, r_blk]
-            tile_t = tkey.amin(dim=1, keepdim=True)
-            gidx = (cl[:, None, None] * C_TRI
-                    + torch.arange(C_TRI, dtype=torch.int32,
-                                   device=o3c.device)[None, :, None])
-            cand = torch.where((tkey == tile_t) & hit, gidx, IMAX)
-            tile_idx = cand.amin(dim=1, keepdim=True)
-            better = needed & (tile_idx != IMAX) & (
-                (tile_t < best_t)
-                | ((tile_t == best_t) & (tile_idx < best_idx)))
-            best_t = torch.where(better, tile_t, best_t)
-            best_idx = torch.where(better, tile_idx, best_idx)
+        for slots in segment_slots(int(chunk.ncand.max()), segment, order):
+            walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
+            for s in slots:
+                walking = _nearest_slot(s, chunk, rays, walking, best_t,
+                                        best_idx, tripack, aabb8, visits,
+                                        pair)
+                if walking is None:
+                    break
         return best_t.reshape(-1)[:n], best_idx.reshape(-1)[:n]
 
     t, idx = by_block_chunks(walk, o3, [o3, d3_unit], lists, r_blk)
     return torch.where(idx >= 0, t, 0.0), idx
+
+
+def walk_visit_band(o3, d3_unit, tripack, aabb8, lists: BlockLists,
+                    r_blk: int, t, idx, segment: int,
+                    pair: PairTest = CLASSIC) -> tuple[int, int]:
+    """The band of (ray, cluster) visits of a split nearest walk in
+    segments of ``segment`` slots whose winners are (t, idx), in any order
+    and at any timing of its units. Floor: per lane the clusters of its
+    block's list whose slab test it passes with entry < its winner's t +
+    SLAB_EPS (the whole ray where it misses); a lane's bound never falls
+    below its winner, so every walk visits them. Ceiling: the visits of the
+    segments when each starts from nothing; a unit that reads a merged best
+    only gates tighter. Returns (floor, ceiling)."""
+    nrb = lists.ncand.shape[0]
+    rays = block_rays(o3, d3_unit, nrb, r_blk)
+    reach = pad_repeat_last(torch.where(idx >= 0, t, BIG), r_blk)[
+        :nrb * r_blk].reshape(nrb, 1, r_blk)
+    floor = 0
+    for s in range(int(lists.ncand.max())):
+        box = aabb8[lists.ids[:, s].to(torch.int64)][:, None, None, :]
+        slab, enter0 = lane_slab(box, rays.o, rays.inv)
+        floor += int(((s < lists.ncand)[:, None, None] & rays.live & slab
+                      & (enter0 < reach + SLAB_EPS)).sum())
+    ceiling = 0
+    for lo in range(0, int(lists.ncand.max()), segment):
+        part = BlockLists(lists.ids[:, lo:], lists.keys[:, lo:],
+                          (lists.ncand - lo).clamp(0, segment))
+        visits = []
+        sparse_nearest_plain(o3, d3_unit, tripack, aabb8, part, r_blk, visits,
+                             pair)
+        ceiling += int(sum(int(v) for v in visits))
+    return floor, ceiling
+
+
+def _nearest_slot(s, chunk, rays, walking, best_t, best_idx, tripack, aabb8,
+                  visits, pair):
+    """Slot ``s`` of every block's list: the stop, the per-lane gate and
+    the (t, index) merge into ``best_t`` / ``best_idx`` in place. Returns
+    the blocks still walking, or None when none is."""
+    key = chunk.keys[:, s][:, None, None]
+    walking = walking & (s < chunk.ncand) & (
+        rays.live & (key <= best_t + SLAB_EPS)).flatten(1).any(dim=1)
+    if not bool(walking.any()):
+        return None
+    cl = chunk.ids[:, s]
+    box = aabb8[cl.to(torch.int64)][:, None, None, :]
+    slab, enter0 = lane_slab(box, rays.o, rays.inv)
+    needed = (walking[:, None, None] & rays.live & slab
+              & (enter0 < best_t + SLAB_EPS))
+    if visits is not None:
+        visits.append(needed.sum())
+    hit, t = pair.rows(cluster_rows(tripack, cl), *rays.o, *rays.d)
+    tkey = torch.where(hit, t, BIG)             # [nrb, C_TRI, r_blk]
+    tile_t = tkey.amin(dim=1, keepdim=True)
+    gidx = (cl[:, None, None] * C_TRI
+            + torch.arange(C_TRI, dtype=torch.int32,
+                           device=cl.device)[None, :, None])
+    cand = torch.where((tkey == tile_t) & hit, gidx, IMAX)
+    tile_idx = cand.amin(dim=1, keepdim=True)
+    better = needed & (tile_idx != IMAX) & (
+        (tile_t < best_t) | ((tile_t == best_t) & (tile_idx < best_idx)))
+    best_t.copy_(torch.where(better, tile_t, best_t))
+    best_idx.copy_(torch.where(better, tile_idx, best_idx))
+    return walking
 
 
 def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
@@ -613,8 +689,35 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
             cl1.index_copy(0, sel, cl2[:cnt]))
 
 
-def _launch_nearest(o3, d3_unit, pack, aabb8, lists, r_blk, entry: str):
+def walk_words(n: int, device) -> torch.Tensor:
+    """The split nearest walks' scratch: one 64-bit word per lane with
+    every bit set, "no hit yet" (``csrc/cluster.cuh``). Filling it is one
+    device operation."""
+    return torch.full((n,), -1, dtype=torch.int64, device=device)
+
+
+def walk_units(lists: BlockLists, r_blk: int) -> int:
+    """The units a split nearest walk launches over ``lists``: per block,
+    its CTAs (slices of 256 lanes, ``kThreads`` of csrc/mt.cuh) times its
+    segments of WALK_SEGMENT slots."""
+    slices = -(-r_blk // 256)
+    return slices * int((-(-lists.ncand // WALK_SEGMENT)).sum())
+
+
+def walk_stats(stats: torch.Tensor) -> dict:
+    """What the counting instance of a split nearest walk (K5, K3's sparse
+    nearest, K8) added to ``stats`` i64[3] in one launch: units launched
+    (CTAs with list slots to walk), the units that stopped before their
+    first slot, and the (ray, cluster) visits through the per-lane gate."""
+    launched, stopped, visits = stats.tolist()
+    return {"units_launched": launched, "units_stopped_at_once": stopped,
+            "visits": visits}
+
+
+def _launch_nearest(o3, d3_unit, pack, aabb8, lists, r_blk, entry: str,
+                    stats: torch.Tensor | None = None):
     n = o3.shape[1]
+    words = walk_words(n, o3.device)
     t = torch.empty(n, dtype=torch.float32, device=o3.device)
     idx = torch.empty(n, dtype=torch.int32, device=o3.device)
     fn = build.function(entry, _ARGTYPES)
@@ -622,24 +725,26 @@ def _launch_nearest(o3, d3_unit, pack, aabb8, lists, r_blk, entry: str):
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, pack.data_ptr(),
              aabb8.data_ptr(), aabb8.shape[0], lists.ids.data_ptr(),
              lists.keys.data_ptr(), lists.ncand.data_ptr(), r_blk,
-             t.data_ptr(), idx.data_ptr(), o3.device.index, stream)
+             words.data_ptr(), t.data_ptr(), idx.data_ptr(),
+             None if stats is None else stats.data_ptr(), o3.device.index,
+             stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
     return t, idx
 
 
-def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk):
+def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk, stats=None):
     global LAUNCHES
     out = _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk,
-                          "ptt_sparse_nearest")
+                          "ptt_sparse_nearest", stats)
     LAUNCHES += 1
     return out
 
 
-def _launch_plucker(o3, d3_unit, pack36, aabb8, lists, r_blk):
+def _launch_plucker(o3, d3_unit, pack36, aabb8, lists, r_blk, stats=None):
     global PLUCKER_LAUNCHES
     out = _launch_nearest(o3, d3_unit, pack36, aabb8, lists, r_blk,
-                          "ptt_plucker_sparse_nearest")
+                          "ptt_plucker_sparse_nearest", stats)
     PLUCKER_LAUNCHES += 1
     return out
 

@@ -10,7 +10,9 @@ use: its best t (K8), or the window of every unoccluded ray (K9).
 ``accel="walker"`` runs both; the hybrid runs K9 for the NEE's shadow rays.
 
 The port keeps the lists (``nearest_lists``, ``walker_lists``: complete, so
-no overflow and no fallback) and the stop, compared in floats. Left behind
+no overflow and no fallback) and the stop, compared in floats. K8 walks a
+block's list in units of ``sparse.WALK_SEGMENT`` slots on many CTAs at
+once, as K5 does (``csrc/cluster.cuh``). Left behind
 as TPU machinery: the 128-column tiles with the AABB stashed in row 0
 (``_pack_walker``), the 19-bit quantized entry words and the flat SMEM list
 budget (``W_SMEM_MAX``); the kernels read the [T, 12] pack and the
@@ -42,6 +44,7 @@ from pathtracerpython_tpu_torch.kernels.sparse import (
     block_lists,
     check_rays,
     sparse_nearest_plain,
+    walk_words,
     window_lists,
 )
 
@@ -65,7 +68,9 @@ _NEAREST_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
     ctypes.c_int, ctypes.c_int,                         # n_cols, r_blk
+    ctypes.c_void_p,                                    # words (all ones)
     ctypes.c_void_p, ctypes.c_void_p,                   # t_out, idx_out
+    ctypes.c_void_p,                                    # stats (or null)
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
@@ -155,9 +160,10 @@ def _launch(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
     return occ
 
 
-def _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk):
+def _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk, stats=None):
     global NEAREST_LAUNCHES
     n = o3.shape[1]
+    words = walk_words(n, o3.device)
     t = torch.empty(n, dtype=torch.float32, device=o3.device)
     idx = torch.empty(n, dtype=torch.int32, device=o3.device)
     fn = build.function("ptt_walker_nearest", _NEAREST_ARGTYPES)
@@ -165,7 +171,9 @@ def _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk):
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, tripack.data_ptr(),
              aabb8.data_ptr(), lists.ids.data_ptr(), lists.keys.data_ptr(),
              lists.ncand.data_ptr(), lists.ids.shape[1], r_blk,
-             t.data_ptr(), idx.data_ptr(), o3.device.index, stream)
+             words.data_ptr(), t.data_ptr(), idx.data_ptr(),
+             None if stats is None else stats.data_ptr(), o3.device.index,
+             stream)
     if err != 0:
         raise RuntimeError(
             f"walker nearest-hit kernel launch failed: CUDA error {err}")

@@ -97,22 +97,39 @@ def _c_parameters(source: str, entry: str) -> list[str]:
     ("nearest.cu", "ptt_plucker_nearest_t_idx", intersect._ARGTYPES),
     ("any_hit.cu", "ptt_any_hit", intersect._ANY_HIT_ARGTYPES),
     ("any_hit.cu", "ptt_plucker_any_hit", intersect._ANY_HIT_ARGTYPES),
+    ("sparse_nearest.cu", "ptt_sparse_nearest", sparse._ARGTYPES),
+    ("sparse_nearest.cu", "ptt_plucker_sparse_nearest", sparse._ARGTYPES),
+    ("walker_nearest.cu", "ptt_walker_nearest", walker._NEAREST_ARGTYPES),
 ])
 def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     """ctypes passes what ``argtypes`` says, whatever the C entry declares:
     a pointer where the entry takes an int (or the reverse) would be cut or
     misread without an error. The dense sweeps' entries take their cull
     boxes and counters: o3, d3, (maxd,) n, pack, t_count, tile boxes, group
-    boxes, outputs, stats, device, stream."""
+    boxes, outputs, stats, device, stream; the split nearest walks (K5 in
+    both forms, K8) their scratch words before the outputs, and their
+    counters."""
     params = _c_parameters(source, entry)
     assert len(params) == len(argtypes), params
     for decl, argtype in zip(params, argtypes):
         want = ctypes.c_void_p if "*" in decl else ctypes.c_int
         assert argtype is want, (decl, argtype)
     names = [decl.split("*")[-1].split()[-1] for decl in params]
-    assert names[names.index("t_count") + 1:][:2] == ["tile_boxes",
-                                                      "group_boxes"]
+    if "t_count" in names:
+        assert names[names.index("t_count") + 1:][:2] == ["tile_boxes",
+                                                          "group_boxes"]
+    else:
+        assert names[names.index("words") + 1:][:2] == ["t_out", "idx_out"]
     assert names[-3:] == ["stats", "device", "stream"]
+
+
+def test_walk_segment_is_the_kernels_constant():
+    """``sparse.WALK_SEGMENT`` mirrors ``kSegment`` of csrc/cluster.cuh,
+    which the split nearest walks are compiled with."""
+    with open(os.path.join(build.CSRC_DIR, "cluster.cuh")) as f:
+        text = f.read()
+    decl = text[text.index("constexpr int kSegment = "):].split(";")[0]
+    assert int(decl.split("=")[1]) == sparse.WALK_SEGMENT
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):

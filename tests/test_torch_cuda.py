@@ -619,3 +619,108 @@ def test_nearest_entry_refuses_null_boxes(cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         intersect._launch_nearest(o3, d3u, pack, entry,
                                   intersect.CullBoxes(none, cull.group))
+
+
+# The split walk of K5 (both forms) and K8 (csrc/cluster.cuh): each block's
+# list in units of WALK_SEGMENT slots on many CTAs, each lane's best merged
+# by a 64-bit atomicMin. The kernels give the serial plain walk's winners
+# and t on every lane whatever order their units ran in, and the visits of
+# their counting instances lie in the band of ``walk_visit_band``.
+
+
+def _walk(scene, which, form, o3, d3u):
+    """(pack, aabb8, lists, r_blk, launch, pair) of K5 in blocks of
+    ``which`` ("512", "1024") in ``form``, or of K8 ("walker")."""
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    if which == "walker":
+        return (tripack, aabb8, walker.nearest_lists(aabb8, o3, d3u),
+                walker.R_BLK, walker._launch_nearest, intersect.CLASSIC)
+    r_blk = int(which)
+    nrb = -(-o3.shape[1] // r_blk)
+    lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+        (nrb,), intersect.BIG, device=o3.device), r_blk)
+    if form == "plucker":
+        return (intersect.scene_plucker_pack(scene, sparse.PACK_ROWS), aabb8,
+                lists, r_blk, sparse._launch_plucker, intersect.PLUCKER)
+    return tripack, aabb8, lists, r_blk, sparse._launch, intersect.CLASSIC
+
+
+WALKS = [("512", "classic"), ("1024", "classic"), ("512", "plucker"),
+         ("1024", "plucker"), ("walker", "classic")]
+
+
+@pytest.mark.parametrize("which,form", WALKS)
+def test_split_walk_kernel_equals_serial_plain_walk(cuda, which, form):
+    scene = _scene("large", cuda)    # 188 clusters
+    o3, d3u = _rays(scene)
+    pack, aabb8, lists, r_blk, launch, pair = _walk(scene, which, form, o3,
+                                                    d3u)
+    assert int(lists.ncand.max()) > 4 * sparse.WALK_SEGMENT
+    visits = []
+    pt, pidx = sparse.sparse_nearest_plain(o3, d3u, pack, aabb8, lists,
+                                           r_blk, visits, pair)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    ct, cidx = launch(o3, d3u, pack, aabb8, lists, r_blk, stats)
+    t, idx = launch(o3, d3u, pack, aabb8, lists, r_blk)
+    torch.cuda.synchronize()
+    assert (idx >= 0).any() and (idx < 0).any()
+    for got_t, got_idx in ((t, idx), (ct, cidx)):
+        assert torch.equal(got_idx, pidx) and torch.equal(got_t, pt)
+    counted = sparse.walk_stats(stats)
+    assert counted["units_launched"] == sparse.walk_units(lists, r_blk)
+    assert 0 <= counted["units_stopped_at_once"] < counted["units_launched"]
+    floor, ceiling = sparse.walk_visit_band(
+        o3, d3u, pack, aabb8, lists, r_blk, t, idx, sparse.WALK_SEGMENT, pair)
+    assert floor <= counted["visits"] <= ceiling
+    assert floor <= int(sum(int(v) for v in visits)) <= ceiling
+
+
+@pytest.mark.parametrize("which,form", WALKS)
+def test_split_walk_kernel_with_one_segment_per_list(cuda, which, form):
+    """Lists within one segment (the Cornell stand-in has 4 clusters): one
+    unit a block slice, the serial walk visit for visit."""
+    scene = _scene("cornell", cuda)
+    o3, d3u = _rays(scene)
+    pack, aabb8, lists, r_blk, launch, pair = _walk(scene, which, form, o3,
+                                                    d3u)
+    assert int(lists.ncand.max()) <= sparse.WALK_SEGMENT
+    visits = []
+    pt, pidx = sparse.sparse_nearest_plain(o3, d3u, pack, aabb8, lists,
+                                           r_blk, visits, pair)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    t, idx = launch(o3, d3u, pack, aabb8, lists, r_blk, stats)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx) and torch.equal(t, pt)
+    counted = sparse.walk_stats(stats)
+    assert counted["units_launched"] == sparse.walk_units(lists, r_blk)
+    assert counted["visits"] == int(sum(int(v) for v in visits))
+
+
+@pytest.mark.parametrize("entry", ["ptt_sparse_nearest",
+                                   "ptt_plucker_sparse_nearest",
+                                   "ptt_walker_nearest"])
+def test_split_walk_entry_refuses_null_scratch(cuda, entry):
+    """cudaErrorInvalidValue (1) without the scratch words."""
+    scene = _scene("large", cuda)
+    o3, d3u = _rays(scene)
+    which = "walker" if "walker" in entry else "1024"
+    form = "plucker" if "plucker" in entry else "classic"
+    pack, aabb8, lists, r_blk, _, _ = _walk(scene, which, form, o3, d3u)
+    n = o3.shape[1]
+    t = torch.empty(n, device=cuda)
+    idx = torch.empty(n, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    if which == "walker":
+        fn = build.function(entry, walker._NEAREST_ARGTYPES)
+        err = fn(o3.data_ptr(), d3u.data_ptr(), n, pack.data_ptr(),
+                 aabb8.data_ptr(), lists.ids.data_ptr(), lists.keys.data_ptr(),
+                 lists.ncand.data_ptr(), lists.ids.shape[1], r_blk, None,
+                 t.data_ptr(), idx.data_ptr(), None, cuda.index or 0, stream)
+    else:
+        fn = build.function(entry, sparse._ARGTYPES)
+        err = fn(o3.data_ptr(), d3u.data_ptr(), n, pack.data_ptr(),
+                 aabb8.data_ptr(), aabb8.shape[0], lists.ids.data_ptr(),
+                 lists.keys.data_ptr(), lists.ncand.data_ptr(), r_blk, None,
+                 t.data_ptr(), idx.data_ptr(), None, cuda.index or 0, stream)
+    assert err == 1
