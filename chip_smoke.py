@@ -52,8 +52,15 @@ phase fails:
      what the units visit when each starts from nothing) and are printed
      beside the serial walk's; with each wavefront's longest list and the
      blocks that hold a missing live lane, straddle two direction octants
-     or hold the park edge. K6 (cluster-sparse
-     any-hit) against its plain version, K4 and K9; K7 (the any-hit that
+     or hold the park edge. K6 (cluster-sparse any-hit), K9 and K3's
+     sparse any-hit run the split any-hit walk with the in-cluster box cull
+     (csrc/any_hit_walk.cuh): each against its culled plain model on the
+     checked blocks and against K4 (K3's against the dense Plücker any-hit)
+     and each other on all lanes, bit for bit; their counting instances
+     give the units those the lists give, and visits, box tests by level
+     and pairs tested inside their band on every SUBSET_STRIDE-th block,
+     with the kernel's time on all blocks and without the 1% longest
+     lists; K7 (the any-hit that
      reports the blocking cluster) against its plain version on the full
      lists and on vote-ordered guess lists, and its two-pass protocol with
      a cold cache, the cache it returned and the cache the render carries,
@@ -117,7 +124,11 @@ and K3's dense any-hit, for a lane that ends unoccluded the occluders whose
 own box its segment meets under the kernels' slab test, for an occluded
 lane one; in K1 and K3's dense nearest, for a lane that hits the valid rows
 whose own box its ray meets up to its winner's t, for a lane that misses
-those its whole ray meets. The kernels' groups hold those boxes, so a
+those its whole ray meets; in the split any-hit walks (K6, K9, K3's sparse
+any-hit), for a lane that ends unoccluded the pairs its culled model tests
+in every cluster its gate lets through, for an occluded lane one, with the
+bound of the gate's pairs (128 a visit) beside it as
+``gate_pairs_bound_ms``. The kernels' groups hold those boxes, so a
 kernel cannot test fewer, and the run fails if any kernel reads under its
 bound. The earlier reckoning (every occluder for an unoccluded lane, every
 row for a nearest lane) stays in those rows as ``all_pairs_bound_ms``,
@@ -248,6 +259,21 @@ def cuda_ms(fn, reps: int) -> float:
 
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def list_bytes(lists, n_clusters: int, *tables) -> int:
+    """The bytes a cluster walk over ``lists`` must read of them and of the
+    per-cluster ``tables`` (each a whole number of rows per cluster, for
+    ``n_clusters`` clusters): each block's first ``ncand`` slots (id and
+    key) and its count, and the rows of every cluster that some list
+    names, once."""
+    slots = (torch.arange(lists.ids.shape[1], device=lists.ids.device)[None]
+             < lists.ncand[:, None])
+    named = int(lists.ids[slots].unique().numel())
+    per_cluster = sum(tensor_bytes(t) // n_clusters for t in tables)
+    return (int(slots.sum()) * (lists.ids.element_size()
+                                + lists.keys.element_size())
+            + tensor_bytes(lists.ncand) + named * per_cluster)
 
 
 def bound(nbytes: int, pairs: int, flops_per_pair: int) -> tuple[float, str]:
@@ -685,16 +711,19 @@ def sweep_bounds(nbytes, counts, can, occluded, occluders, flops) -> dict:
             "all_pairs_bound_ms": bound(nbytes, every, flops)[0]}
 
 
-def hold_bits(what, got, want, tripack, o3, d3, limit) -> None:
-    """Occlusion bits ``got`` equal to ``want`` on every lane (flat, in the
-    order of the rays o3/d3 with their limits); else print up to 8 lanes
-    that differ, each with its ray, its limit and the first occluder row
-    that the plain pair test says blocks it, and fail."""
+def hold_bits(what, got, want, tripack, o3, d3, limit,
+              against="the un-culled plain version") -> float:
+    """Occlusion bits ``got`` equal to ``want`` (those of ``against``) on
+    every lane (flat, in the order of the rays o3/d3 with their limits);
+    else print up to 8 lanes that differ, each with its ray, its limit and
+    the first occluder row that the plain pair test says blocks it, and
+    fail. Returns the max abs difference of the 0/1 bits, as measured."""
     from pathtracerpython_tpu_torch.kernels import intersect
 
-    bad = torch.nonzero(got.flatten() != want.flatten()).flatten()
+    diff = got.flatten() != want.flatten()
+    bad = torch.nonzero(diff).flatten()
     if not len(bad):
-        return
+        return diff.float().max().item()
     occluders = torch.nonzero(tripack[:, 10] > 0.5).flatten()
     for r in bad[:8].tolist():
         rays = [o3[k:k + 1, r:r + 1] for k in range(3)] + [
@@ -708,8 +737,8 @@ def hold_bits(what, got, want, tripack, o3, d3, limit) -> None:
             f"{row}" + ("" if row is None else
                         f" {tripack[row, :9].tolist()} at t "
                         f"{float(t[blocks[0, 0], 0])!r}"))
-    fail(f"{what}: occlusion bits differ from the un-culled plain version "
-         f"on {len(bad)} of {got.numel()} lanes")
+    fail(f"{what}: occlusion bits differ from {against} on {len(bad)} of "
+         f"{got.numel()} lanes")
 
 
 def count_culled(launch, tripack, n, boxes) -> tuple:
@@ -1039,19 +1068,32 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
 
 
 def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
-                       *, r_blk, wrapper, launch, plain, others=(),
-                       pack=None, dense_name="K4",
-                       flops=FLOPS_PER_PAIR_ROW):
-    """A cluster walk's shadow any-hit (K6, K9 or K3's) on one wavefront:
-    against its plain version on every ``stride``-th ray block, against the
-    dense any-hit ``dense_name`` (``dense``: its (occ, ms)) and against
-    ``others`` [(name, occ)] on all lanes. ``pack``: as in
-    ``check_nearest_walk``. Returns the sweep's occlusion bits."""
-    from pathtracerpython_tpu_torch.kernels import sparse
+                       *, r_blk, wrapper, launch, others=(), pack=None,
+                       dense_name="K4", flops=FLOPS_PER_PAIR_ROW):
+    """A split any-hit walk (K6, K9 or K3's sparse any-hit) on one wavefront
+    of shadow rays: against its culled plain model (``any_hit_walk(...,
+    cull=)``, the serial walk) on every ``stride``-th ray block, against
+    the dense any-hit ``dense_name`` (``dense``: its (bits, ms)) and
+    against ``others`` [(name, bits)] on all lanes, bit for bit. ``pack``:
+    the Plücker pack that ``launch`` reads, when it is not the [T, 12] one.
+    The counting instance on every SUBSET_STRIDE-th block: its bits the
+    model's, its units those the lists give, its visits, box tests and
+    pairs inside the band of ``any_hit_visit_band``, its pairs at most
+    C_TRI a visit; on all blocks the units launched and stopped at once.
+    Bound: the bytes (rays, marks, each list's first ``ncand`` slots, the
+    rows and boxes of the clusters the lists name), or the pairs every
+    timing of the units must test
+    (each unoccluded lane's culled pairs, one an occluded lane) times the
+    form's operations; beside it the bound of the gate's pairs (C_TRI a
+    visit of the serial walk), the one before the cull. Returns the
+    sweep's occlusion bits."""
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse
 
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
-    tripack = tripack if pack is None else pack
+    rows_pack = tripack if pack is None else pack
+    pair = intersect.CLASSIC if pack is None else intersect.PLUCKER
+    cull = sparse.scene_cluster_cull_boxes(scene)
     o3, d3, maxd = (x.contiguous() for x in (shadow.o3, shadow.d3,
                                               shadow.maxd))
     n = o3.shape[1]
@@ -1060,42 +1102,108 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
     occ = wrapper(o3, d3, maxd, scene)
     lanes, (o_s, d_s, m_s), sub = block_subset([o3, d3, maxd], lists, r_blk,
                                                stride)
-    visits = []
-    plain_occ, p_ms = once_ms(lambda: plain(o_s, d_s, m_s, tripack, aabb8,
-                                            sub, r_blk, visits))
-    agree_p, err = check_bits(f"{name} {label} against plain", occ[lanes],
-                              plain_occ)
+    visits, counts = [], {}
+    model, p_ms = once_ms(lambda: sparse.any_hit_walk(
+        o_s, d_s, m_s, rows_pack, aabb8, sub, r_blk, visits, pair, cull=cull,
+        counts=counts)[0])
+    err = hold_bits(f"{name} {label}", occ[lanes], model, tripack, o_s,
+                    d_s, m_s, against="its culled plain model")
     dense_occ, d_ms = dense
-    agree_d, err_d = check_bits(f"{name} {label} against {dense_name}", occ,
-                                dense_occ)
+    err = max(err, hold_bits(f"{name} {label} on all lanes", occ, dense_occ,
+                             tripack, o3, d3, maxd, against=dense_name))
     for other, occ_o in others:
-        check_bits(f"{name} {label} against {other}", occ, occ_o)
+        err = max(err, hold_bits(f"{name} {label} on all lanes", occ, occ_o,
+                                 tripack, o3, d3, maxd, against=other))
     k_ms = cuda_ms(lambda: wrapper(o3, d3, maxd, scene), 10)
-    ks_ms = cuda_ms(lambda: launch(o_s, d_s, m_s, tripack, aabb8, sub,
-                                   r_blk), 10)
+    ks_ms = cuda_ms(lambda: launch(o_s, d_s, m_s, rows_pack, aabb8, sub,
+                                   r_blk, cull), 10)
     ka_ms = ks_ms if stride == 1 else cuda_ms(
-        lambda: launch(o3, d3, maxd, tripack, aabb8, lists, r_blk), 10)
-    pairs = int(torch.stack(visits).sum()) * C_TRI
-    b = bound(tensor_bytes(o_s, d_s, m_s, tripack, aabb8, *sub, plain_occ),
-              pairs, flops)
+        lambda: launch(o3, d3, maxd, rows_pack, aabb8, lists, r_blk, cull),
+        10)
+    # the tail: the same launch without the 1% of blocks with the longest
+    # lists (a kernel is as slow as its slowest unit)
+    cut = torch.quantile(lists.ncand.float(), 0.99)
+    short = torch.nonzero(lists.ncand <= cut).flatten()
+    _, (o_q, d_q, m_q), sub_q = block_subset([o3, d3, maxd], lists, r_blk, 1,
+                                             short)
+    kq_ms = cuda_ms(lambda: launch(o_q, d_q, m_q, rows_pack, aabb8, sub_q,
+                                   r_blk, cull), 10)
+    # the counting instance against the band, on every SUBSET_STRIDE-th
+    # block (the band's ceiling walks every segment from nothing)
+    band_lanes, (o_b, d_b, m_b), sub_b = block_subset(
+        [o3, d3, maxd], lists, r_blk, SUBSET_STRIDE)
+    stats = torch.zeros(len(sparse.ANY_HIT_COUNTS), dtype=torch.int64,
+                        device=o3.device)
+    counted_occ = launch(o_b, d_b, m_b, rows_pack, aabb8, sub_b, r_blk, cull,
+                         stats)
+    err = max(err, hold_bits(f"{name} {label}, counting instance",
+                             counted_occ, occ[band_lanes], tripack, o_b, d_b,
+                             m_b, against="the kernel"))
+    counted = sparse.any_hit_stats(stats)
+    band = sparse.any_hit_visit_band(o_b, d_b, m_b, rows_pack, aabb8, sub_b,
+                                     r_blk, counted_occ,
+                                     sparse.ANY_HIT_SEGMENT, pair, cull)
+    units = sparse.walk_units(sub_b, r_blk, sparse.ANY_HIT_SEGMENT)
+    if counted["units_launched"] != units:
+        fail(f"{name} {label}: {counted['units_launched']} units launched, "
+             f"the lists give {units}")
+    for key, (low, high) in band.items():
+        if not low <= counted[key] <= high:
+            fail(f"{name} {label}: {key} {counted[key]} outside their band "
+                 f"[{low}, {high}]")
+    if counted["pairs_tested"] > C_TRI * counted["visits"]:
+        fail(f"{name} {label}: {counted['pairs_tested']} pairs tested in "
+             f"{counted['visits']} visits")
+    stats.zero_()
+    launch(o3, d3, maxd, rows_pack, aabb8, lists, r_blk, cull, stats)
+    counted_all = sparse.any_hit_stats(stats)
+    # the bound, on the checked blocks: the pairs every timing tests
+    needed = sparse.any_hit_floor(o_s, d_s, m_s, rows_pack, aabb8, sub,
+                                  r_blk, model, pair, cull)["pairs_tested"]
+    gate_pairs = counts["visits"] * C_TRI
+    nbytes = tensor_bytes(o_s, d_s, m_s, model) + list_bytes(
+        sub, aabb8.shape[0], rows_pack, aabb8, cull)
+    b = bound(nbytes, needed, flops)
+    if ks_ms < b[0]:
+        fail(f"{name} {label}: kernel {ks_ms} ms reads under its bound "
+             f"{b[0]} ms")
+    gate_ms = bound(nbytes, gate_pairs, flops)[0]
     parked = (maxd == 0).float().mean().item()
     nc = lists.ncand.float()
     log(f"[2] {name} {label}: {n} shadow lanes ({parked:.4f} parked) in "
         f"{nrb} blocks of {r_blk}, candidates per block "
         f"mean {nc.mean().item():.1f} max {int(nc.max().item())}, occluded "
-        f"{occ.float().mean().item():.4f}; against plain on "
-        f"{sub.ncand.shape[0]} of {nrb} blocks "
-        f"({o_s.shape[1]} lanes): {agree_p:.6f}; against {dense_name}"
-        f"{''.join(' and ' + o[0] for o in others)} on all lanes: "
-        f"{agree_d:.6f}")
+        f"{occ.float().mean().item():.4f}; equal to its culled plain model "
+        f"on {sub.ncand.shape[0]} of {nrb} blocks ({o_s.shape[1]} lanes) and "
+        f"to {dense_name}{''.join(', ' + o[0] for o in others)} on all lanes "
+        f"(max abs diff 0)")
     log(f"[2] {name} {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
-        f"kernel on all blocks {ka_ms:.3f} ms; "
-        f"on the subset kernel {ks_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-        f"{b[0]:.4f} ms by {b[1]} ({pairs} pairs through the per-ray gate); "
-        f"dense {dense_name} on all lanes {d_ms:.3f} ms")
-    report.append(report_row(label, max(err, err_d), ks_ms, p_ms, b,
-                             wrapper_ms=k_ms, kernel_all_ms=ka_ms,
-                             dense_ms=d_ms))
+        f"kernel on all blocks {ka_ms:.3f} ms, on the {short.shape[0]} "
+        f"blocks with lists of at most {int(cut)} clusters (99%) "
+        f"{kq_ms:.3f} ms; on the checked blocks kernel {ks_ms:.3f} ms, "
+        f"plain model {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} "
+        f"({needed} pairs needed; the serial model tests "
+        f"{counts['pairs_tested']}), gate-pairs bound {gate_ms:.4f} ms "
+        f"({gate_pairs} pairs through the gate); dense {dense_name} on all "
+        f"lanes {d_ms:.3f} ms")
+    log(f"[2] {name} {label} split walk (units of {sparse.ANY_HIT_SEGMENT} "
+        f"slots) on every {SUBSET_STRIDE}th block: {json.dumps(counted)}, "
+        f"band {json.dumps(band)}; on all blocks {json.dumps(counted_all)}")
+    report.append(report_row(
+        label, err, ks_ms, p_ms, b, wrapper_ms=k_ms, kernel_all_ms=ka_ms,
+        kernel_short99_ms=kq_ms, dense_ms=d_ms, over_bound=ks_ms / b[0],
+        pairs_needed=needed, gate_pairs=gate_pairs,
+        gate_pairs_bound_ms=gate_ms, model_pairs_tested=counts[
+            "pairs_tested"], model_visits=counts["visits"],
+        units=counted_all["units_launched"],
+        units_stopped_at_once=counted_all["units_stopped_at_once"],
+        visits=counted_all["visits"],
+        span_tests=counted_all["span_tests"],
+        mid_tests=counted_all["mid_tests"],
+        group_tests=counted_all["group_tests"],
+        pairs_tested=counted_all["pairs_tested"],
+        counted_subset=counted, band={k: list(v) for k, v in band.items()},
+        longest_list=int(nc.max().item())))
     return occ
 
 
@@ -1249,12 +1357,8 @@ def check_k3_sparse(label, scene, o3, d3u, shadow, stride, rows, k5, occ6):
         "K3 sparse any-hit", label, scene, shadow, stride,
         rows["K3 sparse any-hit"], dense, r_blk=sparse.R_BLK,
         launch=sparse._launch_plucker_any_hit,
-        plain=sparse.sparse_any_hit_plucker_plain,
         wrapper=lambda o, d, m, s: sparse.sparse_any_hit_cm(
             o, d, m, s, mt_impl="plucker"), **plucker)
-    if not bool((occ3 == dense[0]).all()):
-        fail(f"K3 sparse any-hit {label}: not equal to the dense Plücker "
-             "any-hit")
     agree_c = check_form_bits(f"K3 sparse any-hit {label}", scene, *sh, occ3,
                               occ6)
     classic_ms = rows["K6"][-1]["kernel_all_ms"]
@@ -1371,9 +1475,14 @@ def cull_build_cost(scene) -> None:
         "nearest sweep's, each once per scene")
 
 
-# What the culled sweeps' rows add to their entries of the kernels line.
+# What the culled sweeps' rows add to their entries of the kernels line,
+# and what the split any-hit walks' rows add.
 CULL_KEYS = ("all_pairs_bound_ms", "pairs_tested", "pairs_needed",
              "pairs_all", "tiles_skipped", "groups_skipped")
+ANY_HIT_WALK_KEYS = ("gate_pairs_bound_ms", "gate_pairs", "units",
+                     "units_stopped_at_once", "visits", "span_tests",
+                     "mid_tests", "group_tests", "kernel_all_ms",
+                     "kernel_short99_ms")
 K3_KEYS = ("K3 nearest", "K3 any-hit", "K3 sparse nearest",
            "K3 sparse any-hit")
 P1_KEYS = ("P1 mt", "P1 plucker_fma", "P1 plucker_tf32", "P1 plucker_3xtf32")
@@ -1463,12 +1572,10 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
         occ9 = check_any_hit_walk(
             "K9", label, large, shadow, stride, rows["K9"], dense,
             r_blk=walker.R_BLK, launch=walker._launch,
-            plain=walker.walker_any_hit_plain,
             wrapper=walker.walker_any_hit_cm)
         occ6 = check_any_hit_walk(
             "K6", label, large, shadow, stride, rows["K6"], dense,
             r_blk=sparse.R_BLK, launch=sparse._launch_any_hit,
-            plain=sparse.sparse_any_hit_plain,
             wrapper=sparse.sparse_any_hit_cm, others=[("K9", occ9)])
         check_k7(label, large, shadow, cache if b > 1 else None, occ6,
                  stride, rows["K7"])
@@ -2022,6 +2129,8 @@ def main() -> None:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             **{k: first[k] for k in CULL_KEYS if k in first},
+            **({k: first[k] for k in ANY_HIT_WALK_KEYS}
+               if "gate_pairs" in first else {}),
         })
     for k in kernels:
         if k["launches"] < 1:

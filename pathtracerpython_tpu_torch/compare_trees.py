@@ -2,6 +2,8 @@
 
     python -m pathtracerpython_tpu_torch.compare_trees --other DIR \\
         [--out FILE] [--work DIR] [--cells NAME ...]
+    python -m pathtracerpython_tpu_torch.compare_trees --worker TREE \\
+        --out STEM [--cells NAME ...] [--no-renders]
 
 ``DIR`` is the root of another checkout (a ``git archive`` of the parent
 commit, say). The checkout that holds this file is "change", the other
@@ -17,14 +19,22 @@ by name; default all):
   300-box field (512x512, 4 spp) the dense sweep (K1, and K3's dense
   nearest under ``mt_impl="plucker"``); on the 100k-triangle box field in
   morton order (512x512, 2 spp) the cluster walks K5 in blocks of 1024 and
-  of 512, K3's sparse nearest in blocks of 512 and K8. Each is the kernel's
-  own launch with its pack, boxes and lists built beforehand, CUDA events,
-  3 samples of the mean of 20 launches after 3 warm-up launches;
+  of 512, K3's sparse nearest in blocks of 512 and K8, and on the same
+  wavefronts' shadow rays (the unfused NEE's, sorted and parked as the
+  render does) the any-hits K6, K3's sparse any-hit, K9 and K7 on the full
+  lists. Each is the kernel's own launch with its pack, boxes and lists
+  built beforehand, CUDA events, 3 samples of the mean of 20 launches after
+  3 warm-up launches;
 - renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
   forms; the 100k field (512x512, 2 spp, 3 bounces) through the hybrid,
   sparse, sparse with the occluder cache and walker hierarchies, and
   sparse and hybrid under ``mt_impl="plucker"``.
+
+``--worker`` makes one such run in checkout ``TREE`` alone, and writes
+its times to ``STEM.json`` (with ``--no-renders`` it times the kernels
+only): to time variants of one checkout, a copy with another constant,
+say, run it once per tree in turns.
 
 It prints, and writes to ``FILE`` as JSON, every run's times by wavefront,
 the largest absolute difference of each render between every change run
@@ -71,8 +81,9 @@ def _scene(port, cell):
 
 
 def _wavefronts(port, scene, spp):
-    """(o3, d3 unit) of the first and second bounce wavefronts of the
-    scene's batch_samples render at ``spp``, as the render forms them."""
+    """(o3, d3 unit, shadow rays) of the first and second bounce wavefronts
+    of the scene's batch_samples render at ``spp``, as the render forms
+    them (``integrator.ShadowRays``, the unfused NEE's)."""
     import torch
 
     rng, camera = port["ops.rng"], port["ops.camera"]
@@ -91,34 +102,41 @@ def _wavefronts(port, scene, spp):
     k0, k1 = rng.key_from_seed(0)
     out = []
     for b in range(2):
-        _, o3, d3 = integrator.sort_and_park(state, bounds)
-        out.append((o3.contiguous(), geometry.normalize3(d3).contiguous()))
+        st, o3, d3 = integrator.sort_and_park(state, bounds)
+        nk = rng.fold(k0, k1, b * 4 + integrator._P_NEE)
+        u_nee = rng.uniforms(*nk, st.counters, NEE_SAMPLES * 5)
+        hit = geometry.nearest_hit_cm(o3, d3, scene, accel=cfg.accel)
+        shading = integrator.arrival_side_normal(
+            hit.normal3, geometry.normalize3(st.direction3))
+        shadow = integrator.nee_shadow_rays(
+            hit, u_nee, scene, cfg, shading,
+            st.alive & hit.hit & ~hit.is_light, st.nee_occ_hint)
+        out.append((o3.contiguous(), geometry.normalize3(d3).contiguous(),
+                    shadow))
         state = integrator.bounce_step(state, b, scene, cfg, k0, k1, bounds)
     return out
 
 
 def _dense_kernels(port, scene, o3, d3):
     """The checkout's dense nearest kernel in each form as ``fn()``, its
-    pack (and its boxes, where it culls) built beforehand."""
+    pack and its boxes built beforehand."""
     intersect = port["kernels.intersect"]
     tripack = intersect.scene_tripack(scene)
+    cull = intersect.nearest_cull_boxes(tripack)
     out = {}
     for form in ("classic", "plucker"):
         plucker = form == "plucker"
         pack = intersect.scene_plucker_pack(scene) if plucker else tripack
         launch = intersect._launch_plucker if plucker else intersect._launch
-        if hasattr(intersect, "nearest_cull_boxes"):
-            cull = intersect.nearest_cull_boxes(tripack)
-            out[form] = (lambda launch=launch, pack=pack, cull=cull:
-                         launch(o3, d3, pack, cull))
-        else:
-            out[form] = lambda launch=launch, pack=pack: launch(o3, d3, pack)
+        out[form] = (lambda launch=launch, pack=pack:
+                     launch(o3, d3, pack, cull))
     return out
 
 
-def _walk_kernels(port, scene, o3, d3):
-    """The checkout's cluster nearest walks as ``fn()``, their packs and
-    lists built beforehand."""
+def _walk_kernels(port, scene, o3, d3, shadow):
+    """The checkout's cluster walks as ``fn()``, their packs, boxes and
+    lists built beforehand: the nearest walks on the path rays, the
+    any-hits on the ``shadow`` rays."""
     import torch
 
     intersect, sparse = port["kernels.intersect"], port["kernels.sparse"]
@@ -134,6 +152,15 @@ def _walk_kernels(port, scene, o3, d3):
 
     l1024, l512 = lists(1024), lists(512)
     lw = walker.nearest_lists(aabb8, o3, d3)
+    so, sd, sm = (x.contiguous() for x in (shadow.o3, shadow.d3,
+                                            shadow.maxd))
+    s512 = sparse.window_lists(aabb8, so, sd, sm, sparse.R_BLK)
+    sw = walker.walker_lists(aabb8, so, sd, sm)
+    # the split any-hit walks take their cluster boxes; a checkout from
+    # before them (the one they are timed against) has none to give
+    boxes = ((sparse.scene_cluster_cull_boxes(scene),)
+             if hasattr(sparse, "scene_cluster_cull_boxes") else ())
+    shadow_args = (so, sd, sm)
     return {
         "K5@1024": lambda: sparse._launch(o3, d3, tripack, aabb8, l1024,
                                           1024),
@@ -142,6 +169,14 @@ def _walk_kernels(port, scene, o3, d3):
             o3, d3, pack36, aabb8, l512, 512),
         "K8": lambda: walker._launch_nearest(o3, d3, tripack, aabb8, lw,
                                              walker.R_BLK),
+        "K6": lambda: sparse._launch_any_hit(
+            *shadow_args, tripack, aabb8, s512, sparse.R_BLK, *boxes),
+        "K3 sparse any-hit": lambda: sparse._launch_plucker_any_hit(
+            *shadow_args, pack36, aabb8, s512, sparse.R_BLK, *boxes),
+        "K9": lambda: walker._launch(*shadow_args, tripack, aabb8, sw,
+                                     walker.R_BLK, *boxes),
+        "K7 full lists": lambda: sparse._launch_any_hit_idx(
+            *shadow_args, tripack, aabb8, s512, sparse.R_BLK),
     }
 
 
@@ -159,9 +194,9 @@ def _ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def worker(tree: str, out: str, cells) -> None:
-    """One run in one checkout: times to ``out`` + ".json", renders to
-    ``out`` + "_<cell>_<render>.pt"."""
+def worker(tree: str, out: str, cells, renders: bool = True) -> None:
+    """One run in one checkout: times to ``out`` + ".json", renders (unless
+    ``renders`` is False) to ``out`` + "_<cell>_<render>.pt"."""
     sys.path[0] = tree   # not this file's directory, inside a package
     import importlib
 
@@ -181,17 +216,19 @@ def worker(tree: str, out: str, cells) -> None:
     times = {}
     for cell in cells:
         scene = _scene(port, cell)
-        _, _, wave_spp, spp, bounces, renders = CELLS[cell]
-        kernels = _walk_kernels if cell == "large100k" else _dense_kernels
-        for b, (o3, d3) in enumerate(_wavefronts(port, scene, wave_spp),
-                                     start=1):
-            for name, run in kernels(port, scene, o3, d3).items():
+        _, _, wave_spp, spp, bounces, cell_renders = CELLS[cell]
+        for b, (o3, d3, shadow) in enumerate(
+                _wavefronts(port, scene, wave_spp), start=1):
+            kernels = (_walk_kernels(port, scene, o3, d3, shadow)
+                       if cell == "large100k"
+                       else _dense_kernels(port, scene, o3, d3))
+            for name, run in kernels.items():
                 for _ in range(3):
                     run()
                 times[f"{cell} bounce {b} {name}"] = [_ms(run)
                                                       for _ in range(3)]
         cfg_cls = port["render.config"].RenderConfig
-        for name, kw in renders.items():
+        for name, kw in (cell_renders if renders else {}).items():
             cfg = cfg_cls(mode="fast", n_samples=spp, n_bounces=bounces,
                           n_light_samples=NEE_SAMPLES, batch_samples=True,
                           **kw)
@@ -251,10 +288,12 @@ def main() -> None:
     ap.add_argument("--cells", nargs="+", choices=list(CELLS),
                     default=list(CELLS), help="the cells to compare")
     ap.add_argument("--worker", metavar="TREE",
-                    help="internal: one run in checkout TREE")
+                    help="one run in checkout TREE (times to OUT.json)")
+    ap.add_argument("--no-renders", action="store_true",
+                    help="with --worker: time the kernels only")
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.out, args.cells)
+        worker(args.worker, args.out, args.cells, not args.no_renders)
         return
     if not args.other:
         ap.error("--other is required")

@@ -3,9 +3,10 @@
 // (sparse_any_hit_idx.cu), and the walker sweeps K8 (walker_nearest.cu) and
 // K9 (walker_any_hit.cu): the per-ray slab test against a cluster's AABB,
 // the staging of a cluster's triangles into shared memory, the mapping of a
-// CTA onto a slice of one ray block, and the split walk of the nearest
-// sweeps (K5 in both forms, K8): work units, the 64-bit merge and the bound
-// read.
+// CTA onto a slice of one ray block, the split walk's work units (of the
+// nearest sweeps K5 in both forms and K8, and of the any-hit sweeps K6 in
+// both forms and K9, any_hit_walk.cuh), and the nearest sweeps' 64-bit
+// merge and bound read.
 //
 // The slab arithmetic follows pathtracerpython_tpu/kernels/sparse_pallas.py
 // _inv_rows / _slab_rows_inv term for term: the direction's reciprocal with
@@ -167,9 +168,11 @@ __device__ __forceinline__ void add_warp_count(unsigned long long* counter,
 
 // ---- The split walk of the nearest sweeps (see the top of this file) ----
 
-// List slots per work unit. Measured against 32, 64 and 128 on the card,
-// the 100k field's first and second bounce (PERF.md, PR 7): 16 was the
-// fastest at both, every kernel.
+// List slots per work unit of the nearest walks. Measured against 8, 32,
+// 64 and 128 on the card, the 100k field's first and second bounce
+// (PERF.md): 16 beat 32, 64 and 128 at both, every kernel; 8 reads 2-5%
+// faster and is untaken. The any-hit walks have their own
+// (any_hit_walk.cuh: kAnyHitSegment).
 constexpr int kSegment = 16;
 constexpr unsigned long long kNoHitWord = ~0ull;  // scratch word: no hit yet
 
@@ -220,19 +223,22 @@ struct WalkUnit {
   bool shared;  // the block's list spans more than one unit
 };
 
+// ``Segment``: the unit's list slots (kSegment for the nearest walks).
+template <int Segment = kSegment>
 __device__ __forceinline__ WalkUnit walk_unit(int r_blk, int n,
                                               const int* __restrict__ ncand) {
   const BlockSlice me = block_slice(r_blk, n);
   const int count = ncand[me.block];
-  const int first = blockIdx.y * kSegment;
-  return WalkUnit{me, count, first, min(first + kSegment, count),
-                  count > kSegment};
+  const int first = blockIdx.y * Segment;
+  return WalkUnit{me, count, first, min(first + Segment, count),
+                  count > Segment};
 }
 
 // The grid of the split walk: the slices of the ray blocks, times the
-// segments of the longest list a block can have (``n_cols`` slots).
-inline dim3 walk_grid(int n, int r_blk, int n_cols) {
-  return dim3(slice_ctas(n, r_blk), (n_cols + kSegment - 1) / kSegment);
+// segments of ``segment`` slots of the longest list a block can have
+// (``n_cols`` slots).
+inline dim3 walk_grid(int n, int r_blk, int n_cols, int segment = kSegment) {
+  return dim3(slice_ctas(n, r_blk), (n_cols + segment - 1) / segment);
 }
 
 // The outputs of one lane from its merged word: t and index, or t = 0 and

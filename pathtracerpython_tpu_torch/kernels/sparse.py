@@ -26,7 +26,12 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
   index) (``csrc/cluster.cuh``); ``sparse_nearest_plain(..., segment=)``
   models that walk;
 - **K6** ``sparse_any_hit_cm``: whether an occluder triangle of a candidate
-  cluster blocks each shadow ray inside its window; the dense K4's bits;
+  cluster blocks each shadow ray inside its window; the dense K4's bits. On
+  the card a block's list is walked in units of ``ANY_HIT_SEGMENT`` slots
+  on many CTAs, merged per lane by its occlusion mark, each visited cluster's
+  rows culled by span, mid and group boxes (``cluster_cull_boxes``;
+  ``csrc/any_hit_walk.cuh``, shared with K9); ``any_hit_walk(...,
+  cull=, segment=, order=)`` models that walk;
 - **K7** ``sparse_any_hit_cached_cm``: K6's bits for any cache contents,
   plus the first blocking cluster in visit order per lane, which is the
   next bounce's cache. Pass 1 sweeps each block's ``K_GUESS`` most voted
@@ -66,14 +71,19 @@ from pathtracerpython_tpu_torch.kernels import build
 from pathtracerpython_tpu_torch.kernels.intersect import (
     BIG,
     CLASSIC,
+    CULL_GROUP,
+    CULL_REACH,
     IMAX,
     PLAIN_CHUNK_ELEMS,
     PLUCKER,
     T_MIN,
     PairTest,
+    _scene_derived,
+    aabb_cull_rows,
     block_aabbs,
     check_input,
     resolve_mt_impl,
+    scene_cull_boxes,
     scene_plucker_pack,
     scene_tripack,
 )
@@ -90,8 +100,17 @@ R_BLK = 512        # rays per block of accel="sparse"'s sweeps (K5, K6, K7)
 R_BLK_HYBRID_NEAREST = 1024  # rays per block of the hybrid's nearest sweep
 SLAB_EPS = 1e-3    # conservative slack of every slab comparison
 # List slots per unit of the split nearest walks (K5, K3's sparse nearest,
-# K8): csrc/cluster.cuh's kSegment, which the kernels are compiled with.
+# K8): csrc/cluster.cuh's kSegment, which the kernels are compiled with; of
+# the split any-hit walks (K6, K3's sparse any-hit, K9):
+# csrc/any_hit_walk.cuh's kAnyHitSegment.
 WALK_SEGMENT = 16
+ANY_HIT_SEGMENT = 32
+# The in-cluster boxes of the any-hit walks (csrc/any_hit_walk.cuh): per
+# cluster, spans of SPAN_ROWS rows, mids of MID_ROWS rows and groups of
+# CULL_GROUP rows, in that order (csrc/aabb.cuh's levels).
+SPAN_ROWS = 32
+MID_ROWS = 8
+CLUSTER_BOXES = C_TRI // SPAN_ROWS + C_TRI // MID_ROWS + C_TRI // CULL_GROUP
 K_GUESS = 8        # voted cached clusters per ray block in K7's pass 1
 CACHE_M_DIV = 2    # K7's pass 2 is compacted when it fits n / CACHE_M_DIV
 
@@ -113,13 +132,16 @@ _ARGTYPES = [
     ctypes.c_void_p,                                  # stats (or null)
     ctypes.c_int, ctypes.c_void_p,                    # device, stream
 ]
+# K6, K3's sparse any-hit and K9
 _ANY_HIT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
     ctypes.c_int,                                       # n
     ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
+    ctypes.c_void_p,                                    # cluster boxes
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
     ctypes.c_int, ctypes.c_int,                         # n_cols, r_blk
     ctypes.c_void_p,                                    # occ (zeroed)
+    ctypes.c_void_p,                                    # stats (or null)
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 _ANY_HIT_IDX_ARGTYPES = [
@@ -176,6 +198,43 @@ def cluster_aabbs(tripack: torch.Tensor, c_tri: int = C_TRI) -> torch.Tensor:
     """Per-cluster AABBs f32[C, 8] = (min.xyz | max.xyz | 0 | 0) over the
     valid rows; a cluster without one gets an inverted box."""
     return block_aabbs(tripack, c_tri)
+
+
+def cluster_cull_boxes(group: torch.Tensor, n_clusters: int) -> torch.Tensor:
+    """The boxes of the any-hit walks' in-cluster cull, f32[C, 84, 8]: per
+    cluster its C_TRI / SPAN_ROWS span boxes, C_TRI / MID_ROWS mid boxes
+    and C_TRI / CULL_GROUP group boxes, in that order. ``group``: the group
+    boxes of the dense pack's shadow sweep (``intersect.cull_boxes(...)
+    .group``: valid occluder rows, grown); the sparse pack is the dense one
+    padded with rows that are not valid, so cluster c's groups are rows
+    [64 c, 64 c + 64) of that table, padded with empty (inverted) boxes to
+    ``n_clusters`` clusters. A span or mid is the union of its groups, so it
+    holds them, grown as they are."""
+    per = C_TRI // CULL_GROUP
+    empty = group.new_tensor([BIG, BIG, BIG, -BIG, -BIG, -BIG, 0.0, 0.0])
+    groups = torch.cat([group, empty.expand(n_clusters * per
+                                            - group.shape[0], 8)])
+    groups = groups.reshape(n_clusters, per, 8)
+
+    def unions(rows: int) -> torch.Tensor:
+        parts = groups.reshape(n_clusters, -1, rows // CULL_GROUP, 8)
+        return torch.cat([parts[..., 0:3].amin(dim=2),
+                          parts[..., 3:6].amax(dim=2),
+                          torch.zeros_like(parts[:, :, 0, 6:])], dim=-1)
+
+    return torch.cat([unions(SPAN_ROWS), unions(MID_ROWS), groups],
+                     dim=1).contiguous()
+
+
+def scene_cluster_cull_boxes(scene) -> torch.Tensor:
+    """``cluster_cull_boxes`` of the scene's sparse pack, cached per scene
+    beside the dense sweeps' boxes it is made from."""
+    def make():
+        rows = -(-scene_tripack(scene).shape[0] // PACK_ROWS) * PACK_ROWS
+        return cluster_cull_boxes(scene_cull_boxes(scene).group,
+                                  rows // C_TRI)
+
+    return _scene_derived(scene, "cluster cull", make)
 
 
 def pad_repeat_last(x: torch.Tensor, mult: int) -> torch.Tensor:
@@ -468,14 +527,36 @@ def _nearest_slot(s, chunk, rays, walking, best_t, best_idx, tripack, aabb8,
 
 def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
                  r_blk: int, visits: list | None = None,
-                 pair: PairTest = CLASSIC):
-    """The any-hit walk of ``csrc/walker_any_hit.cu``,
-    ``csrc/sparse_any_hit.cu`` and ``csrc/sparse_any_hit_idx.cu`` in
-    PyTorch: slot s of every block's list at once, with the kernels'
-    per-lane gate, first-hit stop and whole-walk stop (taken per block,
-    which changes no result). Returns (occlusion bool[N], the first
-    blocking cluster in visit order i32[N], -1 where not occluded).
-    ``visits`` and ``pair``: as in ``sparse_nearest_plain``."""
+                 pair: PairTest = CLASSIC, cull: torch.Tensor | None = None,
+                 segment: int | None = None, order=None,
+                 counts: dict | None = None):
+    """The any-hit walk of the cluster shadow sweeps in PyTorch: slot s of
+    every block's list at once, with the kernels' per-lane gate, first-hit
+    stop and whole-walk stop (taken per block, which changes no result).
+    Returns (occlusion bool[N], the first blocking cluster in the walk's
+    visit order i32[N], -1 where not occluded). ``visits`` and ``pair``: as
+    in ``sparse_nearest_plain``.
+
+    Without ``cull`` a lane tests every valid occluder row of a cluster it
+    visits, in row order up to its first blocking one: the serial walk of
+    ``csrc/sparse_any_hit_idx.cu`` (K7), and the oracle of the others.
+    ``cull``: the boxes of ``cluster_cull_boxes``; a lane then tests only
+    the rows under the span, mid and group boxes it meets up to maxd *
+    CULL_REACH (``aabb_cull_rows``), which is the walk of
+    ``csrc/any_hit_walk.cuh`` (K6, K3's sparse any-hit, K9).
+
+    ``segment``: that walk's units, modelled one at a time: each block's
+    list is cut into segments of ``segment`` slots (None: one segment, the
+    serial walk), walked in the ``order`` of their numbers (see
+    ``segment_slots``); each segment starts with the lanes that the
+    segments before it in that order left unoccluded (the marks a unit
+    reads), with its own gate and stop. Occlusion is an OR over the slots,
+    so every order gives the same bits; the visits depend on the order, as
+    the kernels' depend on when their units run.
+
+    ``counts``: a dict whose entries "visits", "pairs_tested" and, with
+    ``cull``, "span_tests", "mid_tests" and "group_tests" receive what the
+    kernels' counting instance counts for this walk."""
     def walk(rows, chunk: BlockLists):
         o3c, d3c, mdc = rows
         n, nrb = o3c.shape[1], chunk.ncand.shape[0]
@@ -486,39 +567,148 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
         open_ = can.clone()                 # not occluded yet
         blocked = torch.full((nrb, 1, r_blk), -1, dtype=torch.int32,
                              device=o3c.device)
-        walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
-        for s in range(int(chunk.ncand.max())):
-            key = chunk.keys[:, s][:, None, None]
-            walking = walking & (s < chunk.ncand) & (
-                open_ & (key <= md + SLAB_EPS)).flatten(1).any(dim=1)
-            if not bool(walking.any()):
-                break
-            cl = chunk.ids[:, s]
-            box = aabb8[cl.to(torch.int64)][:, None, None, :]
-            slab, enter0 = lane_slab(box, rays.o, rays.inv)
-            needed = (walking[:, None, None] & open_ & slab
-                      & (enter0 < md + SLAB_EPS))
-            if visits is not None:
-                visits.append(needed.sum())
-            tri = cluster_rows(tripack, cl)
-            hit, t = pair.rows(tri, *rays.o, *rays.d)
-            occluder = tri[..., pair.occluder_col:pair.occluder_col + 1] > 0.5
-            blocking = hit & occluder & (t < t_cut)
-            newly = needed & blocking.any(dim=1, keepdim=True)
-            blocked = torch.where(newly, cl[:, None, None], blocked)
-            open_ = open_ & ~newly
+        for slots in segment_slots(int(chunk.ncand.max()), segment, order):
+            unit_open = open_.clone()       # what the unit reads at its start
+            walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
+            for s in slots:
+                key = chunk.keys[:, s][:, None, None]
+                walking = walking & (s < chunk.ncand) & (
+                    unit_open & (key <= md + SLAB_EPS)).flatten(1).any(dim=1)
+                if not bool(walking.any()):
+                    break
+                cl = chunk.ids[:, s]
+                box = aabb8[cl.to(torch.int64)][:, None, None, :]
+                slab, enter0 = lane_slab(box, rays.o, rays.inv)
+                needed = (walking[:, None, None] & unit_open & slab
+                          & (enter0 < md + SLAB_EPS))
+                if visits is not None:
+                    visits.append(needed.sum())
+                newly = _any_hit_visit(cluster_rows(tripack, cl), cl, rays,
+                                       md, needed, pair, cull, counts)
+                blocked = torch.where(newly, cl[:, None, None], blocked)
+                unit_open = unit_open & ~newly
+            open_ = open_ & unit_open
         return [(can & ~open_).reshape(-1)[:n], blocked.reshape(-1)[:n]]
 
     return by_block_chunks(walk, o3, [o3, d3_unit, maxd], lists, r_blk)
+
+
+def _any_hit_visit(tri, cl, rays, md, needed, pair, cull, counts):
+    """One slot of every block: the lanes ``needed`` bool[nrb, 1, r_blk]
+    test the rows ``tri`` [nrb, C_TRI, cols] of clusters ``cl``, culled by
+    the clusters' boxes in ``cull`` (or not, for None). Returns the lanes
+    that a row blocks; adds the visit's counts to ``counts``."""
+    hit, t = pair.rows(tri, *rays.o, *rays.d)       # [nrb, C_TRI, r_blk]
+    flag = lambda c: tri[..., c:c + 1] > 0.5
+    tested = flag(pair.valid_col) & flag(pair.occluder_col)
+    if cull is not None:
+        boxes = cull[cl.to(torch.int64)]            # [nrb, 84, 8]
+        bound = md * CULL_REACH
+        spans, mids = C_TRI // SPAN_ROWS, C_TRI // MID_ROWS
+
+        def met(lo: int, hi: int) -> torch.Tensor:
+            hit_b, nonempty = aabb_cull_rows(boxes[:, lo:hi], list(rays.o),
+                                             list(rays.d), bound)
+            return hit_b & nonempty                 # [nrb, hi - lo, r_blk]
+
+        # a box is tested where the box above it is met (the warp's votes
+        # let a lane through only under a box it meets itself)
+        span = met(0, spans)
+        mid = met(spans, spans + mids) & span.repeat_interleave(
+            SPAN_ROWS // MID_ROWS, dim=1)
+        group = met(spans + mids, CLUSTER_BOXES) & mid.repeat_interleave(
+            MID_ROWS // CULL_GROUP, dim=1)
+        tested = tested & group.repeat_interleave(CULL_GROUP, dim=1)
+    blocking = tested & hit & (t < md - T_MIN)
+    if counts is not None:
+        # a lane reaches the rows up to its first blocking one, and a box
+        # whose first row it reaches
+        first = torch.where(blocking, _row_index(tri.device, 1), C_TRI).amin(
+            dim=1, keepdim=True)
+        reached = lambda step: _row_index(tri.device, step) <= first
+        _add(counts, "visits", needed)
+        _add(counts, "pairs_tested", needed & tested & reached(1))
+        if cull is not None:
+            _add(counts, "span_tests", needed & reached(SPAN_ROWS))
+            _add(counts, "mid_tests", needed & reached(MID_ROWS)
+                 & span.repeat_interleave(SPAN_ROWS // MID_ROWS, dim=1))
+            _add(counts, "group_tests", needed & reached(CULL_GROUP)
+                 & mid.repeat_interleave(MID_ROWS // CULL_GROUP, dim=1))
+    return needed & blocking.any(dim=1, keepdim=True)
+
+
+def _row_index(device, step: int) -> torch.Tensor:
+    """The first row of each box of ``step`` rows of a cluster, [1, K, 1]."""
+    return torch.arange(0, C_TRI, step, device=device)[None, :, None]
+
+
+def _add(counts: dict, key: str, mask: torch.Tensor) -> None:
+    counts[key] = counts.get(key, 0) + int(mask.sum())
+
+
+# What the counting instance of a split any-hit walk (K6, K3's sparse
+# any-hit, K9) counts, in the order of its counters
+# (csrc/cluster.cuh: WalkCounter, csrc/any_hit_walk.cuh: AnyHitCounter).
+ANY_HIT_COUNTS = ("units_launched", "units_stopped_at_once", "visits",
+                  "span_tests", "mid_tests", "group_tests", "pairs_tested")
+
+
+def any_hit_stats(stats: torch.Tensor) -> dict:
+    """What the counting instance of a split any-hit walk added to
+    ``stats`` i64[7] in one launch: units launched (CTAs with list slots),
+    units that stopped before their first slot, (lane, cluster) visits
+    through the per-lane gate, box tests of the span, mid and group levels
+    (a lane's test of one box), and pairs tested."""
+    return dict(zip(ANY_HIT_COUNTS, stats.tolist()))
+
+
+def any_hit_floor(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
+                  r_blk: int, occ, pair: PairTest = CLASSIC,
+                  cull: torch.Tensor | None = None) -> dict:
+    """What every split any-hit walk whose bits are ``occ`` counts, in any
+    order and at any timing of its units: "visits" and "pairs_tested". A
+    lane that ends unoccluded is tested on every cluster of its list that
+    its gate lets through (no mark ever stops it), as the serial walk tests
+    it; an occluded lane is visited and tested at least once."""
+    counts: dict = {}
+    any_hit_walk(o3, d3_unit, torch.where(occ, 0.0, maxd), tripack, aabb8,
+                 lists, r_blk, pair=pair, cull=cull, counts=counts)
+    blocked = int(occ.sum())
+    return {key: counts.get(key, 0) + blocked
+            for key in ("visits", "pairs_tested")}
+
+
+def any_hit_visit_band(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
+                       r_blk: int, occ, segment: int,
+                       pair: PairTest = CLASSIC,
+                       cull: torch.Tensor | None = None) -> dict:
+    """The band of the counts (``any_hit_walk``'s ``counts``) of a split
+    any-hit walk in segments of ``segment`` slots whose bits are ``occ``,
+    in any order and at any timing of its units: {name: (floor, ceiling)}.
+    Floor: ``any_hit_floor`` for visits and pairs, 0 for the box tests.
+    Ceiling: the counts of the segments when each starts with every lane
+    open; a unit that reads a mark only drops a lane sooner, and a visit's
+    tests depend on the lane and the cluster alone."""
+    floor = any_hit_floor(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                          occ, pair, cull)
+    ceiling: dict = {}
+    for lo in range(0, int(lists.ncand.max()), segment):
+        part = BlockLists(lists.ids[:, lo:], lists.keys[:, lo:],
+                          (lists.ncand - lo).clamp(0, segment))
+        any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, part, r_blk,
+                     pair=pair, cull=cull, counts=ceiling)
+    return {key: (floor.get(key, 0), value)
+            for key, value in ceiling.items()}
 
 
 def sparse_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8,
                          lists: BlockLists, r_blk: int,
                          visits: list | None = None,
                          pair: PairTest = CLASSIC) -> torch.Tensor:
-    """K6's plain version: occlusion bool[N] by ``any_hit_walk``. The
-    kernel tests a block's list slots in parallel; occlusion is an OR over
-    them, so the walk in order gives the same bits."""
+    """K6's plain version: occlusion bool[N] by ``any_hit_walk``, the
+    serial un-culled walk. The kernel walks a block's list in units on many
+    CTAs and culls inside a cluster; occlusion is an OR over the slots and
+    the cull drops no conditioned hit, so the walk gives the same bits."""
     return any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
                         visits, pair)[0]
 
@@ -611,15 +801,16 @@ def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     if n == 0:
         return torch.zeros(0, dtype=torch.bool, device=o3.device)
     lists = window_lists(aabb8, o3, d3_unit, maxd, R_BLK)
-    if plucker:
-        pack36 = scene_plucker_pack(scene, PACK_ROWS)
-        sweep = (sparse_any_hit_plucker_plain if o3.device.type == "cpu"
-                 else _launch_plucker_any_hit)
-        return sweep(o3, d3_unit, maxd, pack36, aabb8, lists, R_BLK)
+    pack = scene_plucker_pack(scene, PACK_ROWS) if plucker else tripack
     if o3.device.type == "cpu":
-        return sparse_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8, lists,
-                                    R_BLK)
-    return _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, R_BLK)
+        plain = (sparse_any_hit_plucker_plain if plucker
+                 else sparse_any_hit_plain)
+        return plain(o3, d3_unit, maxd, pack, aabb8, lists, R_BLK)
+    # the clusters, their boxes and the lists are the classic pack's; only
+    # the rows a ray is tested against change with the form
+    launch = _launch_plucker_any_hit if plucker else _launch_any_hit
+    return launch(o3, d3_unit, maxd, pack, aabb8, lists, R_BLK,
+                  scene_cluster_cull_boxes(scene))
 
 
 def pass2_size(n: int, r_blk: int = R_BLK, m_div: int = CACHE_M_DIV) -> int:
@@ -696,12 +887,14 @@ def walk_words(n: int, device) -> torch.Tensor:
     return torch.full((n,), -1, dtype=torch.int64, device=device)
 
 
-def walk_units(lists: BlockLists, r_blk: int) -> int:
-    """The units a split nearest walk launches over ``lists``: per block,
-    its CTAs (slices of 256 lanes, ``kThreads`` of csrc/mt.cuh) times its
-    segments of WALK_SEGMENT slots."""
+def walk_units(lists: BlockLists, r_blk: int,
+               segment: int = WALK_SEGMENT) -> int:
+    """The units a split walk launches over ``lists``: per block, its CTAs
+    (slices of 256 lanes, ``kThreads`` of csrc/mt.cuh) times its segments of
+    ``segment`` slots (WALK_SEGMENT for the nearest walks, ANY_HIT_SEGMENT
+    for the any-hit walks)."""
     slices = -(-r_blk // 256)
-    return slices * int((-(-lists.ncand // WALK_SEGMENT)).sum())
+    return slices * int((-(-lists.ncand // segment)).sum())
 
 
 def walk_stats(stats: torch.Tensor) -> dict:
@@ -749,35 +942,42 @@ def _launch_plucker(o3, d3_unit, pack36, aabb8, lists, r_blk, stats=None):
     return out
 
 
-def _launch_occlusion(o3, d3_unit, maxd, pack, aabb8, lists, r_blk,
-                      entry: str):
+def launch_occlusion(o3, d3_unit, maxd, pack, aabb8, lists, r_blk,
+                     entry: str, cull: torch.Tensor,
+                     stats: torch.Tensor | None = None):
+    """Launch ``entry``, one of the split any-hit walks that share
+    ``_ANY_HIT_ARGTYPES`` (K6, K3's sparse any-hit, K9), over ``lists``;
+    returns its occlusion marks, bool[N]. The callers count the launch."""
     n = o3.shape[1]
-    # zeroed: the kernel's CTAs only ever set a lane
+    # zeroed: the kernel's units only ever set a lane's mark
     occ = torch.zeros(n, dtype=torch.bool, device=o3.device)
     fn = build.function(entry, _ANY_HIT_ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
-             pack.data_ptr(), aabb8.data_ptr(), lists.ids.data_ptr(),
-             lists.keys.data_ptr(), lists.ncand.data_ptr(),
-             lists.ids.shape[1], r_blk, occ.data_ptr(), o3.device.index,
-             stream)
+             pack.data_ptr(), aabb8.data_ptr(), cull.data_ptr(),
+             lists.ids.data_ptr(), lists.keys.data_ptr(),
+             lists.ncand.data_ptr(), lists.ids.shape[1], r_blk,
+             occ.data_ptr(), None if stats is None else stats.data_ptr(),
+             o3.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
     return occ
 
 
-def _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
+def _launch_any_hit(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk, cull,
+                    stats=None):
     global ANY_HIT_LAUNCHES
-    occ = _launch_occlusion(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
-                            "ptt_sparse_any_hit")
+    occ = launch_occlusion(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                           "ptt_sparse_any_hit", cull, stats)
     ANY_HIT_LAUNCHES += 1
     return occ
 
 
-def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk):
+def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk,
+                            cull, stats=None):
     global PLUCKER_ANY_HIT_LAUNCHES
-    occ = _launch_occlusion(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk,
-                            "ptt_plucker_sparse_any_hit")
+    occ = launch_occlusion(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk,
+                           "ptt_plucker_sparse_any_hit", cull, stats)
     PLUCKER_ANY_HIT_LAUNCHES += 1
     return occ
 

@@ -12,7 +12,9 @@ use: its best t (K8), or the window of every unoccluded ray (K9).
 The port keeps the lists (``nearest_lists``, ``walker_lists``: complete, so
 no overflow and no fallback) and the stop, compared in floats. K8 walks a
 block's list in units of ``sparse.WALK_SEGMENT`` slots on many CTAs at
-once, as K5 does (``csrc/cluster.cuh``). Left behind
+once, as K5 does (``csrc/cluster.cuh``); K9 runs K6's walk
+(``csrc/any_hit_walk.cuh``): the same units, merged per lane by its
+occlusion mark, and the in-cluster box cull. Left behind
 as TPU machinery: the 128-column tiles with the AABB stashed in row 0
 (``_pack_walker``), the 19-bit quantized entry words and the flat SMEM list
 budget (``W_SMEM_MAX``); the kernels read the [T, 12] pack and the
@@ -43,6 +45,8 @@ from pathtracerpython_tpu_torch.kernels.sparse import (
     any_hit_walk,
     block_lists,
     check_rays,
+    launch_occlusion,
+    scene_cluster_cull_boxes,
     sparse_nearest_plain,
     walk_words,
     window_lists,
@@ -54,15 +58,6 @@ R_BLK = 1280  # rays per block
 LAUNCHES = 0
 NEAREST_LAUNCHES = 0
 
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
-    ctypes.c_int,                                       # n
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # tripack, aabb8, C
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
-    ctypes.c_int,                                       # r_blk
-    ctypes.c_void_p,                                    # occ_out
-    ctypes.c_int, ctypes.c_void_p,                      # device, stream
-]
 _NEAREST_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
     ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
@@ -139,23 +134,15 @@ def walker_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     if o3.device.type == "cpu":
         return walker_any_hit_plain(o3, d3_unit, maxd, tripack, aabb8, lists,
                                     R_BLK)
-    return _launch(o3, d3_unit, maxd, tripack, aabb8, lists, R_BLK)
+    return _launch(o3, d3_unit, maxd, tripack, aabb8, lists, R_BLK,
+                   scene_cluster_cull_boxes(scene))
 
 
-def _launch(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
+def _launch(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk, cull,
+            stats=None):
     global LAUNCHES
-    n = o3.shape[1]
-    occ = torch.empty(n, dtype=torch.bool, device=o3.device)
-    fn = build.function("ptt_walker_any_hit", _ARGTYPES)
-    stream = torch.cuda.current_stream(o3.device).cuda_stream
-    err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
-             tripack.data_ptr(), aabb8.data_ptr(), aabb8.shape[0],
-             lists.ids.data_ptr(), lists.keys.data_ptr(),
-             lists.ncand.data_ptr(), r_blk, occ.data_ptr(), o3.device.index,
-             stream)
-    if err != 0:
-        raise RuntimeError(
-            f"walker any-hit kernel launch failed: CUDA error {err}")
+    occ = launch_occlusion(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                           "ptt_walker_any_hit", cull, stats)
     LAUNCHES += 1
     return occ
 

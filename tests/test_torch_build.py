@@ -75,7 +75,8 @@ def test_nvcc_flags_keep_plain_rounding():
 
 def test_sources_are_in_the_package():
     names = sorted(os.path.basename(p) for p in build._sources())
-    assert names == ["aabb.cuh", "any_hit.cu", "cluster.cuh", "mt.cuh", "nearest.cu",
+    assert names == ["aabb.cuh", "any_hit.cu", "any_hit_walk.cuh",
+                     "cluster.cuh", "mt.cuh", "nearest.cu",
                      "nee.cu", "plucker.cuh", "probe_bf16.cu",
                      "probe_plucker.cu", "sparse_any_hit.cu",
                      "sparse_any_hit_idx.cu", "sparse_nearest.cu",
@@ -100,6 +101,10 @@ def _c_parameters(source: str, entry: str) -> list[str]:
     ("sparse_nearest.cu", "ptt_sparse_nearest", sparse._ARGTYPES),
     ("sparse_nearest.cu", "ptt_plucker_sparse_nearest", sparse._ARGTYPES),
     ("walker_nearest.cu", "ptt_walker_nearest", walker._NEAREST_ARGTYPES),
+    ("sparse_any_hit.cu", "ptt_sparse_any_hit", sparse._ANY_HIT_ARGTYPES),
+    ("sparse_any_hit.cu", "ptt_plucker_sparse_any_hit",
+     sparse._ANY_HIT_ARGTYPES),
+    ("walker_any_hit.cu", "ptt_walker_any_hit", sparse._ANY_HIT_ARGTYPES),
 ])
 def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     """ctypes passes what ``argtypes`` says, whatever the C entry declares:
@@ -108,7 +113,8 @@ def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     boxes and counters: o3, d3, (maxd,) n, pack, t_count, tile boxes, group
     boxes, outputs, stats, device, stream; the split nearest walks (K5 in
     both forms, K8) their scratch words before the outputs, and their
-    counters."""
+    counters; the split any-hit walks (K6 in both forms, K9) their cluster
+    boxes after the clusters' AABBs, and their counters after the marks."""
     params = _c_parameters(source, entry)
     assert len(params) == len(argtypes), params
     for decl, argtype in zip(params, argtypes):
@@ -118,6 +124,9 @@ def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     if "t_count" in names:
         assert names[names.index("t_count") + 1:][:2] == ["tile_boxes",
                                                           "group_boxes"]
+    elif "occ" in names:
+        assert names[names.index("aabb8") + 1] == "cull"
+        assert names[names.index("occ") + 1] == "stats"
     else:
         assert names[names.index("words") + 1:][:2] == ["t_out", "idx_out"]
     assert names[-3:] == ["stats", "device", "stream"]
@@ -125,11 +134,30 @@ def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
 
 def test_walk_segment_is_the_kernels_constant():
     """``sparse.WALK_SEGMENT`` mirrors ``kSegment`` of csrc/cluster.cuh,
-    which the split nearest walks are compiled with."""
-    with open(os.path.join(build.CSRC_DIR, "cluster.cuh")) as f:
+    which the split nearest walks are compiled with, and
+    ``sparse.ANY_HIT_SEGMENT`` ``kAnyHitSegment`` of csrc/any_hit_walk.cuh,
+    which the split any-hit walks are."""
+    for source, name, value in (
+            ("cluster.cuh", "kSegment", sparse.WALK_SEGMENT),
+            ("any_hit_walk.cuh", "kAnyHitSegment", sparse.ANY_HIT_SEGMENT)):
+        with open(os.path.join(build.CSRC_DIR, source)) as f:
+            text = f.read()
+        decl = text[text.index(f"constexpr int {name} = "):].split(";")[0]
+        assert int(decl.split("=")[1]) == value, name
+
+
+def test_cluster_box_levels_are_the_kernels():
+    """The rows under a span, mid and group box of ``cluster_cull_boxes``
+    are csrc/aabb.cuh's, which csrc/any_hit_walk.cuh culls a cluster by,
+    and the table has its boxes in that header's order and number."""
+    with open(os.path.join(build.CSRC_DIR, "aabb.cuh")) as f:
         text = f.read()
-    decl = text[text.index("constexpr int kSegment = "):].split(";")[0]
-    assert int(decl.split("=")[1]) == sparse.WALK_SEGMENT
+    for name, rows in (("kSpanRows", sparse.SPAN_ROWS),
+                       ("kMidRows", sparse.MID_ROWS),
+                       ("kGroup", intersect.CULL_GROUP)):
+        decl = text[text.index(f"constexpr int {name} = "):].split(";")[0]
+        assert int(decl.split("=")[1]) == rows, name
+    assert sparse.CLUSTER_BOXES == 4 + 16 + 64
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):

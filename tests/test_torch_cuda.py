@@ -724,3 +724,95 @@ def test_split_walk_entry_refuses_null_scratch(cuda, entry):
                  lists.keys.data_ptr(), lists.ncand.data_ptr(), r_blk, None,
                  t.data_ptr(), idx.data_ptr(), None, cuda.index or 0, stream)
     assert err == 1
+
+
+# The split any-hit walk of K6 (both forms) and K9 (csrc/any_hit_walk.cuh):
+# each block's list in units of ANY_HIT_SEGMENT slots on many CTAs, merged per
+# lane by its occlusion mark, each visited cluster culled by span, mid and
+# group boxes. The kernels give their culled plain model's bits on every
+# lane whatever order their units ran in, and the counts of their counting
+# instances lie in the band of ``any_hit_visit_band``.
+
+
+def _any_hit(scene, which, form, o3, d3u, maxd):
+    """(pack, aabb8, lists, r_blk, launch, pair) of K6 in ``form`` ("sparse")
+    or of K9 ("walker")."""
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    if which == "walker":
+        return (tripack, aabb8, walker.walker_lists(aabb8, o3, d3u, maxd),
+                walker.R_BLK, walker._launch, intersect.CLASSIC)
+    lists = sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK)
+    if form == "plucker":
+        return (intersect.scene_plucker_pack(scene, sparse.PACK_ROWS), aabb8,
+                lists, sparse.R_BLK, sparse._launch_plucker_any_hit,
+                intersect.PLUCKER)
+    return (tripack, aabb8, lists, sparse.R_BLK, sparse._launch_any_hit,
+            intersect.CLASSIC)
+
+
+ANY_HITS = [("sparse", "classic"), ("sparse", "plucker"),
+            ("walker", "classic")]
+
+
+@pytest.mark.parametrize("which,form", ANY_HITS)
+@pytest.mark.parametrize("scene_name", ["large", "cornell"])
+def test_split_any_hit_kernel_equals_culled_model(cuda, scene_name, which,
+                                                  form):
+    """On the 2000-box field (lists of many segments) and the Cornell
+    stand-in (lists of one): bits equal to the culled model's and to the
+    un-culled serial walk's on every lane, the counting instance's too, its
+    units those the lists give, and its counts inside their band."""
+    scene = _scene(scene_name, cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    pack, aabb8, lists, r_blk, launch, pair = _any_hit(scene, which, form,
+                                                       o3, d3u, maxd)
+    cull = sparse.scene_cluster_cull_boxes(scene)
+    counts = {}
+    model = sparse.any_hit_walk(o3, d3u, maxd, pack, aabb8, lists, r_blk,
+                                pair=pair, cull=cull, counts=counts)[0]
+    serial = sparse.any_hit_walk(o3, d3u, maxd, pack, aabb8, lists, r_blk,
+                                 pair=pair)[0]
+    stats = torch.zeros(len(sparse.ANY_HIT_COUNTS), dtype=torch.int64,
+                        device=cuda)
+    counted = launch(o3, d3u, maxd, pack, aabb8, lists, r_blk, cull, stats)
+    occ = launch(o3, d3u, maxd, pack, aabb8, lists, r_blk, cull)
+    torch.cuda.synchronize()
+    assert bool(occ.any()) and not bool(occ.all())
+    for got in (occ, counted, serial):
+        assert torch.equal(got, model)
+    got = sparse.any_hit_stats(stats)
+    assert got["units_launched"] == sparse.walk_units(
+        lists, r_blk, sparse.ANY_HIT_SEGMENT)
+    assert 0 <= got["units_stopped_at_once"] < got["units_launched"]
+    band = sparse.any_hit_visit_band(o3, d3u, maxd, pack, aabb8, lists,
+                                     r_blk, model, sparse.ANY_HIT_SEGMENT,
+                                     pair, cull)
+    for key, (floor, ceiling) in band.items():
+        assert floor <= got[key] <= ceiling, (key, got[key], floor, ceiling)
+        assert floor <= counts[key] <= ceiling, key
+    assert got["pairs_tested"] <= sparse.C_TRI * got["visits"]
+    if int(lists.ncand.max()) <= sparse.ANY_HIT_SEGMENT:
+        # one unit a block slice: the serial walk, count for count
+        assert {k: got[k] for k in counts} == counts
+
+
+@pytest.mark.parametrize("which,form", ANY_HITS)
+def test_split_any_hit_entry_refuses_null_boxes(cuda, which, form):
+    """cudaErrorInvalidValue (1) without the cluster boxes."""
+    scene = _scene("large", cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    pack, aabb8, lists, r_blk, _, _ = _any_hit(scene, which, form, o3, d3u,
+                                               maxd)
+    entry = {"walker": "ptt_walker_any_hit", "classic": "ptt_sparse_any_hit",
+             "plucker": "ptt_plucker_sparse_any_hit"}[
+                 "walker" if which == "walker" else form]
+    fn = build.function(entry, sparse._ANY_HIT_ARGTYPES)
+    n = o3.shape[1]
+    occ = torch.zeros(n, dtype=torch.bool, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert fn(o3.data_ptr(), d3u.data_ptr(), maxd.data_ptr(), n,
+              pack.data_ptr(), aabb8.data_ptr(), None, lists.ids.data_ptr(),
+              lists.keys.data_ptr(), lists.ncand.data_ptr(),
+              lists.ids.shape[1], r_blk, occ.data_ptr(), None,
+              cuda.index or 0, stream) == 1
