@@ -60,11 +60,15 @@ phase fails:
      give the units those the lists give, and visits, box tests by level
      and pairs tested inside their band on every SUBSET_STRIDE-th block,
      with the kernel's time on all blocks and without the 1% longest
-     lists; K7 (the any-hit that
-     reports the blocking cluster) against its plain version on the full
-     lists and on vote-ordered guess lists, and its two-pass protocol with
-     a cold cache, the cache it returned and the cache the render carries,
-     against K6;
+     lists. K7 (the any-hit that reports the first blocking cluster) runs
+     the same walk merged by each lane's first blocking slot: on the full
+     lists against its culled plain model (bits and clusters equal on
+     every checked lane), against the un-culled plain version (clusters
+     on MIN_CL_AGREE of lanes) and against K6 on all lanes, with its
+     counting instance inside the band; its two-pass protocol with a cold
+     cache, the cache it returned and the cache the render carries, its
+     bits K6's on all lanes, each pass (the vote-ordered guess lists, then
+     the lanes left open) held to its culled model and timed alone;
    - K3, the Plücker form of the four sweeps that follow the ``mt_impl``
      knob: dense nearest and dense any-hit on the Cornell and box-field
      wavefronts, cluster-sparse nearest and
@@ -124,11 +128,14 @@ and K3's dense any-hit, for a lane that ends unoccluded the occluders whose
 own box its segment meets under the kernels' slab test, for an occluded
 lane one; in K1 and K3's dense nearest, for a lane that hits the valid rows
 whose own box its ray meets up to its winner's t, for a lane that misses
-those its whole ray meets; in the split any-hit walks (K6, K9, K3's sparse
-any-hit), for a lane that ends unoccluded the pairs its culled model tests
-in every cluster its gate lets through, for an occluded lane one, with the
-bound of the gate's pairs (128 a visit) beside it as
-``gate_pairs_bound_ms``. The kernels' groups hold those boxes, so a
+those its whole ray meets; in the split any-hit walks (K6, K9, K3's
+sparse any-hit, K7), for a lane that ends unoccluded the pairs its culled
+model tests in every cluster its gate lets through, for an occluded lane
+one, with the bound of the gate's pairs (128 a visit) beside it as
+``gate_pairs_bound_ms``; their bytes are the rays, the outputs, each
+list's first ``ncand`` slots and, once for each cluster the lists name,
+the columns of its rows that a pair test reads and its box (not the pack's
+padding, not the in-cluster cull boxes). The kernels' groups hold those boxes, so a
 kernel cannot test fewer, and the run fails if any kernel reads under its
 bound. The earlier reckoning (every occluder for an unoccluded lane, every
 row for a nearest lane) stays in those rows as ``all_pairs_bound_ms``,
@@ -234,6 +241,13 @@ PLANE_FLOPS_PER_PAIR = 14
 PEAK_BF16_CORE_FLOPS = 2 * PEAK_FP32_FLOPS
 C_TRI = 128
 OCCLUDER_COL = 10  # of the [T, 12] pack (kernels/intersect.py)
+# The floats of a pack row that a pair test of a shadow walk reads, by the
+# pack's width: the classic row's v0, v1, v2, valid and occluder (of 12);
+# the Plücker row's three edges (direction and moment), n, v0, valid and
+# occluder (of 36). The rest is padding. A cluster box is min.xyz | max.xyz
+# of 8 floats.
+ROW_FLOATS = {12: 11, 36: 26}
+BOX_FLOATS = 6
 
 
 def log(msg: str) -> None:
@@ -261,16 +275,17 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def list_bytes(lists, n_clusters: int, *tables) -> int:
-    """The bytes a cluster walk over ``lists`` must read of them and of the
-    per-cluster ``tables`` (each a whole number of rows per cluster, for
-    ``n_clusters`` clusters): each block's first ``ncand`` slots (id and
-    key) and its count, and the rows of every cluster that some list
-    names, once."""
+def list_bytes(lists, pack) -> int:
+    """The bytes a cluster any-hit walk over ``lists`` must read: each
+    block's first ``ncand`` slots (id and key) and its count, and once for
+    every cluster that some list names, what a pair test reads of its
+    C_TRI rows of ``pack`` (``ROW_FLOATS`` of a row) and the BOX_FLOATS of
+    its box. Not counted: the pack's padding columns, and the in-cluster
+    cull boxes, which the walk reads only because of its own design."""
     slots = (torch.arange(lists.ids.shape[1], device=lists.ids.device)[None]
              < lists.ncand[:, None])
     named = int(lists.ids[slots].unique().numel())
-    per_cluster = sum(tensor_bytes(t) // n_clusters for t in tables)
+    per_cluster = (C_TRI * ROW_FLOATS[pack.shape[1]] + BOX_FLOATS) * 4
     return (int(slots.sum()) * (lists.ids.element_size()
                                 + lists.keys.element_size())
             + tensor_bytes(lists.ncand) + named * per_cluster)
@@ -1067,6 +1082,95 @@ def check_nearest_walk(name, label, scene, o3, d3u, stride, report, dense,
     return t_k, i_k
 
 
+def walk_bound(rays, outputs, lists, pack, needed, gate_pairs, flops):
+    """The bound of a split any-hit walk over ``lists``: the bytes (the
+    rays, its ``outputs``, and ``list_bytes`` of the lists over ``pack``)
+    or the ``needed`` pairs times ``flops``, whichever takes longer; and
+    beside it the bound of the gate's pairs (C_TRI a visit of the serial
+    walk), the one before the in-cluster cull."""
+    nbytes = tensor_bytes(*rays, *outputs) + list_bytes(lists, pack)
+    return bound(nbytes, needed, flops), bound(nbytes, gate_pairs, flops)[0]
+
+
+def split_walk_extras(what, launch, rays, lists, r_blk, want, tripack, pack,
+                      aabb8, cull, pair) -> dict:
+    """What a split any-hit walk (K6, K9, K3's sparse any-hit or K7) shows
+    beyond its outputs, on the wavefront ``rays`` (o3, d3, maxd) and its
+    ``lists``. ``launch(rays, lists, stats=None)`` runs it and returns its
+    outputs as a tuple (the bits, then K7's clusters); ``want`` is that
+    tuple on all lanes; ``pack`` the rows it reads. The tail: the launch
+    without the 1% of blocks with the longest lists (a kernel is as slow as
+    its slowest unit). The counting instance on every SUBSET_STRIDE-th
+    block (the band's ceiling walks every segment from nothing): its
+    outputs ``want``'s, its units those the lists give, its visits, box
+    tests and pairs inside ``any_hit_visit_band``, its pairs at most C_TRI
+    a visit; then its counts on all blocks. Returns these, with "err" the
+    largest difference of the outputs it compared."""
+    from pathtracerpython_tpu_torch.kernels import sparse
+
+    cut = torch.quantile(lists.ncand.float(), 0.99)
+    short = torch.nonzero(lists.ncand <= cut).flatten()
+    _, rays_q, sub_q = block_subset(list(rays), lists, r_blk, 1, short)
+    kq_ms = cuda_ms(lambda: launch(rays_q, sub_q), 10)
+    lanes, rays_b, sub_b = block_subset(list(rays), lists, r_blk,
+                                        SUBSET_STRIDE)
+    stats = torch.zeros(len(sparse.ANY_HIT_COUNTS), dtype=torch.int64,
+                        device=rays[0].device)
+    got = launch(rays_b, sub_b, stats)
+    err = hold_bits(f"{what}, counting instance", got[0], want[0][lanes],
+                    tripack, *rays_b, against="the kernel")
+    for g, w in zip(got[1:], want[1:]):
+        bad = int((g != w[lanes]).sum())
+        if bad:
+            fail(f"{what}: the counting instance's blocking clusters differ "
+                 f"from the kernel's on {bad} lanes")
+    counted = sparse.any_hit_stats(stats)
+    band = sparse.any_hit_visit_band(*rays_b, pack, aabb8, sub_b, r_blk,
+                                     got[0], sparse.ANY_HIT_SEGMENT, pair,
+                                     cull)
+    units = sparse.walk_units(sub_b, r_blk, sparse.ANY_HIT_SEGMENT)
+    if counted["units_launched"] != units:
+        fail(f"{what}: {counted['units_launched']} units launched, the lists "
+             f"give {units}")
+    for key, (low, high) in band.items():
+        if not low <= counted[key] <= high:
+            fail(f"{what}: {key} {counted[key]} outside their band [{low}, "
+                 f"{high}]")
+    if counted["pairs_tested"] > C_TRI * counted["visits"]:
+        fail(f"{what}: {counted['pairs_tested']} pairs tested in "
+             f"{counted['visits']} visits")
+    stats.zero_()
+    launch(rays, lists, stats)
+    return {"err": err, "kernel_short99_ms": kq_ms,
+            "short_blocks": short.shape[0], "cut": int(cut),
+            "counted_subset": counted, "band": band,
+            "counted_all": sparse.any_hit_stats(stats)}
+
+
+def extras_text(what, x) -> str:
+    """The log lines of ``split_walk_extras``' counts."""
+    from pathtracerpython_tpu_torch.kernels import sparse
+
+    return (f"[2] {what} split walk (units of {sparse.ANY_HIT_SEGMENT} "
+            f"slots) on every {SUBSET_STRIDE}th block: "
+            f"{json.dumps(x['counted_subset'])}, band "
+            f"{json.dumps(x['band'])}; on all blocks "
+            f"{json.dumps(x['counted_all'])}")
+
+
+def extras_row(x) -> dict:
+    """The report row's keys of ``split_walk_extras``' counts."""
+    counted_all = x["counted_all"]
+    return {"kernel_short99_ms": x["kernel_short99_ms"],
+            "units": counted_all["units_launched"],
+            "units_stopped_at_once": counted_all["units_stopped_at_once"],
+            **{k: counted_all[k] for k in ("visits", "span_tests",
+                                           "mid_tests", "group_tests",
+                                           "pairs_tested")},
+            "counted_subset": x["counted_subset"],
+            "band": {k: list(v) for k, v in x["band"].items()}}
+
+
 def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
                        *, r_blk, wrapper, launch, others=(), pack=None,
                        dense_name="K4", flops=FLOPS_PER_PAIR_ROW):
@@ -1076,17 +1180,10 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
     the dense any-hit ``dense_name`` (``dense``: its (bits, ms)) and
     against ``others`` [(name, bits)] on all lanes, bit for bit. ``pack``:
     the Plücker pack that ``launch`` reads, when it is not the [T, 12] one.
-    The counting instance on every SUBSET_STRIDE-th block: its bits the
-    model's, its units those the lists give, its visits, box tests and
-    pairs inside the band of ``any_hit_visit_band``, its pairs at most
-    C_TRI a visit; on all blocks the units launched and stopped at once.
-    Bound: the bytes (rays, marks, each list's first ``ncand`` slots, the
-    rows and boxes of the clusters the lists name), or the pairs every
-    timing of the units must test
-    (each unoccluded lane's culled pairs, one an occluded lane) times the
-    form's operations; beside it the bound of the gate's pairs (C_TRI a
-    visit of the serial walk), the one before the cull. Returns the
-    sweep's occlusion bits."""
+    ``split_walk_extras``: the tail and the counting instance. Bound
+    (``walk_bound``): the bytes, or the pairs every timing of the units
+    must test (each unoccluded lane's culled pairs, one an occluded lane)
+    times the form's operations. Returns the sweep's occlusion bits."""
     from pathtracerpython_tpu_torch.kernels import intersect, sparse
 
     tripack = sparse.pack_for_sparse(scene)
@@ -1115,59 +1212,24 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
         err = max(err, hold_bits(f"{name} {label} on all lanes", occ, occ_o,
                                  tripack, o3, d3, maxd, against=other))
     k_ms = cuda_ms(lambda: wrapper(o3, d3, maxd, scene), 10)
-    ks_ms = cuda_ms(lambda: launch(o_s, d_s, m_s, rows_pack, aabb8, sub,
-                                   r_blk, cull), 10)
+    run = lambda rays, lst, stats=None: (launch(
+        *rays, rows_pack, aabb8, lst, r_blk, cull, stats),)
+    ks_ms = cuda_ms(lambda: run((o_s, d_s, m_s), sub), 10)
     ka_ms = ks_ms if stride == 1 else cuda_ms(
-        lambda: launch(o3, d3, maxd, rows_pack, aabb8, lists, r_blk, cull),
-        10)
-    # the tail: the same launch without the 1% of blocks with the longest
-    # lists (a kernel is as slow as its slowest unit)
-    cut = torch.quantile(lists.ncand.float(), 0.99)
-    short = torch.nonzero(lists.ncand <= cut).flatten()
-    _, (o_q, d_q, m_q), sub_q = block_subset([o3, d3, maxd], lists, r_blk, 1,
-                                             short)
-    kq_ms = cuda_ms(lambda: launch(o_q, d_q, m_q, rows_pack, aabb8, sub_q,
-                                   r_blk, cull), 10)
-    # the counting instance against the band, on every SUBSET_STRIDE-th
-    # block (the band's ceiling walks every segment from nothing)
-    band_lanes, (o_b, d_b, m_b), sub_b = block_subset(
-        [o3, d3, maxd], lists, r_blk, SUBSET_STRIDE)
-    stats = torch.zeros(len(sparse.ANY_HIT_COUNTS), dtype=torch.int64,
-                        device=o3.device)
-    counted_occ = launch(o_b, d_b, m_b, rows_pack, aabb8, sub_b, r_blk, cull,
-                         stats)
-    err = max(err, hold_bits(f"{name} {label}, counting instance",
-                             counted_occ, occ[band_lanes], tripack, o_b, d_b,
-                             m_b, against="the kernel"))
-    counted = sparse.any_hit_stats(stats)
-    band = sparse.any_hit_visit_band(o_b, d_b, m_b, rows_pack, aabb8, sub_b,
-                                     r_blk, counted_occ,
-                                     sparse.ANY_HIT_SEGMENT, pair, cull)
-    units = sparse.walk_units(sub_b, r_blk, sparse.ANY_HIT_SEGMENT)
-    if counted["units_launched"] != units:
-        fail(f"{name} {label}: {counted['units_launched']} units launched, "
-             f"the lists give {units}")
-    for key, (low, high) in band.items():
-        if not low <= counted[key] <= high:
-            fail(f"{name} {label}: {key} {counted[key]} outside their band "
-                 f"[{low}, {high}]")
-    if counted["pairs_tested"] > C_TRI * counted["visits"]:
-        fail(f"{name} {label}: {counted['pairs_tested']} pairs tested in "
-             f"{counted['visits']} visits")
-    stats.zero_()
-    launch(o3, d3, maxd, rows_pack, aabb8, lists, r_blk, cull, stats)
-    counted_all = sparse.any_hit_stats(stats)
+        lambda: run((o3, d3, maxd), lists), 10)
+    x = split_walk_extras(f"{name} {label}", run, (o3, d3, maxd), lists,
+                          r_blk, (occ,), tripack, rows_pack, aabb8, cull,
+                          pair)
+    err = max(err, x["err"])
     # the bound, on the checked blocks: the pairs every timing tests
     needed = sparse.any_hit_floor(o_s, d_s, m_s, rows_pack, aabb8, sub,
                                   r_blk, model, pair, cull)["pairs_tested"]
     gate_pairs = counts["visits"] * C_TRI
-    nbytes = tensor_bytes(o_s, d_s, m_s, model) + list_bytes(
-        sub, aabb8.shape[0], rows_pack, aabb8, cull)
-    b = bound(nbytes, needed, flops)
+    b, gate_ms = walk_bound((o_s, d_s, m_s), (model,), sub, rows_pack,
+                            needed, gate_pairs, flops)
     if ks_ms < b[0]:
         fail(f"{name} {label}: kernel {ks_ms} ms reads under its bound "
              f"{b[0]} ms")
-    gate_ms = bound(nbytes, gate_pairs, flops)[0]
     parked = (maxd == 0).float().mean().item()
     nc = lists.ncand.float()
     log(f"[2] {name} {label}: {n} shadow lanes ({parked:.4f} parked) in "
@@ -1178,31 +1240,21 @@ def check_any_hit_walk(name, label, scene, shadow, stride, report, dense,
         f"to {dense_name}{''.join(', ' + o[0] for o in others)} on all lanes "
         f"(max abs diff 0)")
     log(f"[2] {name} {label} times: wrapper (lists + kernel) {k_ms:.3f} ms, "
-        f"kernel on all blocks {ka_ms:.3f} ms, on the {short.shape[0]} "
-        f"blocks with lists of at most {int(cut)} clusters (99%) "
-        f"{kq_ms:.3f} ms; on the checked blocks kernel {ks_ms:.3f} ms, "
-        f"plain model {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} "
-        f"({needed} pairs needed; the serial model tests "
+        f"kernel on all blocks {ka_ms:.3f} ms, on the {x['short_blocks']} "
+        f"blocks with lists of at most {x['cut']} clusters (99%) "
+        f"{x['kernel_short99_ms']:.3f} ms; on the checked blocks kernel "
+        f"{ks_ms:.3f} ms, plain model {p_ms:.3f} ms, bound {b[0]:.4f} ms by "
+        f"{b[1]} ({needed} pairs needed; the serial model tests "
         f"{counts['pairs_tested']}), gate-pairs bound {gate_ms:.4f} ms "
         f"({gate_pairs} pairs through the gate); dense {dense_name} on all "
         f"lanes {d_ms:.3f} ms")
-    log(f"[2] {name} {label} split walk (units of {sparse.ANY_HIT_SEGMENT} "
-        f"slots) on every {SUBSET_STRIDE}th block: {json.dumps(counted)}, "
-        f"band {json.dumps(band)}; on all blocks {json.dumps(counted_all)}")
+    log(extras_text(f"{name} {label}", x))
     report.append(report_row(
         label, err, ks_ms, p_ms, b, wrapper_ms=k_ms, kernel_all_ms=ka_ms,
-        kernel_short99_ms=kq_ms, dense_ms=d_ms, over_bound=ks_ms / b[0],
-        pairs_needed=needed, gate_pairs=gate_pairs,
-        gate_pairs_bound_ms=gate_ms, model_pairs_tested=counts[
-            "pairs_tested"], model_visits=counts["visits"],
-        units=counted_all["units_launched"],
-        units_stopped_at_once=counted_all["units_stopped_at_once"],
-        visits=counted_all["visits"],
-        span_tests=counted_all["span_tests"],
-        mid_tests=counted_all["mid_tests"],
-        group_tests=counted_all["group_tests"],
-        pairs_tested=counted_all["pairs_tested"],
-        counted_subset=counted, band={k: list(v) for k, v in band.items()},
+        dense_ms=d_ms, over_bound=ks_ms / b[0], pairs_needed=needed,
+        gate_pairs=gate_pairs, gate_pairs_bound_ms=gate_ms,
+        model_pairs_tested=counts["pairs_tested"],
+        model_visits=counts["visits"], **extras_row(x),
         longest_list=int(nc.max().item())))
     return occ
 
@@ -1216,95 +1268,172 @@ def check_clusters(what, cl, want) -> float:
     return (cl != want).float().max().item()
 
 
-def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
-    """K7 on one wavefront of shadow rays. The kernel against its plain
-    version on the full lists (every ``stride``-th block) and on the guess
-    lists of a warm cache (every block): bits and blocking clusters. The
-    two-pass protocol against K6's bits ``occ6``: with a cold cache, with
-    the cache that call returned, and with ``carried``, the cache the
-    render's lanes carry into this bounce (i32 per path lane, or None)."""
+def k7_model(rays, lists, scene, cull) -> dict:
+    """K7's culled model (``any_hit_walk(..., cull=, merge="first_slot")``,
+    the serial walk) over ``lists`` and its bound (``walk_bound``): the
+    bytes, or the pairs every timing of the units tests (each unblocked
+    lane's culled pairs, one a blocked lane), whichever takes longer."""
     from pathtracerpython_tpu_torch.kernels import sparse
+
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    counts = {}
+    (occ, cl), ms = once_ms(lambda: sparse.any_hit_walk(
+        *rays, tripack, aabb8, lists, sparse.R_BLK, cull=cull, counts=counts,
+        merge="first_slot"))
+    needed = sparse.any_hit_floor(*rays, tripack, aabb8, lists, sparse.R_BLK,
+                                  occ, cull=cull)["pairs_tested"]
+    gate_pairs = counts.get("visits", 0) * C_TRI
+    b, gate_ms = walk_bound(rays, (occ, cl), lists, tripack, needed,
+                            gate_pairs, FLOPS_PER_PAIR_ROW)
+    return {"occ": occ, "cl": cl, "ms": ms, "bound": b,
+            "pairs_needed": needed, "gate_pairs": gate_pairs,
+            "gate_pairs_bound_ms": gate_ms,
+            "model_pairs_tested": counts.get("pairs_tested", 0)}
+
+
+def hold_k7(what, got, model, tripack, rays, plain) -> float:
+    """K7's outputs ``got`` (occ, cl) equal to its culled ``model``'s on
+    every lane, and its clusters to the un-culled ``plain`` version's on
+    MIN_CL_AGREE of lanes; returns the largest 0/1 mismatch."""
+    err = hold_bits(what, got[0], model["occ"], tripack, *rays,
+                    against="its culled model")
+    bad = int((got[1] != model["cl"]).sum())
+    if bad:
+        fail(f"{what}: blocking clusters differ from its culled model's on "
+             f"{bad} of {got[1].numel()} lanes")
+    return max(err, check_clusters(f"{what} against plain", got[1], plain))
+
+
+def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
+    """K7 on one wavefront of shadow rays. On the full lists: the kernel
+    against its culled model (``k7_model``) on every ``stride``-th block,
+    bits and first blocking clusters equal on every lane, and its clusters
+    against the un-culled plain version on MIN_CL_AGREE of lanes; on all
+    lanes its bits K6's ``occ6``; ``split_walk_extras``: the tail and the
+    counting instance. The two-pass protocol, its bits K6's on all lanes,
+    with a cold cache, with the cache that call returned, and with
+    ``carried``, the cache the render's lanes carry into this bounce (i32
+    per path lane, or None); each pass as the entry runs it
+    (``sparse.cached_passes``) held to its culled model and timed alone
+    beside its bound (a pass 2 on the whole wavefront is the full lists'
+    run)."""
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse
     from pathtracerpython_tpu_torch.ops.sort import permute_minor
 
     r_blk = sparse.R_BLK
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
+    cull = sparse.scene_cluster_cull_boxes(scene)
     o3, d3, maxd, rel = (x.contiguous() for x in (
         shadow.o3, shadow.d3, shadow.maxd, shadow.relevant))
     n = o3.shape[1]
     lists = sparse.window_lists(aabb8, o3, d3, maxd, r_blk)
-    lanes, (o_s, d_s, m_s), sub = block_subset([o3, d3, maxd], lists, r_blk,
-                                               stride)
-    occ_k, cl_k = sparse._launch_any_hit_idx(o_s, d_s, m_s, tripack, aabb8,
-                                             sub, r_blk)
-    visits = []
-    (occ_p, cl_p), p_ms = once_ms(lambda: sparse.sparse_any_hit_idx_plain(
-        o_s, d_s, m_s, tripack, aabb8, sub, r_blk, visits))
-    agree_p, err = check_bits(f"K7 {label} against plain, full lists", occ_k,
-                              occ_p)
-    err = max(err, check_clusters(f"K7 {label} against plain, full lists",
-                                  cl_k, cl_p))
-    check_bits(f"K7 {label} full lists against K6", occ_k, occ6[lanes])
-    ks_ms = cuda_ms(lambda: sparse._launch_any_hit_idx(
-        o_s, d_s, m_s, tripack, aabb8, sub, r_blk), 10)
+    launch = lambda rays, lst, stats=None: sparse._launch_any_hit_idx(
+        *rays, tripack, aabb8, lst, r_blk, cull, stats)
+    plain = lambda rays, lst: sparse.sparse_any_hit_idx_plain(
+        *rays, tripack, aabb8, lst, r_blk)
+    occ_a, cl_a = launch((o3, d3, maxd), lists)
+    err = hold_bits(f"K7 {label} full lists on all lanes", occ_a, occ6,
+                    tripack, o3, d3, maxd, against="K6")
+    lanes, rays_s, sub = block_subset([o3, d3, maxd], lists, r_blk, stride)
+    got = launch(rays_s, sub)
+    if not (torch.equal(got[0], occ_a[lanes])
+            and torch.equal(got[1], cl_a[lanes])):
+        fail(f"K7 {label}: the checked blocks' outputs differ from the same "
+             "lanes' on all blocks")
+    full = k7_model(rays_s, sub, scene, cull)
+    (occ_p, cl_p), p_ms = once_ms(lambda: plain(rays_s, sub))
+    err = max(err, hold_k7(f"K7 {label} full lists", got, full, tripack,
+                           rays_s, cl_p))
+    agree_p, _ = check_bits(f"K7 {label} against plain, full lists", got[0],
+                            occ_p)
+    cl_agree = (got[1] == cl_p).float().mean().item()
+    ks_ms = cuda_ms(lambda: launch(rays_s, sub), 10)
     ka_ms = ks_ms if stride == 1 else cuda_ms(
-        lambda: sparse._launch_any_hit_idx(o3, d3, maxd, tripack, aabb8,
-                                           lists, r_blk), 10)
-    pairs = int(torch.stack(visits).sum()) * C_TRI
-    b = bound(tensor_bytes(o_s, d_s, m_s, tripack, aabb8, *sub, occ_p, cl_p),
-              pairs, FLOPS_PER_PAIR_ROW)
+        lambda: launch((o3, d3, maxd), lists), 10)
+    b = full["bound"]
+    if ks_ms < b[0]:
+        fail(f"K7 {label}: kernel {ks_ms} ms reads under its bound {b[0]} "
+             "ms")
+    x = split_walk_extras(f"K7 {label}", launch, (o3, d3, maxd), lists,
+                          r_blk, (occ_a, cl_a), tripack, tripack, aabb8,
+                          cull, intersect.CLASSIC)
+    err = max(err, x["err"])
 
     def protocol(what, guess):
         run = lambda: sparse.sparse_any_hit_cached_cm(o3, d3, maxd, scene,
                                                       guess, relevant=rel)
         occ, cl = run()
-        check_bits(f"K7 {label} {what} cache against K6", occ, occ6)
+        e = hold_bits(f"K7 {label} {what} cache on all lanes", occ, occ6,
+                      tripack, o3, d3, maxd, against="K6")
         if bool(((cl >= 0) != occ).any()):
             fail(f"K7 {label} {what} cache: a blocking cluster without an "
                  "occluded lane, or the reverse")
-        # pass 1 alone, kernel against plain, on every block
-        voting = torch.where(rel, guess, -1)
-        gl = sparse.guess_lists(voting, aabb8.shape[0], r_blk)
-        occ1, cl1 = sparse._launch_any_hit_idx(o3, d3, maxd, tripack, aabb8,
-                                               gl, r_blk)
-        occ1p, cl1p = sparse.sparse_any_hit_idx_plain(o3, d3, maxd, tripack,
-                                                      aabb8, gl, r_blk)
-        check_bits(f"K7 {label} {what} cache, pass 1 against plain", occ1,
-                   occ1p)
-        e = check_clusters(f"K7 {label} {what} cache, pass 1 against plain",
-                           cl1, cl1p)
-        open_ = int((~occ1 & rel).sum())
-        share = occ1[rel].float().mean().item()
+        first, second, sel = sparse.cached_passes(o3, d3, maxd, tripack,
+                                                  aabb8, cull, guess, rel)
+        both = {"pass 1": first} if sel is None else {"pass 1": first,
+                                                      "pass 2": second}
+        passes = {}
+        for name, p in both.items():
+            model = k7_model(p.rays, p.lists, scene, cull)
+            e = max(e, hold_k7(f"K7 {label} {what} cache, {name}",
+                               (p.occ, p.cl), model, tripack, p.rays,
+                               plain(p.rays, p.lists)[1]))
+            passes[name] = {"lanes": p.rays[0].shape[1],
+                            "ms": cuda_ms(lambda: launch(p.rays, p.lists),
+                                          10),
+                            "bound_ms": model["bound"][0],
+                            "bound_by": model["bound"][1],
+                            "longest_list": int(p.lists.ncand.max())}
+        if sel is None:
+            passes["pass 2"] = {"lanes": n, "ms": ka_ms, "whole": True}
         ms = cuda_ms(run, 5)
-        log(f"[2] K7 {label} {what} cache: occlusion equal to K6; pass 1 "
-            f"resolves {share:.4f} of the relevant lanes "
-            f"({occ1[occ6].float().mean().item():.4f} of the occluded), "
-            f"{open_} lanes go to pass 2 "
-            f"({'compacted' if open_ <= sparse.pass2_size(n) else 'whole'}"
-            f", cap {sparse.pass2_size(n)}); both passes with lists "
+        log(f"[2] K7 {label} {what} cache: occlusion equal to K6 on all "
+            f"lanes, each pass equal to its culled model; "
+            f"{json.dumps(passes)} (compacted pass 2 cap "
+            f"{sparse.pass2_size(n)} of {n} lanes); both passes with lists "
             f"{ms:.3f} ms")
-        return cl, e, ms
+        return cl, e, ms, passes
 
     cold = torch.full((n,), -1, dtype=torch.int32, device=o3.device)
-    cl_cold, e_cold, cold_ms = protocol("cold", cold)
-    _, e_warm, warm_ms = protocol("returned", cl_cold)
-    carried_ms = None
+    cl_cold, e_cold, cold_ms, cold_p = protocol("cold", cold)
+    _, e_warm, warm_ms, warm_p = protocol("returned", cl_cold)
+    carried_ms = carried_p = None
     if carried is not None:
         guess = carried[None, :].expand(NEE_SAMPLES, -1).reshape(-1)
         guess = permute_minor(guess, shadow.order).contiguous()
-        _, e_c, carried_ms = protocol("carried", guess)
+        _, e_c, carried_ms, carried_p = protocol("carried", guess)
         err = max(err, e_c)
     err = max(err, e_cold, e_warm)
+    nc = lists.ncand.float()
     log(f"[2] K7 {label}: {n} shadow lanes in {lists.ncand.shape[0]} blocks "
-        f"of {r_blk}; kernel against plain on the full lists of "
-        f"{sub.ncand.shape[0]} blocks ({o_s.shape[1]} lanes): bits "
-        f"{agree_p:.6f}, clusters equal; kernel on all blocks {ka_ms:.3f} "
-        f"ms; on the subset kernel {ks_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({pairs} pairs "
-        f"through the per-ray gate)")
-    report.append(report_row(label, err, ks_ms, p_ms, b,
-                             kernel_all_ms=ka_ms, cold_ms=cold_ms,
-                             warm_ms=warm_ms, carried_ms=carried_ms))
+        f"of {r_blk}, candidates per block mean {nc.mean().item():.1f} max "
+        f"{int(nc.max().item())}; full lists on all lanes: bits equal to "
+        f"K6; on {sub.ncand.shape[0]} blocks ({rays_s[0].shape[1]} lanes) "
+        f"bits and clusters equal to its culled model, against the "
+        f"un-culled plain version bits {agree_p:.6f}, clusters "
+        f"{cl_agree:.6f}; kernel on all blocks {ka_ms:.3f} ms, on the "
+        f"{x['short_blocks']} blocks with lists of at most {x['cut']} "
+        f"clusters (99%) {x['kernel_short99_ms']:.3f} ms; on the checked "
+        f"blocks kernel {ks_ms:.3f} ms, culled model {full['ms']:.3f} ms, "
+        f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} "
+        f"({full['pairs_needed']} pairs needed), gate-pairs bound "
+        f"{full['gate_pairs_bound_ms']:.4f} ms ({full['gate_pairs']} pairs "
+        f"through the gate)")
+    log(extras_text(f"K7 {label} (first-slot merge)", x))
+    report.append(report_row(
+        label, err, ks_ms, p_ms, b, kernel_all_ms=ka_ms, model_ms=full["ms"],
+        over_bound=ks_ms / b[0], cl_agree_plain=cl_agree,
+        **{k: full[k] for k in ("pairs_needed", "gate_pairs",
+                                "gate_pairs_bound_ms", "model_pairs_tested")},
+        **extras_row(x), longest_list=int(nc.max().item()), cold_ms=cold_ms,
+        warm_ms=warm_ms, carried_ms=carried_ms, cold_passes=cold_p,
+        warm_passes=warm_p, carried_passes=carried_p,
+        pass1_ms=warm_p["pass 1"]["ms"],
+        pass1_bound_ms=warm_p["pass 1"]["bound_ms"],
+        pass2_ms=warm_p["pass 2"]["ms"],
+        pass2_bound_ms=warm_p["pass 2"].get("bound_ms")))
 
 
 def check_k3_sparse(label, scene, o3, d3u, shadow, stride, rows, k5, occ6):

@@ -22,9 +22,11 @@ by name; default all):
   of 512, K3's sparse nearest in blocks of 512 and K8, and on the same
   wavefronts' shadow rays (the unfused NEE's, sorted and parked as the
   render does) the any-hits K6, K3's sparse any-hit, K9 and K7 on the full
-  lists. Each is the kernel's own launch with its pack, boxes and lists
-  built beforehand, CUDA events, 3 samples of the mean of 20 launches after
-  3 warm-up launches;
+  lists, and K7's two passes on the cache that a cold call returns (pass 1
+  on its guess lists, pass 2 on the lanes pass 1 leaves open, compacted as
+  the render compacts them). Each is the kernel's own launch with its
+  pack, boxes and lists built beforehand, CUDA events, 3 samples of the
+  mean of 20 launches after 3 warm-up launches;
 - renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
   forms; the 100k field (512x512, 2 spp, 3 bounces) through the hybrid,
@@ -156,11 +158,24 @@ def _walk_kernels(port, scene, o3, d3, shadow):
                                             shadow.maxd))
     s512 = sparse.window_lists(aabb8, so, sd, sm, sparse.R_BLK)
     sw = walker.walker_lists(aabb8, so, sd, sm)
-    # the split any-hit walks take their cluster boxes; a checkout from
-    # before them (the one they are timed against) has none to give
-    boxes = ((sparse.scene_cluster_cull_boxes(scene),)
-             if hasattr(sparse, "scene_cluster_cull_boxes") else ())
+    cull = sparse.scene_cluster_cull_boxes(scene)
     shadow_args = (so, sd, sm)
+    # K7's passes on the cache a cold call returns, as the render's next
+    # call runs them (the relevant lanes vote, the open ones go to pass 2)
+    rel = shadow.relevant.contiguous()
+    cold = torch.full((so.shape[1],), -1, dtype=torch.int32,
+                      device=so.device)
+    cache = sparse.sparse_any_hit_cached_cm(*shadow_args, scene, cold,
+                                            relevant=rel)[1]
+    if hasattr(sparse, "cached_passes"):
+        k7 = lambda rays, lists: sparse._launch_any_hit_idx(
+            *rays, tripack, aabb8, lists, sparse.R_BLK, cull)
+        passes = sparse.cached_passes(*shadow_args, tripack, aabb8, cull,
+                                      cache, rel)[:2]
+        passes = [(p.rays, p.lists) for p in passes]
+    else:
+        k7, passes = _k7_before_boxes(port, sparse, shadow_args, tripack,
+                                      aabb8, cache, rel)
     return {
         "K5@1024": lambda: sparse._launch(o3, d3, tripack, aabb8, l1024,
                                           1024),
@@ -170,14 +185,45 @@ def _walk_kernels(port, scene, o3, d3, shadow):
         "K8": lambda: walker._launch_nearest(o3, d3, tripack, aabb8, lw,
                                              walker.R_BLK),
         "K6": lambda: sparse._launch_any_hit(
-            *shadow_args, tripack, aabb8, s512, sparse.R_BLK, *boxes),
+            *shadow_args, tripack, aabb8, s512, sparse.R_BLK, cull),
         "K3 sparse any-hit": lambda: sparse._launch_plucker_any_hit(
-            *shadow_args, pack36, aabb8, s512, sparse.R_BLK, *boxes),
+            *shadow_args, pack36, aabb8, s512, sparse.R_BLK, cull),
         "K9": lambda: walker._launch(*shadow_args, tripack, aabb8, sw,
-                                     walker.R_BLK, *boxes),
-        "K7 full lists": lambda: sparse._launch_any_hit_idx(
-            *shadow_args, tripack, aabb8, s512, sparse.R_BLK),
+                                     walker.R_BLK, cull),
+        "K7 full lists": lambda: k7(shadow_args, s512),
+        "K7 pass 1": lambda: k7(*passes[0]),
+        "K7 pass 2": lambda: k7(*passes[1]),
     }
+
+
+def _k7_before_boxes(port, sparse, rays, tripack, aabb8, cache, rel):
+    """K7's launch and its two passes' (rays, lists) in a checkout from
+    before K7 took the cluster boxes and ``sparse.cached_passes`` (the
+    parent ``9da5438``), the passes formed as its
+    ``sparse_any_hit_cached_cm`` forms them. Goes once no parent of
+    interest lacks them."""
+    import torch
+
+    def k7(rays, lists):
+        return sparse._launch_any_hit_idx(*rays, tripack, aabb8, lists,
+                                          sparse.R_BLK)
+
+    o3, d3, maxd = rays
+    guess = sparse.guess_lists(torch.where(rel, cache, -1), aabb8.shape[0],
+                               sparse.R_BLK)
+    sel = torch.nonzero(~k7(rays, guess)[0] & rel).flatten()
+    m = sparse.pass2_size(o3.shape[1])
+    pass2 = rays
+    if sel.shape[0] <= m:   # compacted: the open lanes, the tail parked
+        sort = port["ops.sort"]
+        pass2 = (o3.new_tensor(sort.PARK_ORIGIN)[:, None].repeat(1, m),
+                 d3.new_tensor(sort.PARK_DIR)[:, None].repeat(1, m),
+                 torch.ones(m, dtype=maxd.dtype, device=maxd.device))
+        pass2[0][:, :sel.shape[0]] = o3[:, sel]
+        pass2[1][:, :sel.shape[0]] = d3[:, sel]
+        pass2[2][:sel.shape[0]] = maxd[sel]
+    return k7, [(rays, guess),
+                (pass2, sparse.window_lists(aabb8, *pass2, sparse.R_BLK))]
 
 
 def _ms(fn, reps: int = 20) -> float:

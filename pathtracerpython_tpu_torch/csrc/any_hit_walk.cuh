@@ -1,8 +1,10 @@
 // The split any-hit walk of the cluster shadow sweeps, shared by K6 and K3's
-// cluster-sparse any-hit (sparse_any_hit.cu, the form a template parameter)
-// and K9 (walker_any_hit.cu): the three differ only in their lists
-// (kernels/sparse.py: window_lists in blocks of 512; kernels/walker.py:
-// walker_lists in blocks of 1280) and in K6's form.
+// cluster-sparse any-hit (sparse_any_hit.cu, the form a template parameter),
+// K9 (walker_any_hit.cu) and K7 (sparse_any_hit_idx.cu): they differ only in
+// their lists (kernels/sparse.py: window_lists and, for K7's first pass,
+// guess_lists in blocks of 512; kernels/walker.py: walker_lists in blocks of
+// 1280), in K6's form, and in the merge, a template parameter: K6 and K9
+// merge by occlusion marks, K7 by each lane's first blocking slot.
 //
 // A ray is occluded by a valid occluder triangle (pack column 10, or 31 of
 // the Plücker pack) with a forward hit at t < maxd - 1e-4; parked rays
@@ -17,19 +19,28 @@
 // walks its slots front to back with the clusters' packed rows and boxes
 // double-buffered in shared memory by cp.async.
 //
-// The merge is the occlusion mark: one byte a lane in a buffer zeroed
-// before the launch, which a unit sets to 1 when it finds a blocking hit for
-// the lane, and which nothing sets back to 0.
+// The merges. A lane has one word in a buffer that the wrapper fills before
+// the launch and that units only ever lower or set; a unit that finds a
+// blocking hit for the lane at slot s publishes it there, and the lane is
+// done for the rest of that unit. OcclusionMarks (K6, K9): one byte, 0
+// before the launch, set to 1. FirstBlockingSlot (K7): the lane's smallest
+// blocking list slot, 2^31 - 1 ("none") before the launch, lowered to s by
+// atomicMin; K7's outputs are read from it after the walk.
 //
 // Polling. In a block whose list spans more than one unit, a unit reads its
-// lanes' marks once a slot, one slot ahead so that the load overlaps the
-// slot's work, and drops a lane that is marked.
+// lanes' words once a slot, one slot ahead so that the load overlaps the
+// slot's work, and drops a lane that the word says it may drop at the slot
+// it reaches: a marked lane (OcclusionMarks), or a lane whose first blocking
+// slot is below that slot (FirstBlockingSlot). A unit of a front segment
+// must not drop a lane that only a later segment has blocked: K7 would then
+// name the later slot.
 //
 // The stop. A unit stops when none of its lanes is open with a window that
 // reaches the slot's block bound (keys[s] <= maxd + SLAB_EPS). The bounds
 // only grow along the list, and a lane's own clamped entry to a cluster is
 // never below its block's bound (cluster.cuh), so no later slot can
-// occlude a lane that the stop lets go.
+// occlude a lane that the stop lets go. (The guess lists' bounds are all 0:
+// there no unit stops before each of its lanes is blocked or dropped.)
 //
 // Why the bits do not depend on the order or the timing of the units. Let B
 // be the OR, over the slots of the lane's list, of "the slot's cluster
@@ -43,6 +54,20 @@
 // the lane tests the cluster's rows in order up to its first blocking one,
 // which is r or an earlier row; then it sets the mark. A stale read of a
 // mark only keeps a lane open longer: more work, never another bit.
+//
+// Why K7's first blocking slot does not depend on them either. Let s* be
+// the smallest slot with such a row for the lane (none where B = 0: then no
+// unit publishes and the word stays "none"). Every slot a unit publishes
+// blocks the lane, so no word ever goes below s*, and the minimum over the
+// published slots does not depend on the order of the atomics. The unit
+// that owns s* reaches it with the lane open: it drops the lane only on a
+// word below the slot it reaches, and no word is below s*; it found no
+// blocker for the lane before s* in its own slots, since s* is the
+// smallest; and its stop and gate cannot pass over s*, as above. So it
+// publishes s*, and the word ends at s*. A stale read is a word at or
+// above the current one: it only keeps a lane open longer. The cull below
+// decides which row of a cluster blocks first, not whether the cluster
+// blocks a lane whose pair tests are conditioned.
 //
 // The in-cluster box cull. The JAX package gates each SUB_TILE slice of a
 // cluster by its own box (sparse_pallas.py: cluster_sub_aabbs), and leaves
@@ -97,6 +122,40 @@ enum AnyHitCounter {
   kWalkPairsTested = 6
 };
 
+// The merge of K6 and K9 (see the top of this file): one byte a lane,
+// zeroed before the launch, set to 1 by a unit that finds a blocker.
+struct OcclusionMarks {
+  unsigned char* occ;
+  static constexpr int kUnread = 0;  // a word that drops no lane
+  __device__ __forceinline__ int read(int lane) const {
+    return reinterpret_cast<const volatile unsigned char*>(occ)[lane];
+  }
+  __device__ __forceinline__ static bool drops(int word, int) {
+    return word != 0;
+  }
+  __device__ __forceinline__ void publish(int lane, int) const {
+    occ[lane] = 1;
+  }
+};
+
+// The merge of K7: the lane's first blocking list slot, kNoSlot before the
+// launch, lowered by atomicMin. A lane is dropped at slot s only when a
+// smaller slot blocks it.
+constexpr int kNoSlot = 2147483647;
+struct FirstBlockingSlot {
+  int* first_slot;
+  static constexpr int kUnread = kNoSlot;
+  __device__ __forceinline__ int read(int lane) const {
+    return reinterpret_cast<const volatile int*>(first_slot)[lane];
+  }
+  __device__ __forceinline__ static bool drops(int word, int slot) {
+    return word < slot;
+  }
+  __device__ __forceinline__ void publish(int lane, int slot) const {
+    atomicMin(first_slot + lane, slot);
+  }
+};
+
 // Two visits' boxes and rows in shared memory. Reading the rows from global
 // memory instead, where the cull lets a lane reach them, measured level
 // (PERF.md).
@@ -118,16 +177,16 @@ __device__ __forceinline__ void stage_visit(AnyHitStage<Form>& st, int b,
   stage_cluster<Form::kCols>(st.rows[b], pack, cl);  // commits both
 }
 
-// One unit of the walk (see the top of this file). Every thread of the CTA
-// calls it.
-template <class Form, bool kCount>
+// One unit of the walk (see the top of this file), merged by ``merge``
+// (OcclusionMarks or FirstBlockingSlot). Every thread of the CTA calls it.
+template <class Form, bool kCount, class Merge>
 __device__ __forceinline__ void split_any_hit(
     AnyHitStage<Form>& st, const float* __restrict__ o3,
     const float* __restrict__ d3, const float* __restrict__ maxd, int n,
     const float* __restrict__ pack, const float* __restrict__ aabb8,
     const float* __restrict__ cull, const int* __restrict__ ids,
     const float* __restrict__ keys, const int* __restrict__ ncand,
-    int n_cols, int r_blk, unsigned char* occ,
+    int n_cols, int r_blk, const Merge merge,
     unsigned long long* __restrict__ stats) {
   const WalkUnit unit = walk_unit<kAnyHitSegment>(r_blk, n, ncand);
   if (unit.first >= unit.count) return;  // the same for every thread
@@ -154,11 +213,10 @@ __device__ __forceinline__ void split_any_hit(
   // t > T_MIN and t < md - T_MIN cannot both hold unless md - T_MIN > T_MIN
   const float t_cut = md - kTMin;
   const float gate = md + kSlabEps;
-  const bool reads = me.live && unit.shared;  // other units mark its lanes
-  const volatile unsigned char* marks = occ;
-  bool open = me.live && t_cut > kTMin;  // not occluded, can still be
-  if (reads && open) open = !marks[me.lane];
-  bool seen = false;  // the mark as read for the next slot
+  const bool reads = me.live && unit.shared;  // other units merge its lanes
+  bool open = me.live && t_cut > kTMin;  // not blocked here, can still be
+  if (reads && open) open = !Merge::drops(merge.read(me.lane), unit.first);
+  int seen = Merge::kUnread;  // the word as read for the next slot
   unsigned long long visits = 0, spans = 0, mids = 0, groups = 0, pairs = 0;
 
   const size_t row = static_cast<size_t>(me.block) * n_cols;
@@ -174,7 +232,7 @@ __device__ __forceinline__ void split_any_hit(
   int cur = 0;
   for (int s = unit.first; s < unit.end; ++s) {
     const int cl = ids[row + s];
-    if (seen) open = false;  // another unit found a blocker
+    if (Merge::drops(seen, s)) open = false;  // another unit's blocker
     wait_staged();
     // the unit's stop (decided above for the first slot); the barrier also
     // completes buffer cur and frees cur ^ 1, read in the previous step
@@ -183,7 +241,7 @@ __device__ __forceinline__ void split_any_hit(
       break;
     if (s + 1 < unit.end)
       stage_visit(st, cur ^ 1, pack, cull, ids[row + s + 1]);
-    if (reads && open) seen = marks[me.lane];
+    if (reads && open) seen = merge.read(me.lane);
     float enter;
     const bool need = open &&
                       slab_hit(aabb8 + cl * kAabbCols, ray, enter) &&
@@ -225,7 +283,7 @@ __device__ __forceinline__ void split_any_hit(
       }
       if (need && !testing) {
         open = false;
-        occ[me.lane] = 1;
+        merge.publish(me.lane, s);
       }
     }
     cur ^= 1;

@@ -16,11 +16,11 @@
 // overflow, no fallback.
 //
 // Design: the split any-hit walk with the in-cluster box cull
-// (any_hit_walk.cuh, shared with K9): units of kAnyHitSegment list slots on
-// many CTAs, merged per lane by its occlusion mark, each visited cluster's
-// rows culled by span, mid and group boxes on warp votes. The TPU kernel is one
-// sequential grid over (ray block, cluster group) work items and tests
-// every row of a cluster it visits.
+// (any_hit_walk.cuh, shared with K9 and K7): units of kAnyHitSegment list
+// slots on many CTAs, merged per lane by its occlusion mark, each visited
+// cluster's rows culled by span, mid and group boxes on warp votes. The TPU
+// kernel is one sequential grid over (ray block, cluster group) work items
+// and tests every row of a cluster it visits.
 //
 // What bounds it on an H100: the box tests and pair tests on the visited
 // clusters, and a 6 KB (18 KB Plücker) copy of rows plus 2.7 KB of boxes
@@ -49,8 +49,8 @@ sparse_any_hit_kernel(const float* __restrict__ o3,
                       unsigned long long* __restrict__ stats) {
   __shared__ ptt::AnyHitStage<Form> stage;
   ptt::split_any_hit<Form, kCount>(stage, o3, d3, maxd, n, pack, aabb8, cull,
-                                   ids, keys, ncand, n_cols, r_blk, occ,
-                                   stats);
+                                   ids, keys, ncand, n_cols, r_blk,
+                                   ptt::OcclusionMarks{occ}, stats);
 }
 
 template <class Form>

@@ -44,7 +44,7 @@ walker_any_hit_kernel(const float* __restrict__ o3,
   __shared__ ptt::AnyHitStage<ptt::ClassicForm> stage;
   ptt::split_any_hit<ptt::ClassicForm, kCount>(
       stage, o3, d3, maxd, n, tripack, aabb8, cull, ids, keys, ncand, n_cols,
-      r_blk, occ, stats);
+      r_blk, ptt::OcclusionMarks{occ}, stats);
 }
 
 }  // namespace

@@ -36,7 +36,13 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
   plus the first blocking cluster in visit order per lane, which is the
   next bounce's cache. Pass 1 sweeps each block's ``K_GUESS`` most voted
   cached clusters (``guess_lists``); pass 2 sweeps the full lists of the
-  lanes pass 1 left open, compacted when they fit ``n / CACHE_M_DIV``.
+  lanes pass 1 left open, compacted when they fit ``n / CACHE_M_DIV``. On
+  the card both passes run K6's walk (``csrc/any_hit_walk.cuh``: units,
+  cull) merged per lane by an atomicMin on its first blocking list slot,
+  so that a unit drops a lane only on a smaller slot than the one it
+  reaches; ``any_hit_walk(..., merge="first_slot")`` models that walk.
+  Choosing pass 2's form reads the open lanes' count on the host once a
+  call, where the JAX package branches on the device (``lax.cond``).
 
 **K3, the Plücker form.** K5 and K6 follow the ``MT_IMPL`` knob of
 ``kernels/intersect.py`` (or their ``mt_impl`` keyword), as
@@ -148,10 +154,12 @@ _ANY_HIT_IDX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o3, d3, maxd
     ctypes.c_int,                                       # n
     ctypes.c_void_p, ctypes.c_void_p,                   # tripack, aabb8
+    ctypes.c_void_p,                                    # cluster boxes
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, keys, ncand
     ctypes.c_int, ctypes.c_int,                         # n_cols, r_blk
     ctypes.c_void_p,                                    # first_slot scratch
     ctypes.c_void_p, ctypes.c_void_p,                   # occ_out, cl_out
+    ctypes.c_void_p,                                    # stats (or null)
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
@@ -529,7 +537,7 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
                  r_blk: int, visits: list | None = None,
                  pair: PairTest = CLASSIC, cull: torch.Tensor | None = None,
                  segment: int | None = None, order=None,
-                 counts: dict | None = None):
+                 counts: dict | None = None, merge: str = "mark"):
     """The any-hit walk of the cluster shadow sweeps in PyTorch: slot s of
     every block's list at once, with the kernels' per-lane gate, first-hit
     stop and whole-walk stop (taken per block, which changes no result).
@@ -543,20 +551,31 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
     ``cull``: the boxes of ``cluster_cull_boxes``; a lane then tests only
     the rows under the span, mid and group boxes it meets up to maxd *
     CULL_REACH (``aabb_cull_rows``), which is the walk of
-    ``csrc/any_hit_walk.cuh`` (K6, K3's sparse any-hit, K9).
+    ``csrc/any_hit_walk.cuh`` (K6, K3's sparse any-hit, K9, K7).
 
     ``segment``: that walk's units, modelled one at a time: each block's
     list is cut into segments of ``segment`` slots (None: one segment, the
     serial walk), walked in the ``order`` of their numbers (see
-    ``segment_slots``); each segment starts with the lanes that the
-    segments before it in that order left unoccluded (the marks a unit
-    reads), with its own gate and stop. Occlusion is an OR over the slots,
-    so every order gives the same bits; the visits depend on the order, as
-    the kernels' depend on when their units run.
+    ``segment_slots``), each with its own gate and stop. A lane's first
+    blocking slot is the smallest that a segment found; the cluster
+    returned is that slot's. ``merge`` says which lanes a segment starts
+    with. "mark" (K6, K9: the occlusion marks a unit reads): those that
+    the segments before it in that order left unblocked. "first_slot" (K7:
+    the first blocking slot a unit reads): those whose first blocking slot
+    among the segments before it is not below the segment's first slot.
+    Occlusion is an OR over the slots, so every order gives the same bits
+    under either merge, and under "first_slot" the same clusters; under
+    "mark" a later segment walked first names its own, later cluster. The
+    visits depend on the order, as the kernels' depend on when their units
+    run.
 
     ``counts``: a dict whose entries "visits", "pairs_tested" and, with
     ``cull``, "span_tests", "mid_tests" and "group_tests" receive what the
     kernels' counting instance counts for this walk."""
+    if merge not in ("mark", "first_slot"):
+        raise ValueError(f"merge must be 'mark' or 'first_slot', not "
+                         f"{merge!r}")
+
     def walk(rows, chunk: BlockLists):
         o3c, d3c, mdc = rows
         n, nrb = o3c.shape[1], chunk.ncand.shape[0]
@@ -564,11 +583,15 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
         md = pad_repeat_last(mdc, r_blk).reshape(nrb, 1, r_blk)
         t_cut = md - T_MIN
         can = rays.live & (t_cut > T_MIN)   # a blocking hit is possible
-        open_ = can.clone()                 # not occluded yet
+        # each lane's first blocking slot (IMAX: none) and its cluster
+        first = torch.full((nrb, 1, r_blk), IMAX, dtype=torch.int64,
+                           device=o3c.device)
         blocked = torch.full((nrb, 1, r_blk), -1, dtype=torch.int32,
                              device=o3c.device)
         for slots in segment_slots(int(chunk.ncand.max()), segment, order):
-            unit_open = open_.clone()       # what the unit reads at its start
+            # the lanes the unit starts with, by the word it reads
+            unit_open = can & ((first == IMAX) if merge == "mark"
+                               else (first >= slots.start))
             walking = torch.ones(nrb, dtype=torch.bool, device=o3c.device)
             for s in slots:
                 key = chunk.keys[:, s][:, None, None]
@@ -585,10 +608,11 @@ def any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists: BlockLists,
                     visits.append(needed.sum())
                 newly = _any_hit_visit(cluster_rows(tripack, cl), cl, rays,
                                        md, needed, pair, cull, counts)
+                # an open lane's first slot is none or a later segment's
+                first = torch.where(newly, s, first)
                 blocked = torch.where(newly, cl[:, None, None], blocked)
                 unit_open = unit_open & ~newly
-            open_ = open_ & unit_open
-        return [(can & ~open_).reshape(-1)[:n], blocked.reshape(-1)[:n]]
+        return [(first != IMAX).reshape(-1)[:n], blocked.reshape(-1)[:n]]
 
     return by_block_chunks(walk, o3, [o3, d3_unit, maxd], lists, r_blk)
 
@@ -647,7 +671,7 @@ def _add(counts: dict, key: str, mask: torch.Tensor) -> None:
 
 
 # What the counting instance of a split any-hit walk (K6, K3's sparse
-# any-hit, K9) counts, in the order of its counters
+# any-hit, K9, K7) counts, in the order of its counters
 # (csrc/cluster.cuh: WalkCounter, csrc/any_hit_walk.cuh: AnyHitCounter).
 ANY_HIT_COUNTS = ("units_launched", "units_stopped_at_once", "visits",
                   "span_tests", "mid_tests", "group_tests", "pairs_tested")
@@ -735,7 +759,12 @@ def sparse_any_hit_idx_plain(o3, d3_unit, maxd, tripack, aabb8,
                              lists: BlockLists, r_blk: int,
                              visits: list | None = None):
     """K7's plain version: (occlusion bool[N], first blocking cluster in
-    visit order i32[N], -1 where not occluded) by ``any_hit_walk``."""
+    visit order i32[N], -1 where not occluded) by ``any_hit_walk``, the
+    serial un-culled walk. The kernel walks a block's list in units on many
+    CTAs, merged by each lane's first blocking slot, and culls inside a
+    cluster; it gives the bits of this walk, and its clusters wherever no
+    pair test is ill-conditioned (its own model is ``any_hit_walk(...,
+    cull=, merge="first_slot")``)."""
     return any_hit_walk(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
                         visits)
 
@@ -831,18 +860,20 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     Returns (occ bool[N], blocked_cl i32[N]: the cluster that proved each
     occluded lane, -1 for the others).
 
-    ``occ`` is ``sparse_any_hit_cm``'s for any cache contents. Pass 1
+    ``occ`` is ``sparse_any_hit_cm``'s for any cache contents (on the card
+    K7 walks K6's culled walk, so the two agree by construction). Pass 1
     sweeps each block's ``guess_lists``: its occlusions are real triangle
     hits, so they are final. The lanes it left open re-sweep their full
     candidate lists in pass 2: compacted to ``pass2_size(N)`` lanes (the
-    tail parked) when they fit, else the whole wavefront (a cold cache).
-    ``relevant`` bool[N] (optional): lanes whose result the caller
+    tail parked) when they fit, else the whole wavefront (a cold cache);
+    ``cached_passes`` runs the two. ``relevant`` bool[N] (optional): lanes whose result the caller
     discards (False) do not vote and never reach pass 2, so exactness
     holds on relevant lanes only.
 
     Choosing the branch reads the open lanes' count on the host: one
     synchronization per call, which the JAX package's ``lax.cond`` does
-    not pay."""
+    not pay. It stays until the bounce sweep is captured in a CUDA graph,
+    which needs that choice made on the device."""
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "cached any-hit",
                                     maxd)
@@ -852,32 +883,65 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     if n == 0:
         return (torch.zeros(0, dtype=torch.bool, device=device),
                 torch.zeros(0, dtype=torch.int32, device=device))
-    sweep = (sparse_any_hit_idx_plain if device.type == "cpu"
-             else _launch_any_hit_idx)
+    cull = None if device.type == "cpu" else scene_cluster_cull_boxes(scene)
+    first, second, sel = cached_passes(o3, d3_unit, maxd, tripack, aabb8,
+                                       cull, guess_cl, relevant)
+    if sel is None:
+        return second.occ, second.cl
+    cnt = sel.shape[0]
+    return (first.occ.index_copy(0, sel, second.occ[:cnt]),
+            first.cl.index_copy(0, sel, second.cl[:cnt]))
 
-    def run(o, d, md, lists):
-        return sweep(o, d, md, tripack, aabb8, lists, R_BLK)
+
+class CachedPass(NamedTuple):
+    """One of K7's two passes as ``cached_passes`` ran it: its rays (o3,
+    d3_unit, maxd), its lists and its outputs (occ, blocked_cl)."""
+
+    rays: tuple
+    lists: BlockLists
+    occ: torch.Tensor
+    cl: torch.Tensor
+
+
+def cached_passes(o3, d3_unit, maxd, tripack, aabb8, cull, guess_cl,
+                  relevant=None):
+    """The occluder cache's two passes, as ``sparse_any_hit_cached_cm``
+    runs them on its checked inputs: K7 with the cluster boxes ``cull``,
+    or its plain version where ``cull`` is None (a CPU wavefront). Returns
+    (pass 1, pass 2, sel), each pass a ``CachedPass``: pass 1 over the
+    ``guess_lists`` of ``guess_cl`` (-1 on the lanes ``relevant`` leaves
+    out), pass 2 over the full lists of the ``sel`` lanes (i64, in lane
+    order) that pass 1 left open, compacted to ``pass2_size(N)`` lanes with
+    the tail parked at PARK_ORIGIN with window 1; ``sel`` is None where the
+    open lanes do not fit and pass 2 ran on the whole wavefront."""
+    if cull is None:
+        def run(rays, lists):
+            occ, cl = sparse_any_hit_idx_plain(*rays, tripack, aabb8, lists,
+                                               R_BLK)
+            return CachedPass(rays, lists, occ, cl)
+    else:
+        def run(rays, lists):
+            occ, cl = _launch_any_hit_idx(*rays, tripack, aabb8, lists,
+                                          R_BLK, cull)
+            return CachedPass(rays, lists, occ, cl)
 
     if relevant is not None:
         guess_cl = torch.where(relevant, guess_cl, -1)  # parked: no vote
-    occ1, cl1 = run(o3, d3_unit, maxd,
-                    guess_lists(guess_cl, aabb8.shape[0], R_BLK))
-    unfinished = ~occ1 if relevant is None else ~occ1 & relevant
+    rays = (o3, d3_unit, maxd)
+    first = run(rays, guess_lists(guess_cl, aabb8.shape[0], R_BLK))
+    unfinished = ~first.occ if relevant is None else ~first.occ & relevant
     sel = torch.nonzero(unfinished).flatten()  # stable; the host read
-    cnt, m = sel.shape[0], pass2_size(n)
+    cnt, m = sel.shape[0], pass2_size(o3.shape[1])
     if cnt > m:
-        return run(o3, d3_unit, maxd,
-                   window_lists(aabb8, o3, d3_unit, maxd, R_BLK))
-    # the survivors first, in lane order; the tail parked with window 1
+        return first, run(rays, window_lists(aabb8, *rays, R_BLK)), None
     o2 = o3.new_tensor(PARK_ORIGIN)[:, None].repeat(1, m)
     d2 = o3.new_tensor(PARK_DIR)[:, None].repeat(1, m)
-    md2 = torch.ones(m, dtype=maxd.dtype, device=device)
+    md2 = torch.ones(m, dtype=maxd.dtype, device=maxd.device)
     o2[:, :cnt] = o3[:, sel]
     d2[:, :cnt] = d3_unit[:, sel]
     md2[:cnt] = maxd[sel]
-    occ2, cl2 = run(o2, d2, md2, window_lists(aabb8, o2, d2, md2, R_BLK))
-    return (occ1.index_copy(0, sel, occ2[:cnt]),
-            cl1.index_copy(0, sel, cl2[:cnt]))
+    rays2 = (o2, d2, md2)
+    return first, run(rays2, window_lists(aabb8, *rays2, R_BLK)), sel
 
 
 def walk_words(n: int, device) -> torch.Tensor:
@@ -982,7 +1046,11 @@ def _launch_plucker_any_hit(o3, d3_unit, maxd, pack36, aabb8, lists, r_blk,
     return occ
 
 
-def _launch_any_hit_idx(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
+def _launch_any_hit_idx(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk,
+                        cull, stats=None):
+    """K7 over ``lists``: (occlusion bool[N], first blocking cluster i32[N]).
+    ``cull``: ``cluster_cull_boxes``; ``stats``: None, or the seven
+    counters of ``ANY_HIT_COUNTS`` that the walk adds to."""
     global ANY_HIT_IDX_LAUNCHES
     n = o3.shape[1]
     device = o3.device
@@ -993,10 +1061,12 @@ def _launch_any_hit_idx(o3, d3_unit, maxd, tripack, aabb8, lists, r_blk):
     fn = build.function("ptt_sparse_any_hit_idx", _ANY_HIT_IDX_ARGTYPES)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), maxd.data_ptr(), n,
-             tripack.data_ptr(), aabb8.data_ptr(), lists.ids.data_ptr(),
-             lists.keys.data_ptr(), lists.ncand.data_ptr(),
-             lists.ids.shape[1], r_blk, first_slot.data_ptr(),
-             occ.data_ptr(), blocked.data_ptr(), device.index, stream)
+             tripack.data_ptr(), aabb8.data_ptr(), cull.data_ptr(),
+             lists.ids.data_ptr(), lists.keys.data_ptr(),
+             lists.ncand.data_ptr(), lists.ids.shape[1], r_blk,
+             first_slot.data_ptr(), occ.data_ptr(), blocked.data_ptr(),
+             None if stats is None else stats.data_ptr(), device.index,
+             stream)
     if err != 0:
         raise RuntimeError(
             f"cached any-hit kernel launch failed: CUDA error {err}")

@@ -1,18 +1,25 @@
 """The split any-hit walk of the cluster shadow sweeps (K6, K3's sparse
-any-hit, K9; ``csrc/any_hit_walk.cuh``) and its in-cluster box cull:
-``any_hit_walk(..., cull=, segment=, order=)`` models the kernels, each
-block's list cut into segments of S slots walked in any order, each
-segment starting with the lanes the segments before it left unoccluded,
-each visited cluster's rows culled by span, mid and group boxes
-(``cluster_cull_boxes``). Occlusion is an OR over the slots, so every
-order must give the serial walk's bits, culled or not, and those are the
-JAX package's (its Pallas kernels in interpret mode, as
+any-hit, K9, K7; ``csrc/any_hit_walk.cuh``) and its in-cluster box cull:
+``any_hit_walk(..., cull=, segment=, order=, merge=)`` models the kernels,
+each block's list cut into segments of S slots walked in any order, each
+visited cluster's rows culled by span, mid and group boxes
+(``cluster_cull_boxes``). K6 and K9 merge by occlusion marks: a segment
+starts with the lanes the segments before it left unoccluded. K7 merges by
+each lane's first blocking slot: a segment starts with the lanes that no
+smaller slot has blocked. Occlusion is an OR over the slots, so every order
+must give the serial walk's bits, culled or not, and those are the JAX
+package's (its Pallas kernels in interpret mode, as
 tests/test_torch_sparse_anyhit.py and tests/test_torch_walker.py run
-them).
+them); under K7's merge every order must also give the serial walk's
+first blocking cluster, which K6's merge does not (the negative control).
+K7's clusters are held against the JAX kernel's in
+tests/test_torch_nee_cache.py, at the JAX package's blocks of 512: a
+lane's first blocking slot depends on its block's list, its bits do not.
 
 Tolerance: none. The field's triangles are axis-aligned, so no pair test
 is ill-conditioned and the culled walk, the un-culled serial walk and the
-JAX kernels agree bit for bit on every lane. The counts of a walk lie in
+JAX kernels agree bit for bit on every lane, and the walks' clusters
+cluster for cluster. The counts of a walk lie in
 the band of ``any_hit_visit_band`` (at least what every timing of the
 kernels' units counts, at most what their segments count when each starts
 with every lane open), and the pairs tested are at most C_TRI per visit
@@ -43,10 +50,13 @@ from torch_parity import pack_pair
 # threads, which costs more than the op where tests share the cores.
 PART = 64
 PARKED = (20, 30)
-# the kinds: (JAX any-hit the walks are held to, form, lanes a block)
+# the kinds: (JAX any-hit the walks are held to, form, lanes a block); K7
+# ("cached") walks K6's lists with its own merge
 KINDS = {"sparse": ("sparse", "classic", PART),
          "plucker": ("sparse", "plucker", PART),
-         "walker": ("walker", "classic", 3 * PART)}
+         "walker": ("walker", "classic", 3 * PART),
+         "cached": ("sparse", "classic", PART)}
+MERGES = {"cached": "first_slot"}   # the others: "mark"
 # (kind, S, order): each segment length once per kind, each with an order
 SPLITS = [(kind, segment, order) for kind in KINDS
           for segment, order in ((8, "random"), (16, "reversed"),
@@ -100,12 +110,26 @@ def _jax_form(form):
 
 
 _CASES = {}
+_JAX = {}
+
+
+def _jax_bits(ref, jax_sweep, form, rays):
+    """The JAX any-hit's bits, once per sweep and form."""
+    if (jax_sweep, form) not in _JAX:
+        jrays = [jnp.asarray(x.numpy()) for x in rays]
+        if jax_sweep == "walker":
+            bits = wk.walker_any_hit_cm(*jrays, ref)
+        else:
+            with _jax_form(form):
+                bits = sp.sparse_any_hit_cm(*jrays, ref)
+        _JAX[jax_sweep, form] = torch.from_numpy(np.array(bits))
+    return _JAX[jax_sweep, form]
 
 
 def _case(field, kind):
     """The inputs of a kind's walks and what they are held to, once per
-    kind: the serial un-culled walk's bits, the culled serial walk's bits
-    and counts, and the JAX kernel's bits."""
+    kind: the serial un-culled walk's bits and clusters, the culled serial
+    walk's bits, clusters and counts, and the JAX kernel's bits."""
     if kind not in _CASES:
         scene, ref = field
         jax_sweep, form, r_blk = KINDS[kind]
@@ -119,21 +143,17 @@ def _case(field, kind):
         pair = intersect.PLUCKER if plucker else intersect.CLASSIC
         walk = (o3, d3u, maxd, pack, aabb8, lists, r_blk)
         cull = sparse.scene_cluster_cull_boxes(scene)
-        serial = sparse.any_hit_walk(*walk, pair=pair)[0]
+        serial, serial_cl = sparse.any_hit_walk(*walk, pair=pair)
         counts, visits = {}, []
-        culled = sparse.any_hit_walk(*walk, visits, pair, cull=cull,
-                                     counts=counts)[0]
-        jrays = [jnp.asarray(x.numpy()) for x in (o3, d3u, maxd)]
-        if jax_sweep == "walker":
-            jax_bits = wk.walker_any_hit_cm(*jrays, ref)
-        else:
-            with _jax_form(form):
-                jax_bits = sp.sparse_any_hit_cm(*jrays, ref)
+        culled, culled_cl = sparse.any_hit_walk(*walk, visits, pair,
+                                                cull=cull, counts=counts)
         _CASES[kind] = dict(walk=walk, pair=pair, cull=cull, serial=serial,
-                            culled=culled, counts=counts,
+                            serial_cl=serial_cl, culled=culled,
+                            culled_cl=culled_cl, counts=counts,
                             gate=int(sum(int(v) for v in visits)),
-                            jax=torch.from_numpy(np.array(jax_bits)),
-                            bands={})
+                            jax=_jax_bits(ref, jax_sweep, form,
+                                          (o3, d3u, maxd)),
+                            merge=MERGES.get(kind, "mark"), bands={})
     return _CASES[kind]
 
 
@@ -151,6 +171,9 @@ def test_culled_walk_equals_serial_walk_and_jax(field, kind):
     culled = case["culled"]
     assert torch.equal(culled, case["serial"])
     assert torch.equal(culled, case["jax"])
+    # the cull changes which row of a cluster blocks first, not whether the
+    # cluster blocks a conditioned lane
+    assert torch.equal(case["culled_cl"], case["serial_cl"])
     mixed, down, near = culled.reshape(3, -1)
     assert 0.05 < mixed.float().mean().item() < 0.95
     assert int(case["walk"][5].ncand.max()) > 32   # S = 32 splits it
@@ -179,10 +202,14 @@ def test_split_walk_in_any_order_equals_serial_walk(field, kind, segment,
     counts, visits = {}, []
     occ, blocked = sparse.any_hit_walk(
         o3, d3u, maxd, pack, aabb8, lists, r_blk, visits, case["pair"],
-        cull=case["cull"], segment=segment, order=seq, counts=counts)
+        cull=case["cull"], segment=segment, order=seq, counts=counts,
+        merge=case["merge"])
     assert torch.equal(occ, case["culled"])
     # an occluded lane names the cluster that blocked it, an open one none
     assert bool(((blocked >= 0) == occ).all())
+    if case["merge"] == "first_slot":
+        # K7: the first blocking cluster in list order, whatever the order
+        assert torch.equal(blocked, case["serial_cl"])
     for key, (floor, ceiling) in _band(case, segment).items():
         assert floor <= counts[key] <= ceiling, (key, counts[key])
         assert floor <= case["counts"][key] <= ceiling, key
@@ -196,10 +223,46 @@ def test_front_to_back_segments_are_the_serial_walk(field, kind):
     left the lanes: the serial walk, count for count."""
     case = _case(field, kind)
     counts = {}
-    occ, _ = sparse.any_hit_walk(*case["walk"], pair=case["pair"],
-                                 cull=case["cull"], segment=16,
-                                 counts=counts)
+    occ, blocked = sparse.any_hit_walk(*case["walk"], pair=case["pair"],
+                                       cull=case["cull"], segment=16,
+                                       counts=counts, merge=case["merge"])
     assert torch.equal(occ, case["culled"]) and counts == case["counts"]
+    assert torch.equal(blocked, case["culled_cl"])
+
+
+@pytest.mark.parametrize("segment", [8, 32])
+def test_mark_merge_names_a_later_cluster_where_first_slot_does_not(
+        field, segment):
+    """The negative control of K7's merge: the segments taken back to
+    front, K6's rule (a segment drops every lane a segment before it
+    blocked) lets a back segment's cluster stand on a lane that a front
+    segment also blocks; K7's rule (drop only on a smaller slot) keeps the
+    front one. The bits are the same under both."""
+    case = _case(field, "cached")
+    lists = case["walk"][5]
+    n_seg = -(-int(lists.ncand.max()) // segment)
+    back_to_front = list(range(n_seg))[::-1]
+    got = {merge: sparse.any_hit_walk(*case["walk"], pair=case["pair"],
+                                      cull=case["cull"], segment=segment,
+                                      order=back_to_front, merge=merge)
+           for merge in ("mark", "first_slot")}
+    want = case["serial_cl"]
+    for occ, _ in got.values():
+        assert torch.equal(occ, case["culled"])
+    assert torch.equal(got["first_slot"][1], want)
+    later = got["mark"][1] != want
+    assert bool(later.any())
+    # where they differ, the mark merge's cluster sits later in the list
+    slot = lambda cl: _slots(lists, case["walk"][6], cl)
+    assert bool((slot(got["mark"][1]) > slot(want))[later].all())
+
+
+def _slots(lists, r_blk, cl):
+    """Each lane's list slot of cluster ``cl`` (a lane's cluster is on its
+    block's list once)."""
+    ids = lists.ids.to(torch.int64).repeat_interleave(r_blk, dim=0)[
+        :cl.shape[0]]
+    return (ids == cl[:, None].to(torch.int64)).long().argmax(dim=1)
 
 
 def test_cluster_boxes_hold_their_groups_across_the_padding():

@@ -105,6 +105,8 @@ def _c_parameters(source: str, entry: str) -> list[str]:
     ("sparse_any_hit.cu", "ptt_plucker_sparse_any_hit",
      sparse._ANY_HIT_ARGTYPES),
     ("walker_any_hit.cu", "ptt_walker_any_hit", sparse._ANY_HIT_ARGTYPES),
+    ("sparse_any_hit_idx.cu", "ptt_sparse_any_hit_idx",
+     sparse._ANY_HIT_IDX_ARGTYPES),
 ])
 def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     """ctypes passes what ``argtypes`` says, whatever the C entry declares:
@@ -113,8 +115,9 @@ def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     boxes and counters: o3, d3, (maxd,) n, pack, t_count, tile boxes, group
     boxes, outputs, stats, device, stream; the split nearest walks (K5 in
     both forms, K8) their scratch words before the outputs, and their
-    counters; the split any-hit walks (K6 in both forms, K9) their cluster
-    boxes after the clusters' AABBs, and their counters after the marks."""
+    counters; the split any-hit walks (K6 in both forms, K9, K7) their
+    cluster boxes after the clusters' AABBs, and their counters after the
+    marks (K7: after its scratch of first slots and its two outputs)."""
     params = _c_parameters(source, entry)
     assert len(params) == len(argtypes), params
     for decl, argtype in zip(params, argtypes):
@@ -127,6 +130,10 @@ def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     elif "occ" in names:
         assert names[names.index("aabb8") + 1] == "cull"
         assert names[names.index("occ") + 1] == "stats"
+    elif "first_slot" in names:
+        assert names[names.index("aabb8") + 1] == "cull"
+        assert names[names.index("first_slot") + 1:][:3] == [
+            "occ_out", "cl_out", "stats"]
     else:
         assert names[names.index("words") + 1:][:2] == ["t_out", "idx_out"]
     assert names[-3:] == ["stats", "device", "stream"]

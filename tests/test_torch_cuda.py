@@ -297,10 +297,10 @@ def test_sparse_any_hit_kernel_matches_plain_dense_and_walker(cuda):
 
 
 def test_cached_any_hit_kernel_matches_plain_and_uncached(cuda):
-    """K7 against its plain version on the full lists and on the guess
-    lists of the cache it returned: bits and blocking clusters, the same in
-    two runs; its two passes against K6 for a cold, a returned and a random
-    cache."""
+    """K7 against its culled model and its plain version on the full lists
+    and on the guess lists of the cache it returned: bits and blocking
+    clusters, the same in two runs; its two passes against K6 for a cold, a
+    returned and a random cache."""
     scene = _scene("boxfield2000", cuda)
     o3, d3u, maxd = _shadow_rays(scene)
     n = o3.shape[1]
@@ -319,16 +319,87 @@ def test_cached_any_hit_kernel_matches_plain_and_uncached(cuda):
         occ2, cl2 = sparse.sparse_any_hit_cached_cm(o3, d3u, maxd, scene,
                                                     guess)
         assert torch.equal(occ2, want) and torch.equal(cl2 >= 0, occ2)
+    cull = sparse.scene_cluster_cull_boxes(scene)
     for lists in (sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK),
                   sparse.guess_lists(cl, aabb8.shape[0])):
         args = (o3, d3u, maxd, tripack, aabb8, lists, sparse.R_BLK)
-        k_occ, k_cl = sparse._launch_any_hit_idx(*args)
-        again = sparse._launch_any_hit_idx(*args)
+        k_occ, k_cl = sparse._launch_any_hit_idx(*args, cull)
+        again = sparse._launch_any_hit_idx(*args, cull)
         p_occ, p_cl = sparse.sparse_any_hit_idx_plain(*args)
+        m_occ, m_cl = sparse.any_hit_walk(*args, cull=cull,
+                                          merge="first_slot")
         torch.cuda.synchronize()
         assert torch.equal(k_occ, again[0]) and torch.equal(k_cl, again[1])
+        assert torch.equal(k_occ, m_occ) and torch.equal(k_cl, m_cl)
         assert (k_occ == p_occ).float().mean().item() >= MIN_AGREE
         assert (k_cl == p_cl).float().mean().item() >= MIN_AGREE
+
+
+@pytest.mark.parametrize("which", ["full", "guess"])
+@pytest.mark.parametrize("scene_name", ["large", "cornell"])
+def test_cached_any_hit_kernel_equals_culled_model(cuda, scene_name, which):
+    """K7 on the full lists (of many segments on the 2000-box field, of one
+    on the Cornell stand-in) and on the guess lists of a cold call's cache:
+    bits and first blocking clusters equal to its culled model's on every
+    lane, the counting instance's too, its units those the lists give, its
+    counts inside their band, and its bits K6's."""
+    scene = _scene(scene_name, cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    cull = sparse.scene_cluster_cull_boxes(scene)
+    if which == "full":
+        lists = sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK)
+    else:
+        cold = torch.full((o3.shape[1],), -1, dtype=torch.int32, device=cuda)
+        cache = sparse.sparse_any_hit_cached_cm(o3, d3u, maxd, scene, cold)[1]
+        lists = sparse.guess_lists(cache, aabb8.shape[0])
+    args = (o3, d3u, maxd, tripack, aabb8, lists, sparse.R_BLK)
+    counts = {}
+    m_occ, m_cl = sparse.any_hit_walk(*args, cull=cull, counts=counts,
+                                      merge="first_slot")
+    stats = torch.zeros(len(sparse.ANY_HIT_COUNTS), dtype=torch.int64,
+                        device=cuda)
+    c_occ, c_cl = sparse._launch_any_hit_idx(*args, cull, stats)
+    occ, cl = sparse._launch_any_hit_idx(*args, cull)
+    torch.cuda.synchronize()
+    assert bool(occ.any()) and not bool(occ.all())
+    for got_occ, got_cl in ((occ, cl), (c_occ, c_cl)):
+        assert torch.equal(got_occ, m_occ) and torch.equal(got_cl, m_cl)
+    if which == "full":
+        assert torch.equal(occ, sparse._launch_any_hit(*args, cull))
+    got = sparse.any_hit_stats(stats)
+    assert got["units_launched"] == sparse.walk_units(
+        lists, sparse.R_BLK, sparse.ANY_HIT_SEGMENT)
+    band = sparse.any_hit_visit_band(*args, m_occ, sparse.ANY_HIT_SEGMENT,
+                                     intersect.CLASSIC, cull)
+    for key, (floor, ceiling) in band.items():
+        assert floor <= got[key] <= ceiling, (key, got[key], floor, ceiling)
+    if int(lists.ncand.max()) <= sparse.ANY_HIT_SEGMENT:
+        # one unit a block slice: the serial walk, count for count
+        assert {k: got[k] for k in counts} == counts
+
+
+def test_cached_any_hit_entry_refuses_null_boxes(cuda):
+    """cudaErrorInvalidValue (1) without the cluster boxes."""
+    scene = _scene("large", cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    lists = sparse.window_lists(aabb8, o3, d3u, maxd, sparse.R_BLK)
+    fn = build.function("ptt_sparse_any_hit_idx",
+                        sparse._ANY_HIT_IDX_ARGTYPES)
+    n = o3.shape[1]
+    first = torch.full((n,), intersect.IMAX, dtype=torch.int32, device=cuda)
+    occ = torch.empty(n, dtype=torch.bool, device=cuda)
+    cl = torch.empty(n, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert fn(o3.data_ptr(), d3u.data_ptr(), maxd.data_ptr(), n,
+              tripack.data_ptr(), aabb8.data_ptr(), None,
+              lists.ids.data_ptr(), lists.keys.data_ptr(),
+              lists.ncand.data_ptr(), lists.ids.shape[1], sparse.R_BLK,
+              first.data_ptr(), occ.data_ptr(), cl.data_ptr(), None,
+              cuda.index or 0, stream) == 1
 
 
 # K3, the Plücker form, and the probes P1 and P2.

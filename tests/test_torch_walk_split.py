@@ -48,6 +48,16 @@ LISTS = {"512": 512, "1024": 1024, "walker": walker.R_BLK}
 ORDERS = ("front", "reversed", "random")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def field():
     """box_field(80): 964 triangles in morton order, 8 clusters, so a list
