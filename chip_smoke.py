@@ -110,6 +110,33 @@ phase fails:
      Cornell (K3's dense any-hit), each held against the classic render of
      the same cell (mean abs diff < 1e-3, 99.9th percentile < 0.05) and,
      at 32x32, against the CPU render;
+3g. gradients (the training path; every check fails the run):
+   - the slice through its entry point: ``apps.fit_albedo.run`` on the
+     card for 10 steps (the Cornell stand-in at 128x128, 2 spp, 2 bounces,
+     3 NEE samples; ``mat_rgb`` and ``light_color`` by Adam): the losses
+     are printed and must fall; K1 and K2 launched once per sample pass
+     and bounce of each step and of its two renders, and no kernel in the
+     backwards;
+   - step 0 of that configuration on the card against the plain versions
+     on the CPU: the gradients of mat_rgb, light_color, ambient, tri_v0,
+     light_v0, eye and ortho within GRAD_RTOL in relative L2 per field;
+   - K1 under ``NearestTIdx`` and K2 under ``NeeMeanCos`` give the no-grad
+     call's t, idx, mc and occ bit for bit on the Cornell camera's 512x512x4
+     lanes, and their backwards (K3's dense nearest's too) are timed
+     alone there;
+   - one training step at the bench configuration (Cornell 512x512, 4 spp,
+     4 bounces, 3 NEE samples, batch_samples) with material, emission and
+     vertex params: ms of the forward alone, of forward and backward, of a
+     whole step and of the no-grad render (CUDA events, median of 10 after
+     2 warm-ups), the fwd:bwd ratio, the peak memory, the launches of one
+     step, whether two runs of its gradients are bit-equal, and one
+     backward under torch.profiler (device busy, top operators);
+   - tri_v0's gradient on the 100k field at 128x128 through accel="auto"
+     (K5, K9 detached), "walker" (K8) and "sparse" under
+     ``mt_impl="plucker"`` (K3's sparse nearest) against accel="none" (K1;
+     K3's dense nearest for the Plücker form) within GRAD_RTOL, and the
+     backward of K5's, K8's and K3's sparse nearest sweep timed alone on
+     the field's primary rays and pack;
 4. timing: ms per render (CUDA events, 2 warm-up renders, median of 10)
    and Mrays/s counted two ways, for the Cornell cell, the 300-box field
    and the 100k-triangle field through the hybrid, sparse, sparse with
@@ -143,7 +170,13 @@ beside the pairs tested, needed and all and the shares of tiles and groups
 skipped. The library is built with -fmad=false, so the 67 TFLOP/s, which
 count a fused multiply-add as two, are twice what its un-fused code can
 reach. No single PyTorch call computes a ray-triangle sweep, so
-``library_ms`` is null. The last line is ``{"ok": true, "device": {...}}``.
+``library_ms`` is null. Each row names its kernel's ``backward``: the
+nearest sweeps' (K1, K3's nearest sweeps, K5, K8) and the fused NEE's (K2)
+re-solve in plain PyTorch, with ``backward_ms``, one call on the kernel's
+own wavefront and pack (K1, K3's dense nearest and K2 the Cornell bench's
+primary rays, K5, K8 and K3's sparse nearest the 100k field's); "none
+(detached)" for the any-hits. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2000,6 +2033,427 @@ def phase3_render(cornell, large, many) -> dict:
             "K9": large_counts["K9"]}
 
 
+# The gradient phase: the fit_albedo slice and the backwards. Card against
+# CPU: the same params, target and key, the kernels against their plain
+# versions; the card's rsqrt, sin, cos and its summation order (atomics in
+# the backward's scatters) round differently, so each field's gradient may
+# differ in the last bits, and a grazing ray that flips a winner would move
+# a field by far more. Relative L2 per field.
+FIT_STEPS = 10    # of apps/fit_albedo.py, at its own configuration
+GRAD_RTOL = 1e-4
+GRAD_FIELDS = ("mat_rgb", "light_color", "ambient", "tri_v0", "light_v0",
+               "eye", "ortho")
+# the training step of the bench configuration (the Cornell cell)
+STEP_FIELDS = ("mat_rgb", "mat_ka", "mat_kd", "light_color", "ambient",
+               "tri_v0", "tri_v1", "tri_v2", "light_v0", "light_v1",
+               "light_v2")
+HIER_SIZE = 128   # the 100k field's hierarchy gradients
+NEAREST_BACKWARD = ("NearestTIdx.backward: intersect.nearest_bwd, each "
+                    "winner re-solved with ops/geometry.py:intersect_moller "
+                    "in plain PyTorch")
+NEE_BACKWARD = ("NeeMeanCos.backward: nee.smooth_mean_cos recomputed in "
+                "plain PyTorch, occlusion fixed")
+NO_BACKWARD = "none (detached)"
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = want.norm().item()
+    return (got - want).norm().item() / scale if scale > 0 else (
+        got.norm().item())
+
+
+def camera_grads(scene, cfg, params: dict, target, key) -> tuple:
+    """(loss, {field: grad}) of ``camera_pixel_loss`` at ``params``."""
+    from pathtracerpython_tpu_torch.diff import (
+        camera_pixel_loss,
+        make_render_fn,
+    )
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    pids = torch.arange(scene.meta.width * scene.meta.height,
+                        device=scene.device)
+    loss = camera_pixel_loss(leaves, scene, target, make_render_fn(cfg),
+                             pids, key)
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in leaves.items()}
+
+
+def hold_grads(label, got: dict, want: dict, bound_: float) -> dict:
+    errs = {k: rel_l2(got[k], want[k]) for k in want}
+    for k, g in got.items():
+        if not torch.isfinite(g).all():
+            fail(f"{label}: the gradient of {k} is not finite")
+    log(f"[3g] {label}: relative L2 per field " + json.dumps(errs))
+    worst = max(errs, key=errs.get)
+    if errs[worst] > bound_:
+        fail(f"{label}: {worst} differs by {errs[worst]} (relative L2), "
+             f"bound {bound_}")
+    return errs
+
+
+def grad_fit_slice(card: str) -> dict:
+    """The slice through its entry point: ``apps.fit_albedo.run`` on the
+    card for FIT_STEPS steps, with the launch counts set to 0 just before
+    and read just after; the loss must fall."""
+    import tempfile
+
+    from pathtracerpython_tpu_torch.apps import fit_albedo
+
+    with tempfile.TemporaryDirectory() as out:
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fit_albedo.run(steps=FIT_STEPS, out_dir=out, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(out, "result.json")) as f:
+            losses = json.load(f)["losses"]
+    log(f"[3g] fit_albedo {FIT_STEPS} steps on {result['device']} ({card}): "
+        f"losses {losses}; {wall:.3f} s wall with its two renders; "
+        f"launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"fit_albedo: the loss did not fall: {losses}")
+    # one launch per sample pass and bounce of each step and of the target
+    # and fitted renders; the backwards launch none
+    want = fit_albedo.SPP * fit_albedo.BOUNCES * (FIT_STEPS + 2)
+    if launches["K1"] != want or launches["K2"] != want:
+        fail(f"fit_albedo: K1 {launches['K1']} and K2 {launches['K2']} "
+             f"launches, expected {want} each")
+    return {"losses": losses, "launches": launches,
+            "max_albedo_err": result["max_albedo_err"],
+            "scene": result["scene"]}
+
+
+
+def grad_card_vs_cpu() -> dict:
+    """Step 0 of the fit_albedo configuration: the gradients of GRAD_FIELDS
+    on the card and with the plain versions on the CPU."""
+    from pathtracerpython_tpu_torch.apps import fit_albedo
+    from pathtracerpython_tpu_torch.ops import rng
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    scene, what = fit_albedo.load_fit_scene(None, "cuda")
+    cfg = RenderConfig(mode="fast", n_samples=fit_albedo.SPP,
+                       n_bounces=fit_albedo.BOUNCES,
+                       n_light_samples=fit_albedo.NEE_SAMPLES)
+    with torch.no_grad():
+        target = render(scene, cfg, seed=0)
+    params = {f: getattr(scene, f) for f in GRAD_FIELDS}
+    params["mat_rgb"] = scene.mat_rgb * 0.25
+    params["light_color"] = scene.light_color * 2.0
+    key = rng.split(0)[1]  # fit's first step
+    loss_c, got = camera_grads(scene, cfg, params, target, key)
+    cpu = scene.to("cpu")
+    loss_h, want = camera_grads(cpu, cfg, {k: v.cpu() for k, v in
+                                           params.items()},
+                                target.cpu(), key)
+    log(f"[3g] step 0 of fit_albedo ({what}): loss "
+        f"{loss_c!r} on the card, {loss_h!r} on the CPU")
+    errs = hold_grads("card against CPU, step 0", got, want, GRAD_RTOL)
+    return {"loss_card": loss_c, "loss_cpu": loss_h, "rel_l2": errs}
+
+
+def grad_forward_bits(cornell, card: str) -> dict:
+    """K1 under NearestTIdx and K2 under NeeMeanCos give the no-grad call's
+    bits, on the Cornell camera's 512^2 primary rays; and the backwards
+    timed alone there (CUDA events, mean of 20 after 3 warm-ups)."""
+    import dataclasses as dc
+
+    from pathtracerpython_tpu_torch.kernels import intersect, nee
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.ops.gather import cm_take
+    from pathtracerpython_tpu_torch.ops.geometry import normalize3
+    from pathtracerpython_tpu_torch.render.integrator import (
+        arrival_side_normal,
+    )
+
+    w = cornell.meta.width
+    o, d = make_primary_rays(cornell.eye, cornell.ortho, w, w)
+    o3 = o.T.repeat(1, CORNELL_SPP).contiguous()
+    d3 = normalize3(d.T.repeat(1, CORNELL_SPP)).contiguous()
+    n = o3.shape[1]
+    t0, i0 = intersect.nearest_t_idx_cm(o3, d3, cornell)
+    o3g = o3.clone().requires_grad_(True)
+    leaves = {f: getattr(cornell, f).clone().requires_grad_(True)
+              for f in ("tri_v0", "tri_v1", "tri_v2", "light_v0", "light_v1",
+                        "light_v2")}
+    sc = dc.replace(cornell, **leaves)
+    reset_launches()
+    t1, i1 = intersect.nearest_t_idx_cm(o3g, d3, sc)
+    k1 = read_launches()["K1"]
+    if not (torch.equal(t1.detach(), t0) and torch.equal(i1, i0)):
+        fail("K1 under NearestTIdx: t or idx differ from the no-grad call")
+    point3 = (o3 + d3 * t0[None]).contiguous()
+    normal3 = arrival_side_normal(
+        cm_take(cornell.tri_normal.T, i0.clamp_min(0).to(torch.int64)),
+        d3).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.rand((5 * NEE_SAMPLES, n), generator=gen, device="cuda")
+    mc0, occ0 = nee.nee_mean_cos_fused(point3, normal3, u, cornell,
+                                       NEE_SAMPLES)
+    p3g = point3.clone().requires_grad_(True)
+    n3g = normal3.clone().requires_grad_(True)
+    reset_launches()
+    mc1, occ1 = nee.nee_mean_cos_fused(p3g, n3g, u, sc, NEE_SAMPLES)
+    k2 = read_launches()["K2"]
+    if not (torch.equal(mc1.detach(), mc0) and torch.equal(occ1, occ0)):
+        fail("K2 under NeeMeanCos: mc or occ differ from the no-grad call")
+    log(f"[3g] K1 under NearestTIdx and K2 under NeeMeanCos on {n} lanes: "
+        f"t, idx, mc and occ bit-equal to the no-grad calls ({k1} K1 and "
+        f"{k2} K2 launch, the forwards only)")
+    g = torch.randn((1, n), generator=gen, device="cuda")
+    nee_in = [p3g, n3g, *(leaves[f] for f in ("light_v0", "light_v1",
+                                              "light_v2"))]
+
+    def nee_bwd():
+        torch.autograd.grad(mc1, nee_in, g, retain_graph=True)
+
+    for _ in range(3):
+        nee_bwd()
+    times = {
+        "nearest": nearest_backward_ms(
+            "K1", lambda o, sc: intersect.nearest_t_idx_cm(o, d3, sc)[0],
+            o3, cornell),
+        "nearest plucker": nearest_backward_ms(
+            "K3 nearest", lambda o, sc: intersect.nearest_t_idx_cm(
+                o, d3, sc, mt_impl="plucker")[0], o3, cornell),
+        "nee": cuda_ms(nee_bwd, 20)}
+    log(f"[3g] backwards alone on the {n}-lane wavefront ({card}): "
+        f"NearestTIdx {times['nearest']:.4f} ms under K1, "
+        f"{times['nearest plucker']:.4f} ms under K3's dense nearest, "
+        f"NeeMeanCos {times['nee']:.4f} ms a call")
+    return {"lanes": n, "nearest_backward_ms": times["nearest"],
+            "plucker_nearest_backward_ms": times["nearest plucker"],
+            "nee_backward_ms": times["nee"]}
+
+
+def nearest_backward_ms(key: str, sweep, o3, scene) -> float:
+    """ms of one ``NearestTIdx`` backward (CUDA events, mean of 20 after 3
+    warm-ups) on the wavefront of ``o3`` against ``scene``'s own pack, with
+    ``o3`` and the three vertex tensors requiring grad: ``sweep(o3, scene)
+    -> t`` is the entry that launches the kernel ``key``, once."""
+    o3g = o3.detach().clone().requires_grad_(True)
+    leaves = {f: getattr(scene, f).detach().clone().requires_grad_(True)
+              for f in ("tri_v0", "tri_v1", "tri_v2")}
+    reset_launches()
+    t = sweep(o3g, dataclasses.replace(scene, **leaves))
+    launched = read_launches()[key]
+    if launched != 1:
+        fail(f"the backward timing of {key}: {launched} launches of {key}, "
+             "expected 1")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.randn(t.shape[0], generator=gen, device="cuda")
+    inputs = [o3g, *leaves.values()]
+
+    def bwd():
+        torch.autograd.grad(t, inputs, dt, retain_graph=True)
+
+    for _ in range(3):
+        bwd()
+    return cuda_ms(bwd, 20)
+
+
+def grad_train_step(cornell, card: str) -> dict:
+    """One training step at the bench configuration (Cornell 512^2, 4 spp,
+    4 bounces, 3 NEE, batch_samples) with material, emission and vertex
+    params: ms of the forward alone (the loss with its graph), of forward
+    and backward, of a whole step (Adam included) and of the no-grad
+    render, by CUDA events, median of 10 after 2 warm-ups; peak memory;
+    launches of one step; and whether two runs give the same bits."""
+    from pathtracerpython_tpu_torch.diff import (
+        adam,
+        camera_pixel_loss,
+        make_render_fn,
+        make_train_step,
+    )
+    from pathtracerpython_tpu_torch.diff.inverse import apply_params
+    from pathtracerpython_tpu_torch.ops import rng
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
+                       n_bounces=CORNELL_BOUNCES,
+                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+    with torch.no_grad():
+        target = render(cornell, cfg, seed=0)
+    params = {f: getattr(cornell, f).detach().clone().requires_grad_(True)
+              for f in STEP_FIELDS}
+    with torch.no_grad():
+        params["mat_rgb"].mul_(0.5)
+    pids = torch.arange(target.shape[0], device="cuda")
+    render_fn = make_render_fn(cfg)
+    keys = iter(rng.split(0, 64))
+
+    def fwd():
+        return camera_pixel_loss(params, cornell, target, render_fn, pids,
+                                 next(keys))
+
+    def fwd_bwd():
+        for p in params.values():
+            p.grad = None
+        fwd().backward()
+
+    def no_grad_render():
+        with torch.no_grad():
+            sc = apply_params(cornell, params)
+            render(sc, cfg, seed=next(keys))
+
+    opt = adam(0.01)(list(params.values()))
+    step = make_train_step(opt, cornell, cfg, target)
+    times = {name: statistics.median(timed_runs(fn, warmup=2, reps=10))
+             for name, fn in (("render_no_grad", no_grad_render),
+                              ("forward", fwd), ("forward_backward", fwd_bwd),
+                              ("step", lambda: step(params, next(keys))))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step(params, rng.split(1)[1])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # two runs of one step's gradients from the same params and key
+    runs = []
+    for _ in range(2):
+        for p in params.values():
+            p.grad = None
+        camera_pixel_loss(params, cornell, target, render_fn, pids,
+                          (0, 5)).backward()
+        runs.append({k: p.grad.clone() for k, p in params.items()})
+    same = {k: bool(torch.equal(runs[0][k], runs[1][k])) for k in params}
+    trace = profile_backward(lambda: camera_pixel_loss(
+        params, cornell, target, render_fn, pids, (0, 6)), card)
+    backward = times["forward_backward"] - times["forward"]
+    row = {
+        "cell": (f"train step cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp "
+                 f"{CORNELL_BOUNCES}b {NEE_SAMPLES}nee"),
+        "card": card, "params": list(STEP_FIELDS),
+        **{f"{k}_ms": v for k, v in times.items()},
+        "backward_ms": backward, "fwd_bwd_ratio": times["forward"] / backward,
+        "peak_memory_bytes": peak, "launches_per_step": launches,
+        "grads_bit_equal_across_two_runs": same, "backward_trace": trace,
+    }
+    log(f"[3g] training step ({card}): forward {times['forward']:.3f} ms, "
+        f"forward+backward {times['forward_backward']:.3f} ms (backward "
+        f"{backward:.3f} ms, fwd:bwd {row['fwd_bwd_ratio']:.3f}), whole step "
+        f"{times['step']:.3f} ms, the no-grad render {times['render_no_grad']:.3f} "
+        f"ms; peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
+        f"gradients bit-equal across two runs: {same}")
+    if launches["K1"] != CORNELL_BOUNCES or launches["K2"] != CORNELL_BOUNCES:
+        fail(f"training step: launches {launches}")
+    return row
+
+
+def profile_backward(loss_fn, card: str, top: int = 6) -> dict:
+    """One backward of ``loss_fn()`` under torch.profiler: its device busy
+    ms, its device kernels, and the ``top`` operators by self device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss = loss_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        fail("profile of the backward: the trace shows no device kernel")
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:top]
+    row = {"device_busy_ms": sum(e.self_device_time_total
+                                 for e in kernels) / 1e3,
+           "device_kernels": sum(e.count for e in kernels),
+           "top_ops_ms": {e.key: [e.self_device_time_total / 1e3, e.count]
+                          for e in ops}}
+    log(f"[3g] one backward under torch.profiler ({card}): device busy "
+        f"{row['device_busy_ms']:.3f} ms in {row['device_kernels']} device "
+        f"kernels; top operators [ms, calls] {json.dumps(row['top_ops_ms'])}")
+    return row
+
+
+def grad_hierarchies() -> dict:
+    """tri_v0's gradient through the hierarchies on the 100k field at
+    HIER_SIZE^2 (1 spp, 2 bounces): accel="auto" (K5, K9 detached),
+    "walker" (K8, K9) and "sparse" under mt_impl="plucker" (K3's sparse
+    nearest, its any-hit detached) against accel="none" (K1 and K2; K3's
+    dense nearest and K2 for the Plücker form), each with its launches;
+    and the backward of each hierarchy's nearest sweep timed alone on the
+    field's primary rays and pack."""
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.ops.geometry import (
+        nearest_hit_cm,
+        normalize3,
+    )
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import box_field_scene
+
+    scene = pack_scene(box_field_scene(n_boxes=LARGE_BOXES, width=HIER_SIZE,
+                                       height=HIER_SIZE), tri_order="morton")
+    base = RenderConfig(mode="fast", n_samples=1, n_bounces=2,
+                        n_light_samples=NEE_SAMPLES)
+    with torch.no_grad():
+        target = 0.5 * render(scene, base, seed=1)
+    params = {"tri_v0": scene.tri_v0}
+    out = {}
+
+    def run(label, **kw):
+        reset_launches()
+        loss, grads = camera_grads(scene, dataclasses.replace(base, **kw),
+                                   params, target, (0, 2))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        log(f"[3g] 100k field {HIER_SIZE}^2 {label}: loss {loss!r}, "
+            f"|d tri_v0| {grads['tri_v0'].norm().item():.6g}, launches "
+            f"{launches}")
+        return grads, launches
+
+    dense, out["none"] = run("accel='none'", accel="none")
+    dense_p, out["none plucker"] = run("accel='none' mt_impl='plucker'",
+                                       accel="none", mt_impl="plucker")
+    o, d = make_primary_rays(scene.eye, scene.ortho, HIER_SIZE, HIER_SIZE)
+    o3, d3u = o.T.contiguous(), normalize3(d.T).contiguous()
+    errs, backward_ms = {}, {}
+    for label, kw, want, ref in (
+            ("accel='auto'", {}, ("K5", "K9"), dense),
+            ("accel='walker'", dict(accel="walker"), ("K8", "K9"), dense),
+            ("accel='sparse' mt_impl='plucker'",
+             dict(accel="sparse", mt_impl="plucker"),
+             ("K3 sparse nearest", "K3 sparse any-hit"), dense_p)):
+        grads, out[label] = run(label, **kw)
+        if any(out[label].get(k, 0) < 1 for k in want):
+            fail(f"100k field {label}: {want} not launched: {out[label]}")
+        errs[label] = hold_grads(f"100k field {label} against accel='none'",
+                                 grads, ref, GRAD_RTOL)["tri_v0"]
+        backward_ms[want[0]] = nearest_backward_ms(
+            want[0], lambda o, sc, kw=kw: nearest_hit_cm(
+                o, d3u, sc, **{"accel": "auto", **kw}).t, o3, scene)
+    log(f"[3g] NearestTIdx backward alone on the 100k field's "
+        f"{o3.shape[1]} primary rays, ms a call: " + json.dumps(backward_ms))
+    return {"launches": out, "rel_l2": errs, "backward_ms": backward_ms}
+
+
+def phase3_grad(cornell, card: str) -> dict:
+    """The gradient path: the slice, card against CPU, the Functions'
+    forward bits and the backwards' times, the training step at the bench
+    configuration and the hierarchies' gradients. A failure fails the
+    run."""
+    report = {"fit_albedo": grad_fit_slice(card),
+              "card_vs_cpu": grad_card_vs_cpu(),
+              "forward_bits": grad_forward_bits(cornell, card),
+              "train_step": grad_train_step(cornell, card),
+              "hierarchies": grad_hierarchies()}
+    log("[3g] gradients " + json.dumps(report))
+    return report
+
+
 def time_render(label, scene, spp, bounces, reps: int = 10,
                 nee: int = NEE_SAMPLES, **cfg_kw) -> dict:
     from pathtracerpython_tpu_torch.render.config import RenderConfig
@@ -2157,6 +2611,7 @@ def main() -> None:
     rows = phase2_kernels([("cornell", cornell), ("boxfield", field)], morton,
                           many, large)
     launches = {**phase3_render(cornell, large, many), **phase3_probes()}
+    grads = phase3_grad(cornell, card)
     large_label = (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp "
                    f"{LARGE_BOUNCES}b")
     cell_args = [
@@ -2205,6 +2660,19 @@ def main() -> None:
                    "K3 nearest morton", "K2 morton", "K4 morton",
                    "K1 large100k")}))
 
+    # the backward of each kernel that has one: its name and its ms a call
+    # on the kernel's own wavefront (K1, K3's dense nearest and K2 the
+    # Cornell bench's primary rays; K5, K8 and K3's sparse nearest the 100k
+    # field's); the any-hits are detached
+    bits, hier = grads["forward_bits"], grads["hierarchies"]["backward_ms"]
+    BACKWARDS = {"K1": (NEAREST_BACKWARD, bits["nearest_backward_ms"]),
+                 "K3 nearest": (NEAREST_BACKWARD,
+                                bits["plucker_nearest_backward_ms"]),
+                 "K5": (NEAREST_BACKWARD, hier["K5"]),
+                 "K8": (NEAREST_BACKWARD, hier["K8"]),
+                 "K3 sparse nearest": (NEAREST_BACKWARD,
+                                       hier["K3 sparse nearest"]),
+                 "K2": (NEE_BACKWARD, bits["nee_backward_ms"])}
     # each kernel at its main path's first wavefront: K1, K2 the Cornell
     # primary rays, K4 the first shadow rays of the 300-box field's render
     # with 9 NEE samples (the render its launches are counted on), K3's
@@ -2249,6 +2717,9 @@ def main() -> None:
                       "K3 any-hit": "boxfield bounce 1"}.get(
                           key, rows[key][0]["label"])
         first = next(r for r in rows[key] if r["label"] == main_label)
+        backward = BACKWARDS.get(key, (NO_BACKWARD if key.startswith("K")
+                                       else "none (a probe: no training "
+                                       "path runs it)", None))
         kernels.append({
             "name": entry, "route": "cuda",
             "source": f"pathtracerpython_tpu_torch/csrc/{src}",
@@ -2257,6 +2728,8 @@ def main() -> None:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
+            "backward": backward[0],
+            **({"backward_ms": backward[1]} if backward[1] else {}),
             **{k: first[k] for k in CULL_KEYS if k in first},
             **({k: first[k] for k in ANY_HIT_WALK_KEYS}
                if "gate_pairs" in first else {}),

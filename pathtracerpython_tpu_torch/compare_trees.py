@@ -31,7 +31,11 @@ by name; default all):
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
   forms; the 100k field (512x512, 2 spp, 3 bounces) through the hybrid,
   sparse, sparse with the occluder cache and walker hierarchies, and
-  sparse and hybrid under ``mt_impl="plucker"``.
+  sparse and hybrid under ``mt_impl="plucker"``; for each render also the
+  launches of every kernel in that render (the kernels' module counts,
+  set to 0 just before) and, from one more render under
+  ``torch.profiler``, the device busy ms (the device kernels' self time)
+  and the number of device kernels.
 
 ``--worker`` makes one such run in checkout ``TREE`` alone, and writes
 its times to ``STEM.json`` (with ``--no-renders`` it times the kernels
@@ -40,7 +44,9 @@ say, run it once per tree in turns.
 
 It prints, and writes to ``FILE`` as JSON, every run's times by wavefront,
 the largest absolute difference of each render between every change run
-and every parent run, and between the two runs of each checkout. Needs a
+and every parent run, and between the two runs of each checkout, and
+each render's launches and device busy ms by run, with whether the
+launches of all four runs are equal. Needs a
 CUDA device; nothing here runs on the CPU.
 """
 
@@ -240,6 +246,41 @@ def _ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _launch_counts(port) -> dict:
+    """The kernels' launch counts (every module int named *LAUNCHES)."""
+    return {f"{m.rsplit('.', 1)[1]}.{name}": value
+            for m in ("kernels.intersect", "kernels.nee", "kernels.sparse",
+                      "kernels.walker")
+            for name, value in vars(port[m]).items()
+            if name.endswith("LAUNCHES") and isinstance(value, int)}
+
+
+def _render_record(port, render) -> dict:
+    """``render()``'s launches (the counts set to 0 just before), and the
+    device busy ms and device kernels of one more ``render()`` under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for key in _launch_counts(port):
+        module, name = key.split(".")
+        setattr(port[f"kernels.{module}"], name, 0)
+    render()
+    torch.cuda.synchronize()
+    launches = _launch_counts(port)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return {"launches": launches,
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3,
+            "device_kernels": sum(e.count for e in kernels)}
+
+
 def worker(tree: str, out: str, cells, renders: bool = True) -> None:
     """One run in one checkout: times to ``out`` + ".json", renders (unless
     ``renders`` is False) to ``out`` + "_<cell>_<render>.pt"."""
@@ -255,11 +296,11 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison runs on the card")
     port = {m: importlib.import_module(f"pathtracerpython_tpu_torch.{m}")
-            for m in ("kernels.intersect", "kernels.sparse", "kernels.walker",
-                      "ops.rng", "ops.camera", "ops.geometry", "ops.sort",
+            for m in ("kernels.intersect", "kernels.nee", "kernels.sparse",
+                      "kernels.walker", "ops.rng", "ops.camera", "ops.geometry", "ops.sort",
                       "render.config", "render.integrator", "scene.arrays",
                       "scene.synthetic")}
-    times = {}
+    times, records = {}, {}
     for cell in cells:
         scene = _scene(port, cell)
         _, _, wave_spp, spp, bounces, cell_renders = CELLS[cell]
@@ -280,10 +321,13 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
                           **kw)
             rad = port["render.integrator"].render(scene, cfg, seed=0)
             torch.save(rad.cpu(), f"{out}_{cell}_{name}.pt")
+            records[f"{cell} {name}"] = _render_record(
+                port, lambda cfg=cfg: port["render.integrator"].render(
+                    scene, cfg, seed=0))
         del scene
         torch.cuda.empty_cache()
     with open(out + ".json", "w") as f:
-        json.dump(times, f)
+        json.dump({"times": times, "renders": records}, f)
 
 
 def compare(other: str, work: str, cells) -> dict:
@@ -303,7 +347,17 @@ def compare(other: str, work: str, cells) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     result = {"card": smi, "order": list(ORDER), "kernel_ms": {},
-              "radiance_max_abs_diff": {}}
+              "radiance_max_abs_diff": {}, "renders": {}}
+    for key, record in runs[0][2]["renders"].items():
+        per_run = [r["renders"][key] for _, _, r in runs]
+        result["renders"][key] = {
+            "launches_equal": all(r["launches"] == record["launches"]
+                                  for r in per_run),
+            "launches": record["launches"],
+            "device_busy_ms": [r["device_busy_ms"] for r in per_run],
+            "device_kernels": [r["device_kernels"] for r in per_run],
+        }
+    runs = [(side, out, r["times"]) for side, out, r in runs]
     for key in runs[0][2]:
         result["kernel_ms"][key] = {
             side: [t for s, _, r in runs if s == side for t in r[key]]

@@ -1,0 +1,191 @@
+"""Inverse rendering: differentiate the wavefront integrator with respect to
+scene parameters and fit them to target images, as the JAX package's
+``diff/inverse.py`` does, with ``torch.autograd`` and ``torch.optim``.
+
+Parameters are a dict of ``SceneTensors`` field overrides (tensors that
+require grad). Supported:
+
+- material fields (``mat_rgb``, ``mat_ka``, ``mat_kd``, ``mat_ks``,
+  ``mat_kt``, ``mat_n``): gradients through the shading math;
+- emission (``light_color``, ``ambient``);
+- vertex buffers (``tri_v0/1/2``, ``light_v0/1/2``): gradients through the
+  hit distance, the shading point and, by ``recompute_derived``, the
+  normals. The hard estimator only: discrete choices (winners, occlusion,
+  BRDF branch, light pick) carry no gradient, as in the JAX package;
+- camera (``eye``, ``ortho``): through primary rays made inside the loss
+  (``camera_pixel_loss``).
+
+The RNG is counter-based and fixed by (key, pixel, sample, bounce), so a
+loss is a deterministic function of the parameters, and central finite
+differences with one key are a valid oracle of its gradient.
+
+Not ported yet: sharded training (``mesh``, ROADMAP.md queue A, A4) and
+checkpointed fits (``checkpoint_dir``, A5); both refuse.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import torch
+
+from pathtracerpython_tpu_torch.ops import rng
+from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+from pathtracerpython_tpu_torch.render.config import RenderConfig
+from pathtracerpython_tpu_torch.render.integrator import render_rays
+from pathtracerpython_tpu_torch.scene.arrays import (
+    SceneTensors,
+    recompute_derived,
+)
+
+# Fields that may appear in a params dict.
+MATERIAL_FIELDS = ("mat_rgb", "mat_ka", "mat_kd", "mat_ks", "mat_kt", "mat_n")
+EMISSION_FIELDS = ("light_color", "ambient")
+VERTEX_FIELDS = (
+    "tri_v0", "tri_v1", "tri_v2", "light_v0", "light_v1", "light_v2",
+)
+# Camera parameters: primary rays are made inside the loss from the
+# parameterized scene (``camera_pixel_loss``); ``pixel_loss`` takes the
+# caller's rays, cannot see them and refuses them.
+CAMERA_FIELDS = ("eye", "ortho")
+PARAM_FIELDS = MATERIAL_FIELDS + EMISSION_FIELDS + VERTEX_FIELDS + CAMERA_FIELDS
+
+_LIGHT_TO_TRI = {"light_v0": "tri_v0", "light_v1": "tri_v1",
+                 "light_v2": "tri_v2"}
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to pathtracerpython_tpu_torch yet "
+        f"(ROADMAP.md queue A, {item})"
+    )
+
+
+def apply_params(scene: SceneTensors, params: dict) -> SceneTensors:
+    """Overlay a params dict onto the scene; normals and areas are derived
+    again when vertices moved, so that their gradients flow too.
+
+    The light's geometry exists twice (the NEE's sampling buffers and its
+    rows in the triangle buffer, which hits and occlusion read); a
+    ``light_v*`` override moves both through ``scene.light_tri_rows``, by an
+    out-of-place ``index_copy`` (no leaf is written in place)."""
+    unknown = set(params) - set(PARAM_FIELDS)
+    if unknown:
+        raise ValueError(f"unknown scene parameters: {sorted(unknown)}")
+    scene = dataclasses.replace(scene, **params)
+    rows = scene.light_tri_rows.to(torch.int64)
+    sync = {}
+    for lf, tf in _LIGHT_TO_TRI.items():
+        if lf in params:
+            tri = sync.get(tf, getattr(scene, tf))
+            sync[tf] = tri.index_copy(0, rows, params[lf])
+    if sync:
+        scene = dataclasses.replace(scene, **sync)
+    if any(f in params for f in VERTEX_FIELDS):
+        scene = recompute_derived(scene)
+    return scene
+
+
+def make_render_fn(cfg: RenderConfig, mesh=None) -> Callable:
+    """A renderer ``(origins, dirs, pixel_ids, scene, key) -> radiance`` on
+    the scene's device. A ``mesh`` (sharded rendering) refuses."""
+    if mesh is not None:
+        _not_ported("sharded rendering (mesh)", "A4: parallel")
+    return lambda o, d, p, sc, key: render_rays(o, d, p, sc, cfg, key)
+
+
+def pixel_loss(params: dict, base_scene: SceneTensors, target: torch.Tensor,
+               render_fn: Callable, origins: torch.Tensor,
+               directions: torch.Tensor, pixel_ids: torch.Tensor,
+               key) -> torch.Tensor:
+    """0.5 * mean squared pixel error of the parameterized render against
+    ``target`` for the caller's rays. Camera parameters refuse: fixed rays
+    cannot react to them (use ``camera_pixel_loss``)."""
+    cam = [f for f in CAMERA_FIELDS if f in params]
+    if cam:
+        raise ValueError(
+            f"camera parameters {cam} need in-loss ray generation; "
+            "use camera_pixel_loss / make_train_step"
+        )
+    scene = apply_params(base_scene, params)
+    radiance = render_fn(origins, directions, pixel_ids, scene, key)
+    return 0.5 * torch.mean((radiance - target) ** 2)
+
+
+def camera_pixel_loss(params: dict, base_scene: SceneTensors,
+                      target: torch.Tensor, render_fn: Callable,
+                      pixel_ids: torch.Tensor, key) -> torch.Tensor:
+    """``pixel_loss`` for the scene's own camera view, with the primary rays
+    made inside the loss, so that ``eye`` and ``ortho`` are parameters like
+    any other (their gradients flow through the ray origins and directions
+    into the hit re-solve and the shading geometry)."""
+    scene = apply_params(base_scene, params)
+    w, h = base_scene.meta.width, base_scene.meta.height
+    origins, directions = make_primary_rays(scene.eye, scene.ortho, w, h)
+    radiance = render_fn(origins, directions, pixel_ids, scene, key)
+    return 0.5 * torch.mean((radiance - target) ** 2)
+
+
+def adam(lr: float) -> Callable:
+    """``optax.adam(lr)`` as a factory of ``torch.optim.Adam`` over a list of
+    tensors, with optax's defaults (b1 0.9, b2 0.999, eps 1e-8): the same
+    update, rounded in another order."""
+    return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8)
+
+
+def make_train_step(optimizer: torch.optim.Optimizer,
+                    base_scene: SceneTensors, cfg: RenderConfig,
+                    target: torch.Tensor, mesh=None) -> Callable:
+    """A full training step for the scene's camera view,
+    ``step(params, key) -> loss``: ``camera_pixel_loss``, its backward and
+    one ``optimizer`` step. ``params`` holds the tensors ``optimizer`` was
+    built over, which the step updates in place; the loss comes back as a
+    detached 0-d tensor on the scene's device (no host read)."""
+    w, h = base_scene.meta.width, base_scene.meta.height
+    pixel_ids = torch.arange(w * h, dtype=torch.int64,
+                             device=base_scene.device)
+    render_fn = make_render_fn(cfg, mesh)
+
+    def train_step(params: dict, key) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = camera_pixel_loss(params, base_scene, target, render_fn,
+                                 pixel_ids, key)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def fit(params: dict, optimizer: Callable, base_scene: SceneTensors,
+        cfg: RenderConfig, target: torch.Tensor, steps: int, seed: int = 0,
+        mesh=None, callback=None, checkpoint_dir: str | None = None):
+    """Run ``steps`` optimizer steps from ``params``; returns (the fitted
+    params, detached, and the list of losses).
+
+    ``optimizer``: a factory of a ``torch.optim.Optimizer`` over a list of
+    tensors, such as ``adam(lr)``. The key walks as in the JAX package's
+    ``fit``: key = seed, then per step ``key, sub = split(key)`` and the
+    step renders with ``sub``. ``callback(i, params, loss)`` reads the
+    loss on the host each step. ``checkpoint_dir`` refuses (A5)."""
+    if checkpoint_dir is not None:
+        _not_ported("checkpointed fits (checkpoint_dir)",
+                    "A5: utils (orbax checkpoints -> torch state dicts)")
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    opt = optimizer(list(params.values()))
+    step_fn = make_train_step(opt, base_scene, cfg, target, mesh)
+    key = rng.key_from_seed(seed)
+    losses = []
+    for i in range(steps):
+        key, sub = rng.split(key)
+        # keep the device scalar: a host read here would wait for the step
+        loss = step_fn(params, sub)
+        losses.append(loss)
+        if callback is not None:
+            callback(i, params, float(loss))
+    return ({k: v.detach() for k, v in params.items()},
+            [float(loss) for loss in losses])

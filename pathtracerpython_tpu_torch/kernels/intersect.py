@@ -9,8 +9,20 @@ its ``any_hit_pallas_cm``. On a CUDA tensor each launches its kernel
 its plain version, the same arithmetic in PyTorch: Möller–Trumbore in
 ``_mt_rows``' component order, then the per-ray (t, index) minimum with the
 smallest index winning ties (K1), or any occluder hit with
-t < maxd - 1e-4 (K4). Forward only: inputs that require grad are refused,
-since a silent zero gradient would be a fault.
+t < maxd - 1e-4 (K4).
+
+**Gradients** follow the JAX package's custom VJPs, which lie outside its
+Pallas kernels. Where the rays or the scene's vertices require grad, the
+nearest sweep runs under ``NearestTIdx``: the kernel (or its plain
+version) finds (t, idx) on detached inputs, and the backward re-solves t
+on each lane's winning row of the differentiable ``scene_tripack`` with
+``ops/geometry.py:intersect_moller`` and scatters dt/d(origin, direction,
+vertices), a miss getting zero (``_nearest_bwd``). The index is discrete
+and carries none. ``nearest_entry`` does this for K1, K5, K8 and K3's
+nearest sweeps alike, so their gradients are one function of (t, idx).
+The any-hit sweeps detach their inputs (``detach_occlusion``): occlusion
+is detached by design, as the JAX package's ``stop_gradient`` has it.
+Where nothing requires grad the entries call the sweeps directly.
 
 **The in-triangle test has two forms** (K3), chosen by ``MT_IMPL``, the
 JAX package's knob of the same name, or by the ``mt_impl`` keyword of a
@@ -54,6 +66,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from pathtracerpython_tpu_torch.kernels import build
+from pathtracerpython_tpu_torch.ops.gather import scatter_rows
 
 OCCLUDER_COL = 10  # of the [T, 12] pack; 9 is valid
 DET_EPS = 1e-7  # |det| > DET_EPS: not parallel
@@ -195,22 +208,27 @@ def plucker_packs(tripack: torch.Tensor):
 
 # What a sweep derives from the scene swept last (the Plücker packs, the
 # cull boxes), so that a render derives it once and not once per bounce:
-# keyed by the identity and version of the scene's triangle tensors, which
-# the entry keeps alive.
+# keyed by the storage, shape and version of the scene's triangle tensors,
+# whose detached views the entry keeps alive (so no other tensor takes that
+# storage while the key stands, and no autograd graph is pinned by it).
 _scene_cache: dict = {}
 
 
 def _scene_derived(scene, name, make):
-    """``make()`` cached under ``name`` while the scene's triangle tensors
-    stay the same objects, unmodified."""
-    leaves = (scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_valid,
-              scene.tri_occluder)
-    key = tuple((id(x), x._version) for x in leaves)
+    """``make()``, computed without autograd, cached under ``name`` while
+    the scene's triangle tensors keep their storage and are not modified
+    in place (a training step's new vertices rebuild it)."""
+    leaves = tuple(x.detach() for x in (
+        scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_valid,
+        scene.tri_occluder))
+    key = tuple((x.device, x.data_ptr(), tuple(x.shape), x._version)
+                for x in leaves)
     if _scene_cache.get("key") != key:
         _scene_cache.clear()
         _scene_cache.update(key=key, leaves=leaves)
     if name not in _scene_cache:
-        _scene_cache[name] = make()
+        with torch.no_grad():
+            _scene_cache[name] = make()
     return _scene_cache[name]
 
 
@@ -474,7 +492,7 @@ def _nearest_culled(o3, d3_unit, pack, pair: PairTest, cull: CullBoxes,
 def check_input(name: str, x: torch.Tensor, device: torch.device,
                 dtype: torch.dtype, shape: tuple) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape``
-    (None matches any extent) on ``device`` that does not require grad."""
+    (None matches any extent) on ``device``."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
     if x.device != device:
@@ -487,11 +505,91 @@ def check_input(name: str, x: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if x.requires_grad:
-        raise RuntimeError(
-            f"{name} requires grad: the kernels are forward only (the "
-            "autograd backward comes with the gradient slice)"
-        )
+
+
+def requires_grad(*tensors: torch.Tensor) -> bool:
+    """Whether grad mode is on and any of ``tensors`` requires grad: the one
+    test an entry makes before it calls its sweep directly."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+def scene_vertices(scene) -> tuple:
+    """The scene's triangle vertex tensors, the pack's differentiable
+    columns."""
+    return scene.tri_v0, scene.tri_v1, scene.tri_v2
+
+
+def nearest_bwd(o3, d3_unit, tripack, idx, dt, needs=(True, True, True)):
+    """The nearest sweeps' backward (``intersect_pallas.py:_nearest_bwd``):
+    gather each lane's winning row of the [T, 12] ``tripack`` (the scene's
+    rows, which every sweep's index names), re-solve t with
+    ``intersect_moller`` and return (d o3, d d3_unit, d tripack) for the
+    cotangent ``dt`` [N], each None where ``needs`` says it is not wanted.
+    A miss (idx < 0) gets zero. One re-solve over the whole wavefront, so
+    every sweep that finds the same winners gives the same gradients bit
+    for bit. The rows' gradients are taken per lane and summed into the
+    pack by ``ops.gather.scatter_rows``."""
+    # ops.geometry imports this module
+    from pathtracerpython_tpu_torch.ops.geometry import intersect_moller
+
+    rows = idx.clamp_min(0).to(torch.int64)
+    dt = torch.where(idx >= 0, dt, 0.0)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(need) for x, need in zip(
+            (o3, d3_unit, tripack.detach()[rows, 0:9]), needs)]
+        o, d, w = leaves
+        _, t = intersect_moller(o.T, d.T, w[:, 0:3], w[:, 3:6], w[:, 6:9])
+        wanted = [x for x in leaves if x.requires_grad]
+        grads = iter(torch.autograd.grad(t, wanted, dt) if wanted else ())
+    d_o, d_d, d_w = (next(grads) if x.requires_grad else None
+                     for x in leaves)
+    if d_w is not None:
+        d_w = torch.nn.functional.pad(
+            scatter_rows(d_w, rows, tripack.shape[0]),
+            (0, tripack.shape[1] - 9))
+    return d_o, d_d, d_w
+
+
+class NearestTIdx(torch.autograd.Function):
+    """(t [N], idx [N]) of a nearest sweep with the JAX package's custom
+    VJP: ``forward(o3, d3_unit, tripack, sweep)`` runs ``sweep(o3, d3)``,
+    the kernel or its plain version, on detached rays (``sweep`` closes
+    over a detached scene); ``backward`` is ``nearest_bwd``. ``tripack``
+    is the scene's differentiable ``scene_tripack``."""
+
+    @staticmethod
+    def forward(ctx, o3, d3_unit, tripack, sweep):
+        t, idx = sweep(o3.detach(), d3_unit.detach())
+        ctx.save_for_backward(o3, d3_unit, tripack, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, dt, _didx):
+        o3, d3_unit, tripack, idx = ctx.saved_tensors
+        return (*nearest_bwd(o3, d3_unit, tripack, idx, dt,
+                             ctx.needs_input_grad[:3]), None)
+
+
+def nearest_entry(sweep: Callable, o3: torch.Tensor, d3_unit: torch.Tensor,
+                  scene):
+    """``sweep(o3, d3_unit, scene) -> (t, idx)`` called directly where
+    neither the rays nor the scene's vertices require grad, else under
+    ``NearestTIdx`` with the scene detached for the sweep."""
+    if not requires_grad(o3, d3_unit, *scene_vertices(scene)):
+        return sweep(o3, d3_unit, scene)
+    plain = scene.detach()
+    return NearestTIdx.apply(o3, d3_unit, scene_tripack(scene),
+                             lambda o, d: sweep(o, d, plain))
+
+
+def detach_occlusion(o3, d3_unit, maxd, scene):
+    """(o3, d3_unit, maxd, scene) as an any-hit sweep reads them: detached
+    where any requires grad (occlusion is detached by design, the JAX
+    package's ``stop_gradient`` on its any-hit inputs), else as given."""
+    if not requires_grad(o3, d3_unit, maxd, *scene_vertices(scene)):
+        return o3, d3_unit, maxd, scene
+    return o3.detach(), d3_unit.detach(), maxd.detach(), scene.detach()
 
 
 def nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
@@ -499,7 +597,14 @@ def nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
     """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
     length) against the scene's triangles, in the form ``mt_impl`` (None:
     the module's ``MT_IMPL``). Returns (t [N] — 0 on a miss, idx [N] int32
-    — -1 on a miss)."""
+    — -1 on a miss); t is differentiable in the rays and the vertices
+    (``nearest_entry``)."""
+    return nearest_entry(
+        lambda o, d, sc: _nearest_t_idx(o, d, sc, mt_impl), o3, d3_unit,
+        scene)
+
+
+def _nearest_t_idx(o3, d3_unit, scene, mt_impl):
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n = o3.shape[1] if o3.dim() == 2 else -1
@@ -601,6 +706,7 @@ def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
     o3/d3_unit f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4, in
     the form ``mt_impl`` (None: the module's ``MT_IMPL``); bool[N]. Lanes
     with maxd = 0 (parked) are never occluded."""
+    o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n = o3.shape[1] if o3.dim() == 2 else -1

@@ -8,7 +8,11 @@ tensor it runs ``nee_mean_cos_plain``, which follows ``_nee_body``
 operation by operation: compare-and-count light pick on the cumulative
 areas, sqrt-trick barycentrics from uniform rows 5s+1 and 5s+2, direction
 by rsqrt(max(sq, 1e-30)) and distance by sqrt(sq + 1e-24), clamped
-cosine, occluder sweep with t < dist - 1e-4, then the mean. Forward only.
+cosine, occluder sweep with t < dist - 1e-4, then the mean. Where the
+shading points, the normals or the light's vertices require grad it runs
+under ``NeeMeanCos``, the JAX package's custom VJP: the kernel on detached
+inputs, keeping ``occ``; the backward recomputes the smooth part of the
+estimate in PyTorch (``smooth_mean_cos``) with the occlusion fixed.
 Its occluder sweep is classic Möller–Trumbore whatever the ``MT_IMPL`` knob
 of ``kernels/intersect.py`` says: ``nee_pallas.py`` has no Plücker body.
 The kernel culls the sweep by the tile and group boxes of
@@ -34,9 +38,12 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     cull_pairs,
     cull_pointers,
     mt_rows,
+    requires_grad,
     scene_cull_boxes,
     scene_tripack,
+    scene_vertices,
 )
+from pathtracerpython_tpu_torch.ops.gather import scatter_rows
 
 # The kernel keeps the light table in shared memory and the samples in
 # registers; scenes beyond these bounds need the unfused NEE.
@@ -124,11 +131,108 @@ def nee_mean_cos_plain(point3, normal3, u, tripack, lightpack,
     return acc / float(s_samples), torch.cat(occ, dim=0)
 
 
+def light_pick(light_area, u, s_samples: int) -> torch.Tensor:
+    """The light triangle of each sample, int64 [S, N]: the kernel's
+    compare-and-count pick on the cumulative areas from rows 5s of the
+    uniforms ``u`` [5S, N]."""
+    u0 = u.reshape(s_samples, 5, -1)[:, 0]
+    cum = torch.cumsum(light_area, dim=0)
+    x = u0 * cum[-1]
+    idx = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    for l in range(light_area.shape[0] - 1):
+        idx = idx + (x >= cum[l]).to(torch.int64)
+    return idx
+
+
+def smooth_mean_cos(point3, normal3, lv, u, occ, s_samples: int):
+    """The differentiable part of the estimate (``_smooth_mean_cos``): the
+    mean clamped cosine [1, N] of the light samples with the occlusion
+    ``occ`` [S, N] fixed, in the kernel's formulas; ``lv`` [S, N, 9] are
+    the vertices of each sample's light triangle (``light_pick``). The
+    pick and the barycentrics are functions of ``u`` alone, so they carry
+    no gradient."""
+    n = point3.shape[1]
+    u = u.reshape(s_samples, 5, n)
+    lv = lv.permute(2, 0, 1)                               # [9, S, N]
+    su = torch.sqrt(u[:, 1])
+    b0, b1, b2 = 1.0 - su, su * (1.0 - u[:, 2]), su * u[:, 2]
+    lp = b0[None] * lv[0:3] + b1[None] * lv[3:6] + b2[None] * lv[6:9]
+    vec = lp - point3[:, None, :]
+    inv = torch.rsqrt(torch.clamp_min((vec * vec).sum(dim=0), 1e-30))
+    # torch.maximum splits the gradient of a tie as jnp.maximum does (a
+    # light sample in the shading point's own plane has cos exactly 0)
+    cos = (vec * inv[None] * normal3[:, None, :]).sum(dim=0)
+    cos = torch.maximum(cos, cos.new_zeros(()))
+    masked = torch.where(occ > 0.5, 0.0, cos)
+    return masked.sum(dim=0)[None, :] / float(s_samples)
+
+
+class NeeMeanCos(torch.autograd.Function):
+    """(mean_cos [1, N], occ [S, N]) of the fused NEE with the JAX
+    package's custom VJP (``_nee_vjp_fwd`` / ``_nee_vjp_bwd``):
+    ``forward(point3, normal3, lv0, lv1, lv2, light_area, u, s_samples,
+    sweep)`` runs ``sweep(point3, normal3, u)``, K2 or its plain version, on
+    detached inputs and keeps ``occ``; ``backward`` recomputes
+    ``smooth_mean_cos`` with ``occ`` fixed and returns the gradients of
+    point3, normal3 and the light's vertices, the last summed per light
+    triangle by ``ops.gather.scatter_rows``. ``light_area``, ``u`` and the
+    occluders get none: the draws and the occlusion are detached by
+    design."""
+
+    @staticmethod
+    def forward(ctx, point3, normal3, lv0, lv1, lv2, light_area, u,
+                s_samples, sweep):
+        mc, occ = sweep(point3.detach(), normal3.detach(), u.detach())
+        ctx.save_for_backward(point3, normal3, lv0, lv1, lv2, light_area, u,
+                              occ)
+        ctx.s_samples = s_samples
+        ctx.mark_non_differentiable(occ)
+        return mc, occ
+
+    @staticmethod
+    def backward(ctx, g, _gocc):
+        point3, normal3, lv0, lv1, lv2, light_area, u, occ = ctx.saved_tensors
+        s = ctx.s_samples
+        needs = ctx.needs_input_grad
+        pick = light_pick(light_area.detach(), u.detach(), s)
+        table = torch.cat([lv0, lv1, lv2], dim=1).detach()    # [L, 9]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(need) for x, need in zip(
+                (point3, normal3, table[pick]),
+                (needs[0], needs[1], any(needs[2:5])))]
+            mc = smooth_mean_cos(*leaves, u.detach(), occ, s)
+            wanted = [x for x in leaves if x.requires_grad]
+            grads = iter(torch.autograd.grad(mc, wanted, g) if wanted
+                         else ())
+        d_p, d_n, d_lv = (next(grads) if x.requires_grad else None
+                          for x in leaves)
+        d_lights = (None, None, None)
+        if d_lv is not None:
+            d_table = scatter_rows(d_lv.reshape(-1, 9), pick.reshape(-1),
+                                   table.shape[0])
+            d_lights = tuple(d_table[:, 3 * k:3 * k + 3] if need else None
+                             for k, need in enumerate(needs[2:5]))
+        return d_p, d_n, *d_lights, None, None, None, None
+
+
 def nee_mean_cos_fused(point3: torch.Tensor, normal3: torch.Tensor,
                        u: torch.Tensor, scene, s_samples: int):
     """Fused fast-mode NEE at shading points point3 f32[3, N] with shading
     normals normal3 f32[3, N], from uniforms u f32[5*S, N] (rows 5s+0..2
-    per sample). Returns (mean_cos [1, N], occ [S, N])."""
+    per sample). Returns (mean_cos [1, N], occ [S, N]); mean_cos is
+    differentiable in point3, normal3 and the scene's ``light_v0/1/2``
+    (``NeeMeanCos``)."""
+    lights = (scene.light_v0, scene.light_v1, scene.light_v2)
+    if not requires_grad(point3, normal3, u, *lights, scene.light_area,
+                         *scene_vertices(scene)):
+        return _nee_mean_cos(point3, normal3, u, scene, s_samples)
+    plain = scene.detach()
+    return NeeMeanCos.apply(
+        point3, normal3, *lights, scene.light_area, u, s_samples,
+        lambda p, n, uu: _nee_mean_cos(p, n, uu, plain, s_samples))
+
+
+def _nee_mean_cos(point3, normal3, u, scene, s_samples):
     device = point3.device
     n = point3.shape[1] if point3.dim() == 2 else -1
     if not 1 <= s_samples <= MAX_LIGHT_SAMPLES:

@@ -63,7 +63,17 @@ On a CUDA tensor each wrapper launches its kernel (``csrc/sparse_nearest.cu``,
 ``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``; the first two
 hold both forms) or raises; on a
 CPU tensor it runs its plain version, the same walk in PyTorch, vectorized
-over ray blocks slot by slot. Forward only.
+over ray blocks slot by slot.
+
+**Gradients.** K5 and K3's sparse nearest run under
+``intersect.nearest_entry``, the dense sweep's ``NearestTIdx``: the walk
+(its lists, boxes and sort keys too) sees detached rays and a detached
+scene, and the backward re-solves each winner on the scene's own rows
+(``scene_tripack``: the sparse pack is that pack with invalid rows
+appended, so a winner's index names the same row). One re-solve over the
+whole wavefront, as ``_entry_bwd`` has it, so the gradients are the dense
+sweep's bit for bit. K6 and K7 detach their inputs
+(``intersect.detach_occlusion``).
 """
 
 from __future__ import annotations
@@ -88,6 +98,8 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     aabb_cull_rows,
     block_aabbs,
     check_input,
+    detach_occlusion,
+    nearest_entry,
     resolve_mt_impl,
     scene_cull_boxes,
     scene_plucker_pack,
@@ -791,7 +803,14 @@ def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
     (the sparse hierarchy's R_BLK; the hybrid passes
     R_BLK_HYBRID_NEAREST); the result of the dense ``nearest_t_idx_cm`` in
     the same form ``mt_impl`` (None: ``intersect.MT_IMPL``), bit for bit:
-    (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss)."""
+    (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss); its gradients
+    too (``intersect.nearest_entry``)."""
+    return nearest_entry(
+        lambda o, d, sc: _sparse_nearest_t_idx(o, d, sc, r_blk, mt_impl),
+        o3, d3_unit, scene)
+
+
+def _sparse_nearest_t_idx(o3, d3_unit, scene, r_blk, mt_impl):
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse nearest-hit")
@@ -824,6 +843,7 @@ def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     occluded. The cached any-hit K7 (``sparse_any_hit_cached_cm``) has no
     Plücker form and stays classic under the knob, as in the JAX
     package."""
+    o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse any-hit",
                                     maxd)
@@ -874,6 +894,7 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     synchronization per call, which the JAX package's ``lax.cond`` does
     not pay. It stays until the bounce sweep is captured in a CUDA graph,
     which needs that choice made on the device."""
+    o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "cached any-hit",
                                     maxd)

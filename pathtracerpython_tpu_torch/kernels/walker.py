@@ -29,7 +29,10 @@ On a CUDA tensor each wrapper launches its kernel (``csrc/walker_nearest.cu``,
 ``csrc/walker_any_hit.cu``) or raises; on a CPU tensor it runs its plain
 version: the walks of ``kernels/sparse.py`` (``sparse_nearest_plain``,
 ``any_hit_walk``) on the walker's lists, since K8 computes K5's function
-and K9 K6's. Forward only.
+and K9 K6's. K8 runs under ``intersect.nearest_entry``: the walk sees
+detached rays and a detached scene, and the backward is the dense sweep's
+re-solve on the scene's rows, so its gradients are K1's bit for bit. K9
+detaches its inputs (``intersect.detach_occlusion``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,11 @@ import ctypes
 import torch
 
 from pathtracerpython_tpu_torch.kernels import build
-from pathtracerpython_tpu_torch.kernels.intersect import BIG
+from pathtracerpython_tpu_torch.kernels.intersect import (
+    BIG,
+    detach_occlusion,
+    nearest_entry,
+)
 from pathtracerpython_tpu_torch.kernels.sparse import (
     BlockLists,
     any_hit_walk,
@@ -107,7 +114,11 @@ def walker_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene):
     """K8: closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of
     unit length) by walking each block of R_BLK rays' front-to-back
     candidate list; the result of the dense ``nearest_t_idx_cm``: (t [N] —
-    0 on a miss, idx [N] int32 — -1 on a miss)."""
+    0 on a miss, idx [N] int32 — -1 on a miss), and its gradients."""
+    return nearest_entry(_walker_nearest_t_idx, o3, d3_unit, scene)
+
+
+def _walker_nearest_t_idx(o3, d3_unit, scene):
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "walker nearest-hit")
     if n == 0:
@@ -126,6 +137,7 @@ def walker_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     cluster hierarchy in blocks of R_BLK rays; bool[N], the result of the
     dense ``any_hit_cm``. Lanes with maxd = 0 (parked) are never
     occluded."""
+    o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "walker any-hit",
                                    maxd)
     if n == 0:

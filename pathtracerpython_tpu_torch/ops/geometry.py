@@ -51,6 +51,32 @@ def safe_normalize(v: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     return v * torch.rsqrt(torch.clamp_min(sq, eps))[..., None]
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(dim=-1)
+
+
+def intersect_moller(origin, direction, v0, v1, v2, eps: float = 1e-7):
+    """Möller–Trumbore for broadcastable row-major [..., 3] rays and
+    triangles, in the operation order of the JAX package's
+    ``ops/geometry.py:intersect_moller`` (not the kernels' ``_mt_rows``
+    order). ``direction`` normalized for a metric ``t``. Returns (hit, t),
+    hit requiring t > 1e-4. Differentiable in every input: the nearest
+    sweeps' backward re-solves each winner's t with it."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = torch.linalg.cross(direction, e2, dim=-1)
+    det = _dot(e1, pvec)
+    not_parallel = torch.abs(det) > eps
+    inv_det = 1.0 / torch.where(not_parallel, det, 1.0)
+    tvec = origin - v0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = torch.linalg.cross(tvec, e1, dim=-1)
+    v = _dot(direction, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    hit = not_parallel & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-4)
+    return hit, t
+
+
 def normalize3(v3: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Normalize along axis 0 of a component-major [3, ...] tensor."""
     sq = v3[0] * v3[0] + v3[1] * v3[1] + v3[2] * v3[2]

@@ -43,11 +43,24 @@ def threefry2x32(k0: int, k1: int, x0, x1):
     return x0, x1
 
 
-def key_from_seed(seed: int) -> tuple[int, int]:
-    """(k0, k1) from an int seed: the pair ``jax.random.PRNGKey(seed)``
-    holds, (seed >> 32, seed & 0xffffffff)."""
+def key_from_seed(seed) -> tuple[int, int]:
+    """(k0, k1) from an int seed, the pair ``jax.random.PRNGKey(seed)``
+    holds, (seed >> 32, seed & 0xffffffff); or from a key, a pair of ints
+    as ``split`` returns (or a tensor of two words), which is what the JAX
+    package's ``key_from_seed`` reads from a ``PRNGKey``."""
+    if isinstance(seed, (tuple, list, torch.Tensor)):
+        k0, k1 = (int(k) for k in seed)
+        return k0 & _MASK, k1 & _MASK
     s = int(seed)
     return (s >> 32) & _MASK, s & _MASK
+
+
+def split(key, num: int = 2) -> list[tuple[int, int]]:
+    """``num`` new keys from ``key`` (an int seed or a (k0, k1) pair), the
+    words ``jax.random.split`` gives under ``jax_threefry_partitionable``
+    (JAX's default from 0.5): key i is threefry(key, (0, i)), i < 2^32."""
+    k0, k1 = key_from_seed(key)
+    return [threefry2x32(k0, k1, 0, i) for i in range(num)]
 
 
 def fold(k0: int, k1: int, salt: int) -> tuple[int, int]:

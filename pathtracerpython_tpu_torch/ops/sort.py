@@ -46,9 +46,11 @@ def morton3(q3: torch.Tensor) -> torch.Tensor:
 
 
 def scene_bounds(scene) -> tuple[torch.Tensor, torch.Tensor]:
-    """(lo3, hi3) of the valid triangles' vertices."""
+    """(lo3, hi3) of the valid triangles' vertices, detached: they only
+    order lanes."""
     valid = scene.tri_valid[:, None]
-    vs = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2], dim=0)
+    vs = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2],
+                   dim=0).detach()
     vmask = torch.cat([valid] * 3, dim=0)
     lo = torch.where(vmask, vs, torch.inf).amin(dim=0)
     hi = torch.where(vmask, vs, -torch.inf).amax(dim=0)
@@ -59,7 +61,9 @@ def wavefront_sort_order(o3, d3, alive, lo3, hi3,
                          occ_hint=None) -> torch.Tensor:
     """Permutation int64[N] sorting rays by (direction octant, origin
     morton, direction morton); dead lanes sort to the end. ``occ_hint``
-    bool[N] (optional) puts predicted-occluded lanes first (bit 30)."""
+    bool[N] (optional) puts predicted-occluded lanes first (bit 30). The
+    keys are discrete, so the rays are read detached."""
+    o3, d3 = o3.detach(), d3.detach()
     span = torch.clamp_min(hi3 - lo3, 1e-12)[:, None]
     oscale = float(2**_ORIGIN_BITS) - 1.0
     oq = torch.clamp((o3 - lo3[:, None]) / span * oscale, 0.0, oscale)

@@ -24,6 +24,13 @@ give the same radiance. Sorting permutes lanes with their counters, so a
 sorted render equals an unsorted one. The render runs on the device the
 scene lives on.
 
+The render is differentiable in the scene's tensors and the primary rays
+with the hard estimator of the JAX package: the nearest sweeps and the
+fused NEE carry their custom gradients (``kernels/intersect.py``
+``NearestTIdx``, ``kernels/nee.py`` ``NeeMeanCos``), the discrete choices
+(winners, occlusion, light pick, BRDF branch, sort order) carry none, and
+no tensor autograd saved is written in place.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item (``check_supported``): reference mode, soft visibility,
 geometry sharding and rematerialized bounces.
@@ -117,13 +124,13 @@ def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
     """Refuse every configuration this port cannot render with the same
     semantics as the JAX package, naming the ROADMAP item that adds it."""
     if cfg.mode != "fast":
-        _not_ported(f"mode={cfg.mode!r}", "item 6: reference mode")
+        _not_ported(f"mode={cfg.mode!r}", "A2: reference mode")
     if cfg.soft_vis_beta > 0.0:
-        _not_ported("soft_vis_beta > 0", "item 8: diff")
+        _not_ported("soft_vis_beta > 0", "A3b: soft visibility")
     if cfg.remat_bounces:
-        _not_ported("remat_bounces=True", "item 8: diff")
+        _not_ported("remat_bounces=True", "A3b: rematerialized bounces")
     if cfg.geom_axis is not None:
-        _not_ported("geom_axis", "item 9: parallel")
+        _not_ported("geom_axis", "A4: parallel")
 
 
 def _sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
@@ -433,14 +440,18 @@ def _unscramble(state: RayState, n: int, s_total: int,
     c = state.counters
     pid = c // s_total
     slot = (c % s_total) * n + pid if batched else pid
+    # in place into a fresh buffer that autograd saved nowhere: the
+    # backward gathers the radiance's gradient by ``slot``
     out = torch.zeros_like(state.radiance3)
     return out.index_copy_(1, slot, state.radiance3)
 
 
 def render_rays(origins, directions, pixel_ids, scene: SceneTensors,
-                cfg: RenderConfig, base_key: int) -> torch.Tensor:
+                cfg: RenderConfig, base_key) -> torch.Tensor:
     """Trace the given primary rays [N, 3]; return radiance [N, 3], the
-    mean over ``cfg.n_samples`` sample passes.
+    mean over ``cfg.n_samples`` sample passes. ``base_key``: an int seed or
+    a (k0, k1) key (``ops.rng.split``), as the JAX package takes a seed or
+    a ``PRNGKey``.
 
     Two plans with identical results (the RNG stream depends only on
     (pixel, sample)): a loop over samples (minimal memory) or

@@ -8,4 +8,5 @@ from pathtracerpython_tpu_torch.scene.arrays import (  # noqa: F401
     from_jax_scene,
     load_scene,
     pack_scene,
+    recompute_derived,
 )

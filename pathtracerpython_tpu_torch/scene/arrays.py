@@ -113,6 +113,14 @@ class SceneTensors:
             self, **{f: getattr(self, f).to(device) for f in DATA_FIELDS}
         )
 
+    def detach(self) -> "SceneTensors":
+        """The same scene with every tensor detached from autograd: views of
+        the same storage, what the kernels read (a sweep's winners and
+        occlusion are discrete, and its gradient is re-solved apart)."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).detach() for f in DATA_FIELDS}
+        )
+
 
 def _morton_argsort(centroids: np.ndarray) -> np.ndarray:
     """Spatial (Z-order) sort of triangle centroids."""
@@ -331,3 +339,31 @@ def load_scene(
     """Parse an SDL file and pack it on ``device`` (None: the card)."""
     return pack_scene(load_sdl(path), pad_to=pad_to, dtype=dtype,
                       tri_order=tri_order, device=device)
+
+
+def recompute_derived(scene: SceneTensors) -> SceneTensors:
+    """Normals and areas recomputed from the vertices, differentiably, as
+    the JAX package's ``recompute_derived``: ``pack_scene`` derives
+    ``tri_normal``, ``tri_area`` and ``light_area`` on the host, so a scene
+    whose vertices are parameters runs through this for those to carry
+    gradients. Padding rows keep their packed values."""
+    def derive(v0, v1, v2):
+        cross = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+        # the guard comes before the sqrt: d(sqrt)/dx at 0 is inf, and
+        # inf * 0 is NaN in the backward of a degenerate (padding) row
+        sq = (cross * cross).sum(dim=-1, keepdim=True)
+        degenerate = sq == 0.0
+        norm = torch.sqrt(torch.where(degenerate, 1.0, sq))
+        normal = torch.where(degenerate, 0.0, cross / norm)
+        area = torch.where(degenerate[..., 0], 0.0, norm[..., 0] / 2.0)
+        return normal, area
+
+    tri_normal, tri_area = derive(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    _, light_area = derive(scene.light_v0, scene.light_v1, scene.light_v2)
+    return dataclasses.replace(
+        scene,
+        tri_normal=torch.where(scene.tri_valid[:, None], tri_normal,
+                               scene.tri_normal),
+        tri_area=torch.where(scene.tri_valid, tri_area, scene.tri_area),
+        light_area=light_area,
+    )

@@ -6,6 +6,8 @@ the same packing and render path as parsed SDL files.
 vertices). ``cornell_box_scene`` builds a Cornell box after the layout of
 the reference's ``objs/cornellroom.sdl`` from these primitives, so tests
 and the on-card smoke run need no file outside the repository.
+``flat_scene`` is the floor-and-light scene of the JAX package's gradient
+tests.
 """
 
 from __future__ import annotations
@@ -195,4 +197,34 @@ def cornell_box_scene(width: int = 40, height: int = 40) -> SceneDescription:
             cube(short, 0.6),
         ],
         path="synthetic://cornell_box",
+    )
+
+
+def flat_scene(width: int = 16, height: int = 16) -> SceneDescription:
+    """One big diffuse floor triangle and one light triangle above it, the
+    scene of the JAX package's gradient tests (``tests/test_diff.py``):
+    no occluder and no silhouette edge near the floor's interior, so the
+    radiance there is a smooth function of every parameter. Eye (0, 0, 3),
+    ortho (-1, -1, 1, 1), ambient 0.4."""
+    floor = mesh_from_arrays(
+        [[-5.0, -1.0, 1.0], [5.0, -1.0, 1.0], [0.0, -1.0, -9.0]],
+        [[0, 1, 2]], path="floor",
+    )
+    light = mesh_from_arrays(
+        [[-0.5, 1.5, -2.5], [0.5, 1.5, -2.5], [0.0, 1.5, -1.5]],
+        [[0, 1, 2]], path="light",
+    )
+    return SceneDescription(
+        eye=(0.0, 0.0, 3.0),
+        width=width,
+        height=height,
+        ortho=(-1.0, -1.0, 1.0, 1.0),
+        ambient=0.4,
+        light_mesh=light,
+        light_color=(1.0, 0.9, 0.8),
+        objects=[
+            SdlObject(mesh=floor, rgb=(0.6, 0.4, 0.2), ka=0.3, kd=0.7,
+                      ks=0.0, kt=0.0, n=2.0)
+        ],
+        path="synthetic://flat",
     )

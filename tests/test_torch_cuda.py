@@ -5,6 +5,10 @@ card, from the root of a checkout:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
+Since the gradient slice it also holds the gradients on the card against
+the CPU's, the autograd Functions' forward bits against the no-grad calls,
+and the hierarchies' sweep gradients against the dense sweep's.
+
 ``--noconftest`` because ``tests/conftest.py`` sets up JAX, which a machine
 that runs only the port need not have; this file imports no JAX.
 
@@ -887,3 +891,124 @@ def test_split_any_hit_entry_refuses_null_boxes(cuda, which, form):
               lists.keys.data_ptr(), lists.ncand.data_ptr(),
               lists.ids.shape[1], r_blk, occ.data_ptr(), None,
               cuda.index or 0, stream) == 1
+
+
+# Gradients on the card against the plain versions on the CPU: the same
+# params, target and key; the card's rsqrt, sin and cos and the order of
+# its float sums (the backwards' scatters) round differently, so each
+# field's gradient may differ in the last bits. Relative L2 per field.
+GRAD_RTOL = 1e-4
+GRAD_CASES = {
+    "fused": ("cornell", dict(n_light_samples=3)),
+    "unfused9": ("cornell", dict(n_light_samples=9)),
+    "plucker": ("cornell", dict(n_light_samples=3, mt_impl="plucker")),
+    "sparse": ("field", dict(accel="sparse")),
+    "walker": ("field", dict(accel="walker")),
+    "hybrid": ("field", dict(accel="hybrid")),
+}
+
+
+def _camera_grads(scene, cfg, params, target):
+    from pathtracerpython_tpu_torch.diff import (
+        camera_pixel_loss,
+        make_render_fn,
+    )
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    pids = torch.arange(target.shape[0], device=scene.device)
+    loss = camera_pixel_loss(leaves, scene, target, make_render_fn(cfg),
+                             pids, (0, 4))
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_grads_on_card_match_cpu(cuda, case):
+    which, kw = GRAD_CASES[case]
+    desc = (synthetic.cornell_box_scene(32, 32) if which == "cornell" else
+            synthetic.box_field_scene(n_boxes=400, width=32, height=32))
+    scene = arrays.pack_scene(desc, pad_to=32, device="cpu",
+                              tri_order=None if which == "cornell"
+                              else "morton")
+    cfg = RenderConfig(n_samples=2, n_bounces=2, **kw)
+    with torch.no_grad():
+        target = 0.5 * render(scene, cfg, seed=1)
+    params = {f: getattr(scene, f) for f in (
+        "mat_rgb", "light_color", "ambient", "tri_v0", "light_v0", "eye",
+        "ortho")}
+    params["eye"] = scene.eye + torch.tensor([0.03, -0.02, 0.05])
+    k1 = intersect.LAUNCHES
+    loss_c, got = _camera_grads(scene.to(cuda),
+                                cfg, {k: v.to(cuda) for k, v in
+                                      params.items()}, target.to(cuda))
+    loss_h, want = _camera_grads(scene, cfg, params, target)
+    assert case not in ("fused", "unfused9") or intersect.LAUNCHES > k1
+    assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
+    for k, w in want.items():
+        g = got[k].cpu()
+        assert torch.isfinite(g).all(), k
+        assert (g - w).norm() <= GRAD_RTOL * w.norm() + 1e-12, (
+            k, ((g - w).norm() / w.norm()).item())
+
+
+def test_functions_leave_the_forward_alone(cuda):
+    """K1 under NearestTIdx and K2 under NeeMeanCos: the no-grad calls'
+    bits, one launch each."""
+    import dataclasses as dc
+
+    scene = _scene("boxfield300", cuda)
+    o3, d3u = _rays(scene)
+    t0, i0 = intersect.nearest_t_idx_cm(o3, d3u, scene)
+    grad_scene = dc.replace(scene, **{
+        f: getattr(scene, f).clone().requires_grad_(True)
+        for f in ("tri_v0", "light_v0")})
+    k1 = intersect.LAUNCHES
+    t1, i1 = intersect.nearest_t_idx_cm(o3.clone().requires_grad_(True),
+                                        d3u, grad_scene)
+    assert intersect.LAUNCHES == k1 + 1 and t1.requires_grad
+    assert torch.equal(t1.detach(), t0) and torch.equal(i1, i0)
+    point3 = (o3 + d3u * t0[None]).contiguous()
+    normal3 = torch.zeros_like(point3)
+    normal3[1] = 1.0
+    u = torch.rand((15, point3.shape[1]), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
+    mc0, occ0 = nee.nee_mean_cos_fused(point3, normal3, u, scene, 3)
+    k2 = nee.LAUNCHES
+    mc1, occ1 = nee.nee_mean_cos_fused(point3.requires_grad_(True), normal3,
+                                       u, grad_scene, 3)
+    assert nee.LAUNCHES == k2 + 1 and mc1.requires_grad
+    assert torch.equal(mc1.detach(), mc0) and torch.equal(occ1, occ0)
+    mc1.sum().backward()
+    assert torch.isfinite(grad_scene.light_v0.grad).all()
+    assert nee.LAUNCHES == k2 + 1  # the backward launches no kernel
+
+
+@pytest.mark.parametrize("accel", ["sparse", "hybrid", "walker"])
+def test_hierarchy_sweep_grads_on_card_equal_dense(cuda, accel):
+    """The summed hit distance's gradients through K5 (both block sizes)
+    and K8 against K1's on the card: the same winners and the same
+    backward, so they differ at most by the order of the scatter's float
+    sums."""
+    import dataclasses as dc
+
+    scene = _scene("large", cuda)
+    o3, d3u = _rays(scene)
+    sweeps = {
+        "none": intersect.nearest_t_idx_cm,
+        "sparse": sparse.sparse_nearest_t_idx_cm,
+        "hybrid": lambda o, d, sc: sparse.sparse_nearest_t_idx_cm(
+            o, d, sc, r_blk=sparse.R_BLK_HYBRID_NEAREST),
+        "walker": walker.walker_nearest_t_idx_cm,
+    }
+    grads = {}
+    for name in ("none", accel):
+        v0 = scene.tri_v0.clone().requires_grad_(True)
+        o = o3.clone().requires_grad_(True)
+        t, idx = sweeps[name](o, d3u, dc.replace(scene, tri_v0=v0))
+        t.sum().backward()
+        grads[name] = (idx, v0.grad, o.grad)
+    assert torch.equal(grads["none"][0], grads[accel][0])
+    for want, got in zip(grads["none"][1:], grads[accel][1:]):
+        assert want.abs().sum() > 0
+        assert (got - want).norm() <= 1e-6 * want.norm()

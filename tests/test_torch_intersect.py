@@ -164,9 +164,15 @@ def test_wrapper_refuses_bad_inputs(fault):
     o3, d3 = _inputs()
     expected = ValueError
     if fault == "requires_grad":
+        # no fault since the sweeps carry gradients: t is differentiable,
+        # the winner is not, and the values are the no-grad call's
+        want = intersect.nearest_t_idx_cm(o3, d3, scene)
         o3.requires_grad_(True)
-        expected = RuntimeError
-    elif fault == "dtype":
+        t, idx = intersect.nearest_t_idx_cm(o3, d3, scene)
+        assert t.requires_grad and not idx.requires_grad
+        assert torch.equal(t.detach(), want[0]) and torch.equal(idx, want[1])
+        return
+    if fault == "dtype":
         o3 = o3.double()
         expected = TypeError
     elif fault == "shape":
@@ -214,9 +220,13 @@ def test_any_hit_wrapper_refuses_bad_inputs(fault):
     maxd = torch.ones(8)
     expected = ValueError
     if fault == "requires_grad":
+        # no fault: occlusion is detached by design, as in the JAX package
+        want = intersect.any_hit_cm(o3, d3, maxd, scene)
         maxd.requires_grad_(True)
-        expected = RuntimeError
-    elif fault == "maxd_shape":
+        got = intersect.any_hit_cm(o3, d3, maxd, scene)
+        assert not got.requires_grad and torch.equal(got, want)
+        return
+    if fault == "maxd_shape":
         maxd = maxd[:5]
     else:
         maxd = maxd.double()

@@ -157,8 +157,16 @@ def test_wrapper_refuses_bad_inputs(fault):
     elif fault == "samples_high":
         s_samples = nee.MAX_LIGHT_SAMPLES + 1
     elif fault == "requires_grad":
+        # no fault since K2 carries its gradient (NeeMeanCos): the mean
+        # cosine is differentiable, the occlusion is not, and the values
+        # are the no-grad call's
+        want = nee.nee_mean_cos_fused(point3, normal3, u, scene, s_samples)
         normal3.requires_grad_(True)
-        expected = RuntimeError
+        mc, occ = nee.nee_mean_cos_fused(point3, normal3, u, scene,
+                                         s_samples)
+        assert mc.requires_grad and not occ.requires_grad
+        assert torch.equal(mc.detach(), want[0]) and torch.equal(occ, want[1])
+        return
     elif fault == "u_shape":
         u = u[:-1]
     elif fault == "dtype":

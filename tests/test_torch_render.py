@@ -175,11 +175,12 @@ def test_formerly_refused_options_match_jax(case):
     assert np.isfinite(got).all() and got.max() > 0
 
 
+# option -> (config, the ROADMAP.md queue A item the refusal names)
 UNSUPPORTED = {
-    "reference_mode": dict(mode="reference"),
-    "soft_visibility": dict(soft_vis_beta=0.05),
-    "geom_axis": dict(geom_axis="geom", geom_axis_size=2),
-    "remat_bounces": dict(remat_bounces=True),
+    "reference_mode": (dict(mode="reference"), "A2"),
+    "soft_visibility": (dict(soft_vis_beta=0.05), "A3b"),
+    "geom_axis": (dict(geom_axis="geom", geom_axis_size=2), "A4"),
+    "remat_bounces": (dict(remat_bounces=True), "A3b"),
 }
 
 
@@ -187,6 +188,8 @@ UNSUPPORTED = {
 def test_unsupported_options_raise(case):
     scene = arrays.pack_scene(synthetic.cornell_box_scene(4, 4), pad_to=32,
                               device="cpu")
-    cfg = RenderConfig(n_samples=1, n_bounces=1, **UNSUPPORTED[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw, item = UNSUPPORTED[case]
+    cfg = RenderConfig(n_samples=1, n_bounces=1, **kw)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue A, {item}:"):
         render(scene, cfg)

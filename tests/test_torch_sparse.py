@@ -207,7 +207,10 @@ def test_wrapper_refuses_bad_inputs(field):
     scene, _ = field
     o3 = torch.zeros(3, 8, requires_grad=True)
     d3 = torch.zeros(3, 8)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        sparse.sparse_nearest_t_idx_cm(o3, d3, scene)
+    # rays that require grad are no fault since K5 carries its gradient
+    t, idx = sparse.sparse_nearest_t_idx_cm(o3, d3, scene)
+    assert t.requires_grad and not idx.requires_grad
+    want = sparse.sparse_nearest_t_idx_cm(o3.detach(), d3, scene)
+    assert torch.equal(t.detach(), want[0]) and torch.equal(idx, want[1])
     with pytest.raises(ValueError, match="shape"):
         sparse.sparse_nearest_t_idx_cm(torch.zeros(3, 8), d3[:, :4], scene)

@@ -182,9 +182,10 @@ def test_wrapper_refuses_bad_inputs(field):
     o3, d3 = torch.zeros(3, 8), torch.zeros(3, 8)
     with pytest.raises(ValueError, match="shape"):
         sparse.sparse_any_hit_cm(o3, d3, torch.zeros(7), scene)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        sparse.sparse_any_hit_cm(o3, d3, torch.zeros(8, requires_grad=True),
-                                 scene)
+    # a window that requires grad is no fault: occlusion is detached
+    occ = sparse.sparse_any_hit_cm(o3, d3, torch.zeros(8, requires_grad=True),
+                                   scene)
+    assert not occ.requires_grad and not occ.any()
     with pytest.raises(TypeError, match="dtype"):
         sparse.sparse_any_hit_cm(o3.double(), d3, torch.zeros(8), scene)
     assert sparse.sparse_any_hit_cm(torch.zeros(3, 0), torch.zeros(3, 0),
