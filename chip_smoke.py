@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile  # also profiles one render of each cell
 
 Drives ``pathtracerpython_tpu_torch`` through its public entry points on the
-card, in five phases, and fails (non-zero exit, no result line) if any
+card, in the phases below, and fails (non-zero exit, no result line) if any
 phase fails:
 
 0. card identity: ``nvidia-smi`` name and power limit, torch and CUDA
@@ -137,6 +137,34 @@ phase fails:
      K3's dense nearest for the Plücker form) within GRAD_RTOL, and the
      backward of K5's, K8's and K3's sparse nearest sweep timed alone on
      the field's primary rays and pack;
+3s. soft and pose (the soft estimator is plain PyTorch, as the JAX
+   package's is plain XLA: no kernel of its own; every check fails the
+   run):
+   - a soft render of the stand-in at 128x128 (1 spp, 1 bounce, beta 0.03)
+     launches none of K1-K9;
+   - the occluder scene of ``tests/test_boundary.py`` and the stand-in at
+     64x64 (beta 0.05): soft radiance on the card against the CPU (the
+     Cornell rule), and at 1 bounce the gradients of the blocker's
+     translation and of the tall cube's planar pose within GRAD_RTOL, over
+     the pixels whose front record does not tie between two coplanar
+     triangles (there it follows the last bit of t);
+   - the 600-box field (7,296 triangles, morton) at 128x128, beta 0.03:
+     the cluster soft sweep's records equal to the dense sweep's on every
+     camera ray and on shadow rays from 16 floor patches, its visibility
+     within 5e-3 of the dense one, no dense fallback; ms, peak memory and
+     fallbacks of one soft render and its backward;
+   - ``apps.fit_pose.run(object_name="cube")`` with the app's defaults
+     (planar, 120 steps a level, pyramid 40x40 then 128x128, 4 beta stages
+     0.12 -> 0.03, 1 spp, 1 bounce, Adam(0.05)): the loss falls at each
+     level and the offset and yaw errors fall; ms a step, fwd:bwd, peak;
+   - ``fit_pose`` light mode (30 steps) and ``apps.fit_camera`` (20): the
+     lateral and eye errors fall, K1 and K2 launched once per sample pass
+     and bounce of each step and render (none in the backwards);
+   - the training step of the bench configuration with ``remat_bounces``
+     off and on: gradients within 1e-6 relative L2 per field, K1 and K2 4
+     then 8 launches a step, peak memory and ms a step both ways;
+   - the soft pose step at 1, 2, 4 and 8 spp at 128x128: ms and peak
+     memory (the port's sample loop is Python, with no compile cost);
 4. timing: ms per render (CUDA events, 2 warm-up renders, median of 10)
    and Mrays/s counted two ways, for the Cornell cell, the 300-box field
    and the 100k-triangle field through the hybrid, sparse, sparse with
@@ -2454,6 +2482,599 @@ def phase3_grad(cornell, card: str) -> dict:
     return report
 
 
+# The soft-and-pose phase: the soft estimator (diff/boundary.py, plain
+# PyTorch: the JAX package's soft sweeps are plain XLA and reach no
+# pl.pallas_call), remat_bounces, and the pose and camera apps. Every check
+# fails the run.
+SOFT_BETA = 0.03        # fit_pose's final beta
+SOFT_SIZE = 128         # the stand-in, as the apps load it
+SOFT_CHECK_SIZE = 64    # card against CPU
+SOFT_CHECK_BETA = 0.05  # the JAX package's tests/test_boundary.py beta
+SOFT_FIELD_BOXES = 600  # 7,296 triangles: past SOFT_ACCEL_MIN_TRIS
+SOFT_VIS_ATOL = 5e-3    # cluster against dense visibility (dropped terms)
+REMAT_RTOL = 1e-6       # remat against no remat, relative L2 per field
+LIGHT_STEPS = 30
+CAMERA_STEPS = 20
+SPP_SWEEP = (1, 2, 4, 8)
+# fit_pose --object cube, run once a seed: on the card a run ends either
+# near the pose (offset <= 0.048 and yaw <= 0.064 rad) or in a second basin
+# (yaw 0.20-0.37), or with the yaw right and the offset off, in about one
+# run in three (scripts/soft_fit_seeds.py; the card's float atomics make one
+# seed's runs differ; the JAX app stalls on the CPU too). A run recovers
+# below these bounds, and one run of the six must
+FIT_SEEDS = (0, 1, 2, 3, 4, 5)
+FIT_RECOVERED_OFFSET = 0.1  # of 0.5
+FIT_RECOVERED_YAW = 0.1     # rad, of 0.25
+RECOVER_STEPS = 60          # tests/test_torch_pose.py's offset recovery
+RECOVER_TOL = 1e-2
+# floor patches of the 600-box field whose shadow rays make one cluster
+# block each (tests/test_torch_boundary_sparse.py), beside the light: a
+# patch under it (x = 0) sends rays in every direction, and its block takes
+# up to 226 of the 240 clusters
+PATCHES = tuple((x, z) for x in (-4.0, -2.0, 2.0, 4.0) for z in
+                (-3.0, -5.0, -9.0, -11.0))
+
+
+def soft_routing(cornell_soft) -> dict:
+    """A soft render of the stand-in at 128^2 (1 spp, 1 bounce, beta
+    0.03) launches none of K1-K9."""
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+
+    cfg = RenderConfig(n_samples=1, n_bounces=1, soft_vis_beta=SOFT_BETA)
+    rad, launches = render_counted(
+        f"soft render stand-in {SOFT_SIZE}^2", cornell_soft, cfg,
+        {k: 0 for k in read_launches()})
+    check_radiance(f"soft render stand-in {SOFT_SIZE}^2", rad,
+                   SOFT_SIZE * SOFT_SIZE)
+    return launches
+
+
+def front_ties(scene, o, d, beta: float) -> torch.Tensor:
+    """bool[N]: the rays whose soft front record ties between two
+    triangles, their biased keys within 1e-6 relative: a ray that misses a
+    quad near its edge has the same t on both of its triangles, so F (and
+    the margin that sets the coverage) is picked by the last bit of t, and
+    the card and the CPU round it apart."""
+    from pathtracerpython_tpu_torch.diff import boundary as bd
+
+    d = bd.safe_normalize(d)
+    ok, t, m = bd.plane_hit_and_margin(o[:, None], d[:, None],
+                                       scene.tri_v0[None], scene.tri_v1[None],
+                                       scene.tri_v2[None])
+    keys = torch.where(ok & scene.tri_valid[None] & (t > bd.T_MIN)
+                       & (m > -bd.BAND_SIGMAS * beta), bd._f_key(t, m),
+                       float("inf"))
+    k = torch.topk(keys, 2, dim=1, largest=False).values
+    return (k[:, 1] - k[:, 0] <= 1e-6 * k[:, 0].abs()) & torch.isfinite(
+        k[:, 0])
+
+
+def move_object(scene, obj: int, pose):
+    """``scene`` with object ``obj`` (material row) moved by ``pose``:
+    (dx, dz) or (dx, dz, yaw)."""
+    from pathtracerpython_tpu_torch.diff.transforms import transform_object
+
+    zero = torch.zeros((), device=scene.device)
+    yaw = pose[2] if len(pose) == 3 else zero
+    return transform_object(scene, obj, torch.stack([pose[0], zero,
+                                                     pose[1]]), yaw)
+
+
+def pose_grad(scene, cfg, obj: int, target, pose, keep):
+    """d loss / d pose, (dx, dz) or (dx, dz, yaw), of object ``obj`` at
+    ``pose``: 0.5 * mean squared error of the camera view against
+    ``target`` over the pixels ``keep``, key (0, 3)."""
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.render.integrator import render_rays
+
+    p = torch.tensor(pose, device=scene.device, requires_grad=True)
+    w, h = scene.meta.width, scene.meta.height
+    o, d = make_primary_rays(scene.eye, scene.ortho, w, h)
+    rad = render_rays(o, d, torch.arange(w * h, device=scene.device),
+                      move_object(scene, obj, p), cfg, (0, 3))
+    err = ((rad - target) ** 2).mean(dim=1)
+    (0.5 * (err * keep.to(err.device)).sum() / keep.sum()).backward()
+    return p.grad
+
+
+def ties_per_bounce(scene, cfg, obj: int, pose) -> torch.Tensor:
+    """bool[bounces, N] on the CPU: the lanes whose soft front record ties
+    (``front_ties``) at each bounce of the render that ``pose_grad`` makes,
+    read from the rays each bounce's sweep is given. One lane a pixel: 1
+    spp, and no sorting on a scene this small."""
+    from pathtracerpython_tpu_torch.diff import boundary
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.render.integrator import render_rays
+
+    sweep, ties = boundary.soft_hits_sweep, []
+
+    def spy(o, d, sc, beta):
+        ties.append(front_ties(sc, o, d, beta).cpu())
+        return sweep(o, d, sc, beta)
+
+    w, h = scene.meta.width, scene.meta.height
+    o, d = make_primary_rays(scene.eye, scene.ortho, w, h)
+    boundary.soft_hits_sweep = spy
+    try:
+        with torch.no_grad():
+            render_rays(o, d, torch.arange(w * h, device=scene.device),
+                        move_object(scene, obj, torch.tensor(
+                            pose, device=scene.device)), cfg, (0, 3))
+    finally:
+        boundary.soft_hits_sweep = sweep
+    return torch.stack(ties)
+
+
+def hold_pose_grad(label, card, cpu, cfg, obj, target, pose, keep) -> float:
+    """``pose_grad`` on the card against the CPU within GRAD_RTOL
+    (relative L2) over the pixels ``keep``."""
+    g = pose_grad(card, cfg, obj, target.cuda(), pose, keep)
+    w = pose_grad(cpu, cfg, obj, target, pose, keep)
+    err = rel_l2(g, w)
+    log(f"[3s] soft {label}: pose gradient card {g.tolist()} CPU "
+        f"{w.tolist()}, relative L2 {err:.3g} over {int(keep.sum())} of "
+        f"{keep.numel()} pixels")
+    if not torch.isfinite(g).all() or err > GRAD_RTOL:
+        fail(f"soft {label}: pose gradient differs by {err}, bound "
+             f"{GRAD_RTOL}")
+    return err
+
+
+def soft_card_vs_cpu() -> dict:
+    """The occluder scene of tests/test_boundary.py and the stand-in at
+    64^2 (1 spp, 2 bounces, 2 NEE, beta 0.05): radiance on the card
+    against the CPU. Pose gradients, card against CPU: the blocker's
+    translation at 2 bounces over every pixel; the tall cube's planar pose
+    (a yaw of 0.02) at 1 bounce over the pixels whose camera ray's front
+    record does not tie, and at 2 bounces over the pixels whose front
+    record ties at no bounce, on either device (``ties_per_bounce``)."""
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import (
+        cornell_box_scene,
+        occluder_scene,
+    )
+
+    cfg = RenderConfig(n_samples=1, n_bounces=2, n_light_samples=2,
+                       soft_vis_beta=SOFT_CHECK_BETA)
+    one = dataclasses.replace(cfg, n_bounces=1)
+    scenes = {}
+    out = {}
+    for label, desc in (
+            ("occluder", occluder_scene(SOFT_CHECK_SIZE, SOFT_CHECK_SIZE)),
+            ("stand-in", cornell_box_scene(SOFT_CHECK_SIZE,
+                                           SOFT_CHECK_SIZE))):
+        cpu = pack_scene(desc, device="cpu")
+        card = cpu.to("cuda")
+        want = render(cpu, cfg, seed=3)
+        got = render(card, cfg, seed=3)
+        hold_close(f"soft {label} {SOFT_CHECK_SIZE}^2 card against CPU",
+                   got.cpu(), want)
+        scenes[label] = (cpu, card, 0.5 * want)
+        out[label] = {"radiance_max_abs_diff":
+                      (got.cpu() - want).abs().max().item()}
+    every = torch.ones(SOFT_CHECK_SIZE * SOFT_CHECK_SIZE)
+    cpu, card, target = scenes["occluder"]
+    out["occluder"]["translation_grad_rel_l2_2_bounces"] = hold_pose_grad(
+        "occluder translation, 2 bounces", card, cpu, cfg, 1, target,
+        (0.05, -0.03), every)
+    cpu, card, target = scenes["stand-in"]
+    pose = (0.05, -0.03, 0.02)
+    ties = ties_per_bounce(cpu, cfg, 5, pose) | ties_per_bounce(card, cfg,
+                                                                5, pose)
+    log(f"[3s] soft stand-in: lanes whose front record ties, per bounce "
+        f"(card or CPU): {ties.sum(dim=1).tolist()}")
+    out["stand-in"]["tied_lanes_per_bounce"] = ties.sum(dim=1).tolist()
+    out["stand-in"]["pose_grad_rel_l2_1_bounce"] = hold_pose_grad(
+        "stand-in planar pose, 1 bounce, untied", card, cpu, one, 5, target,
+        pose, (~ties[0]).float())
+    out["stand-in"]["pose_grad_rel_l2_2_bounces"] = hold_pose_grad(
+        "stand-in planar pose, 2 bounces, untied at every bounce", card, cpu,
+        cfg, 5, target, pose, (~ties.any(0)).float())
+    # not a check: the tied pixels' share of the 2-bounce gap
+    g = pose_grad(card, cfg, 5, target.cuda(), pose, every)
+    w = pose_grad(cpu, cfg, 5, target, pose, every)
+    out["stand-in"]["pose_grad_rel_l2_2_bounces_every_pixel"] = rel_l2(g, w)
+    log(f"[3s] soft stand-in planar pose, 2 bounces, every pixel (tied "
+        f"front records flip between the devices; not a check): relative "
+        f"L2 {rel_l2(g, w):.3g}")
+    return out
+
+
+def patch_shadow_rays(scene, seed: int = 0):
+    """(o, d, maxd) of 256 seeded shadow rays from each floor patch of
+    PATCHES to seeded points of the light quad, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pts = []
+    for x, z in PATCHES:
+        u = torch.rand((256, 2), generator=gen, device="cuda")
+        pts.append(torch.stack([x - 0.3 + 0.6 * u[:, 0],
+                                torch.full((256,), -0.99, device="cuda"),
+                                z - 0.3 + 0.6 * u[:, 1]], dim=1))
+    pts = torch.cat(pts)
+    lv = [getattr(scene, f)[0] for f in ("light_v0", "light_v1",
+                                         "light_v2")]
+    u = torch.rand((pts.shape[0], 2), generator=gen, device="cuda")
+    light = lv[0] + u[:, :1] * (lv[1] - lv[0]) + u[:, 1:] * (lv[2] - lv[1])
+    vec = light - pts
+    return pts, vec, vec.norm(dim=1)
+
+
+def soft_cluster_sweeps(card: str) -> dict:
+    """The 600-box field (morton) at 128^2, beta 0.03: the cluster sweep's
+    records against the dense sweep's on the camera rays and on patch
+    shadow rays (equal on every lane), its visibility against the dense
+    one within SOFT_VIS_ATOL; then one soft render and its backward
+    (tri_v0): ms, peak memory and the dense fallbacks."""
+    from pathtracerpython_tpu_torch.diff import boundary
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import box_field_scene
+
+    scene = pack_scene(box_field_scene(n_boxes=SOFT_FIELD_BOXES,
+                                       width=SOFT_SIZE, height=SOFT_SIZE),
+                       tri_order="morton")
+    o, d = make_primary_rays(scene.eye, scene.ortho, SOFT_SIZE, SOFT_SIZE)
+    so, sd, smax = patch_shadow_rays(scene)
+    out = {"triangles": scene.meta.n_triangles}
+    for label, (ro, rd) in (("camera", (o, d)), ("patch shadow", (so, sd))):
+        before = boundary.FALLBACKS
+        sparse = boundary.soft_hits_sweep_sparse(ro, rd, scene, SOFT_BETA)
+        fell = boundary.FALLBACKS - before
+        dense = boundary.soft_hits_sweep_dense(ro, rd, scene, SOFT_BETA)
+        differ = {f: int((a != b).sum()) for f, a, b in zip(
+            sparse._fields, sparse, dense)}
+        found = (dense.f_idx != boundary.IMAX).float().mean().item()
+        sp_ms = cuda_ms(lambda: boundary.soft_hits_sweep_sparse(
+            ro, rd, scene, SOFT_BETA), 3)
+        de_ms = cuda_ms(lambda: boundary.soft_hits_sweep_dense(
+            ro, rd, scene, SOFT_BETA), 3)
+        log(f"[3s] soft records, 600-box field, {ro.shape[0]} {label} rays "
+            f"({card}): cluster sweep {sp_ms:.3f} ms ({fell} dense "
+            f"fallbacks), dense {de_ms:.3f} ms; lanes that differ {differ}; "
+            f"share with a front record {found:.3f}")
+        if fell or any(differ.values()):
+            fail(f"soft cluster records ({label}): {fell} fallbacks, lanes "
+                 f"that differ {differ}")
+        out[label] = {"rays": ro.shape[0], "cluster_ms": sp_ms,
+                      "dense_ms": de_ms}
+    before = boundary.FALLBACKS
+    vis = boundary.soft_visibility_sparse(so, sd, smax, scene, SOFT_BETA)
+    fell = boundary.FALLBACKS - before
+    cov = boundary._soft_visibility_cov(so, sd, smax, scene, SOFT_BETA)
+    diff = (vis - (1.0 - torch.clamp_max(cov, 1.0))).abs().max().item()
+    log(f"[3s] soft visibility, {so.shape[0]} patch shadow rays: cluster "
+        f"against dense max abs diff {diff:.3g} (bound {SOFT_VIS_ATOL}), "
+        f"{fell} fallbacks, share of rays under half visible "
+        f"{(vis < 0.5).float().mean().item():.3f}")
+    if fell or diff > SOFT_VIS_ATOL:
+        fail(f"soft visibility: {fell} fallbacks, max abs diff {diff}")
+    out["visibility_max_abs_diff"] = diff
+
+    cfg = RenderConfig(n_samples=1, n_bounces=1, soft_vis_beta=SOFT_BETA)
+    v0 = scene.tri_v0.clone().requires_grad_(True)
+    sc = dataclasses.replace(scene, tri_v0=v0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = boundary.FALLBACKS
+    t0 = time.perf_counter()
+    rad = render(sc, cfg, seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rad.mean().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    fell = boundary.FALLBACKS - before
+    with torch.no_grad():
+        nograd_ms = cuda_ms(lambda: render(scene, cfg, seed=0), 2)
+    check_radiance("soft render 600-box field", rad.detach(),
+                   SOFT_SIZE * SOFT_SIZE)
+    if not torch.isfinite(v0.grad).all() or v0.grad.abs().sum() == 0:
+        fail("soft render 600-box field: tri_v0's gradient is not finite "
+             "or zero")
+    out["render"] = {"forward_ms": (t1 - t0) * 1e3,
+                     "backward_ms": (t2 - t1) * 1e3,
+                     "no_grad_ms": nograd_ms, "peak_memory_bytes": peak,
+                     "dense_fallbacks": fell}
+    log(f"[3s] soft render 600-box field {SOFT_SIZE}^2 1 spp 1 b ({card}): "
+        f"forward {out['render']['forward_ms']:.1f} ms, backward "
+        f"{out['render']['backward_ms']:.1f} ms (host clock, one run), "
+        f"no-grad render {nograd_ms:.1f} ms; peak memory "
+        f"{peak / 2**30:.3f} GiB; dense fallbacks {fell} (the NEE's shadow "
+        "rays span the field in every block)")
+    return out
+
+
+def pose_step_times(card: str, spp: int, beta: float = SOFT_BETA) -> dict:
+    """One step of the object fit on the stand-in at 128^2 (planar pose of
+    the tall cube from fit_pose's start, 1 bounce): ms of the forward with
+    its graph and of forward + backward (CUDA events, median of 5 after 1
+    warm-up), and the peak memory of one step."""
+    from pathtracerpython_tpu_torch.apps import fit_pose
+    from pathtracerpython_tpu_torch.apps.fit_albedo import (
+        fit_scene_description,
+    )
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render_rays
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+
+    desc, _ = fit_scene_description(None)
+    scene = pack_scene(desc)
+    _, move, to_pose = fit_pose.pose_model(desc, "cube")
+    cfg = RenderConfig(n_samples=spp, n_bounces=1, soft_vis_beta=beta)
+    w = scene.meta.width
+    rays = (*make_primary_rays(scene.eye, scene.ortho, w, w),
+            torch.arange(w * w, device="cuda"))
+    with torch.no_grad():
+        target = render_rays(*rays, scene, cfg, (0, 0))
+    loss_fn = fit_pose.pose_loss(scene, move, to_pose, cfg, rays, (0, 0))
+    params = torch.tensor(fit_pose.initial_params("cube", "planar",
+                                                  (0.4, 0.0, 0.3), 0.25),
+                          device="cuda", requires_grad=True)
+
+    def fwd():
+        return loss_fn(params, target)
+
+    def fwd_bwd():
+        params.grad = None
+        fwd().backward()
+
+    times = {name: statistics.median(timed_runs(fn, warmup=1, reps=5))
+             for name, fn in (("forward", fwd), ("forward_backward",
+                                                 fwd_bwd))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    backward = times["forward_backward"] - times["forward"]
+    return {"spp": spp, "forward_ms": times["forward"],
+            "step_ms": times["forward_backward"], "backward_ms": backward,
+            "fwd_bwd_ratio": times["forward"] / backward,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def one_object_fit(seed: int) -> dict:
+    """``apps.fit_pose.run(object_name="cube", seed=seed)`` at the CLI's
+    object-mode learning rate (``fit_pose.OBJECT_LR``), the app's other
+    defaults: the stand-in at 128^2, planar, 120 steps a level, pyramid
+    40^2 then 128^2, 4 beta stages 0.12 -> 0.03, 1 spp, 1 bounce. Fails
+    the run unless the loss falls over each level."""
+    import tempfile
+
+    from pathtracerpython_tpu_torch.apps import fit_pose
+
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fit_pose.run(object_name="cube", lr=fit_pose.OBJECT_LR,
+                              seed=seed, out_dir=out, log=lambda _: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "result.json")) as f:
+            losses = json.load(f)["losses"]
+    n = len(losses)
+    yaw = abs(result["final_angle"][0])
+    recovered = (result["final_offset_norm"] < FIT_RECOVERED_OFFSET
+                 and yaw < FIT_RECOVERED_YAW)
+    log(f"[3s] fit_pose --object cube seed {seed}: {n} steps, losses every "
+        f"20th {[round(x, 7) for x in losses[::20]]} last {losses[-1]!r}; "
+        f"offset norm {result['init_offset_norm']:.4f} -> "
+        f"{result['final_offset_norm']:.4g}, yaw error "
+        f"{result['init_angle']:.4f} -> {yaw:.4g} rad "
+        f"({'recovered' if recovered else 'not recovered'}); {wall:.2f} s "
+        f"wall ({wall / n * 1e3:.1f} ms a step with the target renders), "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    level = n // 2  # the first loss of the 128^2 level
+    if not (np.isfinite(losses).all() and losses[-1] < losses[level]
+            and losses[level - 1] < losses[0]):
+        fail(f"fit_pose object seed {seed}: the loss did not fall: "
+             f"{losses[::20]}")
+    return {"seed": seed, "losses_every_20th": losses[::20],
+            "loss_last": losses[-1],
+            "final_offset_norm": result["final_offset_norm"],
+            "final_yaw_error": yaw, "recovered": recovered, "wall_s": wall,
+            "ms_per_step_with_renders": wall / n * 1e3,
+            "peak_memory_bytes": peak}
+
+
+def soft_recover_offset() -> float:
+    """tests/test_torch_pose.py's recovery on the card: RECOVER_STEPS Adam
+    steps (lr 0.05) of soft-visibility gradients take a 0.3 offset of the
+    occluder scene's blocker along x to under RECOVER_TOL."""
+    from pathtracerpython_tpu_torch.diff import adam
+    from pathtracerpython_tpu_torch.diff.transforms import translate_object
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render_rays
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import occluder_scene
+
+    scene = pack_scene(occluder_scene())
+    cfg = RenderConfig(n_bounces=1, n_light_samples=2, soft_vis_beta=0.05)
+    w, h = scene.meta.width, scene.meta.height
+    o, d = make_primary_rays(scene.eye, scene.ortho, w, h)
+    pids = torch.arange(w * h, device="cuda")
+    with torch.no_grad():
+        target = render_rays(o, d, pids, scene, cfg, 5)
+    dx = torch.tensor(0.3, device="cuda", requires_grad=True)
+    zero = torch.zeros((), device="cuda")
+    opt = adam(0.05)([dx])
+    for _ in range(RECOVER_STEPS):
+        opt.zero_grad()
+        moved = translate_object(scene, 1, torch.stack([dx, zero, zero]))
+        rad = render_rays(o, d, pids, moved, cfg, 5)
+        (0.5 * ((rad - target) ** 2).mean()).backward()
+        opt.step()
+    got = abs(float(dx.detach()))
+    log(f"[3s] soft offset recovery, occluder scene: |dx| 0.3 -> {got:.3g} "
+        f"in {RECOVER_STEPS} steps (bound {RECOVER_TOL})")
+    if not got < RECOVER_TOL:
+        fail(f"soft offset recovery: |dx| {got}, bound {RECOVER_TOL}")
+    return got
+
+
+def soft_fit_pose(card: str) -> dict:
+    """The object fit on the card: the blocker's offset recovery, then
+    ``fit_pose --object cube`` once a seed of FIT_SEEDS, each loss falling
+    and at least one run recovering the pose (offset under
+    FIT_RECOVERED_OFFSET and yaw under FIT_RECOVERED_YAW); then one step's
+    times at 128^2."""
+    recover = soft_recover_offset()
+    runs = [one_object_fit(seed) for seed in FIT_SEEDS]
+    n_ok = sum(r["recovered"] for r in runs)
+    step = pose_step_times(card, 1)
+    log(f"[3s] fit_pose --object cube ({card}): recovered in {n_ok} of "
+        f"{len(runs)} runs; one step at 128^2, beta 0.03: forward "
+        f"{step['forward_ms']:.2f} ms, forward + backward "
+        f"{step['step_ms']:.2f} ms, fwd:bwd {step['fwd_bwd_ratio']:.3f}")
+    if not n_ok:
+        fail(f"fit_pose object: no run of {len(runs)} recovered the pose "
+             f"(offset < {FIT_RECOVERED_OFFSET}, yaw < {FIT_RECOVERED_YAW})")
+    return {"offset_recovery_abs_dx": recover, "runs": runs,
+            "recovered_runs": n_ok, "step_128": step}
+
+
+def launch_counted_fit(label, run, want: int) -> dict:
+    """Run an app's fit with the launch counts set to 0 just before and
+    read just after; K1 and K2 must have launched ``want`` times each (the
+    backwards launch none)."""
+    reset_launches()
+    result = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    log(f"[3s] {label}: launches {launches} (expected K1 = K2 = {want})")
+    if launches != {"K1": want, "K2": want}:
+        fail(f"{label}: launches {launches}, expected K1 = K2 = {want}")
+    return {**result, "launches": launches}
+
+
+def soft_light_and_camera(card: str) -> dict:
+    """fit_pose's light mode (LIGHT_STEPS steps) and fit_camera
+    (CAMERA_STEPS steps) on the stand-in at 128^2: the lateral and eye
+    errors fall; K1 and K2 launch once per sample pass and bounce of every
+    step and render, none in the backwards."""
+    import tempfile
+
+    from pathtracerpython_tpu_torch.apps import fit_camera, fit_pose
+
+    with tempfile.TemporaryDirectory() as out:
+        # the target image, the stage's target, the steps and the fitted
+        # image: 1 spp, 1 bounce
+        light = launch_counted_fit(
+            f"fit_pose light mode {LIGHT_STEPS} steps",
+            lambda: fit_pose.run(steps=LIGHT_STEPS, out_dir=out, log=log),
+            LIGHT_STEPS + 3)
+        # the target and the steps: 2 spp (two passes), 2 bounces
+        camera = launch_counted_fit(
+            f"fit_camera {CAMERA_STEPS} steps",
+            lambda: fit_camera.run(steps=CAMERA_STEPS, out_dir=out, log=log),
+            fit_camera.SPP * fit_camera.BOUNCES * (CAMERA_STEPS + 1))
+    log(f"[3s] light mode ({card}): lateral offset "
+        f"{light['init_offset_norm']:.4f} -> {light['final_offset_norm']:.4g}"
+        f"; fit_camera: eye error {camera['eye_err_initial']:.4f} -> "
+        f"{camera['eye_err_final']:.4g}")
+    if not light["final_offset_norm"] < light["init_offset_norm"]:
+        fail(f"fit_pose light: the offset did not fall: {light}")
+    if not camera["eye_err_final"] < camera["eye_err_initial"]:
+        fail(f"fit_camera: the eye error did not fall: {camera}")
+    return {"light": light, "camera": camera}
+
+
+def remat_step(cornell, card: str) -> dict:
+    """The training step of the bench configuration (Cornell 512^2, 4 spp
+    as extra lanes, 4 bounces, 3 NEE) with remat_bounces off, then on:
+    gradients within REMAT_RTOL per field, K1 and K2 launches a step (4,
+    then 8: the recompute launches them again), peak memory and ms a
+    step (CUDA events, median of 5 after 1 warm-up)."""
+    from pathtracerpython_tpu_torch.diff import (
+        adam,
+        camera_pixel_loss,
+        make_render_fn,
+        make_train_step,
+    )
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    base = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
+                        n_bounces=CORNELL_BOUNCES,
+                        n_light_samples=NEE_SAMPLES, batch_samples=True)
+    with torch.no_grad():
+        target = render(cornell, base, seed=0)
+    pids = torch.arange(target.shape[0], device="cuda")
+    start = {f: getattr(cornell, f).detach().clone() for f in STEP_FIELDS}
+    start["mat_rgb"] = start["mat_rgb"] * 0.5
+    out, grads = {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat_bounces=remat)
+        params = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        camera_pixel_loss(params, cornell, target, make_render_fn(cfg), pids,
+                          (0, 5)).backward()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        grads[remat] = {k: p.grad.clone() for k, p in params.items()}
+        step = make_train_step(adam(0.01)(list(params.values())), cornell,
+                               cfg, target)
+        ms = statistics.median(timed_runs(lambda: step(params, (0, 6)),
+                                          warmup=1, reps=5))
+        out["remat" if remat else "no_remat"] = {
+            "launches": launches, "peak_memory_bytes": peak,
+            "ms_per_step": ms}
+        want = 2 * CORNELL_BOUNCES if remat else CORNELL_BOUNCES
+        log(f"[3s] train step, remat_bounces={remat} ({card}): {ms:.2f} ms "
+            f"a step, peak memory {peak / 2**30:.3f} GiB, launches "
+            f"{launches}")
+        if launches != {"K1": want, "K2": want}:
+            fail(f"remat_bounces={remat}: launches {launches}, expected "
+                 f"K1 = K2 = {want}")
+    errs = {k: rel_l2(grads[True][k], grads[False][k]) for k in STEP_FIELDS}
+    log("[3s] remat against no remat, relative L2 per field " +
+        json.dumps(errs))
+    worst = max(errs, key=errs.get)
+    if errs[worst] > REMAT_RTOL:
+        fail(f"remat_bounces: {worst} differs by {errs[worst]} (relative "
+             f"L2), bound {REMAT_RTOL}")
+    out["rel_l2"] = errs
+    return out
+
+
+def phase3_soft(cornell, card: str) -> dict:
+    """Soft and pose: the routing, the card against the CPU, the cluster
+    sweeps, fit_pose in both modes, fit_camera, remat_bounces and the soft
+    step against spp. A failure fails the run."""
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import cornell_box_scene
+
+    t0 = time.perf_counter()
+    stand_in = pack_scene(cornell_box_scene(SOFT_SIZE, SOFT_SIZE))
+    report = {"routing": soft_routing(stand_in),
+              "card_vs_cpu": soft_card_vs_cpu(),
+              "cluster": soft_cluster_sweeps(card),
+              "fit_pose_object": soft_fit_pose(card),
+              **soft_light_and_camera(card),
+              "remat": remat_step(cornell, card)}
+    report["spp"] = [pose_step_times(card, spp) for spp in SPP_SWEEP]
+    log(f"[3s] soft pose step against spp at {SOFT_SIZE}^2 ({card}; the "
+        "sample loop is Python and has no compile cost): " + "; ".join(
+            f"{r['spp']} spp {r['step_ms']:.2f} ms a step (forward "
+            f"{r['forward_ms']:.2f}), peak "
+            f"{r['peak_memory_bytes'] / 2**30:.3f} GiB"
+            for r in report["spp"]))
+    report["seconds"] = time.perf_counter() - t0
+    log("[3s] soft and pose " + json.dumps(report))
+    return report
+
+
 def time_render(label, scene, spp, bounces, reps: int = 10,
                 nee: int = NEE_SAMPLES, **cfg_kw) -> dict:
     from pathtracerpython_tpu_torch.render.config import RenderConfig
@@ -2612,6 +3233,7 @@ def main() -> None:
                           many, large)
     launches = {**phase3_render(cornell, large, many), **phase3_probes()}
     grads = phase3_grad(cornell, card)
+    phase3_soft(cornell, card)
     large_label = (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp "
                    f"{LARGE_BOUNCES}b")
     cell_args = [

@@ -29,18 +29,26 @@ BOUNCES = 2
 NEE_SAMPLES = 3
 
 
-def load_fit_scene(scene_path: str | None, device):
-    """(scene, what): the SDL scene ``scene_path``, or the in-repo
-    stand-in where it is None, on ``device``."""
-    from pathtracerpython_tpu_torch.scene.arrays import load_scene, pack_scene
+def fit_scene_description(scene_path: str | None):
+    """(description, what): the SDL scene ``scene_path`` parsed, or the
+    in-repo stand-in where it is None."""
+    from pathtracerpython_tpu_torch.scene.sdl import load_sdl
     from pathtracerpython_tpu_torch.scene.synthetic import cornell_box_scene
 
     if scene_path is not None:
-        return load_scene(scene_path, device=device), scene_path
-    desc = cornell_box_scene(STAND_IN_SIZE, STAND_IN_SIZE)
-    return (pack_scene(desc, device=device),
+        return load_sdl(scene_path), scene_path
+    return (cornell_box_scene(STAND_IN_SIZE, STAND_IN_SIZE),
             f"stand-in cornell_box_scene({STAND_IN_SIZE}, {STAND_IN_SIZE})"
             " (no --scene given)")
+
+
+def load_fit_scene(scene_path: str | None, device):
+    """(scene, what): the SDL scene ``scene_path``, or the in-repo
+    stand-in where it is None, on ``device``."""
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+
+    desc, what = fit_scene_description(scene_path)
+    return pack_scene(desc, device=device), what
 
 
 def run(scene_path: str | None = None, steps: int = 60, lr: float = 0.05,

@@ -10,8 +10,11 @@ require grad). Supported:
 - emission (``light_color``, ``ambient``);
 - vertex buffers (``tri_v0/1/2``, ``light_v0/1/2``): gradients through the
   hit distance, the shading point and, by ``recompute_derived``, the
-  normals. The hard estimator only: discrete choices (winners, occlusion,
+  normals. With the hard estimator discrete choices (winners, occlusion,
   BRDF branch, light pick) carry no gradient, as in the JAX package;
+  ``RenderConfig.soft_vis_beta > 0`` switches to the soft boundary
+  estimator (``diff/boundary.py``), whose silhouette and shadow terms are
+  differentiable in occluder vertices;
 - camera (``eye``, ``ortho``): through primary rays made inside the loss
   (``camera_pixel_loss``).
 
@@ -19,7 +22,9 @@ The RNG is counter-based and fixed by (key, pixel, sample, bounce), so a
 loss is a deterministic function of the parameters, and central finite
 differences with one key are a valid oracle of its gradient.
 
-Not ported yet: sharded training (``mesh``, ROADMAP.md queue A, A4) and
+``make_render_fn``, ``make_train_step`` and ``fit`` take any config the
+integrator renders, the soft estimator and ``remat_bounces`` included. Not
+ported yet: sharded training (``mesh``, ROADMAP.md queue A, A4) and
 checkpointed fits (``checkpoint_dir``, A5); both refuse.
 """
 

@@ -31,9 +31,23 @@ fused NEE carry their custom gradients (``kernels/intersect.py``
 (winners, occlusion, light pick, BRDF branch, sort order) carry none, and
 no tensor autograd saved is written in place.
 
+With ``soft_vis_beta > 0`` the soft estimator of ``diff/boundary.py``
+replaces the nearest sweep (``_soft_hit_and_shade``: the front record
+blended over the hit behind it) and the NEE's occlusion (smooth shadow
+coverage), so that silhouettes and shadow edges carry gradients; it is
+plain PyTorch, as the JAX package's is plain XLA, and launches none of
+the kernels. The fused NEE and the shadow-lane sort are off there, as in
+the JAX package; wavefront sorting and parking stay as ``accel`` sets them.
+The sample loop is a Python loop in both estimators: the JAX package
+unrolls soft samples only to dodge an XLA:TPU miscompile of its scan.
+
+``remat_bounces`` runs each bounce under ``torch.utils.checkpoint`` when
+grad is on (``jax.checkpoint`` there): the backward recomputes a bounce,
+its kernel launches included, instead of holding its intermediates. The
+RNG is counter-based, so the recompute draws the same numbers.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item (``check_supported``): reference mode, soft visibility,
-geometry sharding and rematerialized bounces.
+ROADMAP item (``check_supported``): reference mode and geometry sharding.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pathtracerpython_tpu_torch.kernels.nee import (
     FUSED_NEE_MAX_LIGHT_TRIS,
@@ -125,17 +140,21 @@ def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
     semantics as the JAX package, naming the ROADMAP item that adds it."""
     if cfg.mode != "fast":
         _not_ported(f"mode={cfg.mode!r}", "A2: reference mode")
-    if cfg.soft_vis_beta > 0.0:
-        _not_ported("soft_vis_beta > 0", "A3b: soft visibility")
-    if cfg.remat_bounces:
-        _not_ported("remat_bounces=True", "A3b: rematerialized bounces")
     if cfg.geom_axis is not None:
         _not_ported("geom_axis", "A4: parallel")
 
 
+def _soft(cfg: RenderConfig) -> bool:
+    """Whether the soft estimator runs (``diff/boundary.py``)."""
+    return cfg.soft_vis_beta > 0.0 and cfg.mode == "fast"
+
+
 def _sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
     """Per-bounce wavefront sorting: on for the cluster hierarchies (block
-    coherence is their performance model), or when asked for."""
+    coherence is their performance model), or when asked for; never in
+    reference mode (the parity gate) or under a geometry ring."""
+    if cfg.mode != "fast" or cfg.geom_axis is not None:
+        return False
     if cfg.sort_rays == "on":
         return True
     return cfg.sort_rays == "auto" and use_sparse(
@@ -144,9 +163,13 @@ def _sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
 
 def _nee_sort_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
     """Shadow-lane sorting (and with it relevance parking) runs where a
-    cluster hierarchy's any-hit does."""
-    return cfg.sort_nee != "off" and use_sparse(
-        cfg.accel, scene.num_padded_triangles)
+    cluster hierarchy's hard-shadow any-hit does: fast mode, no geometry
+    ring, no soft visibility."""
+    if cfg.sort_nee == "off" or cfg.mode != "fast":
+        return False
+    if cfg.geom_axis is not None or cfg.soft_vis_beta > 0.0:
+        return False
+    return use_sparse(cfg.accel, scene.num_padded_triangles)
 
 
 def _nee_cache_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
@@ -159,9 +182,12 @@ def _nee_cache_enabled(scene: SceneTensors, cfg: RenderConfig) -> bool:
 
 
 def _fused_nee(scene: SceneTensors, cfg: RenderConfig) -> bool:
-    """The fused K2 runs on dense scenes whose light and sample count fit
-    it; everything else takes the unfused NEE."""
-    return (resolve_accel(cfg.accel, scene.num_padded_triangles) == "none"
+    """The fused K2 runs in fast mode with hard shadows and no geometry
+    ring, on dense scenes whose light and sample count fit it; everything
+    else takes the unfused NEE."""
+    return (cfg.mode == "fast" and cfg.geom_axis is None
+            and cfg.soft_vis_beta == 0.0
+            and resolve_accel(cfg.accel, scene.num_padded_triangles) == "none"
             and scene.light_area.shape[0] <= FUSED_NEE_MAX_LIGHT_TRIS
             and cfg.n_light_samples <= MAX_LIGHT_SAMPLES)
 
@@ -250,7 +276,10 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
     fused kernel K2. Everything else takes the unfused NEE: the same
     estimator on the [S, N] shadow rays of ``nee_shadow_rays``, whose
     occlusion runs through ``any_hit_within_cm`` (K4 dense, K6 sparse, K9
-    walker and hybrid) or, with the occluder cache, through K7.
+    walker and hybrid) or, with the occluder cache, through K7; with soft
+    visibility the mean is of the smooth visibility times the cosine
+    (``diff/boundary.py:soft_visibility``), and the hint and cache come
+    back as they went in.
     ``relevant`` and ``occ_hint`` (last bounce's all-samples-occluded bit,
     refreshed on return) only order and park the sorted sweep's lanes, and
     ``nee_cache`` (each lane's last blocking cluster, refreshed on return)
@@ -264,6 +293,15 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
 
     rays = nee_shadow_rays(hit, u, scene, cfg, shading_normal3, relevant,
                            occ_hint)
+    if _soft(cfg):
+        # diff.boundary imports diff, whose inverse imports this module
+        from pathtracerpython_tpu_torch.diff.boundary import soft_visibility
+
+        vis = soft_visibility(rays.o3.T, rays.d3.T, rays.maxd, scene,
+                              cfg.soft_vis_beta).reshape(rays.cos.shape)
+        mean_cos = (vis * rays.cos).sum(dim=0) / float(rays.cos.shape[0])
+        return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], \
+            occ_hint, nee_cache
     sweep = [rays.o3.contiguous(), rays.d3.contiguous(),
              rays.maxd.contiguous(), scene]
     if _nee_cache_enabled(scene, cfg):
@@ -361,6 +399,60 @@ def sort_and_park(state: RayState, sort_bounds=None):
     return state, sweep_o3, sweep_d3
 
 
+def _soft_record(o3, d3u, t, idx, scene: SceneTensors) -> NearestHitCM:
+    """A hit record of the soft sweep's (t, idx), IMAX for none."""
+    from pathtracerpython_tpu_torch.diff.boundary import IMAX
+
+    found = idx != IMAX
+    rows = torch.where(found, idx, 0).to(torch.int64)
+    t = torch.where(found, t, 0.0)
+    return NearestHitCM(
+        hit=found,
+        t=t,
+        tri_idx=rows.to(torch.int32),
+        point3=o3 + d3u * t[None, :],
+        normal3=cm_take(scene.tri_normal.T, rows),
+        material=scene.tri_material[rows],
+        is_light=scene.tri_is_light[rows] & found,
+    )
+
+
+def _soft_hit_and_shade(o3, d3, state: RayState, scene: SceneTensors,
+                        cfg: RenderConfig, u_nee):
+    """The soft estimator's hit and colour (``soft_vis_beta > 0``, the
+    math in ``diff/boundary.py``): (the first true hit, for the path to go
+    on from, and the colour ``cov * shade(front) + (1 - cov) *
+    shade(behind)`` [3, N]). The blend makes the radiance continuous in the
+    occluders' vertices: gradients flow through the front record's edge
+    margin and through both hits' distances. ``o3``, ``d3``: the rays to
+    sweep (sorted and parked as the hard sweep takes them)."""
+    from pathtracerpython_tpu_torch.diff.boundary import soft_hits_sweep
+
+    sh = soft_hits_sweep(o3.T, d3.T, scene, cfg.soft_vis_beta)
+    d3u = normalize3(d3)
+    front = _soft_record(o3, d3u, sh.f_t, sh.f_idx, scene)
+    # behind: the first true hit past the front record, hit2 where the
+    # front is hit1, else hit1 (the front is then a near-miss before it)
+    front_is_h1 = sh.f_idx == sh.h1_idx
+    behind = _soft_record(o3, d3u,
+                          torch.where(front_is_h1, sh.h2_t, sh.h1_t),
+                          torch.where(front_is_h1, sh.h2_idx, sh.h1_idx),
+                          scene)
+    cov = torch.where(front.hit, torch.sigmoid(sh.f_margin
+                                               / cfg.soft_vis_beta), 0.0)
+
+    def shade_record(r: NearestHitCM):
+        # soft shadows touch neither the hint nor the occluder cache
+        n3 = arrival_side_normal(r.normal3, d3u)
+        return shade(r, resolve_materials(scene, r.material), u_nee, scene,
+                     cfg, state.prev_specular, n3, state.alive,
+                     state.nee_occ_hint, state.nee_cache)[0]
+
+    color3 = (cov[None, :] * shade_record(front)
+              + (1.0 - cov)[None, :] * shade_record(behind))
+    return _soft_record(o3, d3u, sh.h1_t, sh.h1_idx, scene), color3
+
+
 def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
                 cfg: RenderConfig, k0: int, k1: int,
                 sort_bounds=None) -> RayState:
@@ -377,14 +469,22 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
     u_nee = rng.uniforms(nk0, nk1, state.counters, cfg.n_light_samples * 5)
     u_scatter = rng.uniforms(sk0, sk1, state.counters, 3)
 
-    hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
-                         mt_impl=cfg.mt_impl)
-    mat = resolve_materials(scene, hit.material)
-    # one arrival-side normal for both direct light and scattering
-    shading_n3 = arrival_side_normal(hit.normal3, normalize3(state.direction3))
-    color3, occ_hint, nee_cache = shade(
-        hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
-        state.alive, state.nee_occ_hint, state.nee_cache)
+    d_in3 = normalize3(state.direction3)
+    if _soft(cfg):
+        hit, color3 = _soft_hit_and_shade(sweep_o3, sweep_d3, state, scene,
+                                          cfg, u_nee)
+        mat = resolve_materials(scene, hit.material)
+        shading_n3 = arrival_side_normal(hit.normal3, d_in3)
+        occ_hint, nee_cache = state.nee_occ_hint, state.nee_cache
+    else:
+        hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
+                             mt_impl=cfg.mt_impl)
+        mat = resolve_materials(scene, hit.material)
+        # one arrival-side normal for both direct light and scattering
+        shading_n3 = arrival_side_normal(hit.normal3, d_in3)
+        color3, occ_hint, nee_cache = shade(
+            hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
+            state.alive, state.nee_occ_hint, state.nee_cache)
     contrib3 = torch.where(
         state.alive[None, :], color3 * state.throughput[None, :], 0.0
     )
@@ -427,8 +527,15 @@ def init_rays(origins3, directions3, counters) -> RayState:
 
 def _bounce_sweep(state: RayState, scene, cfg, k0, k1,
                   sort_bounds) -> RayState:
+    """The bounces; with ``cfg.remat_bounces`` and grad on, each under
+    ``torch.utils.checkpoint``."""
+    remat = cfg.remat_bounces and torch.is_grad_enabled()
     for b in range(cfg.n_bounces):
-        state = bounce_step(state, b, scene, cfg, k0, k1, sort_bounds)
+        if remat:
+            state = checkpoint(bounce_step, state, b, scene, cfg, k0, k1,
+                               sort_bounds, use_reentrant=False)
+        else:
+            state = bounce_step(state, b, scene, cfg, k0, k1, sort_bounds)
     return state
 
 

@@ -7,7 +7,8 @@ vertices). ``cornell_box_scene`` builds a Cornell box after the layout of
 the reference's ``objs/cornellroom.sdl`` from these primitives, so tests
 and the on-card smoke run need no file outside the repository.
 ``flat_scene`` is the floor-and-light scene of the JAX package's gradient
-tests.
+tests, ``occluder_scene`` the floor, blocker and light of its soft-visibility
+tests (``tests/test_boundary.py:make_occluder_scene``).
 """
 
 from __future__ import annotations
@@ -227,4 +228,34 @@ def flat_scene(width: int = 16, height: int = 16) -> SceneDescription:
                       ks=0.0, kt=0.0, n=2.0)
         ],
         path="synthetic://flat",
+    )
+
+
+def occluder_scene(width: int = 12, height: int = 12) -> SceneDescription:
+    """A floor, an overhead light and a small opaque blocker quad (material
+    row 1) between them, the scene of the JAX package's soft-visibility
+    tests: the blocker shadows part of the floor, and its silhouette covers
+    part of the floor seen from the camera, so one scene holds both
+    boundary terms. Eye (0, 0.8, 3), ortho (-1, -1, 1, 1), ambient 0.3."""
+    floor = quad_mesh([-4.0, -1.0, 2.0], [4.0, -1.0, 2.0],
+                      [4.0, -1.0, -8.0], [-4.0, -1.0, -8.0], path="floor")
+    blocker = quad_mesh([-0.4, 0.0, -2.4], [0.4, 0.0, -2.4],
+                        [0.4, 0.0, -1.6], [-0.4, 0.0, -1.6], path="blocker")
+    light = quad_mesh([-0.7, 1.5, -2.7], [0.7, 1.5, -2.7], [0.7, 1.5, -1.3],
+                      [-0.7, 1.5, -1.3], path="light")
+    return SceneDescription(
+        eye=(0.0, 0.8, 3.0),
+        width=width,
+        height=height,
+        ortho=(-1.0, -1.0, 1.0, 1.0),
+        ambient=0.3,
+        light_mesh=light,
+        light_color=(1.0, 1.0, 1.0),
+        objects=[
+            SdlObject(mesh=floor, rgb=(0.7, 0.7, 0.7), ka=0.3, kd=0.7,
+                      ks=0.0, kt=0.0, n=1.0),
+            SdlObject(mesh=blocker, rgb=(0.8, 0.2, 0.2), ka=0.3, kd=0.7,
+                      ks=0.0, kt=0.0, n=1.0),
+        ],
+        path="synthetic://occluder",
     )

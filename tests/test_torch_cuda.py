@@ -1012,3 +1012,100 @@ def test_hierarchy_sweep_grads_on_card_equal_dense(cuda, accel):
     for want, got in zip(grads["none"][1:], grads[accel][1:]):
         assert want.abs().sum() > 0
         assert (got - want).norm() <= 1e-6 * want.norm()
+
+
+# The soft estimator (diff/boundary.py) on the card: plain PyTorch, no
+# kernel, held against the same estimator on the CPU; and remat_bounces,
+# whose recompute launches K1 and K2 again.
+SOFT_BETA = 0.05
+SOFT_SCENES = {"occluder": (lambda: synthetic.occluder_scene(32, 32), 1),
+               "cornell": (lambda: synthetic.cornell_box_scene(32, 32), 5)}
+
+
+def _kernel_launches():
+    return (intersect.LAUNCHES + intersect.ANY_HIT_LAUNCHES + nee.LAUNCHES
+            + sparse.LAUNCHES + sparse.ANY_HIT_LAUNCHES
+            + sparse.ANY_HIT_IDX_LAUNCHES + walker.LAUNCHES
+            + walker.NEAREST_LAUNCHES)
+
+
+def _translation_grad(scene, cfg, obj, target):
+    from pathtracerpython_tpu_torch.diff.transforms import translate_object
+
+    p = torch.tensor([0.05, -0.03], device=scene.device, requires_grad=True)
+    moved = translate_object(scene, obj, torch.stack(
+        [p[0], torch.zeros((), device=scene.device), p[1]]))
+    w, h = scene.meta.width, scene.meta.height
+    o, d = make_primary_rays(scene.eye, scene.ortho, w, h)
+    from pathtracerpython_tpu_torch.render.integrator import render_rays
+
+    rad = render_rays(o, d, torch.arange(w * h, device=scene.device), moved,
+                      cfg, (0, 3))
+    (0.5 * ((rad - target) ** 2).mean()).backward()
+    return p.grad.cpu()
+
+
+@pytest.mark.parametrize("which", sorted(SOFT_SCENES))
+def test_soft_render_and_grads_on_card_match_cpu(cuda, which):
+    make, obj = SOFT_SCENES[which]
+    scene = arrays.pack_scene(make(), device="cpu")
+    cfg = RenderConfig(n_samples=1, n_bounces=2, n_light_samples=2,
+                       soft_vis_beta=SOFT_BETA)
+    before = _kernel_launches()
+    got = render(scene.to(cuda), cfg, seed=3)
+    assert _kernel_launches() == before  # no kernel on the soft path
+    want = render(scene, cfg, seed=3)
+    close = torch.isclose(got.cpu(), want, rtol=RENDER_TOL,
+                          atol=RENDER_TOL).all(dim=1)
+    assert close.float().mean() >= 0.99
+    target = 0.5 * want
+    g = _translation_grad(scene.to(cuda), cfg, obj, target.to(cuda))
+    w = _translation_grad(scene, cfg, obj, target)
+    assert w.norm() > 0 and (g - w).norm() <= GRAD_RTOL * w.norm(), (g, w)
+
+
+def test_soft_cluster_records_on_card_equal_dense(cuda):
+    """The 600-box field's camera rays at 64x64: the cluster sweep's
+    records are the dense sweep's on every lane."""
+    from pathtracerpython_tpu_torch.diff import boundary
+
+    scene = arrays.pack_scene(synthetic.box_field_scene(
+        n_boxes=600, width=64, height=64), tri_order="morton", device=cuda)
+    o, d = make_primary_rays(scene.eye, scene.ortho, 64, 64)
+    before = boundary.FALLBACKS
+    sparse_rec = boundary.soft_hits_sweep_sparse(o, d, scene, 0.03)
+    assert boundary.FALLBACKS == before
+    dense_rec = boundary.soft_hits_sweep_dense(o, d, scene, 0.03)
+    for a, b in zip(sparse_rec, dense_rec):
+        assert torch.equal(a, b)
+
+
+def test_remat_doubles_launches_on_card(cuda):
+    """A training step of the Cornell stand-in (32x32, 1 spp, 2 bounces):
+    K1 and K2 launch once per bounce, twice under remat_bounces; the
+    gradients agree but for the order of the scatters' float sums."""
+    from pathtracerpython_tpu_torch.diff import (
+        camera_pixel_loss,
+        make_render_fn,
+    )
+
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(32, 32),
+                              pad_to=32, device=cuda)
+    cfg = RenderConfig(n_samples=1, n_bounces=2)
+    with torch.no_grad():
+        target = 0.5 * render(scene, cfg, seed=1)
+    pids = torch.arange(target.shape[0], device=cuda)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat_bounces=remat)
+        leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+                  for f in ("tri_v0", "light_v0", "mat_rgb")}
+        k1, k2 = intersect.LAUNCHES, nee.LAUNCHES
+        camera_pixel_loss(leaves, scene, target, make_render_fn(c), pids,
+                          (0, 4)).backward()
+        torch.cuda.synchronize()
+        out[remat] = (intersect.LAUNCHES - k1, nee.LAUNCHES - k2,
+                      {k: v.grad for k, v in leaves.items()})
+    assert out[False][:2] == (2, 2) and out[True][:2] == (4, 4)
+    for k, w in out[False][2].items():
+        assert (out[True][2][k] - w).norm() <= 1e-6 * w.norm(), k

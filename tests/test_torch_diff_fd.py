@@ -9,8 +9,9 @@ Mirrored: 6 material and emission fields, 3 vertex coordinates (floor and
 light), 3 eye coordinates, 1 ortho coordinate, the light-vertex sync of
 ``apply_params``, ``pixel_loss``'s refusal of camera parameters, the albedo
 fit and the eye fit. Not ported yet, so checked to refuse: sharded steps
-(A4) and checkpointed fits (A5). The soft estimator and
-``remat_bounces`` (A3b) refuse in test_torch_render.py."""
+(A4) and checkpointed fits (A5). The soft estimator's and
+``remat_bounces``' gradients are held in test_torch_soft_fd.py and
+test_torch_remat.py."""
 
 import numpy as np
 import pytest

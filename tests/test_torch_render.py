@@ -151,6 +151,9 @@ NOW_SUPPORTED = {
     "accel_sparse": dict(accel="sparse"),
     "accel_walker": dict(accel="walker"),
     "nee_cache_on": dict(nee_cache="on", accel="sparse"),
+    # refused until the soft estimator and remat_bounces were ported
+    "soft_visibility": dict(soft_vis_beta=0.05),
+    "remat_bounces": dict(remat_bounces=True),
 }
 
 
@@ -178,9 +181,7 @@ def test_formerly_refused_options_match_jax(case):
 # option -> (config, the ROADMAP.md queue A item the refusal names)
 UNSUPPORTED = {
     "reference_mode": (dict(mode="reference"), "A2"),
-    "soft_visibility": (dict(soft_vis_beta=0.05), "A3b"),
     "geom_axis": (dict(geom_axis="geom", geom_axis_size=2), "A4"),
-    "remat_bounces": (dict(remat_bounces=True), "A3b"),
 }
 
 
