@@ -165,6 +165,32 @@ phase fails:
      then 8 launches a step, peak memory and ms a step both ways;
    - the soft pose step at 1, 2, 4 and 8 spp at 128x128: ms and peak
      memory (the port's sample loop is Python, with no compile cost);
+3r. reference mode, the CLI, the native loader and checkpointed fits
+   (reference mode is plain PyTorch: the JAX package's reference sweeps
+   are XLA's and reach no pl.pallas_call; every check fails the run):
+   - the stand-in at its native 40x40, 64 spp, 1 and 2 bounces, in
+     reference mode on the card against the CPU: no kernel launched; at 1
+     bounce the light pixels and the black ones equal; radiance within
+     RENDER_RTOL on MIN_PIXELS_CLOSE of pixels;
+   - reference mode at the bench configuration (the Cornell cell): ms per
+     render (CUDA events, 2 warm-ups, median of 10, min and max), peak
+     memory, device busy under torch.profiler, and fast mode's ms beside
+     it, timed in turns;
+   - the CLI on the stand-in's SDL written by ``synthetic.write_sdl``:
+     in-process in both modes with the launch counts set to 0 just before
+     and read just after (K1 and K2 once per sample pass and bounce in fast
+     mode, no kernel in reference mode); as ``python -m
+     pathtracerpython_tpu_torch`` subprocesses on the card in fast mode
+     with ``--metrics`` (its JSON printed) and in reference mode, each PNG
+     decoding to ``render_image``'s pixels; ``--ckpt-dir`` stopped after
+     chunk 2 of 4 and resumed, its accumulation bit-equal to an
+     uninterrupted run's;
+   - the native OBJ loader (built from native/objparse.cpp at first use):
+     whether it was used, its parse time and the Python parser's on a
+     100,000-triangle box field written as OBJ, packed leaves equal;
+   - ``fit_albedo --checkpoint-every 5`` for 10 steps, stopped at step 5
+     and resumed: the loss falls, and the curve is the uninterrupted run's
+     within FIT_CURVE_RTOL;
 4. timing: ms per render (CUDA events, 2 warm-up renders, median of 10)
    and Mrays/s counted two ways, for the Cornell cell, the 300-box field
    and the 100k-triangle field through the hybrid, sparse, sparse with
@@ -3075,12 +3101,333 @@ def phase3_soft(cornell, card: str) -> dict:
     return report
 
 
-def time_render(label, scene, spp, bounces, reps: int = 10,
-                nee: int = NEE_SAMPLES, **cfg_kw) -> dict:
+# The reference-and-CLI phase: reference mode (plain PyTorch: the JAX
+# package's reference sweeps are XLA's and reach no pl.pallas_call), the CLI
+# as a user runs it, progressive checkpointed renders, the native OBJ loader
+# and a checkpointed fit. Every check fails the run.
+REF_SIZE = 40            # the stand-in at its native size
+REF_SPP = 64
+REF_BOUNCES = (1, 2)
+REF_SEED = 9
+CLI_SPP = 4
+CLI_BOUNCES = 2
+CLI_SEED = 3
+CLI_TIMEOUT_S = 600
+NATIVE_BOXES = LARGE_BOXES  # 100,000 triangles written out as OBJ
+CKPT_FIT_STEPS = 10
+CKPT_EVERY = 5
+# a resumed fit against the uninterrupted one on the card: the scatters'
+# float atomics round in their own order, so the losses agree to rounding
+FIT_CURVE_RTOL = 1e-4
+
+
+def reference_card_vs_cpu() -> dict:
+    """The stand-in at 40x40, 64 spp, 1 and 2 bounces, in reference mode on
+    the card and on the CPU: no kernel launched; at 1 bounce the pixels
+    that see the light (exactly light_color) and the black ones match
+    exactly; radiance within RENDER_RTOL on MIN_PIXELS_CLOSE of pixels."""
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import cornell_box_scene
+
+    desc = cornell_box_scene(REF_SIZE, REF_SIZE)
+    card, cpu = pack_scene(desc), pack_scene(desc, device="cpu")
+    zero = {k: 0 for k in read_launches()}
+    out = {}
+    for bounces in REF_BOUNCES:
+        label = (f"reference {REF_SIZE}^2 {REF_SPP}spp {bounces}b card "
+                 "against CPU")
+        cfg = RenderConfig(mode="reference", n_samples=REF_SPP,
+                           n_bounces=bounces)
+        got, launches = render_counted(label, card, cfg, zero)
+        got = got.cpu()
+        t0 = time.perf_counter()
+        want = render(cpu, cfg, seed=0)
+        cpu_s = time.perf_counter() - t0
+        if not torch.isfinite(got).all():
+            fail(f"{label}: radiance has non-finite values")
+        light = cpu.light_color
+        masks = {"light": ((got == light).all(dim=1),
+                           (want == light).all(dim=1)),
+                 "black": ((got == 0).all(dim=1), (want == 0).all(dim=1))}
+        if bounces == 1:
+            for name, (a, b) in masks.items():
+                if not torch.equal(a, b):
+                    fail(f"{label}: {name} pixels differ on "
+                         f"{int((a != b).sum())} pixels")
+        hold_close(label, got, want)
+        out[bounces] = {
+            "light_pixels": int(masks["light"][0].sum()),
+            "black_pixels": int(masks["black"][0].sum()),
+            "max_abs_diff": (got - want).abs().max().item(),
+            "cpu_render_s": cpu_s}
+        log(f"[3r] {label}: {out[bounces]['light_pixels']} light and "
+            f"{out[bounces]['black_pixels']} black pixels (equal at 1 "
+            f"bounce), CPU render {cpu_s:.2f} s")
+    return out
+
+
+def reference_bench(cornell, card: str) -> dict:
+    """Reference mode at the bench configuration (512x512, 4 spp as extra
+    lanes, 4 bounces, 3 NEE): ms per render, peak memory, device busy under
+    torch.profiler, and the fast render's ms beside it, taken in turns."""
     from pathtracerpython_tpu_torch.render.config import RenderConfig
     from pathtracerpython_tpu_torch.render.integrator import render
 
-    cfg = RenderConfig(mode="fast", n_samples=spp, n_bounces=bounces,
+    label = (f"cornell reference {CORNELL_SIZE}^2 {CORNELL_SPP}spp "
+             f"{CORNELL_BOUNCES}b")
+    cfg = RenderConfig(mode="reference", n_samples=CORNELL_SPP,
+                       n_bounces=CORNELL_BOUNCES,
+                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+    rad, _ = render_counted(label, cornell, cfg,
+                            {k: 0 for k in read_launches()})
+    if not torch.isfinite(rad).all() or rad.min() == rad.max():
+        fail(f"{label}: radiance not finite or constant")
+    torch.cuda.reset_peak_memory_stats()
+    render(cornell, cfg, seed=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    row = time_render(label, cornell, CORNELL_SPP, CORNELL_BOUNCES,
+                      mode="reference")
+    row["peak_memory_bytes"] = peak
+    turns = configs_in_turns(
+        "[3r]", label.replace(" reference", ""), cornell,
+        {mode: dict(mode=mode, n_samples=CORNELL_SPP,
+                    n_bounces=CORNELL_BOUNCES)
+         for mode in ("fast", "reference")})
+    prof = profile_render(label, cornell, CORNELL_SPP, CORNELL_BOUNCES,
+                          row["ms_per_render"], mode="reference")
+    log(f"[3r] {label} ({card}): {row['ms_per_render']:.3f} ms/render, peak "
+        f"{peak / 2**30:.3f} GiB, device busy {prof['device_busy_ms']:.3f} "
+        f"ms (idle share {prof['idle_share']:.3f}) in "
+        f"{prof['kernel_launches']} device kernels")
+    return {"cell": row, "turns": turns, "profile": prof}
+
+
+def run_processes(jobs: dict) -> dict:
+    """Run the commands of ``jobs`` at once from the checkout, the port on
+    the path; wait for all, kill any left on a failure. Returns name ->
+    (return code, stdout, stderr, seconds)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                                 env=env) for k, cmd in jobs.items()}
+    out = {}
+    try:
+        for k, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            out[k] = (proc.returncode, stdout, stderr,
+                      time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, (rc, _, stderr, _) in out.items():
+        if rc != 0:
+            fail(f"CLI {k}: exit status {rc}: {stderr[-2000:]}")
+    return out
+
+
+def cli_phase(card: str) -> dict:
+    """The CLI on the card, on the stand-in's SDL written by ``write_sdl``:
+    in-process in fast and in reference mode with the launch counts set to
+    0 just before and read just after (K1 and K2 once per sample pass and
+    bounce in fast mode, no kernel in reference mode); as subprocesses
+    (``python -m pathtracerpython_tpu_torch``), whose PNGs must decode to
+    ``render_image``'s pixels, whose ``--metrics`` JSON is printed, and
+    whose ``--ckpt-dir`` run stopped after chunk 2 of 4 and resumed must
+    give the uninterrupted run's accumulation bit for bit."""
+    import importlib
+    import tempfile
+
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.image import read_png
+    from pathtracerpython_tpu_torch.render.integrator import render_image
+    from pathtracerpython_tpu_torch.scene.arrays import load_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import (
+        cornell_box_scene,
+        write_sdl,
+    )
+    from pathtracerpython_tpu_torch.utils import CheckpointManager
+
+    cli = importlib.import_module("pathtracerpython_tpu_torch.cli.main")
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sdl = write_sdl(cornell_box_scene(REF_SIZE, REF_SIZE),
+                        os.path.join(tmp, "scene"))
+        scene = load_scene(sdl)
+        common = [sdl, "-r", str(CLI_SPP), "-b", str(CLI_BOUNCES), "--seed",
+                  str(CLI_SEED)]
+        # the main path in-process, counted
+        want_fast = CLI_SPP * CLI_BOUNCES
+        for mode in ("fast", "reference"):
+            reset_launches()
+            rc = cli.main(common + ["--mode", mode, "--quiet", "--out",
+                                    os.path.join(tmp, f"inproc_{mode}.png")])
+            torch.cuda.synchronize()
+            launches = read_launches()
+            want = {k: (want_fast if mode == "fast" and k in ("K1", "K2")
+                        else 0) for k in launches}
+            log(f"[3r] CLI in-process, {mode} mode: exit {rc}, launches "
+                f"{launches}")
+            if rc != 0 or launches != want:
+                fail(f"CLI {mode}: exit {rc}, launches {launches}, expected "
+                     f"{want}")
+            report[f"inprocess_{mode}_launches"] = launches
+        entry = [sys.executable, "-m", "pathtracerpython_tpu_torch"]
+        ckpt = [sdl, "-b", str(CLI_BOUNCES), "--seed", str(CLI_SEED),
+                "--chunk-spp", "2"]
+        runs = run_processes({
+            "fast": entry + common + ["--metrics", "--out",
+                                      os.path.join(tmp, "fast.png")],
+            "reference": entry + common + ["--mode", "reference", "--out",
+                                           os.path.join(tmp, "ref.png")],
+            "ckpt_full": entry + ckpt + [
+                "-r", "8", "--ckpt-dir", os.path.join(tmp, "full"), "--out",
+                os.path.join(tmp, "full.png")],
+            "ckpt_part": entry + ckpt + [
+                "-r", "4", "--ckpt-dir", os.path.join(tmp, "part"), "--out",
+                os.path.join(tmp, "part.png")],
+        })
+        runs.update(run_processes({"ckpt_resume": entry + ckpt + [
+            "-r", "8", "--ckpt-dir", os.path.join(tmp, "part"), "--out",
+            os.path.join(tmp, "resumed.png")]}))
+        for k, (_, stdout, _, secs) in runs.items():
+            log(f"[3r] CLI {k}: {secs:.1f} s; its output:")
+            for line in stdout.splitlines():
+                log(f"[3r]   {line}")
+        for mode, png in (("fast", "fast.png"), ("reference", "ref.png")):
+            want = render_image(scene, RenderConfig(
+                mode=mode, n_samples=CLI_SPP, n_bounces=CLI_BOUNCES),
+                seed=CLI_SEED)
+            got = read_png(os.path.join(tmp, png))
+            if got.shape != want.shape or not (got == want).all():
+                fail(f"CLI {mode}: the PNG is not render_image's pixels "
+                     f"({int((got != want).any(axis=-1).sum())} differ)")
+        metrics = json.loads([ln for ln in runs["fast"][1].splitlines()
+                              if ln.startswith("{")][-1])
+        rays = REF_SIZE * REF_SIZE * CLI_SPP * CLI_BOUNCES * (1 + NEE_SAMPLES)
+        if metrics["counters"]["rays_attempted"] != rays:
+            fail(f"CLI --metrics: {metrics['counters']}, expected {rays} rays")
+        if "resumed at chunk 2/4" not in runs["ckpt_resume"][1]:
+            fail("CLI --ckpt-dir: the second run did not resume at chunk 2")
+        full, part = (CheckpointManager(os.path.join(tmp, d)).restore(4)
+                      for d in ("full", "part"))
+        if not torch.equal(full["radiance_sum"], part["radiance_sum"]):
+            fail("CLI --ckpt-dir: the resumed accumulation differs from the "
+                 "uninterrupted one")
+        if not (read_png(os.path.join(tmp, "full.png"))
+                == read_png(os.path.join(tmp, "resumed.png"))).all():
+            fail("CLI --ckpt-dir: the resumed PNG differs")
+        log(f"[3r] CLI PNGs equal render_image's pixels (fast, reference); "
+            f"resumed accumulation bit-equal to the uninterrupted run; "
+            f"metrics {json.dumps(metrics)}")
+        report.update(metrics=metrics, seconds={
+            k: v[3] for k, v in runs.items()})
+    return report
+
+
+def native_loader_phase() -> dict:
+    """The native OBJ loader on a 100,000-triangle box field written out as
+    OBJ: whether it was built and used, its parse time and the Python
+    parser's, and packed leaves equal between the two."""
+    import tempfile
+
+    from pathtracerpython_tpu_torch.scene import native, obj, sdl
+    from pathtracerpython_tpu_torch.scene.arrays import DATA_FIELDS, pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import (
+        box_field_scene,
+        write_sdl,
+    )
+
+    used = native.native_available()
+    log("[3r] native OBJ loader: " + ("built and used" if used else
+                                      "NOT available: the Python parser "
+                                      "runs") + f" ({native.library_path()})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_sdl(box_field_scene(n_boxes=NATIVE_BOXES, width=64,
+                                         height=64), tmp)
+        t0 = time.perf_counter()
+        fast = sdl.load_sdl(path)
+        native_s = time.perf_counter() - t0
+        loader, sdl.load_obj = sdl.load_obj, obj.load_obj
+        try:
+            t0 = time.perf_counter()
+            slow = sdl.load_sdl(path)
+            python_s = time.perf_counter() - t0
+        finally:
+            sdl.load_obj = loader
+    a, b = (pack_scene(d, device="cpu") for d in (fast, slow))
+    for f in DATA_FIELDS:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            fail(f"native loader: packed {f} differs from the Python parser's")
+    log(f"[3r] {a.meta.n_triangles} triangles: native parse {native_s:.3f} "
+        f"s, Python parse {python_s:.3f} s; packed leaves equal")
+    return {"native_used": used, "triangles": a.meta.n_triangles,
+            "native_parse_s": native_s, "python_parse_s": python_s}
+
+
+def fit_checkpoint_phase(card: str) -> dict:
+    """``fit_albedo --checkpoint-every 5`` for 10 steps on the card, stopped
+    at step 5 and resumed, against an uninterrupted run: the resumed run
+    starts at step 5, the loss falls, and the two loss curves agree within
+    FIT_CURVE_RTOL (bits only on the CPU: the card's scatters use float
+    atomics)."""
+    import tempfile
+
+    from pathtracerpython_tpu_torch.apps import fit_albedo
+    from pathtracerpython_tpu_torch.utils import CheckpointManager
+
+    def losses(out: str, steps: int) -> list:
+        fit_albedo.main(["--steps", str(steps), "--out", out,
+                         "--checkpoint-every", str(CKPT_EVERY)])
+        with open(os.path.join(out, "result.json")) as f:
+            return json.load(f)["losses"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = losses(os.path.join(tmp, "full"), CKPT_FIT_STEPS)
+        first = losses(os.path.join(tmp, "part"), CKPT_EVERY)
+        rest = losses(os.path.join(tmp, "part"), CKPT_FIT_STEPS)
+        last = CheckpointManager(os.path.join(tmp, "part", "ckpt")
+                                 ).latest_step()
+    curve = first + rest
+    rel = max(abs(a - b) / abs(b) for a, b in zip(curve, full))
+    log(f"[3r] fit_albedo --checkpoint-every {CKPT_EVERY} on {card}: "
+        f"uninterrupted {full}; stopped at {len(first)} and resumed "
+        f"{curve}; max relative difference {rel:.3g}")
+    if len(first) != CKPT_EVERY or len(rest) != CKPT_FIT_STEPS - CKPT_EVERY \
+            or last != CKPT_FIT_STEPS:
+        fail(f"fit resume: {len(first)} + {len(rest)} steps, last "
+             f"checkpoint {last}")
+    if not curve[-1] < curve[0] or rel > FIT_CURVE_RTOL:
+        fail(f"fit resume: loss {curve[0]} -> {curve[-1]}, curves differ "
+             f"by {rel}")
+    return {"uninterrupted": full, "resumed": curve, "max_rel_diff": rel}
+
+
+def phase3_reference(cornell, card: str) -> dict:
+    """Reference mode, the CLI, the native loader and checkpointed fits."""
+    t0 = time.perf_counter()
+    report = {"card_vs_cpu": reference_card_vs_cpu(),
+              "bench": reference_bench(cornell, card),
+              "cli": cli_phase(card),
+              "native": native_loader_phase(),
+              "fit_resume": fit_checkpoint_phase(card)}
+    report["seconds"] = time.perf_counter() - t0
+    log("[3r] reference and CLI " + json.dumps(report))
+    return report
+
+
+def time_render(label, scene, spp, bounces, reps: int = 10,
+                nee: int = NEE_SAMPLES, mode: str = "fast", **cfg_kw) -> dict:
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    cfg = RenderConfig(mode=mode, n_samples=spp, n_bounces=bounces,
                        n_light_samples=nee, batch_samples=True, **cfg_kw)
     seeds = iter(range(1000))
     times = timed_runs(lambda: render(scene, cfg, seed=next(seeds)),
@@ -3109,30 +3456,39 @@ def time_in_turns(label, scene, spp, bounces, **cfg_kw) -> list[dict]:
     turn after 2 warm-up renders each, median of each form's 10), which is
     how two versions are compared: a cell timed minutes apart meets another
     host load."""
+    return configs_in_turns(
+        "[4]", label.removesuffix(" plucker"), scene,
+        {form: dict(mode="fast", n_samples=spp, n_bounces=bounces,
+                    mt_impl=form, **cfg_kw)
+         for form in ("classic", "plucker")})
+
+
+def configs_in_turns(tag, label, scene, configs: dict) -> list[dict]:
+    """Two render configurations ``configs`` (name -> RenderConfig fields,
+    NEE_SAMPLES and batch_samples added) timed in turns on one card in one
+    run: a, b, b, a, 5 renders a turn after 2 warm-up renders each, median
+    of each one's 10."""
     from pathtracerpython_tpu_torch.render.config import RenderConfig
     from pathtracerpython_tpu_torch.render.integrator import render
 
-    label = label.removesuffix(" plucker")
     seeds = iter(range(1000))
-    runs = {}
-    for form in ("classic", "plucker"):
-        cfg = RenderConfig(mode="fast", n_samples=spp, n_bounces=bounces,
-                           n_light_samples=NEE_SAMPLES, batch_samples=True,
-                           mt_impl=form, **cfg_kw)
-        runs[form] = (lambda cfg=cfg: render(scene, cfg, seed=next(seeds)))
-    times = {"classic": [], "plucker": []}
-    for form in ("classic", "plucker"):
-        timed_runs(runs[form], warmup=2, reps=0)
-    for form in ("classic", "plucker", "plucker", "classic"):
-        times[form] += timed_runs(runs[form], warmup=0, reps=5)
+    runs = {name: (lambda cfg=RenderConfig(
+        n_light_samples=NEE_SAMPLES, batch_samples=True, **kw):
+        render(scene, cfg, seed=next(seeds))) for name, kw in configs.items()}
+    a, b = runs
+    times = {a: [], b: []}
+    for name in runs:
+        timed_runs(runs[name], warmup=2, reps=0)
+    for name in (a, b, b, a):
+        times[name] += timed_runs(runs[name], warmup=0, reps=5)
     rows = []
-    for form in ("classic", "plucker"):
-        ms = statistics.median(times[form])
-        rows.append({"cell": f"{label} {form}, in turns",
-                     "ms_per_render": ms, "ms_min": min(times[form]),
-                     "ms_max": max(times[form]), "timed_renders": 10})
-        log(f"[4] {label} {form}, in turns: {ms:.3f} ms/render (median of "
-            f"10; min {min(times[form]):.3f}, max {max(times[form]):.3f})")
+    for name, ts in times.items():
+        ms = statistics.median(ts)
+        rows.append({"cell": f"{label} {name}, in turns", "ms_per_render": ms,
+                     "ms_min": min(ts), "ms_max": max(ts),
+                     "timed_renders": len(ts)})
+        log(f"{tag} {label} {name}, in turns: {ms:.3f} ms/render (median of "
+            f"{len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})")
     return rows
 
 
@@ -3234,6 +3590,7 @@ def main() -> None:
     launches = {**phase3_render(cornell, large, many), **phase3_probes()}
     grads = phase3_grad(cornell, card)
     phase3_soft(cornell, card)
+    phase3_reference(cornell, card)
     large_label = (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp "
                    f"{LARGE_BOUNCES}b")
     cell_args = [

@@ -12,9 +12,13 @@ module's counterpart is easy to find:
                  cluster hierarchy's sparse nearest sweep and walker
                  any-hit, each with its plain PyTorch version, built with
                  ``nvcc`` at first use.
-- ``render``   — the fast-mode wavefront integrator (dense, or the hybrid
-                 hierarchy with wavefront sorting for large scenes) and
-                 image output.
+- ``render``   — the wavefront integrator (the fast estimator, dense or
+                 through a hierarchy with wavefront sorting for large
+                 scenes, and the reference estimator) and image output.
+- ``diff``, ``apps`` — gradients, the soft estimator and the fit demos.
+- ``utils``, ``cli``, ``viz`` — checkpoints and progressive renders,
+                 metrics and profiling; the command line
+                 (``python -m pathtracerpython_tpu_torch``); debug views.
 
 The render runs on the device its scene tensors live on: on a CUDA device
 the kernels launch; on the CPU their plain versions run. Importing the

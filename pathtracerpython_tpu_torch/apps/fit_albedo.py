@@ -5,6 +5,7 @@ gradients, inverse-rendering fit of wall colors"), the JAX package's
 
     python -m pathtracerpython_tpu_torch.apps.fit_albedo [--steps N]
         [--out DIR] [--scene SDL] [--device cuda|cpu]
+        [--checkpoint-every K]
 
 Runs on the card unless ``--device cpu`` is given; without a card the
 default raises. The scene is ``--scene`` (the JAX app's Cornell room is
@@ -12,7 +13,10 @@ the reference program's ``objs/cornellroom.sdl``), else the in-repo
 stand-in ``cornell_box_scene(128, 128)``, and the output says which. The
 fit: ``mode="fast"``, 2 spp, 2
 bounces, 3 NEE samples; params ``mat_rgb`` (from a quarter of the truth)
-and ``light_color`` (from twice it), Adam with optax's defaults.
+and ``light_color`` (from twice it), Adam with optax's defaults. With
+``--checkpoint-every K`` the fit saves its whole state every K steps under
+``OUT/ckpt`` and a rerun resumes from the latest (``diff.fit``), as the
+JAX app does.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ def load_fit_scene(scene_path: str | None, device):
 def run(scene_path: str | None = None, steps: int = 60, lr: float = 0.05,
         out_dir: str | None = None, fit_emission: bool = True,
         seed: int = 0, spp: int = SPP, bounces: int = BOUNCES,
-        device="cuda", log=print) -> dict:
+        checkpoint_every: int = 0, device="cuda", log=print) -> dict:
     import numpy as np
     import torch
 
@@ -83,8 +87,13 @@ def run(scene_path: str | None = None, steps: int = 60, lr: float = 0.05,
     params = {"mat_rgb": scene.mat_rgb * 0.25}
     if fit_emission:
         params["light_color"] = scene.light_color * 2.0
+    # a resumed fit continues from the saved params, optimizer state and
+    # RNG position, so a restart gives the uninterrupted fit's steps
     params, losses = fit(
-        params, adam(lr), scene, cfg, target, steps=steps, seed=seed)
+        params, adam(lr), scene, cfg, target, steps=steps, seed=seed,
+        checkpoint_dir=(os.path.join(out_dir, "ckpt")
+                        if checkpoint_every > 0 else None),
+        checkpoint_every=checkpoint_every)
 
     with torch.no_grad():
         fitted = render(apply_params(scene, params), cfg, seed=seed)
@@ -122,12 +131,15 @@ def main(argv=None) -> int:
                    help="output directory (default: fit_albedo in the "
                         "temporary directory)")
     p.add_argument("--no-emission", action="store_true")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save the fit every K steps under OUT/ckpt and "
+                        "resume from the latest there (0: never)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cpu runs the kernels' plain versions")
     args = p.parse_args(argv)
     run(scene_path=args.scene, steps=args.steps, lr=args.lr,
         out_dir=args.out, fit_emission=not args.no_emission,
-        device=args.device)
+        checkpoint_every=args.checkpoint_every, device=args.device)
     return 0
 
 

@@ -23,15 +23,19 @@ loss is a deterministic function of the parameters, and central finite
 differences with one key are a valid oracle of its gradient.
 
 ``make_render_fn``, ``make_train_step`` and ``fit`` take any config the
-integrator renders, the soft estimator and ``remat_bounces`` included. Not
-ported yet: sharded training (``mesh``, ROADMAP.md queue A, A4) and
-checkpointed fits (``checkpoint_dir``, A5); both refuse.
+integrator renders, the soft estimator and ``remat_bounces`` included.
+``fit(checkpoint_dir=, checkpoint_every=)`` checkpoints the params, the
+optimizer's state dict and the RNG position and resumes from them, and
+refuses a checkpoint of another fit. Not
+ported yet: sharded training (``mesh``, ROADMAP.md queue A, A4), which
+refuses.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 from typing import Callable
 
 import torch
@@ -165,31 +169,89 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     return train_step
 
 
+def _fit_identity(params: dict, opt, cfg: RenderConfig,
+                  target: torch.Tensor, seed: int) -> dict:
+    """What a checkpoint must match for ``fit`` to resume it: the seed, the
+    render config, the params' names, shapes and dtypes, the optimizer's
+    settings (its param groups without the tensors), and a digest of the
+    target's and the starting params' bits."""
+    digest = hashlib.sha256()
+    for t in (target, *params.values()):
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    groups = [{k: v for k, v in g.items() if k != "params"}
+              for g in opt.state_dict()["param_groups"]]
+    return {"seed": seed, "cfg": repr(cfg),
+            "params": [(k, tuple(v.shape), str(v.dtype))
+                       for k, v in params.items()],
+            "optimizer": repr(groups), "data": digest.hexdigest()}
+
+
 def fit(params: dict, optimizer: Callable, base_scene: SceneTensors,
         cfg: RenderConfig, target: torch.Tensor, steps: int, seed: int = 0,
-        mesh=None, callback=None, checkpoint_dir: str | None = None):
+        mesh=None, callback=None, checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0):
     """Run ``steps`` optimizer steps from ``params``; returns (the fitted
-    params, detached, and the list of losses).
+    params, detached, and the list of losses of the steps this call ran).
 
     ``optimizer``: a factory of a ``torch.optim.Optimizer`` over a list of
     tensors, such as ``adam(lr)``. The key walks as in the JAX package's
     ``fit``: key = seed, then per step ``key, sub = split(key)`` and the
     step renders with ``sub``. ``callback(i, params, loss)`` reads the
-    loss on the host each step. ``checkpoint_dir`` refuses (A5)."""
-    if checkpoint_dir is not None:
-        _not_ported("checkpointed fits (checkpoint_dir)",
-                    "A5: utils (orbax checkpoints -> torch state dicts)")
+    loss on the host each step.
+
+    With ``checkpoint_dir`` (JAX ``diff/inverse.py:185-245``) the whole
+    training state, the params, the optimizer's ``state_dict`` and the key,
+    is saved every ``checkpoint_every`` steps (0: never) as step i + 1, and
+    a call that finds a checkpoint there resumes from the latest: a fit
+    stopped at step k and resumed gives the uninterrupted fit's params bit
+    for bit where the steps are deterministic (on the CPU; on the card the
+    scatters' float atomics round in their own order). A checkpoint of
+    another fit (see ``_fit_identity``), or one past ``steps``, is refused
+    with a ``ValueError``."""
+    from pathtracerpython_tpu_torch.utils.checkpoint import CheckpointManager
+
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
     opt = optimizer(list(params.values()))
     step_fn = make_train_step(opt, base_scene, cfg, target, mesh)
     key = rng.key_from_seed(seed)
+    start = 0
+    mgr = None
+    if checkpoint_dir is not None:
+        mgr = CheckpointManager(checkpoint_dir)
+        identity = _fit_identity(params, opt, cfg, target, seed)
+        latest = mgr.latest_step()
+        if latest is not None:
+            state = mgr.restore(latest, {"params": params})
+            if state.get("identity") != identity:
+                raise ValueError(
+                    f"the checkpoint at step {latest} in {checkpoint_dir} "
+                    "is of another fit (seed, config, params, optimizer "
+                    "settings or data differ); use another directory")
+            if latest > steps:
+                raise ValueError(
+                    f"the checkpoint in {checkpoint_dir} is at step "
+                    f"{latest}, past steps={steps}")
+            with torch.no_grad():
+                for k, v in params.items():
+                    v.copy_(state["params"][k])
+            opt.load_state_dict(state["opt_state"])
+            key = tuple(state["key"])
+            start = latest
     losses = []
-    for i in range(steps):
+    for i in range(start, steps):
         key, sub = rng.split(key)
         # keep the device scalar: a host read here would wait for the step
         loss = step_fn(params, sub)
         losses.append(loss)
+        if (mgr is not None and checkpoint_every > 0
+                and (i + 1) % checkpoint_every == 0):
+            mgr.save(i + 1, {
+                "params": {k: v.detach() for k, v in params.items()},
+                "opt_state": opt.state_dict(),
+                "key": key,
+                "identity": identity,
+            })
         if callback is not None:
             callback(i, params, float(loss))
     return ({k: v.detach() for k, v in params.items()},

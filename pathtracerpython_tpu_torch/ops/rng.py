@@ -63,6 +63,41 @@ def split(key, num: int = 2) -> list[tuple[int, int]]:
     return [threefry2x32(k0, k1, 0, i) for i in range(num)]
 
 
+def fold_in(key, data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` for a threefry key: the hash of
+    the counter pair (0, data) under the key (JAX's ``threefry_fold_in``
+    hashes ``threefry_seed(uint32(data))``). ``key``: an int seed or a
+    (k0, k1) pair."""
+    k0, k1 = key_from_seed(key)
+    return threefry2x32(k0, k1, 0, int(data) & _MASK)
+
+
+def randint(key, minval: int, maxval: int) -> int:
+    """``int(jax.random.randint(key, (), minval, maxval))`` for int32, word
+    for word as JAX 0.9 computes it under ``jax_threefry_partitionable``:
+    split the key in two; from each, 32 random bits, the xor of the hash of
+    (0, 0); then minval + (hi % span * m + lo % span) % span, where
+    m = (2^16 % span)^2 % span in 32-bit arithmetic and span =
+    maxval - minval (1 when maxval <= minval). ``minval`` and ``maxval``
+    lie in int32."""
+    imin, imax = -2**31, 2**31 - 1
+    if not (imin <= minval <= imax and imin <= maxval <= imax):
+        raise ValueError("randint bounds must lie in int32")
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+
+    def bits(k):
+        y0, y1 = threefry2x32(k[0], k[1], 0, 0)
+        return y0 ^ y1
+
+    higher, lower = (bits(k) for k in split(key))
+    multiplier = (2**16 % span) & _MASK
+    multiplier = ((multiplier * multiplier) & _MASK) % span
+    offset = (((higher % span) * multiplier) & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    value = (minval + offset) & _MASK
+    return value - 2**32 if value > imax else value
+
+
 def fold(k0: int, k1: int, salt: int) -> tuple[int, int]:
     """Derive a sub-key: hash the salt under the parent key."""
     return threefry2x32(k0, k1, int(salt) & _MASK, _FOLD_WORD)

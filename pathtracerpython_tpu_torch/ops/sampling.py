@@ -1,8 +1,13 @@
 """Monte-Carlo sampling primitives on component-major [3, ...] tensors.
 
-Same math, in the same operation order, as the ``cm_*`` functions and
-``pick_light_triangle`` of the JAX package's ``ops/sampling.py`` (fast
-mode only; the reference-mode samplers come with the reference estimator).
+Same math, in the same operation order, as the functions of the JAX
+package's ``ops/sampling.py``: the fast-mode ``cm_*`` samplers and
+``pick_light_triangle``, and the reference estimator's samplers, which
+reproduce the reference program's quirks on purpose (its 2pi truncated to
+6.28, centre-biased barycentrics, tangent frames rotated about the fixed
+y axis), each in its row-major form and its ``cm_`` form. The two forms of
+the frame rotation differ as JAX's do: the row-major matrix's middle row is
+aa + cc, while ``cm_rotate_frame_reference`` passes v[1] through.
 """
 
 from __future__ import annotations
@@ -12,6 +17,9 @@ import math
 import torch
 
 TAU = 2.0 * math.pi
+# The reference truncates 2pi to 6.28 (JAX ``ops/sampling.py:21``): its
+# azimuths never cover the last ~3.2 mrad. Reference mode only.
+TAU_REFERENCE = 6.28
 
 
 def pick_light_triangle(u: torch.Tensor, areas: torch.Tensor) -> torch.Tensor:
@@ -70,3 +78,83 @@ def cm_cosine_hemisphere_fixed(u2: torch.Tensor, n3: torch.Tensor):
 def cm_reflect(d3: torch.Tensor, n3: torch.Tensor) -> torch.Tensor:
     """Mirror reflection of an incoming direction."""
     return d3 - 2.0 * cm_dot(d3, n3)[None] * n3
+
+
+def sample_barycentric_reference(u3: torch.Tensor) -> torch.Tensor:
+    """The reference's barycentrics (JAX ``ops/sampling.py:50``): three
+    uniforms [..., 3] divided by their sum, NOT uniform over the triangle
+    (centre-biased)."""
+    total = u3[..., 0] + u3[..., 1] + u3[..., 2]
+    return u3 / total[..., None]
+
+
+def point_from_barycentric(bary, v0, v1, v2) -> torch.Tensor:
+    """[..., 3] point a*v0 + b*v1 + c*v2 (JAX ``ops/sampling.py:68``)."""
+    return bary[..., 0:1] * v0 + bary[..., 1:2] * v1 + bary[..., 2:3] * v2
+
+
+def rotation_about_y(angle: torch.Tensor) -> torch.Tensor:
+    """The reference's quaternion rotation matrix about the axis (0, 1, 0)
+    (JAX ``ops/sampling.py:75``): a = cos(angle/2), c = -sin(angle/2).
+    Returns [..., 3, 3] acting on column vectors."""
+    a = torch.cos(angle / 2.0)
+    c = -torch.sin(angle / 2.0)
+    aa, cc, ac = a * a, c * c, a * c
+    zero = torch.zeros_like(a)
+    row0 = torch.stack([aa - cc, zero, -2 * ac], dim=-1)
+    row1 = torch.stack([zero, aa + cc, zero], dim=-1)
+    row2 = torch.stack([2 * ac, zero, aa - cc], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotate_frame_reference(v: torch.Tensor,
+                           normal: torch.Tensor) -> torch.Tensor:
+    """The reference's tangent frame (JAX ``ops/sampling.py:91``): rotate
+    ``v`` [..., 3] about the FIXED y axis by arccos(normal_y), so only
+    y-facing surfaces get a right frame. R @ v summed over j in order, as
+    the einsum of three terms at HIGHEST precision."""
+    angle = torch.arccos(torch.clamp(normal[..., 1], -1.0, 1.0))
+    rot = rotation_about_y(angle)
+    return (rot[..., 0] * v[..., 0:1] + rot[..., 1] * v[..., 1:2]
+            + rot[..., 2] * v[..., 2:3])
+
+
+def cosine_hemisphere_reference(u2: torch.Tensor) -> torch.Tensor:
+    """The reference's canonical cosine sample about +z (JAX
+    ``ops/sampling.py:104``): phi = arccos(sqrt(u1)), theta = 6.28 * u2,
+    (sin phi cos theta, sin phi sin theta, cos phi). ``u2`` [..., 2]."""
+    phi = torch.arccos(torch.sqrt(u2[..., 0]))
+    theta = TAU_REFERENCE * u2[..., 1]
+    sp = torch.sin(phi)
+    return torch.stack([sp * torch.cos(theta), sp * torch.sin(theta),
+                        torch.cos(phi)], dim=-1)
+
+
+def cm_sample_barycentric_reference(u3: torch.Tensor) -> torch.Tensor:
+    """u3 [3, ...] -> barycentrics [3, ...]: normalized uniforms (JAX
+    ``ops/sampling.py:180``)."""
+    return u3 / (u3[0] + u3[1] + u3[2])[None]
+
+
+def cm_cosine_hemisphere_reference(u2: torch.Tensor) -> torch.Tensor:
+    """The reference's canonical cosine sample, [3, ...] (JAX
+    ``ops/sampling.py:196``)."""
+    phi = torch.arccos(torch.sqrt(u2[0]))
+    theta = TAU_REFERENCE * u2[1]
+    sp = torch.sin(phi)
+    return torch.stack([sp * torch.cos(theta), sp * torch.sin(theta),
+                        torch.cos(phi)])
+
+
+def cm_rotate_frame_reference(v3: torch.Tensor,
+                              n3: torch.Tensor) -> torch.Tensor:
+    """The reference's y-axis frame rotation, component-major (JAX
+    ``ops/sampling.py:204``): rows [aa-cc, 0, -2ac], [0, 1, 0],
+    [2ac, 0, aa-cc], so v[1] passes through."""
+    angle = torch.arccos(torch.clamp(n3[1], -1.0, 1.0))
+    a = torch.cos(angle / 2.0)
+    c = -torch.sin(angle / 2.0)
+    aa_cc = a * a - c * c
+    two_ac = 2.0 * a * c
+    return torch.stack([aa_cc * v3[0] - two_ac * v3[2], v3[1],
+                        two_ac * v3[0] + aa_cc * v3[2]])

@@ -1,14 +1,15 @@
 """Render configuration: the fields and defaults of the JAX package's
 ``render/config.py``, less ``backend`` (the device the scene lives on
 decides: CUDA kernels on the card, their plain versions on the CPU) and
-``tile`` (the width of the XLA sweeps, which the port does not have).
+``tile`` (the reference sweeps take JAX's default, ``ops/geometry.py:TILE``).
 
-The port runs the fast-mode forward render, dense (``accel="none"``) or
-through a cluster hierarchy: ``"sparse"``, ``"walker"`` or ``"hybrid"``
-(which ``"auto"`` selects on large scenes), with the sparse hierarchy's
-occluder cache on ``nee_cache="on"`` ("auto" is off). ``render`` refuses
-the values of the remaining fields that need parts not yet ported with
-``NotImplementedError`` (see ``render.integrator.check_supported``).
+The port runs the forward render in both estimators: the fast one, dense
+(``accel="none"``) or through a cluster hierarchy: ``"sparse"``,
+``"walker"`` or ``"hybrid"`` (which ``"auto"`` selects on large scenes),
+with the sparse hierarchy's occluder cache on ``nee_cache="on"`` ("auto" is
+off); and ``mode="reference"``, whose sweeps ignore ``accel``. ``render``
+refuses ``geom_axis`` (not ported yet) with ``NotImplementedError`` (see
+``render.integrator.check_supported``).
 
 One field the JAX package does not have: ``mt_impl``, the form of the
 in-triangle test ("classic" or "plucker") in the sweeps that have both.

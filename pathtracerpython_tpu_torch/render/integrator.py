@@ -1,6 +1,7 @@
-"""The fast-mode wavefront path-tracing integrator (component-major layout).
+"""The wavefront path-tracing integrator (component-major layout).
 
-The forward fast-mode path of the JAX package's ``render/integrator.py``:
+The forward path of the JAX package's ``render/integrator.py``, in both
+estimators:
 
     for each sample:                  (a Python loop, or extra lanes)
         state = primary rays          (ops.camera)
@@ -46,8 +47,18 @@ grad is on (``jax.checkpoint`` there): the backward recomputes a bounce,
 its kernel launches included, instead of holding its intermediates. The
 RNG is counter-based, so the recompute draws the same numbers.
 
+``mode="reference"`` is the reference program's estimator, quirks and
+all, as the JAX package's reference branches write it: the row-major
+reference sweeps of ``ops/geometry.py`` (plain PyTorch: the JAX package
+runs them on XLA, never through a Pallas kernel), normalized-uniform
+barycentrics and the unclamped cosine in the NEE, the colour of the last
+light sample's first occluder (``shade_nee_reference``), light hits that
+always pay, and ``scatter_reference``'s fixed-y-axis frames, raw-direction
+specular and Phong factor toward the eye, all on the raw winding normal.
+Reference mode is never sorted.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item (``check_supported``): reference mode and geometry sharding.
+ROADMAP item (``check_supported``): geometry sharding.
 """
 
 from __future__ import annotations
@@ -73,14 +84,18 @@ from pathtracerpython_tpu_torch.ops.gather import cm_take
 from pathtracerpython_tpu_torch.ops.geometry import (
     NearestHitCM,
     any_hit_within_cm,
+    first_occluder_index,
     nearest_hit_cm,
     normalize3,
 )
 from pathtracerpython_tpu_torch.ops.sampling import (
     cm_cosine_hemisphere_fixed,
+    cm_cosine_hemisphere_reference,
     cm_dot,
     cm_point_from_barycentric,
     cm_reflect,
+    cm_rotate_frame_reference,
+    cm_sample_barycentric_reference,
     cm_sample_barycentric_uniform,
     pick_light_triangle,
 )
@@ -138,8 +153,6 @@ def _not_ported(what: str, item: str):
 def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
     """Refuse every configuration this port cannot render with the same
     semantics as the JAX package, naming the ROADMAP item that adds it."""
-    if cfg.mode != "fast":
-        _not_ported(f"mode={cfg.mode!r}", "A2: reference mode")
     if cfg.geom_axis is not None:
         _not_ported("geom_axis", "A4: parallel")
 
@@ -201,6 +214,22 @@ def resolve_materials(scene: SceneTensors, material) -> Materials:
     return Materials(
         rgb3=rgb3, ka=scalars[0], kd=scalars[1], ks=scalars[2], n=scalars[3],
     )
+
+
+def _power_numpy_semantics(base: torch.Tensor,
+                           exponent: torch.Tensor) -> torch.Tensor:
+    """base ** exponent with numpy's float semantics (JAX
+    ``render/integrator.py:117``): a negative base keeps its sign parity
+    under an integral exponent and is NaN under a fractional one. The
+    reference raises a Phong cosine that may be negative to a float
+    power."""
+    r = torch.round(exponent)
+    is_int = r == exponent
+    odd = torch.remainder(r, 2.0) == 1.0
+    mag = torch.pow(torch.abs(base), exponent)
+    neg_case = torch.where(is_int, torch.where(odd, -mag, mag),
+                           torch.nan)
+    return torch.where(base >= 0.0, mag, neg_case)
 
 
 class ShadowRays(NamedTuple):
@@ -331,23 +360,64 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
         occ_hint, nee_cache
 
 
+def shade_nee_reference(hit: NearestHitCM, u, scene: SceneTensors,
+                        cfg: RenderConfig) -> torch.Tensor:
+    """The reference estimator's direct light [3, N] (JAX
+    ``render/integrator.py:239-403`` with ``mode == "reference"``):
+    ``cfg.n_light_samples`` light points (triangle by area,
+    normalized-uniform barycentrics), occlusion by object rows only through
+    the reference any-hit, the mean over samples of the UNCLAMPED cosine
+    with the raw winding normal, times light_color times the colour of the
+    LAST sample's first occluder, else of the last SDL object (the
+    reference's leaked loop variable). ``u``: [S*5, N] uniforms."""
+    s = cfg.n_light_samples
+    point3 = hit.point3
+    n = point3.shape[1]
+    u = u.reshape(s, 5, n)
+    tri = pick_light_triangle(u[:, 0], scene.light_area)          # [S, N]
+    bary = cm_sample_barycentric_reference(u[:, 1:4].transpose(0, 1))
+    lv = cm_take(torch.cat([scene.light_v0.T, scene.light_v1.T,
+                            scene.light_v2.T]), tri)              # [9, S, N]
+    light_pt3 = cm_point_from_barycentric(bary, lv[0:3], lv[3:6], lv[6:9])
+    vec3 = light_pt3 - point3[:, None, :]
+    dist = torch.sqrt(cm_dot(vec3, vec3) + 1e-24)                 # [S, N]
+    sdir3 = normalize3(vec3)
+    cos = cm_dot(sdir3, hit.normal3[:, None, :])                  # unclamped
+    occ_flat = any_hit_within_cm(
+        point3[:, None, :].expand(3, s, n).reshape(3, s * n),
+        sdir3.reshape(3, s * n), dist.reshape(s * n), scene,
+        mode="reference")
+    occluded = occ_flat.reshape(s, n)
+    mean_cos = torch.where(occluded, 0.0, cos).sum(dim=0) / float(s)
+    occ_idx, occ_mat = first_occluder_index(
+        point3.T, sdir3[:, -1, :].T, dist[-1], scene)
+    quirk_mat = torch.where(occ_idx >= 0, occ_mat, scene.meta.n_objects - 1)
+    direct_rgb3 = cm_take(scene.mat_rgb.T, quirk_mat)
+    return scene.light_color[:, None] * direct_rgb3 * mean_cos[None, :]
+
+
 def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
           cfg: RenderConfig, prev_specular, shading_normal3, alive,
           occ_hint, nee_cache):
     """Per-bounce color ([3, N], occ_hint, nee_cache): surface hits pay
     ambient + NEE; a light hit pays the light color only when the path
-    arrived from the camera or a specular bounce; a miss pays the
-    background when ``use_background`` is set, else 0. Where the
-    shadow-lane sort runs, the NEE parks the shadow rays of lanes whose
-    direct term is discarded (not ``alive``, missed, light hits)."""
-    relevant = alive & hit.hit & ~hit.is_light
+    arrived from the camera or a specular bounce (in reference mode,
+    always); a miss pays the background when ``use_background`` is set,
+    else 0. Where the shadow-lane sort runs, the NEE parks the shadow rays
+    of lanes whose direct term is discarded (not ``alive``, missed, light
+    hits)."""
     ambient3 = mat.rgb3 * (mat.ka * scene.ambient)[None, :]
-    direct3, occ_hint, nee_cache = shade_nee(
-        hit, mat, u, scene, cfg, shading_normal3, relevant, occ_hint,
-        nee_cache)
+    if cfg.mode == "reference":
+        direct3 = shade_nee_reference(hit, u, scene, cfg)
+        light3 = scene.light_color[:, None].expand_as(direct3)
+    else:
+        relevant = alive & hit.hit & ~hit.is_light
+        direct3, occ_hint, nee_cache = shade_nee(
+            hit, mat, u, scene, cfg, shading_normal3, relevant, occ_hint,
+            nee_cache)
+        light3 = torch.where(prev_specular[None, :],
+                             scene.light_color[:, None], 0.0)
     surface3 = ambient3 + direct3
-    light3 = torch.where(prev_specular[None, :], scene.light_color[:, None],
-                         0.0)
     color3 = torch.where(hit.is_light[None, :], light3, surface3)
     if cfg.use_background:
         miss3 = scene.background[:, None].expand_as(surface3)
@@ -379,6 +449,32 @@ def scatter(state: RayState, hit: NearestHitCM, mat: Materials, u,
     new_dir3 = torch.where(choose_diffuse[None, :], diffuse_dir3, spec_dir3)
     survives = hit.hit & ~hit.is_light
     return new_dir3, w, survives, ~choose_diffuse
+
+
+def scatter_reference(state: RayState, hit: NearestHitCM, mat: Materials,
+                      u, scene: SceneTensors):
+    """The reference's BRDF sampling (JAX ``render/integrator.py:475-491``):
+    (new_dir3, throughput_factor, survives, chose_specular). The branch is
+    ``u0 * (kd + ks) <= kd``; diffuse is the canonical cosine sample
+    rotated about the fixed y axis by arccos(normal_y), factor kd * cos;
+    specular reflects the RAW previous direction (no negation), rotated the
+    same way, factor ks * dot(eye_vec, dir)^n toward the eye, with numpy's
+    power semantics. All on the raw winding normal. ``u``: [3, N]."""
+    kd, ks = mat.kd, mat.ks
+    normal3 = hit.normal3
+    diffuse_dir3 = cm_rotate_frame_reference(
+        cm_cosine_hemisphere_reference(u[1:3]), normal3)
+    spec = normalize3(2.0 * cm_dot(normal3, state.direction3)[None, :]
+                      * normal3 - state.direction3)
+    spec_dir3 = cm_rotate_frame_reference(spec, normal3)
+    eye_vec3 = normalize3(scene.eye[:, None] - hit.point3)
+    choose_diffuse = u[0] * (kd + ks) <= kd
+    new_dir3 = torch.where(choose_diffuse[None, :], diffuse_dir3, spec_dir3)
+    diffuse_k = kd * cm_dot(diffuse_dir3, normal3)
+    spec_k = ks * _power_numpy_semantics(cm_dot(eye_vec3, spec_dir3), mat.n)
+    factor = torch.where(choose_diffuse, diffuse_k, spec_k)
+    survives = hit.hit & ~hit.is_light
+    return new_dir3, factor, survives, ~choose_diffuse
 
 
 def sort_and_park(state: RayState, sort_bounds=None):
@@ -478,10 +574,12 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
         occ_hint, nee_cache = state.nee_occ_hint, state.nee_cache
     else:
         hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
-                             mt_impl=cfg.mt_impl)
+                             mt_impl=cfg.mt_impl, mode=cfg.mode)
         mat = resolve_materials(scene, hit.material)
-        # one arrival-side normal for both direct light and scattering
-        shading_n3 = arrival_side_normal(hit.normal3, d_in3)
+        # one arrival-side normal for both direct light and scattering;
+        # reference mode keeps the raw winding normal
+        shading_n3 = (arrival_side_normal(hit.normal3, d_in3)
+                      if cfg.mode == "fast" else hit.normal3)
         color3, occ_hint, nee_cache = shade(
             hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
             state.alive, state.nee_occ_hint, state.nee_cache)
@@ -490,9 +588,12 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
     )
     radiance3 = state.radiance3 + contrib3
 
-    new_dir3, factor, survives, chose_spec = scatter(
-        state, hit, mat, u_scatter, shading_n3
-    )
+    if cfg.mode == "reference":
+        new_dir3, factor, survives, chose_spec = scatter_reference(
+            state, hit, mat, u_scatter, scene)
+    else:
+        new_dir3, factor, survives, chose_spec = scatter(
+            state, hit, mat, u_scatter, shading_n3)
     alive = state.alive & survives
     return RayState(
         origin3=torch.where(alive[None, :], hit.point3, state.origin3),

@@ -4,7 +4,9 @@ Same contract as ``pathtracerpython_tpu/scene/sdl.py``: records ``eye``,
 ``size``, ``ortho``, ``background``, ``ambient``, ``light <obj> r g b``,
 ``npaths``, ``tonemapping``, ``seed``, ``object <obj> r g b ka kd ks kt n``,
 ``output``. OBJ paths are resolved relative to the SDL file's directory and
-read with the pure-Python parser; unknown records are skipped.
+read by ``scene/native.py:load_obj_fast`` (the native parser where its
+library builds, the Python parser otherwise), as the JAX package reads
+them; unknown records are skipped.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
-from pathtracerpython_tpu_torch.scene.obj import ObjMesh, load_obj, strip_comments
+from pathtracerpython_tpu_torch.scene.native import load_obj_fast as load_obj
+from pathtracerpython_tpu_torch.scene.obj import ObjMesh, strip_comments
 
 
 @dataclasses.dataclass

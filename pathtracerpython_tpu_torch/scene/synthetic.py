@@ -8,10 +8,13 @@ the reference's ``objs/cornellroom.sdl`` from these primitives, so tests
 and the on-card smoke run need no file outside the repository.
 ``flat_scene`` is the floor-and-light scene of the JAX package's gradient
 tests, ``occluder_scene`` the floor, blocker and light of its soft-visibility
-tests (``tests/test_boundary.py:make_occluder_scene``).
+tests (``tests/test_boundary.py:make_occluder_scene``). ``write_sdl``
+writes any of them out as an SDL file with its OBJ files, for the CLI.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -259,3 +262,56 @@ def occluder_scene(width: int = 12, height: int = 12) -> SceneDescription:
         ],
         path="synthetic://occluder",
     )
+
+
+def _num(x) -> str:
+    """A float as the shortest text that parses back to the same float64."""
+    return repr(float(x))
+
+
+def write_obj(mesh: ObjMesh, path: str) -> None:
+    """An OBJ of ``mesh``'s vertices and triangles (1-based ``f`` records),
+    with every coordinate written to round-trip exactly."""
+    lines = [f"v {_num(x)} {_num(y)} {_num(z)}" for x, y, z in mesh.vertices]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in mesh.faces]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_sdl(desc: SceneDescription, directory: str,
+              name: str = "scene.sdl") -> str:
+    """Write ``desc`` as ``directory/name`` with one OBJ file per mesh
+    beside it, so that ``load_scene`` of the file, in this package or the
+    JAX one, packs the same leaves as ``pack_scene(desc)``. Returns the SDL
+    path. Records: eye, size, ortho, background, ambient, light, the
+    optional npaths, tonemapping and seed, and one ``object`` per SDL
+    object, in order."""
+    os.makedirs(directory, exist_ok=True)
+
+    def obj_file(mesh: ObjMesh, stem: str) -> str:
+        file = f"{stem}.obj"
+        write_obj(mesh, os.path.join(directory, file))
+        return file
+
+    nums = lambda values: " ".join(_num(v) for v in values)  # noqa: E731
+    lines = [f"eye {nums(desc.eye)}", f"size {desc.width} {desc.height}",
+             f"ortho {nums(desc.ortho)}"]
+    if desc.background is not None:
+        lines.append(f"background {nums(desc.background)}")
+    if desc.ambient is not None:
+        lines.append(f"ambient {_num(desc.ambient)}")
+    lines.append(f"light {obj_file(desc.light_mesh, 'light')} "
+                 f"{nums(desc.light_color)}")
+    if desc.npaths is not None:
+        lines.append(f"npaths {desc.npaths}")
+    if desc.tonemapping is not None:
+        lines.append(f"tonemapping {_num(desc.tonemapping)}")
+    if desc.seed is not None:
+        lines.append(f"seed {desc.seed}")
+    for i, o in enumerate(desc.objects):
+        lines.append(f"object {obj_file(o.mesh, f'object{i}')} "
+                     f"{nums(o.rgb)} {nums((o.ka, o.kd, o.ks, o.kt, o.n))}")
+    path = os.path.join(directory, name)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path

@@ -1,0 +1,32 @@
+"""Profiler hooks on ``torch.profiler`` (the JAX package's
+``utils/profiling.py`` on ``jax.profiler``): a trace of a code region,
+written as a Chrome trace that Perfetto opens.
+
+Usage::
+
+    with trace_context("/tmp/trace") as prof:
+        render(...)
+    # /tmp/trace/trace.json; prof.key_averages() for a table
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+@contextlib.contextmanager
+def trace_context(log_dir: str):
+    """Profile the region (host ops, and the card's kernels where CUDA is
+    available); on exit write ``log_dir/trace.json``. Yields the
+    ``torch.profiler.profile``."""
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if torch.cuda.is_available()
+                                           else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

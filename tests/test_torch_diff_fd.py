@@ -9,7 +9,8 @@ Mirrored: 6 material and emission fields, 3 vertex coordinates (floor and
 light), 3 eye coordinates, 1 ortho coordinate, the light-vertex sync of
 ``apply_params``, ``pixel_loss``'s refusal of camera parameters, the albedo
 fit and the eye fit. Not ported yet, so checked to refuse: sharded steps
-(A4) and checkpointed fits (A5). The soft estimator's and
+(A4); checkpointed fits run (their resume is held in
+test_torch_fit_checkpoint.py). The soft estimator's and
 ``remat_bounces``' gradients are held in test_torch_soft_fd.py and
 test_torch_remat.py."""
 
@@ -222,13 +223,17 @@ def test_camera_fit_recovers_eye(flat_scene):
     assert err < err0 * 0.35, (err0, err)
 
 
-def test_sharded_and_checkpointed_fits_refuse(flat_scene):
+def test_sharded_and_checkpointed_fits_refuse(flat_scene, tmp_path):
+    """Sharded steps still refuse (A4); a checkpointed fit, refused until
+    utils/ was ported, now runs and writes its step."""
     cfg = RenderConfig(mode="fast", n_samples=1, n_bounces=1)
     with pytest.raises(NotImplementedError, match="A4"):
         make_render_fn(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        fit({"mat_rgb": flat_scene.mat_rgb}, adam(0.05), flat_scene, cfg,
-            torch.zeros((256, 3)), steps=1, checkpoint_dir="ckpt")
+    ckpt = tmp_path / "ckpt"
+    _, losses = fit({"mat_rgb": flat_scene.mat_rgb}, adam(0.05), flat_scene,
+                    cfg, torch.zeros((256, 3)), steps=1,
+                    checkpoint_dir=str(ckpt), checkpoint_every=1)
+    assert len(losses) == 1 and (ckpt / "step_00000001").is_dir()
 
 
 def test_scene_cache_pins_no_graph_and_follows_new_vertices(flat_scene):

@@ -13,9 +13,10 @@ knobs, on a dense scene and on one past ``SPARSE_MIN_TRIS``.
   that 9 take the unfused NEE.
 
 JAX configurations are built with ``backend="pallas"``: its gates are off
-on the XLA backend, which the port does not have. Reference mode and the
-geometry ring still refuse in ``check_supported``; the gates must say no
-for them all the same, so that dropping a refusal cannot mis-route."""
+on the XLA backend, which the port does not have. Reference mode renders
+and must never be sorted, nor take the fused NEE; the geometry ring still
+refuses in ``check_supported``, and the gates must say no for it all the
+same, so that dropping the refusal cannot mis-route."""
 
 import itertools
 
