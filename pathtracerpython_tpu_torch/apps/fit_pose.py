@@ -26,7 +26,8 @@ Two modes:
   first fits at a quarter of the width (at least 40), then at the full
   width; each level reruns the anneal with a fresh Adam, and the target is
   rendered again at each (level, beta), so the optimum stays at zero pose
-  error.
+  error. The result's ``level_params`` hold, for each level, the params
+  it started from and those it ended with.
 
 The key is the JAX package's ``PRNGKey(seed)``, (0, seed), fixed for the
 whole fit: the loss is a deterministic function of the pose. Runs on the
@@ -209,13 +210,15 @@ def run(scene_path: str | None = None, object_name: str | None = None,
     params = torch.tensor(
         initial_params(object_name, dof, init_offset, init_angle),
         dtype=torch.float32, device=scene.device, requires_grad=True)
-    losses = []
+    losses, level_params = [], []
     for lw, lh in levels:
         origins, dirs = make_primary_rays(scene.eye, scene.ortho, lw, lh)
         rays = (origins, dirs,
                 torch.arange(lw * lh, dtype=torch.int64, device=scene.device))
         # fresh moments for each level: they depend on the resolution
         opt = adam(lr)([params])
+        level_params.append({"level": [lw, lh],
+                             "start": params.detach().clone()})
         for beta, n_steps in zip(betas, stage_steps(steps, len(betas))):
             cfg = make_cfg(beta)
             with torch.no_grad():
@@ -228,6 +231,7 @@ def run(scene_path: str | None = None, object_name: str | None = None,
                 opt.step()
                 # a host read here would wait for the step
                 losses.append(loss.detach())
+        level_params[-1]["end"] = params.detach().clone()
 
     with torch.no_grad():
         offset, angle = to_pose(params)
@@ -235,6 +239,8 @@ def run(scene_path: str | None = None, object_name: str | None = None,
     save_png(radiance_to_image(fitted, w, h),
              os.path.join(out_dir, "fitted.png"))
     losses = [float(x) for x in losses]
+    level_params = [{"level": p["level"], "start": p["start"].tolist(),
+                     "end": p["end"].tolist()} for p in level_params]
     offset = offset.detach().cpu().numpy()
     result = {
         "mode": what,
@@ -251,6 +257,7 @@ def run(scene_path: str | None = None, object_name: str | None = None,
                         if object_mode else 0.0),
         "betas": betas,
         "levels": levels,
+        "level_params": level_params,
         "out_dir": out_dir,
     }
     log(json.dumps(result))

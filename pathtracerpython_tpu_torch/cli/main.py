@@ -15,8 +15,20 @@ Flags that have no meaning here are accepted and noted in the log:
 ``--backend`` (the device decides: CUDA kernels on the card, their plain
 versions on the CPU; reference mode always runs the plain reference
 sweeps) and ``--no-compile-cache`` (nothing is compiled through XLA).
-``--mt-impl`` sets ``RenderConfig.mt_impl``. ``--dp`` and ``--geom``
-(sharded rendering) refuse, naming ROADMAP.md queue A, A4.
+``--mt-impl`` sets ``RenderConfig.mt_impl``.
+
+Sharded renders run under torchrun, one process a rank:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m pathtracerpython_tpu_torch scene.sdl --out out.png --dp 2
+
+The world is dp x geom ranks (``--dp 0`` takes world / geom); ``--geom``
+above 1 splits the triangles over a geometry ring
+(``parallel/ring.py``), and the padded triangle count must divide by it.
+Ranks that share a card talk through gloo (``parallel/multihost.py``).
+Every rank renders its slice and holds the whole image; rank 0 alone
+prints, writes the PNG and the checkpoints. Outside torchrun, ``--dp`` or
+``--geom`` above 1 exits with status 2 and prints the line to launch.
 
 Renders of ``-r >= 64`` are chunked at 16 spp unless ``--chunk-spp`` says
 otherwise, as in the JAX CLI, so that the two CLIs render the same image;
@@ -82,11 +94,11 @@ def setup(argv=None) -> argparse.Namespace:
                    help="RNG seed (default 0, or the SDL's seed under "
                         "--honor-sdl)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel mesh axis size (0 = single device; "
-                        "sharding is not ported yet: refuses)")
+                   help="data-parallel mesh axis size (0 = world / geom; "
+                        "above 1 runs under torchrun, one process a rank)")
     p.add_argument("--geom", type=int, default=1,
-                   help="geometry-ring mesh axis size (not ported yet: "
-                        "refuses above 1)")
+                   help="geometry-ring mesh axis size (triangles sharded "
+                        "over it; above 1 runs under torchrun)")
     p.add_argument("--normalization", choices=("minmax", "clip"),
                    default="minmax",
                    help="minmax reproduces the reference's auto-normalize")
@@ -161,22 +173,53 @@ def main(argv=None) -> int:
     args = setup(argv)
     log = (lambda *a: None) if args.quiet else print
 
-    if args.dp > 0 or args.geom > 1:
-        return _refuse(
-            "sharded rendering (--dp, --geom) is not ported to "
-            "pathtracerpython_tpu_torch yet (ROADMAP.md queue A, A4: "
-            "parallel)")
-
     import torch
 
-    if args.platform == "cpu":
-        device = "cpu"
-    elif torch.cuda.is_available():
-        device = "cuda"
-    else:
+    from pathtracerpython_tpu_torch.parallel import multihost
+
+    if args.platform != "cpu" and not torch.cuda.is_available():
         return _refuse(
             "no CUDA device: this CLI renders on the card; pass --platform "
             "cpu to render on the CPU (it does not fall back by itself)")
+    sharded = args.dp > 1 or args.geom > 1
+    if sharded and (os.environ.get("WORLD_SIZE") in (None, "", "1")):
+        n = max(args.dp, 1) * args.geom
+        return _refuse(
+            f"--dp {args.dp} --geom {args.geom} needs {n} ranks: launch "
+            f"with torchrun, one process a rank:\n  "
+            + multihost.launch_hint(n, [
+                "-m", "pathtracerpython_tpu_torch",
+                *(argv if argv is not None else sys.argv[1:])]))
+    try:
+        return _main(args, log)
+    finally:
+        multihost.shutdown()
+
+
+def _main(args, log) -> int:
+    import torch
+
+    from pathtracerpython_tpu_torch.parallel import (
+        make_mesh,
+        multihost,
+        render_sharded,
+    )
+
+    platform = "cpu" if args.platform == "cpu" else "auto"
+    multihost.initialize(platform=platform, log=log)
+    if not multihost.is_primary():
+        log = lambda *a: None  # noqa: E731 (rank 0 alone prints)
+    mesh = None
+    if multihost.world_size() > 1 or args.dp > 0:
+        try:
+            mesh = make_mesh(dp=args.dp if args.dp > 0 else None,
+                             geom=args.geom)
+        except ValueError as e:
+            return _refuse(str(e))
+        log(f"mesh: {mesh.shape} over {multihost.world_size()} rank(s), "
+            f"transport {multihost.describe_transport()}")
+    device = (str(mesh.device) if mesh is not None
+              else ("cpu" if args.platform == "cpu" else "cuda"))
 
     from pathtracerpython_tpu_torch.kernels.sparse import SPARSE_MIN_TRIS
     from pathtracerpython_tpu_torch.render.config import RenderConfig
@@ -251,6 +294,14 @@ def main(argv=None) -> int:
     rays_per_spp = (meta.width * meta.height * cfg.n_bounces
                     * (1 + cfg.n_light_samples))
 
+    geom_axis = "geom" if args.geom > 1 else None
+
+    def render_once(sc, c, seed: int):
+        # chunked and unchunked renders share one dispatch
+        if mesh is None:
+            return render(sc, c, seed=seed)
+        return render_sharded(sc, c, mesh, seed=seed, geom_axis=geom_axis)
+
     def render_chunked(seed: int, checkpoint=True, progress=True):
         def prog(done, total, spp_done, dt):
             log(f"chunk {done}/{total}: {spp_done} spp total, {dt:.2f}s, "
@@ -260,12 +311,13 @@ def main(argv=None) -> int:
             scene, cfg, cfg.n_samples, chunk_spp,
             checkpoint_dir=args.ckpt_dir if checkpoint else None,
             seed=seed, log=log, progress=prog if progress else None,
+            renderer=render_once,
         )
 
     def render_full(seed: int, checkpoint=True, progress=True):
         if chunk_spp > 0:
             return render_chunked(seed, checkpoint, progress)
-        return render(scene, cfg, seed=seed)
+        return render_once(scene, cfg, seed)
 
     metrics = MetricsLogger()
     t0 = time.perf_counter()
@@ -279,6 +331,7 @@ def main(argv=None) -> int:
                   meta.width * meta.height * cfg.n_samples * cfg.n_bounces
                   * (1 + cfg.n_light_samples))
     if args.metrics:
+        # every rank renders (the ranks render together); rank 0 prints
         # a second render with another seed and the same plan (chunked
         # stays chunked), without checkpoints and progress lines: the
         # first pays the kernels' build and the caches' fill
@@ -286,14 +339,18 @@ def main(argv=None) -> int:
             with metrics.timed("render_steady", device=scene.device) as box:
                 box["out"] = render_full(seed + 1, checkpoint=False,
                                          progress=False)
-        print(json.dumps({
-            **metrics.summary(),
-            "device": str(scene.device),
-            "rays_attempted_per_s_incl_compile": metrics.rate(
-                "rays_attempted", "render"),
-            "rays_attempted_per_s_steady": metrics.rate(
-                "rays_attempted", "render_steady"),
-        }), flush=True)
+        if multihost.is_primary():
+            print(json.dumps({
+                **metrics.summary(),
+                "device": str(scene.device),
+                "ranks": multihost.world_size(),
+                "rays_attempted_per_s_incl_compile": metrics.rate(
+                    "rays_attempted", "render"),
+                "rays_attempted_per_s_steady": metrics.rate(
+                    "rays_attempted", "render_steady"),
+            }), flush=True)
+    if not multihost.is_primary():
+        return 0
 
     image = radiance_to_image(radiance, meta.width, meta.height,
                               normalization=args.normalization,

@@ -26,9 +26,18 @@ differences with one key are a valid oracle of its gradient.
 integrator renders, the soft estimator and ``remat_bounces`` included.
 ``fit(checkpoint_dir=, checkpoint_every=)`` checkpoints the params, the
 optimizer's state dict and the RNG position and resumes from them, and
-refuses a checkpoint of another fit. Not
-ported yet: sharded training (``mesh``, ROADMAP.md queue A, A4), which
-refuses.
+refuses a checkpoint of another fit.
+
+Sharded training (``mesh``, ``dp_axis``, ``geom_axis``; the JAX package's
+``shard_map`` step): every rank renders its slice of the rays
+(``parallel.render_rays_sharded``), the radiance is all-gathered so that
+every rank computes the loss on the whole image, each rank's backward
+reaches its own rays only (``parallel.shard.GatherRays``), the parameters'
+gradients are summed over the ray axes, and every rank takes the same
+optimizer step. Under a geometry ring, gradients with respect to the
+triangle buffers (vertex params, and the light's vertices, which move its
+rows) raise ``NotImplementedError`` (ROADMAP.md queue A, A4b): shards that
+arrive by recv carry no graph.
 """
 
 from __future__ import annotations
@@ -65,13 +74,6 @@ _LIGHT_TO_TRI = {"light_v0": "tri_v0", "light_v1": "tri_v1",
                  "light_v2": "tri_v2"}
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to pathtracerpython_tpu_torch yet "
-        f"(ROADMAP.md queue A, {item})"
-    )
-
-
 def apply_params(scene: SceneTensors, params: dict) -> SceneTensors:
     """Overlay a params dict onto the scene; normals and areas are derived
     again when vertices moved, so that their gradients flow too.
@@ -97,12 +99,17 @@ def apply_params(scene: SceneTensors, params: dict) -> SceneTensors:
     return scene
 
 
-def make_render_fn(cfg: RenderConfig, mesh=None) -> Callable:
+def make_render_fn(cfg: RenderConfig, mesh=None, dp_axis: str = "dp",
+                   geom_axis: str | None = None) -> Callable:
     """A renderer ``(origins, dirs, pixel_ids, scene, key) -> radiance`` on
-    the scene's device. A ``mesh`` (sharded rendering) refuses."""
-    if mesh is not None:
-        _not_ported("sharded rendering (mesh)", "A4: parallel")
-    return lambda o, d, p, sc, key: render_rays(o, d, p, sc, cfg, key)
+    the scene's device; with a ``mesh``, sharded over its ray axes (and the
+    triangles over ``geom_axis``), the whole radiance on every rank."""
+    if mesh is None:
+        return lambda o, d, p, sc, key: render_rays(o, d, p, sc, cfg, key)
+    from pathtracerpython_tpu_torch.parallel.shard import render_rays_sharded
+
+    return lambda o, d, p, sc, key: render_rays_sharded(
+        o, d, p, sc, cfg, key, mesh, dp_axis=dp_axis, geom_axis=geom_axis)
 
 
 def pixel_loss(params: dict, base_scene: SceneTensors, target: torch.Tensor,
@@ -147,22 +154,41 @@ def adam(lr: float) -> Callable:
 
 def make_train_step(optimizer: torch.optim.Optimizer,
                     base_scene: SceneTensors, cfg: RenderConfig,
-                    target: torch.Tensor, mesh=None) -> Callable:
+                    target: torch.Tensor, mesh=None, dp_axis: str = "dp",
+                    geom_axis: str | None = None) -> Callable:
     """A full training step for the scene's camera view,
     ``step(params, key) -> loss``: ``camera_pixel_loss``, its backward and
     one ``optimizer`` step. ``params`` holds the tensors ``optimizer`` was
     built over, which the step updates in place; the loss comes back as a
-    detached 0-d tensor on the scene's device (no host read)."""
+    detached 0-d tensor on the scene's device (no host read).
+
+    With a ``mesh`` the render is sharded (``make_render_fn``), the loss is
+    the whole image's on every rank, and the gradients are summed over the
+    ray axes before the step, so every rank takes the same step."""
     w, h = base_scene.meta.width, base_scene.meta.height
     pixel_ids = torch.arange(w * h, dtype=torch.int64,
                              device=base_scene.device)
-    render_fn = make_render_fn(cfg, mesh)
+    render_fn = make_render_fn(cfg, mesh, dp_axis, geom_axis)
+    reduce_grads = None
+    if mesh is not None:
+        from pathtracerpython_tpu_torch.parallel.multihost import transport
+        from pathtracerpython_tpu_torch.parallel.shard import ray_axes
+
+        group, ranks = mesh.line(ray_axes(dp_axis, geom_axis))
+
+        def reduce_grads():
+            for g in optimizer.param_groups:
+                for p in g["params"]:
+                    if p.grad is not None and len(ranks) > 1:
+                        p.grad = transport("all_reduce", p.grad, group)
 
     def train_step(params: dict, key) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = camera_pixel_loss(params, base_scene, target, render_fn,
                                  pixel_ids, key)
         loss.backward()
+        if reduce_grads is not None:
+            reduce_grads()
         optimizer.step()
         return loss.detach()
 
@@ -189,7 +215,8 @@ def _fit_identity(params: dict, opt, cfg: RenderConfig,
 def fit(params: dict, optimizer: Callable, base_scene: SceneTensors,
         cfg: RenderConfig, target: torch.Tensor, steps: int, seed: int = 0,
         mesh=None, callback=None, checkpoint_dir: str | None = None,
-        checkpoint_every: int = 0):
+        checkpoint_every: int = 0, dp_axis: str = "dp",
+        geom_axis: str | None = None):
     """Run ``steps`` optimizer steps from ``params``; returns (the fitted
     params, detached, and the list of losses of the steps this call ran).
 
@@ -207,13 +234,16 @@ def fit(params: dict, optimizer: Callable, base_scene: SceneTensors,
     for bit where the steps are deterministic (on the CPU; on the card the
     scatters' float atomics round in their own order). A checkpoint of
     another fit (see ``_fit_identity``), or one past ``steps``, is refused
-    with a ``ValueError``."""
+    with a ``ValueError``. With a ``mesh`` every step is sharded
+    (``make_train_step``); only the primary rank writes checkpoints."""
+    from pathtracerpython_tpu_torch.parallel.multihost import is_primary
     from pathtracerpython_tpu_torch.utils.checkpoint import CheckpointManager
 
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
     opt = optimizer(list(params.values()))
-    step_fn = make_train_step(opt, base_scene, cfg, target, mesh)
+    step_fn = make_train_step(opt, base_scene, cfg, target, mesh, dp_axis,
+                              geom_axis)
     key = rng.key_from_seed(seed)
     start = 0
     mgr = None
@@ -245,7 +275,7 @@ def fit(params: dict, optimizer: Callable, base_scene: SceneTensors,
         loss = step_fn(params, sub)
         losses.append(loss)
         if (mgr is not None and checkpoint_every > 0
-                and (i + 1) % checkpoint_every == 0):
+                and (i + 1) % checkpoint_every == 0 and is_primary()):
             mgr.save(i + 1, {
                 "params": {k: v.detach() for k, v in params.items()},
                 "opt_state": opt.state_dict(),

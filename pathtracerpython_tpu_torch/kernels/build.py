@@ -8,11 +8,17 @@ CUDA launch into ``build/torch_kernels/`` beside the package, named by a
 hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the cached file. A failed build raises; nothing falls
 back to the plain versions. Importing this module runs nothing.
+
+Processes that start together on a fresh checkout (the ranks of a sharded
+render, torchrun's workers) build once: ``build`` holds an exclusive file
+lock (``fcntl.flock`` on ``<library>.lock``) while it compiles, and a
+process that waited for the lock finds the library there and loads it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -70,11 +76,24 @@ def library_path() -> str:
 def build() -> str:
     """Compile the sources unless the library for them exists; return its
     path. The compiler's output, ptxas' register and spill report
-    included, is kept beside it as ``.log``."""
+    included, is kept beside it as ``.log``. One process compiles at a
+    time (a file lock); the others wait and load its library."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(out[:-3] + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):
+                return out
+            return _compile(out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(out: str) -> str:
+    """Compile every source and link them into ``out``."""
     stem = f"{out[:-3]}.{os.getpid()}"
     nvcc = find_nvcc()
     jobs = []

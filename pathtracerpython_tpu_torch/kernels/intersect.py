@@ -593,24 +593,38 @@ def detach_occlusion(o3, d3_unit, maxd, scene):
 
 
 def nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
-                     mt_impl: str | None = None):
+                     mt_impl: str | None = None,
+                     cull: CullBoxes | None = None):
     """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
     length) against the scene's triangles, in the form ``mt_impl`` (None:
     the module's ``MT_IMPL``). Returns (t [N] — 0 on a miss, idx [N] int32
     — -1 on a miss); t is differentiable in the rays and the vertices
-    (``nearest_entry``)."""
+    (``nearest_entry``). ``cull``: the scene's ``nearest_cull_boxes``, for a
+    caller that keeps them itself (the geometry ring, whose shards change
+    at every step); None takes them from the per-scene cache."""
     return nearest_entry(
-        lambda o, d, sc: _nearest_t_idx(o, d, sc, mt_impl), o3, d3_unit,
-        scene)
+        lambda o, d, sc: _nearest_t_idx(o, d, sc, mt_impl, cull), o3,
+        d3_unit, scene)
 
 
-def _nearest_t_idx(o3, d3_unit, scene, mt_impl):
+def _sweep_pack(scene, plucker: bool, cached: bool) -> torch.Tensor:
+    """The [T, 12] pack, or the [T, 36] Plücker pack (from the per-scene
+    cache when ``cached``)."""
+    if not plucker:
+        return scene_tripack(scene)
+    if cached:
+        return scene_plucker_pack(scene)
+    with torch.no_grad():
+        return plucker_pack(scene_tripack(scene))
+
+
+def _nearest_t_idx(o3, d3_unit, scene, mt_impl, cull=None):
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n = o3.shape[1] if o3.dim() == 2 else -1
     check_input("o3", o3, device, torch.float32, (3, None))
     check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
-    pack = scene_plucker_pack(scene) if plucker else scene_tripack(scene)
+    pack = _sweep_pack(scene, plucker, cull is None)
     check_input("scene triangles", pack, device, torch.float32,
                 (None, PLUCKER_COLS if plucker else 12))
     if device.type == "cpu":
@@ -619,7 +633,8 @@ def _nearest_t_idx(o3, d3_unit, scene, mt_impl):
     if device.type != "cuda":
         raise ValueError(f"no nearest-hit kernel for device {device}")
     return (_launch_plucker if plucker else _launch)(
-        o3, d3_unit, pack, scene_nearest_cull_boxes(scene))
+        o3, d3_unit, pack,
+        scene_nearest_cull_boxes(scene) if cull is None else cull)
 
 
 def _launch_nearest(o3, d3_unit, pack, entry: str, cull: CullBoxes,
@@ -701,11 +716,13 @@ def any_hit_plucker_plain(o3, d3_unit, maxd, pack36, cull=None,
 
 
 def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
-               scene, mt_impl: str | None = None) -> torch.Tensor:
+               scene, mt_impl: str | None = None,
+               cull: CullBoxes | None = None) -> torch.Tensor:
     """Whether an occluder triangle of the scene blocks each shadow ray
     o3/d3_unit f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4, in
     the form ``mt_impl`` (None: the module's ``MT_IMPL``); bool[N]. Lanes
-    with maxd = 0 (parked) are never occluded."""
+    with maxd = 0 (parked) are never occluded. ``cull``: the scene's
+    ``cull_boxes``, as ``nearest_t_idx_cm`` takes its own."""
     o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
@@ -713,7 +730,7 @@ def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
     check_input("o3", o3, device, torch.float32, (3, None))
     check_input("d3_unit", d3_unit, device, torch.float32, (3, n))
     check_input("maxd", maxd, device, torch.float32, (n,))
-    pack = scene_plucker_pack(scene) if plucker else scene_tripack(scene)
+    pack = _sweep_pack(scene, plucker, cull is None)
     check_input("scene triangles", pack, device, torch.float32,
                 (None, PLUCKER_COLS if plucker else 12))
     if device.type == "cpu":
@@ -722,7 +739,8 @@ def any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor, maxd: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {device}")
     return (_launch_plucker_any_hit if plucker else _launch_any_hit)(
-        o3, d3_unit, maxd, pack, scene_cull_boxes(scene))
+        o3, d3_unit, maxd, pack,
+        scene_cull_boxes(scene) if cull is None else cull)
 
 
 def cull_pointers(cull: CullBoxes, stats: torch.Tensor | None):

@@ -240,7 +240,8 @@ def _nearest_sweep(origin, d_unit, scene: SceneTensors, mode: str):
 
 
 def nearest_hit(origin: torch.Tensor, direction: torch.Tensor,
-                scene: SceneTensors, mode: str = "fast") -> NearestHit:
+                scene: SceneTensors, mode: str = "fast",
+                geom_axis: str | None = None) -> NearestHit:
     """Closest hit of [N] row-major rays against the whole padded triangle
     buffer (JAX ``ops/geometry.py:152``, its XLA sweep). The key is t in
     fast mode (``intersect_moller``, t > 1e-4) and t * t in reference mode
@@ -254,8 +255,17 @@ def nearest_hit(origin: torch.Tensor, direction: torch.Tensor,
     is on and the rays or the vertices require it, each winner's t is
     solved again from its own row with autograd, and that solve's gradient
     is added to the sweep's t, whose value stays the sweep's bit for bit:
-    the gradient JAX's ``where`` chain gives the winning pair."""
+    the gradient JAX's ``where`` chain gives the winning pair.
+
+    ``geom_axis``: sweep the geometry ring of that mesh axis
+    (``parallel/ring.py``, JAX ``:171``), with global rows."""
     _check_mode(mode)
+    if geom_axis is not None:
+        hit = _ring_nearest(origin.T, direction.T, scene, geom_axis, mode,
+                            None)
+        return NearestHit(hit=hit.hit, t=hit.t, tri_idx=hit.tri_idx,
+                          point=hit.point3.T, normal=hit.normal3.T,
+                          material=hit.material, is_light=hit.is_light)
     d_unit = safe_normalize(direction)
     found, t, idx = _nearest_sweep(origin, d_unit, scene, mode)
     rows = idx.to(torch.int64)
@@ -276,13 +286,18 @@ def nearest_hit(origin: torch.Tensor, direction: torch.Tensor,
 @torch.no_grad()
 def any_hit_within(origin: torch.Tensor, direction: torch.Tensor,
                    max_dist: torch.Tensor, scene: SceneTensors,
-                   mode: str = "fast") -> torch.Tensor:
+                   mode: str = "fast",
+                   geom_axis: str | None = None) -> torch.Tensor:
     """Shadow occlusion bool[N] (JAX ``ops/geometry.py:242``): does an
     occluder row (``tri_occluder``: the light never shadows) block the ray
     within ``max_dist`` [N], the euclidean distance to the light point? In
     reference mode a hit blocks when t * t lies in [ZERO, max_dist^2), so
-    backward hits block too; in fast mode when t < max_dist - 1e-4."""
+    backward hits block too; in fast mode when t < max_dist - 1e-4.
+    ``geom_axis``: over the geometry ring of that axis (JAX ``:265``)."""
     _check_mode(mode)
+    if geom_axis is not None:
+        return _ring_any_hit(origin.T, safe_normalize(direction).T, max_dist,
+                             scene, geom_axis, mode, None)
     n = origin.shape[0]
     d_unit = safe_normalize(direction)
     occluded = torch.zeros(n, dtype=torch.bool, device=origin.device)
@@ -301,14 +316,24 @@ def any_hit_within(origin: torch.Tensor, direction: torch.Tensor,
 
 @torch.no_grad()
 def first_occluder_index(origin: torch.Tensor, direction: torch.Tensor,
-                         max_dist: torch.Tensor, scene: SceneTensors):
+                         max_dist: torch.Tensor, scene: SceneTensors,
+                         geom_axis: str | None = None):
     """(row, material) of the FIRST occluder in buffer order that blocks
     each ray within ``max_dist``, (-1, 0) where none does (JAX
     ``ops/geometry.py:453``). It reproduces the reference's leaked loop
     variable: the direct light's colour is that of the object that blocked
     the LAST light sample, the first one its occlusion scan met; pack order
     keeps the reference's object order, with the light, never scanned,
-    last. Reference mode only: nothing else shades with it."""
+    last. Reference mode only: nothing else shades with it.
+    ``geom_axis``: over the geometry ring of that axis, with global rows
+    (JAX ``:475``)."""
+    if geom_axis is not None:
+        from pathtracerpython_tpu_torch.parallel.ring import (
+            first_occluder_ring,
+        )
+
+        return first_occluder_ring(origin, direction, max_dist, scene,
+                                   geom_axis)
     n = origin.shape[0]
     d_unit = safe_normalize(direction)
     best = torch.full((n,), IMAX, dtype=torch.int32, device=origin.device)
@@ -351,13 +376,19 @@ class NearestHitCM(NamedTuple):
 
 def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor, scene: SceneTensors,
                    accel: str = "none", mt_impl: str | None = None,
-                   mode: str = "fast") -> NearestHitCM:
+                   mode: str = "fast",
+                   geom_axis: str | None = None) -> NearestHitCM:
     """Closest hit of rays (o3, d3) [3, N] against the scene's triangles,
     through the sweep ``accel`` resolves to; ``d3`` need not be
     normalized. Every sweep gives the dense sweep's winner in its form.
     ``mode="reference"`` takes the row-major reference sweep
     (``nearest_hit``), whatever ``accel`` and ``mt_impl`` say, as the JAX
-    package does."""
+    package does. ``geom_axis``: the geometry ring of that axis
+    (``parallel/ring.py``: K1 on each shard in fast mode, the reference
+    sweep in reference mode; ``accel`` is not read, as in JAX ``:338``),
+    with global rows."""
+    if geom_axis is not None:
+        return _ring_nearest(o3, d3, scene, geom_axis, mode, mt_impl)
     if mode != "fast":
         hit = nearest_hit(o3.T, d3.T, scene, mode=mode)
         return NearestHitCM(hit=hit.hit, t=hit.t, tri_idx=hit.tri_idx,
@@ -393,11 +424,17 @@ def nearest_hit_cm(o3: torch.Tensor, d3: torch.Tensor, scene: SceneTensors,
 def any_hit_within_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
                       max_dist: torch.Tensor, scene: SceneTensors,
                       accel: str = "none", mt_impl: str | None = None,
-                      mode: str = "fast") -> torch.Tensor:
+                      mode: str = "fast",
+                      geom_axis: str | None = None) -> torch.Tensor:
     """Shadow occlusion bool[N] of rays (o3, d3_unit) [3, N] within
     ``max_dist`` [N], through the any-hit ``accel`` resolves to;
     ``d3_unit`` must be normalized. ``mode="reference"`` takes the
-    row-major reference sweep (``any_hit_within``)."""
+    row-major reference sweep (``any_hit_within``); ``geom_axis`` the
+    geometry ring of that axis (K4 on each shard in fast mode; JAX
+    ``:419``)."""
+    if geom_axis is not None:
+        return _ring_any_hit(o3, d3_unit, max_dist, scene, geom_axis, mode,
+                             mt_impl)
     if mode != "fast":
         return any_hit_within(o3.T, d3_unit.T, max_dist, scene, mode=mode)
     resolved = resolve_accel(accel, scene.num_padded_triangles)
@@ -407,3 +444,17 @@ def any_hit_within_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     if resolved in ("walker", "hybrid"):
         return walker_any_hit_cm(o3, d3_unit, max_dist, scene)
     return any_hit_cm(o3, d3_unit, max_dist, scene, mt_impl=mt_impl)
+
+
+def _ring_nearest(o3, d3, scene, axis, mode, mt_impl) -> NearestHitCM:
+    # parallel.ring imports this module
+    from pathtracerpython_tpu_torch.parallel.ring import nearest_hit_ring
+
+    return nearest_hit_ring(o3, d3, scene, axis, mode=mode, mt_impl=mt_impl)
+
+
+def _ring_any_hit(o3, d3_unit, max_dist, scene, axis, mode, mt_impl):
+    from pathtracerpython_tpu_torch.parallel.ring import any_hit_ring
+
+    return any_hit_ring(o3, d3_unit, max_dist, scene, axis, mode=mode,
+                        mt_impl=mt_impl)

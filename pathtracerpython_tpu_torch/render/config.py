@@ -7,9 +7,11 @@ The port runs the forward render in both estimators: the fast one, dense
 (``accel="none"``) or through a cluster hierarchy: ``"sparse"``,
 ``"walker"`` or ``"hybrid"`` (which ``"auto"`` selects on large scenes),
 with the sparse hierarchy's occluder cache on ``nee_cache="on"`` ("auto" is
-off); and ``mode="reference"``, whose sweeps ignore ``accel``. ``render``
-refuses ``geom_axis`` (not ported yet) with ``NotImplementedError`` (see
-``render.integrator.check_supported``).
+off); and ``mode="reference"``, whose sweeps ignore ``accel``.
+``geom_axis`` names the mesh axis of a geometry ring
+(``parallel/ring.py``); ``parallel.shard.render_rays_sharded`` sets it with
+``geom_axis_size`` and makes the mesh active, whose process group the ring
+reads, so a config stays plain and hashable.
 
 One field the JAX package does not have: ``mt_impl``, the form of the
 in-triangle test ("classic" or "plucker") in the sweeps that have both.

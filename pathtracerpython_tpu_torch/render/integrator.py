@@ -57,8 +57,19 @@ always pay, and ``scatter_reference``'s fixed-y-axis frames, raw-direction
 specular and Phong factor toward the eye, all on the raw winding normal.
 Reference mode is never sorted.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item (``check_supported``): geometry sharding.
+Under a geometry ring (``cfg.geom_axis``, set by
+``parallel.shard.render_rays_sharded``) the nearest sweeps and the
+any-hits run on triangle shards streamed around the ring
+(``parallel/ring.py``); the gates turn sorting, the NEE sort, the
+occluder cache and the fused NEE off there, as in the JAX package. The
+soft estimator under a ring is refused (``check_supported``): its sweeps
+would see one shard only.
+
+Sorting only orders lanes: each lane carries its place in the wavefront
+as it was made (``RayState.lane``), and ``_unscramble`` puts the radiance
+back there, so ``render_rays`` returns its rays' radiance in the input
+order for any pixel ids (a permutation, one shard's range of a sharded
+render, padding that repeats an id).
 """
 
 from __future__ import annotations
@@ -131,6 +142,8 @@ class RayState(NamedTuple):
     nee_cache: torch.Tensor      # i32[N] the cluster that last blocked one
     #                              of the lane's shadow rays, -1 = none:
     #                              K7's guess (nee_cache="on" only)
+    lane: torch.Tensor           # i64[N] the lane's place in the wavefront
+    #                              as init_rays made it; sorts permute it
 
 
 class Materials(NamedTuple):
@@ -143,18 +156,15 @@ class Materials(NamedTuple):
     n: torch.Tensor     # f32[N]
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to pathtracerpython_tpu_torch yet "
-        f"(ROADMAP.md queue A, {item})"
-    )
-
-
 def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
-    """Refuse every configuration this port cannot render with the same
-    semantics as the JAX package, naming the ROADMAP item that adds it."""
-    if cfg.geom_axis is not None:
-        _not_ported("geom_axis", "A4: parallel")
+    """Refuse what this port cannot render right: the soft estimator under
+    a geometry ring, whose soft sweeps would see only the shard a rank
+    holds (the JAX package runs them so, unrefused: ROADMAP.md queue C)."""
+    if cfg.geom_axis is not None and _soft(cfg):
+        raise NotImplementedError(
+            "the soft estimator (soft_vis_beta > 0) under a geometry ring "
+            "(geom_axis) is not supported (ROADMAP.md queue A, A4c: soft "
+            "sweeps on the ring); shard the rays only")
 
 
 def _soft(cfg: RenderConfig) -> bool:
@@ -348,7 +358,8 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
         nee_cache = torch.where(upd >= 0, upd, nee_cache)
     else:
         occ_flat = any_hit_within_cm(*sweep, accel=cfg.accel,
-                                     mt_impl=cfg.mt_impl)
+                                     mt_impl=cfg.mt_impl,
+                                     geom_axis=cfg.geom_axis)
     if rays.order is not None:
         occ_flat = unpermute_minor(occ_flat, rays.order)
     occluded = occ_flat.reshape(rays.cos.shape)
@@ -386,11 +397,12 @@ def shade_nee_reference(hit: NearestHitCM, u, scene: SceneTensors,
     occ_flat = any_hit_within_cm(
         point3[:, None, :].expand(3, s, n).reshape(3, s * n),
         sdir3.reshape(3, s * n), dist.reshape(s * n), scene,
-        mode="reference")
+        mode="reference", geom_axis=cfg.geom_axis)
     occluded = occ_flat.reshape(s, n)
     mean_cos = torch.where(occluded, 0.0, cos).sum(dim=0) / float(s)
     occ_idx, occ_mat = first_occluder_index(
-        point3.T, sdir3[:, -1, :].T, dist[-1], scene)
+        point3.T, sdir3[:, -1, :].T, dist[-1], scene,
+        geom_axis=cfg.geom_axis)
     quirk_mat = torch.where(occ_idx >= 0, occ_mat, scene.meta.n_objects - 1)
     direct_rgb3 = cm_take(scene.mat_rgb.T, quirk_mat)
     return scene.light_color[:, None] * direct_rgb3 * mean_cos[None, :]
@@ -574,7 +586,8 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
         occ_hint, nee_cache = state.nee_occ_hint, state.nee_cache
     else:
         hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
-                             mt_impl=cfg.mt_impl, mode=cfg.mode)
+                             mt_impl=cfg.mt_impl, mode=cfg.mode,
+                             geom_axis=cfg.geom_axis)
         mat = resolve_materials(scene, hit.material)
         # one arrival-side normal for both direct light and scattering;
         # reference mode keeps the raw winding normal
@@ -606,6 +619,7 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
         prev_specular=state.alive & chose_spec,
         nee_occ_hint=occ_hint,
         nee_cache=nee_cache,
+        lane=state.lane,
     )
 
 
@@ -623,6 +637,7 @@ def init_rays(origins3, directions3, counters) -> RayState:
         prev_specular=torch.ones(n, dtype=torch.bool, device=device),
         nee_occ_hint=torch.zeros(n, dtype=torch.bool, device=device),
         nee_cache=torch.full((n,), -1, dtype=torch.int32, device=device),
+        lane=torch.arange(n, dtype=torch.int64, device=device),
     )
 
 
@@ -640,18 +655,15 @@ def _bounce_sweep(state: RayState, scene, cfg, k0, k1,
     return state
 
 
-def _unscramble(state: RayState, n: int, s_total: int,
-                batched: bool) -> torch.Tensor:
-    """The radiance [3, lanes] back in lane order after any number of
-    sorts: the counter pixel_id * spp + sample names each lane's slot
-    (sample * n + pixel for batch_samples, the pixel otherwise)."""
-    c = state.counters
-    pid = c // s_total
-    slot = (c % s_total) * n + pid if batched else pid
+def _unscramble(state: RayState) -> torch.Tensor:
+    """The radiance [3, lanes] back in the order ``init_rays`` made the
+    lanes, after any number of sorts: each lane carries its place
+    (``state.lane``: sample * n + position for batch_samples, the position
+    otherwise), whatever its pixel id."""
     # in place into a fresh buffer that autograd saved nowhere: the
-    # backward gathers the radiance's gradient by ``slot``
+    # backward gathers the radiance's gradient by ``lane``
     out = torch.zeros_like(state.radiance3)
-    return out.index_copy_(1, slot, state.radiance3)
+    return out.index_copy_(1, state.lane, state.radiance3)
 
 
 def render_rays(origins, directions, pixel_ids, scene: SceneTensors,
@@ -675,23 +687,23 @@ def render_rays(origins, directions, pixel_ids, scene: SceneTensors,
     k0, k1 = rng.key_from_seed(base_key)
     sort_bounds = scene_bounds(scene) if _sort_enabled(scene, cfg) else None
 
-    def sweep(state: RayState, batched: bool) -> torch.Tensor:
+    def sweep(state: RayState) -> torch.Tensor:
         state = _bounce_sweep(state, scene, cfg, k0, k1, sort_bounds)
         if sort_bounds is None:
             return state.radiance3
-        return _unscramble(state, n, s_total, batched)
+        return _unscramble(state)
 
     passes = []
     if cfg.batch_samples and s_total > 1:
         counters = torch.cat([pid * s_total + s for s in range(s_total)])
         state = init_rays(o3.repeat(1, s_total), d3.repeat(1, s_total),
                           counters)
-        radiance3 = sweep(state, True)
+        radiance3 = sweep(state)
         passes = [radiance3[:, s * n:(s + 1) * n] for s in range(s_total)]
     else:
         for s in range(s_total):
             state = init_rays(o3, d3, pid * s_total + s)
-            passes.append(sweep(state, False))
+            passes.append(sweep(state))
     total3 = passes[0]
     for p in passes[1:]:
         total3 = total3 + p

@@ -96,7 +96,7 @@ def _synchronize(device: torch.device) -> None:
 
 def render_progressive(scene, cfg, total_samples: int, chunk_samples: int,
                        checkpoint_dir: str | None, seed: int = 0,
-                       log=print, progress=None):
+                       log=print, progress=None, renderer=None):
     """Accumulate ``total_samples`` spp in chunks of ``chunk_samples``,
     checkpointing after each when ``checkpoint_dir`` is given, and resuming
     from the latest checkpoint there (JAX ``utils/checkpoint.py:50-134``).
@@ -112,8 +112,18 @@ def render_progressive(scene, cfg, total_samples: int, chunk_samples: int,
     scene's device.
 
     ``progress(chunk_done, n_chunks, samples_done, seconds)`` is called
-    after each chunk, timed with the device synchronized."""
+    after each chunk, timed with the device synchronized.
+
+    ``renderer(scene, cfg_chunk, seed) -> radiance`` renders a chunk
+    (default ``render``; a sharded render such as
+    ``parallel.render_sharded`` with its mesh bound, JAX
+    ``cli/main.py:253-262``). Under several ranks only rank 0 writes the
+    checkpoints, and every rank resumes from them."""
+    from pathtracerpython_tpu_torch.parallel.multihost import is_primary
     from pathtracerpython_tpu_torch.render.integrator import render
+
+    if renderer is None:
+        renderer = render
 
     n_chunks = -(-total_samples // chunk_samples)
     cfg_chunk = dataclasses.replace(cfg, n_samples=chunk_samples)
@@ -134,7 +144,7 @@ def render_progressive(scene, cfg, total_samples: int, chunk_samples: int,
 
     for chunk in range(state["chunks_done"], n_chunks):
         t0 = time.perf_counter()
-        radiance = render(scene, cfg_chunk, seed=chunk_seed(seed, chunk))
+        radiance = renderer(scene, cfg_chunk, seed=chunk_seed(seed, chunk))
         state = {
             "radiance_sum": state["radiance_sum"] + radiance * chunk_samples,
             "samples_done": state["samples_done"] + chunk_samples,
@@ -142,7 +152,7 @@ def render_progressive(scene, cfg, total_samples: int, chunk_samples: int,
         }
         _synchronize(scene.device)
         dt = time.perf_counter() - t0
-        if mgr is not None:
+        if mgr is not None and is_primary():
             mgr.save(chunk + 1, state)
             log(f"chunk {chunk + 1}/{n_chunks} checkpointed "
                 f"({state['samples_done']} spp)")

@@ -4,7 +4,8 @@ JAX package's ``utils/metrics.py``, with one JSON-able summary.
 A phase on the card is timed by CUDA events recorded on the current
 stream around it, read after the end event completes, so queued device
 work counts; elsewhere by the host clock, after waiting for the phase's
-output (``box["out"]``) where it lives on the card.
+output (``box["out"]``) where it lives on the card. Under several ranks
+only rank 0 prints (``MetricsLogger.log``, ``phase_timer``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from collections import defaultdict
 
 import torch
 
+from pathtracerpython_tpu_torch.parallel.multihost import is_primary
 
 def _cuda_device(device) -> torch.device | None:
     """``device`` as a CUDA device, or None when it is not one."""
@@ -96,14 +98,18 @@ class MetricsLogger:
         }
 
     def log(self, printer=print) -> None:
-        printer(json.dumps(self.summary(), sort_keys=True))
+        if is_primary():
+            printer(json.dumps(self.summary(), sort_keys=True))
 
 
 @contextlib.contextmanager
 def phase_timer(name: str, log=print, device=None):
     """A standalone phase timer under a ``torch.profiler`` annotation; on a
-    CUDA ``device`` timed by events, else by the host clock."""
+    CUDA ``device`` timed by events, else by the host clock; rank 0
+    prints."""
     with torch.profiler.record_function(name):
         clock = _Clock(device)
         yield
-        log(f"[{name}] {clock.seconds():.3f}s")
+        seconds = clock.seconds()
+        if is_primary():
+            log(f"[{name}] {seconds:.3f}s")

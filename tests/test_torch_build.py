@@ -60,7 +60,9 @@ def test_port_never_imports_jax():
     for name in ("scene.arrays", "ops.rng", "ops.sort", "kernels.intersect",
                  "kernels.nee", "kernels.sparse", "kernels.walker",
                  "kernels.build", "render.integrator", "probes.mma_probe",
-                 "probes.bf16_probe"):
+                 "probes.bf16_probe", "parallel", "parallel.mesh",
+                 "parallel.multihost", "parallel.shard", "parallel.ring",
+                 "parallel.pipeline", "entry", "diff.inverse", "cli.main"):
         assert f"pathtracerpython_tpu_torch.{name}" in out["modules"], name
     # importing every module builds and loads nothing
     assert out["library_loaded"] is False
@@ -217,3 +219,44 @@ def test_cpu_render_runs_the_plain_versions(monkeypatch):
                      seed=0)
         assert rad.device == torch.device("cpu") and rad.shape == (36, 3)
     assert all(getattr(module, name) == 0 for module, name in counters)
+
+
+_RACE = """
+import sys
+from pathtracerpython_tpu_torch.kernels import build
+build.BUILD_DIR, fake = sys.argv[1], sys.argv[2]
+build.find_nvcc = lambda: fake
+print(build.build())
+"""
+
+
+def test_processes_started_together_build_once(tmp_path):
+    """Ranks started together on a fresh checkout compile the library once:
+    the others wait on the build's file lock and load it. A fake nvcc logs
+    each call, sleeps, and writes its ``-o`` file."""
+    log = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$$\" >> {log}\n"
+        "sleep 0.3\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then : > \"$2\"; fi\n"
+        "  shift\n"
+        "done\n")
+    fake.chmod(0o755)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RACE, str(tmp_path / "torch_kernels"),
+         str(fake)], env=env, cwd=REPO_ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _ in range(3)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e for _, e in outs]
+    paths = {o.strip() for o, _ in outs}
+    assert len(paths) == 1 and os.path.exists(paths.pop())
+    n_sources = sum(p.endswith(".cu") for p in build._sources())
+    # one compile per source and one link, by one process
+    assert len(log.read_text().split()) == n_sources + 1

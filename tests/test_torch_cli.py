@@ -2,8 +2,10 @@
 on the CPU: its flags against the JAX CLI's, the PNG it writes against
 ``render_image``, its image against the JAX CLI's on one SDL file written
 by ``synthetic.write_sdl``, its refusals (no CUDA without ``--platform
-cpu``, sharding), chunked progress, ``--quiet``, ``--metrics``,
-``--ckpt-dir`` resume and the debug view.
+cpu``, ``--dp`` / ``--geom`` above 1 outside torchrun), sharded renders
+under torchrun on gloo ranks (their PNG the one-process CLI's), chunked
+progress, ``--quiet``, ``--metrics``, ``--ckpt-dir`` resume and the debug
+view.
 
 Tolerances: the port's PNG is ``render_image``'s pixels exactly; against
 the JAX CLI (``--backend pallas``: its kernels in interpret mode in fast
@@ -148,13 +150,68 @@ def test_no_cuda_without_platform_cpu_exits_nonzero(sdl, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--geom", "2"],
-                                   ["--dp", "1"]])
-def test_sharding_refuses_naming_a4(sdl, tmp_path, capsys, flags):
+                                   ["--dp", "2", "--geom", "2"]])
+def test_sharding_refuses_naming_a4(sdl, tmp_path, capsys, flags,
+                                    monkeypatch):
+    """Outside torchrun a mesh of more than one rank refuses (exit 2) and
+    prints the launch line (A4 brought the sharded CLI; the old refusal
+    named it)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     out = tmp_path / "o.png"
     rc = cli.main([sdl, "--out", str(out), "--platform", "cpu", *flags])
     assert rc == cli.EXIT_REFUSED
-    assert "ROADMAP.md queue A, A4" in capsys.readouterr().err
+    ranks = 4 if len(flags) == 4 else 2
+    err = capsys.readouterr().err
+    assert (f"python -m torch.distributed.run --standalone --nproc-per-node "
+            f"{ranks} -m pathtracerpython_tpu_torch {sdl}") in err
     assert not out.exists()
+
+
+def test_dp_one_renders_in_one_process(sdl, tmp_path):
+    """``--dp 1``: the mesh of one rank, the single render's image."""
+    out = tmp_path / "o.png"
+    assert cli.main([sdl, "--out", str(out), "--platform", "cpu", "-r", "2",
+                     "-b", "2", "--dp", "1", "--quiet"]) == 0
+    scene = load_scene(sdl, device="cpu")
+    want = render_image(scene, RenderConfig(n_samples=2, n_bounces=2))
+    np.testing.assert_array_equal(_png(out), want)
+
+
+def _cli_run(args, n_ranks: int, tmp_path):
+    """The CLI as a user runs it, on ``n_ranks`` under torchrun (its
+    standalone rendezvous picks a free port)."""
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    env.pop("WORLD_SIZE", None)
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", str(n_ranks), "-m"]
+    return subprocess.run(launch + ["pathtracerpython_tpu_torch", *args],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("mesh,extra", [
+    (["--dp", "2"], []), (["--geom", "2"], []),
+    (["--dp", "2"], ["--chunk-spp", "2", "--ckpt-dir", "CKPT"])])
+def test_sharded_cli_under_torchrun_matches_one_process(sdl, tmp_path, mesh,
+                                                        extra):
+    """Two gloo ranks: rank 0 alone logs, writes the PNG (the one-process
+    CLI's pixels) and the checkpoints."""
+    def flags(run: str):
+        return [sdl, "-r", "4", "-b", "2", "--platform", "cpu", "--out",
+                str(tmp_path / f"{run}.png"),
+                *(str(tmp_path / f"ckpt_{run}") if f == "CKPT" else f
+                  for f in extra)]
+
+    assert cli.main(flags("one") + ["--quiet"]) == 0
+    two = _cli_run(flags("two") + mesh, 2, tmp_path)
+    assert two.returncode == 0, two.stderr
+    np.testing.assert_array_equal(_png(tmp_path / "two.png"),
+                                  _png(tmp_path / "one.png"))
+    assert two.stdout.count("wrote ") == 1
+    assert "backend gloo" in two.stdout and "mesh: " in two.stdout
+    if extra:
+        steps = sorted(os.listdir(tmp_path / "ckpt_two"))
+        assert steps == ["step_00000001", "step_00000002"], steps
 
 
 def test_chunked_progress_lines_and_quiet(sdl, tmp_path, capsys):

@@ -1109,3 +1109,42 @@ def test_remat_doubles_launches_on_card(cuda):
     assert out[False][:2] == (2, 2) and out[True][:2] == (4, 4)
     for k, w in out[False][2].items():
         assert (out[True][2][k] - w).norm() <= 1e-6 * w.norm(), k
+
+
+def test_ring_of_one_shard_on_card_is_k1(cuda):
+    """The geometry ring's fast sweep on the card (a mesh of one rank: one
+    step, no rotation) launches K1 and K4 once with the home shard's own
+    box tables, and gives the dense sweeps' records."""
+    from pathtracerpython_tpu_torch.ops.geometry import any_hit_within_cm
+    from pathtracerpython_tpu_torch.parallel import make_mesh
+    from pathtracerpython_tpu_torch.parallel.mesh import active
+
+    scene = _scene("boxfield300", cuda)
+    o, d = make_primary_rays(scene.eye, scene.ortho, scene.meta.width,
+                             scene.meta.height)
+    o3, d3 = o.T.contiguous(), d.T.contiguous()
+    maxd = torch.full((o3.shape[1],), 5.0, device=cuda)
+    with torch.no_grad():
+        want = nearest_hit_cm(o3, d3, scene, accel="none")
+        want_occ = any_hit_within_cm(o3, normalize3(d3), maxd, scene)
+        intersect.LAUNCHES = intersect.ANY_HIT_LAUNCHES = 0
+        with active(make_mesh(device=cuda)):
+            got = nearest_hit_cm(o3, d3, scene, geom_axis="geom")
+            occ = any_hit_within_cm(o3, normalize3(d3), maxd, scene,
+                                    geom_axis="geom")
+    assert intersect.LAUNCHES == 1 and intersect.ANY_HIT_LAUNCHES == 1
+    assert torch.equal(got.hit, want.hit) and torch.equal(occ, want_occ)
+    assert torch.equal(got.tri_idx, want.tri_idx)
+    assert torch.equal(got.t, want.t)
+
+
+def test_dryrun_multichip_two_ranks_share_the_card(cuda):
+    """Two ranks on the one card talk through gloo with host staging; the
+    dry run's shapes pass there (the pipeline bit-equal to one rank)."""
+    from pathtracerpython_tpu_torch.entry import dryrun_multichip
+
+    lines = []
+    dryrun_multichip(2, log=lines.append)
+    text = "\n".join(lines)
+    assert "through host buffers" in text and "on cuda:0" in text
+    assert "pp-pipeline render bit-matches single" in text

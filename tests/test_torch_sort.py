@@ -107,5 +107,5 @@ def test_sort_permute_unscramble_returns_every_lane(field, batched):
         assert not torch.equal(order, torch.arange(n * spp))
         state = integrator.RayState(
             *(sort.permute_minor(f, order) for f in state))
-    back = integrator._unscramble(state, n, spp if batched else 3, batched)
+    back = integrator._unscramble(state)
     assert torch.equal(back, marks.expand(3, -1))
