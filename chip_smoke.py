@@ -215,6 +215,21 @@ phase fails:
      - the sharded training step, dp = 2 and geom = 2, on the stand-in at
        128x128 (mat_rgb, light_color, eye; Adam(1e-2)): loss within rtol
        1e-6, params within rtol 1e-5 / atol 1e-7 of the single-device step;
+     - the ring train step: the Cornell cell (512x512, 4 spp as lanes, 4
+       bounces, 3 NEE, 64 rows) with material, emission, vertex and
+       light-vertex params under geom = 2 (dp = ranks / 2): loss within
+       1e-6 and each field's gradient within 1e-4 relative L2 of one
+       device; tri_v0's gradient of the rank's own rays non-zero on rows it
+       does not own, and its home rows' gradient that of its ring's rays,
+       the other ranks' part included; bounces x (geom - 1) reverse shifts;
+       ms a step in turns with the single step, bytes forward and backward,
+       launches and peak memory;
+     - the soft ring: the soft pose step (the stand-in at 128x128, beta
+       0.03, 1 bounce, 3 NEE, 4 spp; radiance within 1e-5, pose gradient
+       within 1e-4 relative L2 of one device), and the soft 600-box field
+       (128x128, 1 spp, 1 bounce) render and tri_v0 backward against one
+       device's dense soft sweeps (radiance within 1e-5, gradient within
+       1e-4 relative L2);
    - the CLI under torchrun with --dp 2: its PNG equal to one process's;
    - ``entry.dryrun_multichip(2)``, which starts its own two ranks;
    - a one-rank NCCL group: one all-gather through the port's transport;
@@ -3525,6 +3540,9 @@ PAR_LOSS_RTOL = 1e-6    # tests/test_diff.py's sharded-step tolerances
 PAR_PARAM_RTOL = 1e-5
 PAR_PARAM_ATOL = 1e-7
 PAR_CLI_SIZE = 64
+PAR_RING_GRAD_RTOL = 1e-4   # the hierarchies' tri_v0 gate (float atomics)
+PAR_SOFT_ATOL = 1e-5        # soft radiance: the coverage sums' order
+PAR_SOFT_SPP = 4
 PAR_TIMEOUT_S = 900
 
 
@@ -3797,6 +3815,316 @@ def par_train(say) -> dict:
     return row
 
 
+def par_ring_mesh():
+    """The ring of the gradient cells: geom = 2, dp over the other ranks
+    (dp = 1 x geom = 2 on two ranks, 2 x 2 on four)."""
+    from pathtracerpython_tpu_torch.parallel import make_mesh
+
+    return make_mesh(dp=PAR_WORLD // 2, geom=2)
+
+
+def ray_slice_mask(mesh, lanes: int, index: int, count: int) -> torch.Tensor:
+    """bool[lanes]: the rays of ``count`` consecutive ray shards from
+    ``index`` of ``render_rays_sharded``'s split over dp x geom."""
+    per = lanes // mesh.count(("dp", "geom"))
+    mask = torch.zeros(lanes, dtype=torch.bool, device=mesh.device)
+    mask[index * per:(index + count) * per] = True
+    return mask
+
+
+def par_ring_train(say) -> dict:
+    """The train step cornell cell (512^2, 4 spp as lanes, 4 bounces, 3
+    NEE; the stand-in packed to 64 rows) with vertex and light-vertex
+    params, under the ring (``par_ring_mesh``), against one device: the
+    loss within PAR_LOSS_RTOL, each field's gradient within
+    PAR_RING_GRAD_RTOL relative L2; tri_v0's gradient from the rank's own
+    rays non-zero on rows of shards it does not own (sent away), and on its
+    home rows the gradient of its ring's rays, the other ranks' part
+    included (arrived through the reverse shifts); reverse shifts a step
+    = bounces x (geom - 1); ms a step in turns with the single step, bytes
+    forward and backward, launches and peak memory."""
+    import torch.distributed as dist
+
+    from pathtracerpython_tpu_torch.diff import (
+        adam,
+        apply_params,
+        make_render_fn,
+        make_train_step,
+    )
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.parallel import ring
+    from pathtracerpython_tpu_torch.parallel.multihost import transport
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import cornell_box_scene
+
+    scene = pack_scene(cornell_box_scene(CORNELL_SIZE, CORNELL_SIZE),
+                       pad_to=32)
+    cfg = RenderConfig(n_samples=CORNELL_SPP, n_bounces=CORNELL_BOUNCES,
+                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+    mesh = par_ring_mesh()
+    geom = mesh.shape["geom"]
+    rows = scene.num_padded_triangles
+    per_rows = rows // geom
+    home = slice(mesh.coords["geom"] * per_rows,
+                 (mesh.coords["geom"] + 1) * per_rows)
+    with torch.no_grad():
+        target = render(scene, cfg, seed=0)
+    lanes = target.shape[0]
+    pids = torch.arange(lanes, device=scene.device)
+    key = (0, 7)
+
+    def start():
+        params = {f: getattr(scene, f).detach().clone() for f in STEP_FIELDS}
+        params["mat_rgb"] *= 0.5
+        return {k: v.requires_grad_(True) for k, v in params.items()}
+
+    def grads(render_fn, weight=None):
+        """(loss, {field: grad}) of ``camera_pixel_loss``'s 0.5 * mean
+        squared error, over the rays ``weight`` [lanes] keeps (all by
+        default; the same normalisation)."""
+        params = start()
+        sc = apply_params(scene, params)
+        o, d = make_primary_rays(sc.eye, sc.ortho, CORNELL_SIZE,
+                                 CORNELL_SIZE)
+        err = ((render_fn(o, d, pids, sc, key) - target) ** 2).mean(dim=1)
+        if weight is not None:
+            err = err * weight
+        loss = 0.5 * err.sum() / lanes
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach().clone()
+                                      for k, p in params.items()}
+
+    single_fn, ring_fn = make_render_fn(cfg), make_render_fn(
+        cfg, mesh, geom_axis="geom")
+    loss1, g1 = grads(single_fn)
+    index = mesh.index(("dp", "geom"))
+    own = ray_slice_mask(mesh, lanes, index, 1).float()
+    mine = ray_slice_mask(mesh, lanes, mesh.coords["dp"] * geom, geom).float()
+    _, g_own = grads(single_fn, own)
+    _, g_ring_rays = grads(single_fn, mine)
+    par_sync()
+    ring.reset_counts()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    loss, local = grads(ring_fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    counts = {"shifts": ring.SHIFTS, "bytes_sent": ring.BYTES_SENT,
+              "back_shifts": ring.BACK_SHIFTS,
+              "back_bytes": ring.BACK_BYTES}
+    group, _ = mesh.line(("dp", "geom"))
+    total = {k: transport("all_reduce", v, group) for k, v in local.items()}
+    row = {"mesh": dict(mesh.shape), "shard_rows": per_rows, "loss": loss,
+           "single_loss": loss1,
+           "loss_rel_diff": abs(loss - loss1) / abs(loss1),
+           "grad_rel_l2": {k: rel_l2(total[k], g1[k]) for k in g1},
+           "launches_per_rank": launches, **counts,
+           "peak_memory_bytes": peak}
+    away = torch.ones(rows, dtype=torch.bool, device=scene.device)
+    away[home] = False
+    sent = float(g_own["tri_v0"][away].norm())
+    arrived = float((g_ring_rays["tri_v0"][home] - g_own["tri_v0"][home])
+                    .norm())
+    row["tri_v0"] = {
+        "own_rays_norm_on_rows_not_owned": sent,
+        "other_ranks_norm_on_home_rows": arrived,
+        "home_rows_rel_l2": rel_l2(local["tri_v0"][home],
+                                   g_ring_rays["tri_v0"][home]),
+        "home_rows_rel_l2_without_the_others": rel_l2(
+            g_own["tri_v0"][home], g_ring_rays["tri_v0"][home])}
+    bad = {k: v for k, v in row["grad_rel_l2"].items()
+           if not v <= PAR_RING_GRAD_RTOL}
+    if row["loss_rel_diff"] > PAR_LOSS_RTOL or bad:
+        fail(f"ring train step: loss rel diff {row['loss_rel_diff']}, "
+             f"gradients beyond {PAR_RING_GRAD_RTOL} relative L2: {bad}")
+    tv = row["tri_v0"]
+    if not (sent > 0 and arrived > 0
+            and tv["home_rows_rel_l2"] <= PAR_RING_GRAD_RTOL
+            and tv["home_rows_rel_l2_without_the_others"]
+            > 10 * PAR_RING_GRAD_RTOL):
+        fail(f"ring train step: tri_v0's gradient did not travel the ring "
+             f"{tv}")
+    want_back = CORNELL_BOUNCES * (geom - 1)
+    if counts["back_shifts"] != want_back or counts["back_bytes"] == 0:
+        fail(f"ring train step: {counts} reverse shifts and bytes, expected "
+             f"{want_back} shifts")
+    opt1 = start()
+    step1 = make_train_step(adam(0.01)(list(opt1.values())), scene, cfg,
+                            target)
+    optr = start()
+    stepr = make_train_step(adam(0.01)(list(optr.values())), scene, cfg,
+                            target, mesh=mesh, geom_axis="geom")
+    keys = iter(range(100, 1000))
+    times = {"single": [], "ring": []}
+    for turn in ("single", "ring", "ring", "single"):
+        if turn == "single":
+            if dist.get_rank() == 0:
+                times[turn] += timed_runs(
+                    lambda: step1(opt1, (0, next(keys))), 1, PAR_REPS)
+            par_sync()
+        else:
+            times[turn] += par_timed(lambda: stepr(optr, (0, next(keys))),
+                                     1, PAR_REPS)
+    row["ms_per_step_ring"] = statistics.median(times["ring"])
+    row["ms_ring_all"] = times["ring"]
+    if times["single"]:
+        row["ms_per_step_single"] = statistics.median(times["single"])
+        row["ms_single_all"] = times["single"]
+    say(f"[3p] ring train step cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp "
+        f"{CORNELL_BOUNCES}b {NEE_SAMPLES}nee, mesh {row['mesh']}, params "
+        f"{list(STEP_FIELDS)}: loss rel diff {row['loss_rel_diff']:.3g}; "
+        f"gradient rel L2 {row['grad_rel_l2']}; tri_v0 {tv}; {counts} a "
+        f"step a rank ({counts['bytes_sent']} B forward, "
+        f"{counts['back_bytes']} B backward); launches {launches}; peak "
+        f"{peak / 2**30:.3f} GiB; {row['ms_per_step_ring']:.3f} ms a step "
+        f"a rank against {row.get('ms_per_step_single', float('nan')):.3f} "
+        f"single, in turns")
+    return row
+
+
+def par_soft_pose(say, mesh) -> dict:
+    """The soft pose step (the stand-in at 128^2, the tall cube's planar
+    pose from fit_pose's start, beta 0.03, 1 bounce, 3 NEE, 4 spp) under
+    the ring: radiance within PAR_SOFT_ATOL and the pose gradient within
+    PAR_RING_GRAD_RTOL relative L2 of one device; ms a step of each."""
+    from pathtracerpython_tpu_torch.apps import fit_pose
+    from pathtracerpython_tpu_torch.apps.fit_albedo import (
+        fit_scene_description,
+    )
+    from pathtracerpython_tpu_torch.diff import make_render_fn
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.parallel.multihost import transport
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+
+    desc, _ = fit_scene_description(None)
+    scene = pack_scene(desc)
+    _, move, to_pose = fit_pose.pose_model(desc, "cube")
+    cfg = RenderConfig(n_samples=PAR_SOFT_SPP, n_bounces=1,
+                       n_light_samples=NEE_SAMPLES, soft_vis_beta=SOFT_BETA)
+    w = scene.meta.width
+    o, d = make_primary_rays(scene.eye, scene.ortho, w, w)
+    pids = torch.arange(w * w, device=scene.device)
+    with torch.no_grad():
+        target = make_render_fn(cfg)(o, d, pids, scene, (0, 0))
+    start = fit_pose.initial_params("cube", "planar", (0.4, 0.0, 0.3), 0.25)
+    group, _ = mesh.line(("dp", "geom"))
+
+    def step(render_fn, reduce: bool):
+        p = torch.tensor(start, device=scene.device, requires_grad=True)
+        off, ang = to_pose(p)
+        rad = render_fn(o, d, pids, move(scene, off, ang), (0, 1))
+        (0.5 * ((rad - target) ** 2).mean()).backward()
+        grad = transport("all_reduce", p.grad, group) if reduce else p.grad
+        return rad.detach(), grad
+
+    single_fn = make_render_fn(cfg)
+    ring_fn = make_render_fn(cfg, mesh, geom_axis="geom")
+    rad1, g1 = step(single_fn, False)
+    rad, g = step(ring_fn, True)
+    diff = float((rad - rad1).abs().max())
+    err = rel_l2(g, g1)
+    times = {}
+    if mesh.rank == 0:
+        times["single"] = statistics.median(timed_runs(
+            lambda: step(single_fn, False), 1, 3))
+    par_sync()
+    times["ring"] = statistics.median(par_timed(lambda: step(ring_fn, True),
+                                                1, 3))
+    row = {"radiance_max_abs_diff": diff, "pose_grad_rel_l2": err,
+           "pose_grad": g.tolist(), "single_pose_grad": g1.tolist(),
+           "ms_per_step": times}
+    say(f"[3p] soft pose step ring, stand-in {w}^2 {PAR_SOFT_SPP}spp 1b "
+        f"beta {SOFT_BETA}: radiance max abs diff {diff:.3g} (bound "
+        f"{PAR_SOFT_ATOL}), pose gradient {g.tolist()} against "
+        f"{g1.tolist()} single, relative L2 {err:.3g}; ms a step {times}")
+    if not diff <= PAR_SOFT_ATOL or not err <= PAR_RING_GRAD_RTOL:
+        fail(f"soft pose step ring: radiance diff {diff}, pose gradient "
+             f"rel L2 {err}")
+    return row
+
+
+def par_soft_field(say, mesh) -> dict:
+    """The soft 600-box field (7,204 triangles, morton; 128^2, 1 spp, 1
+    bounce, beta 0.03) under the ring: render and tri_v0 backward against
+    one device's DENSE soft sweeps (``boundary.SOFT_ACCEL_MIN_TRIS``
+    raised for the oracle: the cluster sweep may leave out shadow terms
+    below sigmoid(-6)): radiance within PAR_SOFT_ATOL, the gradient within
+    PAR_RING_GRAD_RTOL relative L2; host-clock ms of each, peak memory,
+    and the ring's traffic."""
+    from pathtracerpython_tpu_torch.diff import boundary, make_render_fn
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.parallel import ring
+    from pathtracerpython_tpu_torch.parallel.multihost import transport
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.scene.arrays import pack_scene
+    from pathtracerpython_tpu_torch.scene.synthetic import box_field_scene
+
+    scene = pack_scene(box_field_scene(n_boxes=SOFT_FIELD_BOXES,
+                                       width=SOFT_SIZE, height=SOFT_SIZE),
+                       tri_order="morton")
+    cfg = RenderConfig(n_samples=1, n_bounces=1, soft_vis_beta=SOFT_BETA)
+    o, d = make_primary_rays(scene.eye, scene.ortho, SOFT_SIZE, SOFT_SIZE)
+    pids = torch.arange(SOFT_SIZE * SOFT_SIZE, device=scene.device)
+    group, _ = mesh.line(("dp", "geom"))
+
+    def run(render_fn, reduce: bool):
+        v0 = scene.tri_v0.clone().requires_grad_(True)
+        sc = dataclasses.replace(scene, tri_v0=v0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rad = render_fn(o, d, pids, sc, (0, 0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rad.mean().backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grad = transport("all_reduce", v0.grad, group) if reduce else v0.grad
+        return rad.detach(), grad, {
+            "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    dense_from = boundary.SOFT_ACCEL_MIN_TRIS
+    boundary.SOFT_ACCEL_MIN_TRIS = 1 << 30
+    try:
+        rad1, g1, t_single = run(make_render_fn(cfg), False)
+    finally:
+        boundary.SOFT_ACCEL_MIN_TRIS = dense_from
+    par_sync()
+    ring.reset_counts()
+    rad, g, t_ring = run(make_render_fn(cfg, mesh, geom_axis="geom"), True)
+    counts = {"shifts": ring.SHIFTS, "bytes_sent": ring.BYTES_SENT,
+              "back_shifts": ring.BACK_SHIFTS,
+              "back_bytes": ring.BACK_BYTES}
+    diff = float((rad - rad1).abs().max())
+    err = rel_l2(g, g1)
+    row = {"triangles": scene.meta.n_triangles,
+           "padded_rows": scene.num_padded_triangles,
+           "radiance_max_abs_diff": diff, "tri_v0_grad_rel_l2": err,
+           "single_dense": t_single, "ring": t_ring, **counts}
+    say(f"[3p] soft ring, 600-box field {SOFT_SIZE}^2 1spp 1b: radiance max "
+        f"abs diff {diff:.3g} (bound {PAR_SOFT_ATOL}) and tri_v0 gradient "
+        f"rel L2 {err:.3g} against one device's dense soft sweeps; ring "
+        f"{t_ring}, single dense {t_single} (host clock, one run); {counts} "
+        f"a rank")
+    if not diff <= PAR_SOFT_ATOL or not err <= PAR_RING_GRAD_RTOL:
+        fail(f"soft ring 600-box field: radiance diff {diff}, tri_v0 "
+             f"gradient rel L2 {err}")
+    if counts["back_shifts"] == 0:
+        fail("soft ring 600-box field: no reverse shift")
+    return row
+
+
+def par_soft_ring(say) -> dict:
+    mesh = par_ring_mesh()
+    return {"pose_step": par_soft_pose(say, mesh),
+            "field600": par_soft_field(say, mesh)}
+
+
 def parallel_rank(rank: int, init: str, out_path: str) -> None:
     """One rank of phase 3p (``chip_smoke.py --parallel-rank``): joins the
     group of PAR_WORLD ranks (gloo on a shared card, NCCL on a card each),
@@ -3821,6 +4149,8 @@ def parallel_rank(rank: int, init: str, out_path: str) -> None:
         report["geom_ring"] = par_ring(say)
         report["pipeline"] = par_pipeline(say)
         report["train_step"] = par_train(say)
+        report["ring_train"] = par_ring_train(say)
+        report["soft_ring"] = par_soft_ring(say)
         multihost.sync()
     finally:
         multihost.shutdown()
@@ -4209,14 +4539,20 @@ def main() -> None:
     # 100k field's first bounce (every block, the lists built beforehand
     # for kernel and plain alike; K7 on the full lists); K3's four sweeps
     # beside their classic twins' wavefronts; P1 and P2 on their own tiles
-    # each rank's launches in phase 3p: the dp bench render and one ring
-    # render (bounces x ring steps)
+    # each rank's launches in phase 3p: the dp bench render, one ring
+    # render (bounces x ring steps) and one ring training step (the same
+    # forward launches; the backward re-solves in plain PyTorch); the soft
+    # ring launches none
     rank0 = parallel["ranks"][0]
-    dp_l, ring_l = (rank0["dp_bench"]["launches_per_rank"],
-                    rank0["geom_ring"]["launches_per_rank"])
-    par_launches = {"K1": {"dp": dp_l["K1"], "geom ring": ring_l["K1"]},
+    dp_l, ring_l, train_l = (
+        rank0["dp_bench"]["launches_per_rank"],
+        rank0["geom_ring"]["launches_per_rank"],
+        rank0["ring_train"]["launches_per_rank"])
+    par_launches = {"K1": {"dp": dp_l["K1"], "geom ring": ring_l["K1"],
+                           "geom ring train step": train_l["K1"]},
                     "K2": {"dp": dp_l["K2"]},
-                    "K4": {"geom ring": ring_l["K4"]}}
+                    "K4": {"geom ring": ring_l["K4"],
+                           "geom ring train step": train_l["K4"]}}
     kernels = []
     for key, entry, src, replaces in (
         ("K1", "K1 nearest_t_idx_cm", "nearest.cu",

@@ -29,7 +29,8 @@ by name; default all):
   mean of 20 launches after 3 warm-up launches;
 - renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
-  forms; the 100k field (512x512, 2 spp, 3 bounces) through the hybrid,
+  forms, the Cornell cell also in reference mode and, in both modes,
+  through ``parallel.render_sharded`` on a geometry ring of one rank; the 100k field (512x512, 2 spp, 3 bounces) through the hybrid,
   sparse, sparse with the occluder cache and walker hierarchies, and
   sparse and hybrid under ``mt_impl="plucker"``; for each render also the
   launches of every kernel in that render (the kernels' module counts,
@@ -65,8 +66,15 @@ FORMS = {"classic": {"mt_impl": "classic"}, "plucker": {"mt_impl": "plucker"}}
 NEE_SAMPLES = 3
 # name: (scene constructor and its keywords, pack keywords, spp of the
 # timed wavefronts, render spp, render bounces, renders by name)
+# renders of the Cornell cell beyond the two forms: reference mode, and
+# both modes through render_sharded on a ring of one rank (the ring's code
+# with no shift), which the port's sharded renders run
+CORNELL_RENDERS = {**FORMS, "reference": {"mode": "reference"},
+                   "ring": {"ring": True},
+                   "ring reference": {"ring": True, "mode": "reference"}}
 CELLS = {
-    "cornell": (("cornell_box_scene", {}), {"pad_to": 32}, 4, 4, 4, FORMS),
+    "cornell": (("cornell_box_scene", {}), {"pad_to": 32}, 4, 4, 4,
+                CORNELL_RENDERS),
     "boxfield300": (("box_field_scene", {"n_boxes": 300}), {}, 4, 2, 3,
                     FORMS),
     "large100k": (("box_field_scene", {"n_boxes": 8333}),
@@ -281,6 +289,22 @@ def _render_record(port, render) -> dict:
             "device_kernels": sum(e.count for e in kernels)}
 
 
+def _render_fn(port, scene, spp: int, bounces: int, kw: dict):
+    """``render()`` of the scene with seed 0 under the config ``kw``
+    (``ring``: through ``render_sharded`` on a ring of one rank)."""
+    kw = dict(kw)
+    ring = kw.pop("ring", False)
+    cfg = port["render.config"].RenderConfig(**{
+        "mode": "fast", "n_samples": spp, "n_bounces": bounces,
+        "n_light_samples": NEE_SAMPLES, "batch_samples": True, **kw})
+    if ring:
+        parallel = port["parallel"]
+        mesh = parallel.make_mesh()
+        return lambda: parallel.render_sharded(scene, cfg, mesh, seed=0,
+                                               geom_axis="geom")
+    return lambda: port["render.integrator"].render(scene, cfg, seed=0)
+
+
 def worker(tree: str, out: str, cells, renders: bool = True) -> None:
     """One run in one checkout: times to ``out`` + ".json", renders (unless
     ``renders`` is False) to ``out`` + "_<cell>_<render>.pt"."""
@@ -298,8 +322,8 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
     port = {m: importlib.import_module(f"pathtracerpython_tpu_torch.{m}")
             for m in ("kernels.intersect", "kernels.nee", "kernels.sparse",
                       "kernels.walker", "ops.rng", "ops.camera", "ops.geometry", "ops.sort",
-                      "render.config", "render.integrator", "scene.arrays",
-                      "scene.synthetic")}
+                      "parallel", "render.config", "render.integrator",
+                      "scene.arrays", "scene.synthetic")}
     times, records = {}, {}
     for cell in cells:
         scene = _scene(port, cell)
@@ -314,16 +338,10 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
                     run()
                 times[f"{cell} bounce {b} {name}"] = [_ms(run)
                                                       for _ in range(3)]
-        cfg_cls = port["render.config"].RenderConfig
         for name, kw in (cell_renders if renders else {}).items():
-            cfg = cfg_cls(mode="fast", n_samples=spp, n_bounces=bounces,
-                          n_light_samples=NEE_SAMPLES, batch_samples=True,
-                          **kw)
-            rad = port["render.integrator"].render(scene, cfg, seed=0)
-            torch.save(rad.cpu(), f"{out}_{cell}_{name}.pt")
-            records[f"{cell} {name}"] = _render_record(
-                port, lambda cfg=cfg: port["render.integrator"].render(
-                    scene, cfg, seed=0))
+            render = _render_fn(port, scene, spp, bounces, kw)
+            torch.save(render().cpu(), f"{out}_{cell}_{name}.pt")
+            records[f"{cell} {name}"] = _render_record(port, render)
         del scene
         torch.cuda.empty_cache()
     with open(out + ".json", "w") as f:

@@ -50,6 +50,11 @@ Also: a tile of the dense sweeps is the scene's rows [start, start + TILE),
 the last one ragged where ``TILE`` does not divide the row count (the JAX
 sweep's ``dynamic_slice`` would shift it back instead). Scenes packed with
 the default ``pad_to=128`` never have a ragged tile.
+
+Under a geometry ring the integrator runs these dense tiles on every shard
+(``parallel/ring.py:soft_hits_ring``, ``soft_visibility_ring``), the tile
+carry passed from shard to shard with global rows, where the JAX package
+sweeps the rank's own shard only; the cluster sweeps do not run there.
 """
 
 from __future__ import annotations

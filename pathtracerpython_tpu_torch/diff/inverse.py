@@ -34,10 +34,14 @@ Sharded training (``mesh``, ``dp_axis``, ``geom_axis``; the JAX package's
 every rank computes the loss on the whole image, each rank's backward
 reaches its own rays only (``parallel.shard.GatherRays``), the parameters'
 gradients are summed over the ray axes, and every rank takes the same
-optimizer step. Under a geometry ring, gradients with respect to the
-triangle buffers (vertex params, and the light's vertices, which move its
-rows) raise ``NotImplementedError`` (ROADMAP.md queue A, A4b): shards that
-arrive by recv carry no graph.
+optimizer step. Under a geometry ring the triangle buffers' gradients
+(vertex params, and ``light_v*``, which move the light's rows through
+``apply_params``) flow back around the ring (``parallel/ring.py:
+RingShift``): each rank's home shard, a slice of the whole parameterized
+buffer, collects the gradients of every ray of its ring, and the sum over
+the ray axes dp x geom then adds each dp ring's contribution once. The
+light's sampling buffers, which every rank holds whole, take their
+gradients from the rank's own rays, summed the same way.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ rank.
 
 A mesh is made active by ``active(mesh)``, a context: the geometry ring
 finds its process group there (``RenderConfig.geom_axis`` keeps only the
-axis' name, so configs stay plain and hashable).
+axis' name, so configs stay plain and hashable). ``carrying(fn)`` binds a
+function to the active mesh, for a recompute that runs after the block.
 """
 
 from __future__ import annotations
@@ -149,6 +150,23 @@ def active(mesh: Mesh):
         yield mesh
     finally:
         _ACTIVE.pop()
+
+
+def carrying(fn):
+    """``fn`` bound to the mesh (and block cache) active now: each call runs
+    inside it again, for work that autograd reruns after the block has
+    exited (a checkpointed bounce's recompute under a geometry ring, in
+    the middle of the backward)."""
+    entry = current()
+
+    def run(*args, **kwargs):
+        _ACTIVE.append(entry)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ACTIVE.pop()
+
+    return run
 
 
 def current() -> tuple:

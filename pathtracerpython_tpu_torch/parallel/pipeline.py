@@ -40,7 +40,6 @@ from pathtracerpython_tpu_torch.render.integrator import (
     RayState,
     bounce_step,
     check_counter_space,
-    check_supported,
     init_rays,
 )
 from pathtracerpython_tpu_torch.scene.arrays import SceneTensors
@@ -61,7 +60,6 @@ def render_pipelined(scene: SceneTensors, cfg: RenderConfig,
         raise ValueError("render_pipelined does not take the soft estimator "
                          "(as the JAX package's); use render or "
                          "render_sharded")
-    check_supported(scene, cfg)
     group, ranks = mesh.line(pp_axis)
     p_size = len(ranks)
     stage = mesh.coords[pp_axis]

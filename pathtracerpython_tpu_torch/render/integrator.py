@@ -62,8 +62,12 @@ Under a geometry ring (``cfg.geom_axis``, set by
 any-hits run on triangle shards streamed around the ring
 (``parallel/ring.py``); the gates turn sorting, the NEE sort, the
 occluder cache and the fused NEE off there, as in the JAX package. The
-soft estimator under a ring is refused (``check_supported``): its sweeps
-would see one shard only.
+soft sweeps stream around the ring too (``ring.soft_hits_ring``, whose
+records bring their triangles' normal, material and light flag with them,
+and ``ring.soft_visibility_ring``), where the JAX package sweeps the
+rank's own shard only. A checkpointed bounce under a ring carries its
+mesh (``parallel.mesh.carrying``), so that its recompute inside the
+backward finds the ring.
 
 Sorting only orders lanes: each lane carries its place in the wavefront
 as it was made (``RayState.lane``), and ``_unscramble`` puts the radiance
@@ -154,17 +158,6 @@ class Materials(NamedTuple):
     kd: torch.Tensor    # f32[N]
     ks: torch.Tensor    # f32[N]
     n: torch.Tensor     # f32[N]
-
-
-def check_supported(scene: SceneTensors, cfg: RenderConfig) -> None:
-    """Refuse what this port cannot render right: the soft estimator under
-    a geometry ring, whose soft sweeps would see only the shard a rank
-    holds (the JAX package runs them so, unrefused: ROADMAP.md queue C)."""
-    if cfg.geom_axis is not None and _soft(cfg):
-        raise NotImplementedError(
-            "the soft estimator (soft_vis_beta > 0) under a geometry ring "
-            "(geom_axis) is not supported (ROADMAP.md queue A, A4c: soft "
-            "sweeps on the ring); shard the rays only")
 
 
 def _soft(cfg: RenderConfig) -> bool:
@@ -304,6 +297,25 @@ def nee_shadow_rays(hit: NearestHitCM, u, scene: SceneTensors,
                       permute_minor(rel_flat, order))
 
 
+def _soft_visibility(origin, direction, max_dist, scene: SceneTensors,
+                     cfg: RenderConfig) -> torch.Tensor:
+    """The soft visibility of shadow rays [N, 3]:
+    ``boundary.soft_visibility``, or under a geometry ring
+    ``ring.soft_visibility_ring`` over every shard."""
+    if cfg.geom_axis is not None:
+        from pathtracerpython_tpu_torch.parallel.ring import (
+            soft_visibility_ring,
+        )
+
+        return soft_visibility_ring(origin, direction, max_dist, scene,
+                                    cfg.soft_vis_beta, cfg.geom_axis)
+    # diff.boundary imports diff, whose inverse imports this module
+    from pathtracerpython_tpu_torch.diff.boundary import soft_visibility
+
+    return soft_visibility(origin, direction, max_dist, scene,
+                           cfg.soft_vis_beta)
+
+
 def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
               cfg: RenderConfig, shading_normal3, relevant, occ_hint,
               nee_cache):
@@ -333,11 +345,8 @@ def shade_nee(hit: NearestHitCM, mat: Materials, u, scene: SceneTensors,
     rays = nee_shadow_rays(hit, u, scene, cfg, shading_normal3, relevant,
                            occ_hint)
     if _soft(cfg):
-        # diff.boundary imports diff, whose inverse imports this module
-        from pathtracerpython_tpu_torch.diff.boundary import soft_visibility
-
-        vis = soft_visibility(rays.o3.T, rays.d3.T, rays.maxd, scene,
-                              cfg.soft_vis_beta).reshape(rays.cos.shape)
+        vis = _soft_visibility(rays.o3.T, rays.d3.T, rays.maxd, scene,
+                               cfg).reshape(rays.cos.shape)
         mean_cos = (vis * rays.cos).sum(dim=0) / float(rays.cos.shape[0])
         return scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :], \
             occ_hint, nee_cache
@@ -507,22 +516,45 @@ def sort_and_park(state: RayState, sort_bounds=None):
     return state, sweep_o3, sweep_d3
 
 
-def _soft_record(o3, d3u, t, idx, scene: SceneTensors) -> NearestHitCM:
-    """A hit record of the soft sweep's (t, idx), IMAX for none."""
+def _soft_record(o3, d3u, t, idx, scene: SceneTensors,
+                 attrs=None) -> NearestHitCM:
+    """A hit record of the soft sweep's (t, idx), IMAX for none; its
+    triangle's normal, material and light flag read from the scene, or
+    from ``attrs`` (``parallel.ring.SoftAttrs``: a ring's records name
+    global rows)."""
     from pathtracerpython_tpu_torch.diff.boundary import IMAX
 
     found = idx != IMAX
     rows = torch.where(found, idx, 0).to(torch.int64)
     t = torch.where(found, t, 0.0)
+    if attrs is None:
+        normal3 = cm_take(scene.tri_normal.T, rows)
+        material, is_light = scene.tri_material[rows], scene.tri_is_light[rows]
+    else:
+        normal3, material, is_light = attrs
     return NearestHitCM(
         hit=found,
         t=t,
         tri_idx=rows.to(torch.int32),
         point3=o3 + d3u * t[None, :],
-        normal3=cm_take(scene.tri_normal.T, rows),
-        material=scene.tri_material[rows],
-        is_light=scene.tri_is_light[rows] & found,
+        normal3=normal3,
+        material=material,
+        is_light=is_light & found,
     )
+
+
+def _soft_hits(o3, d3, scene: SceneTensors, cfg: RenderConfig):
+    """The soft sweep's records of rays (o3, d3) [3, N] and their
+    triangles' attributes: ``boundary.soft_hits_sweep`` and None, or under
+    a geometry ring ``ring.soft_hits_ring``'s records and attributes."""
+    if cfg.geom_axis is not None:
+        from pathtracerpython_tpu_torch.parallel.ring import soft_hits_ring
+
+        return soft_hits_ring(o3.T, d3.T, scene, cfg.soft_vis_beta,
+                              cfg.geom_axis)
+    from pathtracerpython_tpu_torch.diff.boundary import soft_hits_sweep
+
+    return soft_hits_sweep(o3.T, d3.T, scene, cfg.soft_vis_beta), None
 
 
 def _soft_hit_and_shade(o3, d3, state: RayState, scene: SceneTensors,
@@ -534,18 +566,19 @@ def _soft_hit_and_shade(o3, d3, state: RayState, scene: SceneTensors,
     occluders' vertices: gradients flow through the front record's edge
     margin and through both hits' distances. ``o3``, ``d3``: the rays to
     sweep (sorted and parked as the hard sweep takes them)."""
-    from pathtracerpython_tpu_torch.diff.boundary import soft_hits_sweep
-
-    sh = soft_hits_sweep(o3.T, d3.T, scene, cfg.soft_vis_beta)
+    sh, attrs = _soft_hits(o3, d3, scene, cfg)
     d3u = normalize3(d3)
-    front = _soft_record(o3, d3u, sh.f_t, sh.f_idx, scene)
+    at = attrs or {}
+    front = _soft_record(o3, d3u, sh.f_t, sh.f_idx, scene, at.get("f"))
     # behind: the first true hit past the front record, hit2 where the
     # front is hit1, else hit1 (the front is then a near-miss before it)
     front_is_h1 = sh.f_idx == sh.h1_idx
+    behind_attrs = (None if attrs is None
+                    else attrs["h2"].where(front_is_h1, attrs["h1"]))
     behind = _soft_record(o3, d3u,
                           torch.where(front_is_h1, sh.h2_t, sh.h1_t),
                           torch.where(front_is_h1, sh.h2_idx, sh.h1_idx),
-                          scene)
+                          scene, behind_attrs)
     cov = torch.where(front.hit, torch.sigmoid(sh.f_margin
                                                / cfg.soft_vis_beta), 0.0)
 
@@ -558,7 +591,8 @@ def _soft_hit_and_shade(o3, d3, state: RayState, scene: SceneTensors,
 
     color3 = (cov[None, :] * shade_record(front)
               + (1.0 - cov)[None, :] * shade_record(behind))
-    return _soft_record(o3, d3u, sh.h1_t, sh.h1_idx, scene), color3
+    return (_soft_record(o3, d3u, sh.h1_t, sh.h1_idx, scene, at.get("h1")),
+            color3)
 
 
 def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
@@ -644,11 +678,20 @@ def init_rays(origins3, directions3, counters) -> RayState:
 def _bounce_sweep(state: RayState, scene, cfg, k0, k1,
                   sort_bounds) -> RayState:
     """The bounces; with ``cfg.remat_bounces`` and grad on, each under
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint`` (under a geometry ring bound to its mesh,
+    whose recompute re-sends the bounce's forward shifts in the middle of
+    the reverse ones, at the same point on every rank)."""
     remat = cfg.remat_bounces and torch.is_grad_enabled()
+    step = bounce_step
+    if remat and cfg.geom_axis is not None:
+        # the recompute runs inside the backward, after the sharded
+        # render's mesh.active block has exited
+        from pathtracerpython_tpu_torch.parallel.mesh import carrying
+
+        step = carrying(bounce_step)
     for b in range(cfg.n_bounces):
         if remat:
-            state = checkpoint(bounce_step, state, b, scene, cfg, k0, k1,
+            state = checkpoint(step, state, b, scene, cfg, k0, k1,
                                sort_bounds, use_reentrant=False)
         else:
             state = bounce_step(state, b, scene, cfg, k0, k1, sort_bounds)
@@ -677,7 +720,6 @@ def render_rays(origins, directions, pixel_ids, scene: SceneTensors,
     (pixel, sample)): a loop over samples (minimal memory) or
     ``cfg.batch_samples`` (all spp as extra lanes, fewer kernel launches,
     n_samples x the live state)."""
-    check_supported(scene, cfg)
     n = origins.shape[0]
     s_total = cfg.n_samples
     check_counter_space(n, s_total)

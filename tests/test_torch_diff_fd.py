@@ -8,10 +8,10 @@ differences with one key are a valid oracle.
 Mirrored: 6 material and emission fields, 3 vertex coordinates (floor and
 light), 3 eye coordinates, 1 ortho coordinate, the light-vertex sync of
 ``apply_params``, ``pixel_loss``'s refusal of camera parameters, the albedo
-fit and the eye fit. Checked to refuse: vertex gradients under a geometry
-ring (A4b; sharded steps are held in test_torch_sharded_train.py);
-checkpointed fits run (their resume is held in
-test_torch_fit_checkpoint.py). The soft estimator's and
+fit and the eye fit. Checked to run: vertex gradients under a geometry
+ring of one rank, equal to the unsharded loss's (rings of several ranks are
+held in test_torch_ring_grad.py), and checkpointed fits (their resume is
+held in test_torch_fit_checkpoint.py). The soft estimator's and
 ``remat_bounces``' gradients are held in test_torch_soft_fd.py and
 test_torch_remat.py."""
 
@@ -225,20 +225,24 @@ def test_camera_fit_recovers_eye(flat_scene):
 
 
 def test_sharded_and_checkpointed_fits_refuse(flat_scene, tmp_path):
-    """Sharded steps run since A4, but a vertex gradient under a geometry
-    ring refuses (A4b) rather than come out zero; a checkpointed fit,
-    refused until utils/ was ported, now runs and writes its step."""
+    """Neither refuses any more: a vertex gradient under a geometry ring
+    (here of one rank) is the unsharded loss's, bit for bit; a checkpointed
+    fit runs and writes its step."""
     from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
     from pathtracerpython_tpu_torch.parallel import make_mesh
 
     cfg = RenderConfig(mode="fast", n_samples=1, n_bounces=1)
-    render_fn = make_render_fn(cfg, mesh=make_mesh(), geom_axis="geom")
     w, h = flat_scene.meta.width, flat_scene.meta.height
     o, d = make_primary_rays(flat_scene.eye, flat_scene.ortho, w, h)
-    moved = apply_params(flat_scene, {
-        "tri_v0": flat_scene.tri_v0.clone().requires_grad_(True)})
-    with pytest.raises(NotImplementedError, match="A4b"):
-        render_fn(o, d, torch.arange(w * h), moved, 0)
+    grads = []
+    for fn in (make_render_fn(cfg, mesh=make_mesh(), geom_axis="geom"),
+               make_render_fn(cfg)):
+        v0 = flat_scene.tri_v0.clone().requires_grad_(True)
+        fn(o, d, torch.arange(w * h), apply_params(
+            flat_scene, {"tri_v0": v0}), 0).sum().backward()
+        grads.append(v0.grad)
+    assert grads[1].abs().max() > 0
+    assert torch.equal(grads[0], grads[1])
     ckpt = tmp_path / "ckpt"
     _, losses = fit({"mat_rgb": flat_scene.mat_rgb}, adam(0.05), flat_scene,
                     cfg, torch.zeros((256, 3)), steps=1,

@@ -14,9 +14,9 @@ knobs, on a dense scene and on one past ``SPARSE_MIN_TRIS``.
 
 JAX configurations are built with ``backend="pallas"``: its gates are off
 on the XLA backend, which the port does not have. Reference mode renders
-and must never be sorted, nor take the fused NEE; the geometry ring still
-refuses in ``check_supported``, and the gates must say no for it all the
-same, so that dropping the refusal cannot mis-route."""
+and must never be sorted, nor take the fused NEE; the geometry ring, soft
+estimator included, renders through the ring's sweeps, and the gates must
+say no for it all the same."""
 
 import itertools
 

@@ -1,7 +1,7 @@
 """The port's fast-mode render on the CPU against the JAX package's
 ``render(..., backend="pallas", accel="none")`` (its Pallas kernels in
-interpret mode) on the Cornell stand-in, the options the first slice
-refused and the port now renders, and the options it still refuses.
+interpret mode) on the Cornell stand-in, and the options the first slice
+refused and the port now renders.
 
 Tolerances: both renders run the same float32 estimator on the same random
 numbers, but XLA:CPU's rsqrt, sin and cos round differently from
@@ -181,21 +181,26 @@ def test_formerly_refused_options_match_jax(case):
     assert np.isfinite(got).all() and got.max() > 0
 
 
-# option -> (config, the ROADMAP.md queue A item the refusal names); a
-# geometry ring renders since A4 (tests/test_torch_parallel.py), but not
-# the soft estimator on it
+# option -> config of what the port refused until it ported it; the soft
+# estimator on a geometry ring renders since the soft sweeps stream around
+# the ring (parallel/ring.py; rings of several ranks are held in
+# tests/test_torch_soft_ring.py)
 UNSUPPORTED = {
-    "geom_axis": (dict(geom_axis="geom", geom_axis_size=2,
-                       soft_vis_beta=0.05), "A4c"),
+    "geom_axis": dict(soft_vis_beta=0.05),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_options_raise(case):
+    """Nothing raises any more: the option renders, here on a ring of one
+    rank, bit-equal to the unsharded render."""
+    from pathtracerpython_tpu_torch.parallel import make_mesh, render_sharded
+
     scene = arrays.pack_scene(synthetic.cornell_box_scene(4, 4), pad_to=32,
                               device="cpu")
-    kw, item = UNSUPPORTED[case]
-    cfg = RenderConfig(n_samples=1, n_bounces=1, **kw)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue A, {item}:"):
-        render(scene, cfg)
+    cfg = RenderConfig(n_samples=1, n_bounces=1, **UNSUPPORTED[case])
+    with torch.no_grad():
+        got = render_sharded(scene, cfg, make_mesh(), geom_axis="geom")
+        want = render(scene, cfg)
+    assert want.max() > 0
+    assert torch.equal(got, want)

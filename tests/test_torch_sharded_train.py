@@ -4,8 +4,9 @@ tests/test_diff.py::test_sharded_train_step_matches_single holds its own:
 the flat scene of that test, SGD(0.1) on ``mat_rgb``, Adam(1e-2) on
 ``mat_rgb``, ``light_color`` and ``eye`` (the JAX dry run's parameters),
 and SGD on ``tri_v0`` under pure dp, over dp = 2 and 4, dp x geom = 1 x 2
-and 2 x 2. Under a geometry ring, ``tri_v0`` refuses with
-``NotImplementedError`` (ROADMAP.md queue A, A4b): never silently zero.
+and 2 x 2, and SGD on ``tri_v0`` under a geometry ring, whose gradient
+flows back around the ring (``parallel/ring.py:RingShift``; the ring's
+gradients are held more widely in test_torch_ring_grad.py).
 
 Tolerances: tests/test_diff.py's, loss rtol 1e-6, params rtol 1e-5 and
 atol 1e-7 (the ranks' gradients are summed in another order than one
@@ -90,26 +91,45 @@ def test_sharded_step_matches_single(ranks, world, name):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_triangle_grads_under_a_ring_refuse(ranks, world):
+    """Under a ring (dp x geom = 1 x 2, 2 x 2) a ``tri_v0`` step no longer
+    refuses: it gives the single step, its gradient included, so it was
+    never silently zero."""
+    loss, params = _single_step("sgd", ("tri_v0",))
+    start = train_start(train_scene(), ("tri_v0",))["tri_v0"].numpy()
     for rank in ranks[world]:
-        msg = str(rank["raised:tri_ring"])
-        assert "A4b" in msg and "geometry ring" in msg
+        np.testing.assert_allclose(float(rank["tri_ring:loss"]), loss,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(rank["tri_ring:tri_v0"], params["tri_v0"],
+                                   rtol=1e-5, atol=1e-7)
+        grad = rank["tri_ring:grad"]
+        assert np.abs(grad).max() > 0
+        np.testing.assert_allclose(start - 0.1 * grad, params["tri_v0"],
+                                   rtol=1e-5, atol=1e-7)
 
 
 def test_ring_refuses_before_any_silent_zero():
-    """In one process too: a ring sweep with triangle tensors that require
-    grad raises before it sweeps."""
+    """In one process too: a ring of one rank (``make_mesh()``) with
+    triangle tensors that require grad gives the unsharded step's params
+    and gradient."""
     from pathtracerpython_tpu_torch.parallel import make_mesh
 
     scene = train_scene()
     cfg = RenderConfig(**CFG)
     with torch.no_grad():
         target = render(scene, cfg, seed=1)
-    params = {"tri_v0": scene.tri_v0.clone().requires_grad_(True)}
-    step = make_train_step(torch.optim.SGD(list(params.values()), lr=0.1),
-                           scene, cfg, target, mesh=make_mesh(),
-                           geom_axis="geom")
-    with pytest.raises(NotImplementedError, match="A4b"):
-        step(params, (0, 5))
+    got = {}
+    for mesh, axis in ((make_mesh(), "geom"), (None, None)):
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in train_start(scene, ("tri_v0",)).items()}
+        step = make_train_step(torch.optim.SGD(list(params.values()),
+                                               lr=0.1),
+                               scene, cfg, target, mesh=mesh,
+                               geom_axis=axis)
+        got[axis] = (float(step(params, (0, 5))), params["tri_v0"])
+    assert got["geom"][0] == got[None][0]
+    assert torch.equal(got["geom"][1].grad, got[None][1].grad)
+    assert got[None][1].grad.abs().max() > 0
+    assert torch.equal(got["geom"][1], got[None][1])
 
 
 def test_sharded_step_matches_jax(ranks):
