@@ -83,10 +83,12 @@ phase fails:
      1e-4 of an edge in float64, t within 2e-4), with the classic twin's
      time from the same run beside it;
    - the probes P1 (classic, Plücker on the CUDA cores, Plücker with one
-     pass and with three passes of TF32 mma; 262,144 rays x 512 triangles)
-     and P2 (the classic test in float32 and bf16; 2^20 rays x 512
-     triangles): every variant against its plain version, then the probes'
-     own entry points, whose JSON lines are printed;
+     pass and with three passes of TF32 wgmma, the Plücker ones sign test
+     first; 262,144 rays x 512 triangles) and P2 (the classic test in
+     float32 and packed bf16; 2^20 rays x 512 triangles): every variant
+     against its plain version and its bound (the plane counted on the
+     pairs whose sides agree), then the probes' own entry points, whose
+     JSON lines are printed;
 3. the full renders:
    - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
      radiance finite, non-negative and not constant; K1 and K2 launched
@@ -359,12 +361,19 @@ FLOPS_PER_PAIR_ROW = 52
 # The Plücker test of csrc/plucker.cuh on a precomputed 36-column row: three
 # sides of 6 products and 5 adds (33), n.d 5, the numerator 8, 1 division.
 FLOPS_PER_PAIR_PLUCKER = 47
-# P1's mma variants: per pair 3 sides x K = 8 x 2 on the tensor cores (the
-# two pad columns included, as the instruction computes them) per pass, and
-# the 14 float32 operations of the plane on the CUDA cores.
+# P1's Plücker variants test the sides' signs first: the three sides on
+# every pair (33 float32 operations on the CUDA cores: 6 products and 5
+# adds a side; or 3 sides x 6 multiply-adds x 2 on the tensor cores per
+# pass, the edges' two zero pad columns not counted, as the function does
+# not need them), the plane's 14 float32 operations (n.d 5, the numerator
+# 8, 1 division) only on the pairs whose sides agree
+# (mma_probe.inside_pairs).
 PEAK_TF32_FLOPS = 495e12
-MMA_FLOPS_PER_PAIR = 48
+SIDE_FLOPS_PER_PAIR = 33
+MMA_FLOPS_PER_PAIR = 36
 PLANE_FLOPS_PER_PAIR = 14
+# what P1's rows add to the kernels line: the pairs whose sides agree
+PROBE_KEYS = ("pairs", "inside_pairs")
 # P2's packed bf16 on the CUDA cores: two values a lane, so twice the
 # float32 rate (the card's data sheet has no row of its own for it).
 PEAK_BF16_CORE_FLOPS = 2 * PEAK_FP32_FLOPS
@@ -631,6 +640,30 @@ def hold_same_triangles(what, packs, pair, o3, d3u, t, idx, ref) -> int:
     return len(other)
 
 
+def sides_agree(o3, d3u, pack36, cull, t, idx, tested: int) -> dict:
+    """The pairs of a render wavefront on which a sign-first Plücker sweep
+    (P1's) would compute the plane: those whose three sides agree, among
+    the pairs whose tile and group boxes a lane meets up to its winner's t
+    (``pairs_met``, a subset of the ``tested`` pairs of the culled sweep,
+    whose running best never falls below the winner's t), and among all
+    pairs. ``inside_share_tested``: the least and the most share of the
+    tested pairs that can have sides of one sign, all of the tested pairs
+    outside ``pairs_met`` counted as outside and as inside."""
+    from pathtracerpython_tpu_torch.kernels import intersect
+    from pathtracerpython_tpu_torch.probes import mma_probe
+
+    reach = torch.where(idx >= 0, t, intersect.BIG)
+    met, inside_met = mma_probe.inside_pairs(o3, d3u, pack36, cull, reach)
+    if met > tested:
+        fail(f"{met} pairs met up to the winners, {tested} tested")
+    every, inside_all = mma_probe.inside_pairs(o3, d3u, pack36)
+    share = (inside_met / max(tested, 1),
+             (inside_met + tested - met) / max(tested, 1))
+    return {"pairs_met": met, "inside_met": inside_met,
+            "pairs_every": every, "inside_all": inside_all,
+            "inside_share_tested": share}
+
+
 def nearest_bounds(tripack, o3, d3u, t, idx, nbytes, flops) -> dict:
     """The bound of a culled nearest sweep whose winners are (t, idx): per
     lane the valid rows whose own grown box its ray meets up to its
@@ -693,13 +726,22 @@ def check_nearest(form, label, scene, o3, d3u, report, classic=None,
                    f"same triangles but on {ties} lanes through a shared "
                    "edge")
     more = {}
+    if plucker and reference is None:
+        more = sides_agree(o3, d3u, pack, cull, t_m, i_m, tested[0])
+        against += (f"; sides of one sign on {more['inside_met']} of the "
+                    f"{more['pairs_met']} pairs met up to the winner, so on "
+                    f"{more['inside_share_tested'][0]:.4f}-"
+                    f"{more['inside_share_tested'][1]:.4f} of the "
+                    f"{tested[0]} tested, and on {more['inside_all']} of all "
+                    f"{more['pairs_every']} "
+                    f"({more['inside_all'] / more['pairs_every']:.5f})")
     if classic is not None:
         t_c, i_c, c_ms = classic
         agree_c, grazing_c, err_c = check_winners(
             f"K3 nearest {label} against K1", tripack, o3, d3u, t_k, i_k,
             t_c, i_c, min_agree=FORM_MIN_AGREE, margin=FORM_MARGIN,
             t_tol=FORM_T_TOL)
-        more = dict(classic_ms=c_ms, classic_agree=agree_c)
+        more.update(classic_ms=c_ms, classic_agree=agree_c)
         against += (f"; against K1 winners {agree_c:.6f} ({grazing_c} "
                     f"grazing), t max abs diff {err_c:.3g}")
     k_ms = cuda_ms(run, 10)
@@ -1631,16 +1673,20 @@ def check_k3_sparse(label, scene, o3, d3u, shadow, stride, rows, k5, occ6):
 
 def check_probes(rows) -> None:
     """Every variant of P1 and P2 at the probes' default sizes against its
-    plain version, with times and bounds."""
-    from pathtracerpython_tpu_torch.kernels.intersect import plucker_pack
+    plain version, with times and bounds; fails if a variant reads under
+    its bound. P1's Plücker bounds count the plane on the pairs whose sides
+    agree only, as the sign-first kernels compute it."""
     from pathtracerpython_tpu_torch.probes import bf16_probe, mma_probe
 
     n, t_count = 262144, 512
     o3, d3, tripack = mma_probe.make_inputs(n, t_count, 0, "cuda")
-    pack36 = plucker_pack(tripack)
+    packs = mma_probe.make_packs(tripack)
     pairs = n * t_count
+    _, inside = mma_probe.inside_pairs(o3, d3, packs.pack36)
+    log(f"[2] P1: {inside} of {pairs} pairs ({inside / pairs:.5f}) have "
+        f"sides of one sign")
     for variant in mma_probe.VARIANTS:
-        run = lambda: mma_probe.probe(o3, d3, tripack, variant, pack36)
+        run = lambda: mma_probe.probe(o3, d3, tripack, variant, packs)
         got = run()
         want, p_ms = once_ms(lambda: mma_probe.probe_plain(o3, d3, tripack,
                                                            variant))
@@ -1650,26 +1696,38 @@ def check_probes(rows) -> None:
         if agree < (MMA_MIN_AGREE if on_mma else MIN_IDX_AGREE):
             fail(f"P1 {variant}: winners agree with the plain version on "
                  f"{agree:.6f} of rays")
+        # on the CUDA cores the kernel does the plain version's float32
+        # operations in its order: the same bits
+        if not on_mma and not (torch.equal(got[0], want[0])
+                               and torch.equal(got[1], want[1])):
+            fail(f"P1 {variant}: (t, index) differ from the plain version's "
+                 f"bits")
         if diff["max_t_err"] > 1e-5:
             fail(f"P1 {variant}: t differs from the plain version by "
                  f"{diff['max_t_err']}")
         k_ms = cuda_ms(run, 10)
-        nbytes = tensor_bytes(o3, d3, tripack if variant == "mt" else pack36,
-                              *got)
-        if on_mma:
+        nbytes = tensor_bytes(o3, d3, tripack if variant == "mt"
+                              else packs.pack36, *got)
+        plane_ms = inside * PLANE_FLOPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
+        if variant == "mt":
+            b = bound(nbytes, pairs, FLOPS_PER_PAIR_TILE)
+        elif on_mma:
             passes = 3 if variant == "plucker_3xtf32" else 1
-            b = bound_ops(nbytes, pairs * 1e3 * (
-                passes * MMA_FLOPS_PER_PAIR / PEAK_TF32_FLOPS
-                + PLANE_FLOPS_PER_PAIR / PEAK_FP32_FLOPS))
+            b = bound_ops(nbytes, pairs * passes * MMA_FLOPS_PER_PAIR
+                          / PEAK_TF32_FLOPS * 1e3 + plane_ms)
         else:
-            b = bound(nbytes, pairs, FLOPS_PER_PAIR_TILE if variant == "mt"
-                      else FLOPS_PER_PAIR_PLUCKER)
+            b = bound_ops(nbytes, pairs * SIDE_FLOPS_PER_PAIR
+                          / PEAK_FP32_FLOPS * 1e3 + plane_ms)
+        if k_ms < b[0]:
+            fail(f"P1 {variant}: kernel {k_ms} ms reads under its bound "
+                 f"{b[0]} ms")
         log(f"[2] P1 {variant}: {n} rays x {t_count} tris, winners agree "
             f"with plain {agree:.6f}, t max abs err {diff['max_t_err']:.3g}; "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} ms "
-            f"by {b[1]}")
+            f"by {b[1]} (kernel {k_ms / b[0]:.1f}x)")
         rows[f"P1 {variant}"].append(report_row(
-            "probe tile", diff["max_t_err"], k_ms, p_ms, b))
+            "probe tile", diff["max_t_err"], k_ms, p_ms, b,
+            over_bound=k_ms / b[0], inside_pairs=inside, pairs=pairs))
 
     n = 1 << 20
     o3, d3, tripack = bf16_probe.make_inputs(n, t_count, 0, "cuda")
@@ -1682,18 +1740,22 @@ def check_probes(rows) -> None:
             o3, d3, tripack, variant))
         same = (got == want).float().mean().item()
         err = (got - want).abs().max().item()
-        if same < MIN_OCC_AGREE:
+        # every operation rounds as the plain version's: equal counts
+        if not torch.equal(got, want):
             fail(f"P2 {variant}: hit counts agree with the plain version on "
                  f"{same:.6f} of rays (max abs diff {err})")
         k_ms = cuda_ms(run, 10)
         b = bound_ops(tensor_bytes(o3, d3, tripack, got),
                       pairs * FLOPS_PER_PAIR_TILE / peak * 1e3)
+        if k_ms < b[0]:
+            fail(f"P2 {variant}: kernel {k_ms} ms reads under its bound "
+                 f"{b[0]} ms")
         log(f"[2] P2 {variant}: {n} rays x {t_count} tris, hit counts agree "
             f"with plain on {same:.6f} of rays, max abs diff {err:.3g}; "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b[0]:.4f} ms "
-            f"by {b[1]}")
-        rows[f"P2 {variant}"].append(report_row("probe tile", err, k_ms,
-                                                p_ms, b))
+            f"by {b[1]} (kernel {k_ms / b[0]:.1f}x)")
+        rows[f"P2 {variant}"].append(report_row(
+            "probe tile", err, k_ms, p_ms, b, over_bound=k_ms / b[0]))
 
 
 def pack_build_cost(scene) -> None:
@@ -4608,6 +4670,7 @@ def main() -> None:
                if "gate_pairs" in first else {}),
             **({"parallel_launches_per_rank": par_launches[key]}
                if key in par_launches else {}),
+            **{k: first[k] for k in PROBE_KEYS if k in first},
         })
     for k in kernels:
         if k["launches"] < 1:

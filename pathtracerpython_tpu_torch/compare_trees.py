@@ -26,7 +26,10 @@ by name; default all):
   on its guess lists, pass 2 on the lanes pass 1 leaves open, compacted as
   the render compacts them). Each is the kernel's own launch with its
   pack, boxes and lists built beforehand, CUDA events, 3 samples of the
-  mean of 20 launches after 3 warm-up launches;
+  mean of 20 launches after 3 warm-up launches. The ``probes`` cell times
+  every variant of the probes P1 (262,144 rays x 512 triangles) and P2
+  (2^20 rays x 512 triangles) so, on the probes' seeded inputs, their
+  packs built beforehand; it renders nothing;
 - renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
   forms, the Cornell cell also in reference mode and, in both modes,
@@ -88,6 +91,10 @@ CELLS = {
                       "hybrid plucker": {"mt_impl": "plucker"},
                   }),
 }
+
+
+# the cell of the probes P1 and P2 (kernel times only)
+PROBES = "probes"
 
 
 def _scene(port, cell):
@@ -240,6 +247,24 @@ def _k7_before_boxes(port, sparse, rays, tripack, aabb8, cache, rel):
                 (pass2, sparse.window_lists(aabb8, *pass2, sparse.R_BLK))]
 
 
+def _probe_kernels(port):
+    """Every variant of P1 and P2 as ``fn()`` at the probes' default sizes
+    on their seeded inputs, P1's packs built beforehand (``make_packs``;
+    in a checkout from before it, such as the parent of the sign-first
+    probes that PERF.md's old-and-new probe times were read against, the
+    Plücker pack its ``probe`` takes)."""
+    mma, bf16 = port["probes.mma_probe"], port["probes.bf16_probe"]
+    o3, d3, tripack = mma.make_inputs(262144, 512, 0, "cuda")
+    packs = (mma.make_packs(tripack) if hasattr(mma, "make_packs")
+             else port["kernels.intersect"].plucker_pack(tripack))
+    out = {f"P1 {v}": (lambda v=v: mma.probe(o3, d3, tripack, v, packs))
+           for v in mma.VARIANTS}
+    bo3, bd3, btri = bf16.make_inputs(1 << 20, 512, 0, "cuda")
+    out.update({f"P2 {v}": (lambda v=v: bf16.hit_count(bo3, bd3, btri, v))
+                for v in bf16.VARIANTS})
+    return out
+
+
 def _ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -321,11 +346,19 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
         raise RuntimeError("no CUDA device: the comparison runs on the card")
     port = {m: importlib.import_module(f"pathtracerpython_tpu_torch.{m}")
             for m in ("kernels.intersect", "kernels.nee", "kernels.sparse",
-                      "kernels.walker", "ops.rng", "ops.camera", "ops.geometry", "ops.sort",
-                      "parallel", "render.config", "render.integrator",
+                      "kernels.walker", "ops.rng", "ops.camera",
+                      "ops.geometry", "ops.sort", "parallel",
+                      "probes.bf16_probe", "probes.mma_probe",
+                      "render.config", "render.integrator",
                       "scene.arrays", "scene.synthetic")}
     times, records = {}, {}
     for cell in cells:
+        if cell == PROBES:
+            for name, run in _probe_kernels(port).items():
+                for _ in range(3):
+                    run()
+                times[f"{cell} {name}"] = [_ms(run) for _ in range(3)]
+            continue
         scene = _scene(port, cell)
         _, _, wave_spp, spp, bounces, cell_renders = CELLS[cell]
         for b, (o3, d3, shadow) in enumerate(
@@ -383,7 +416,7 @@ def compare(other: str, work: str, cells) -> dict:
         result["kernel_ms"][key]["median"] = {
             side: statistics.median(v)
             for side, v in result["kernel_ms"][key].items()}
-    for cell in cells:
+    for cell in (c for c in cells if c != PROBES):
         for name in CELLS[cell][5]:
             rad = [(side, torch.load(f"{out}_{cell}_{name}.pt"))
                    for side, out, _ in runs]
@@ -403,8 +436,8 @@ def main() -> None:
     ap.add_argument("--work", default=os.path.join(THIS_ROOT, "build",
                                                    "compare_trees"),
                     help="directory for the runs' files")
-    ap.add_argument("--cells", nargs="+", choices=list(CELLS),
-                    default=list(CELLS), help="the cells to compare")
+    ap.add_argument("--cells", nargs="+", choices=[*CELLS, PROBES],
+                    default=[*CELLS, PROBES], help="the cells to compare")
     ap.add_argument("--worker", metavar="TREE",
                     help="one run in checkout TREE (times to OUT.json)")
     ap.add_argument("--no-renders", action="store_true",

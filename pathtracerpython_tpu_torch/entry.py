@@ -88,18 +88,23 @@ def dryrun_multichip(n_devices: int, platform: str = "auto",
     """The four sharded shapes over ``n_devices`` ranks (see the module's
     docstring); raises if a shape fails. Inside an initialised process
     group of that size it runs on this rank; outside one it starts the
-    ranks as processes of this module and waits for them all."""
+    ranks as processes of this module and waits for them all. The ranks
+    run on the card, on the CPU only with ``platform="cpu"``: without a
+    card it raises ``RuntimeError`` otherwise."""
     import torch.distributed as dist
+
+    from pathtracerpython_tpu_torch.parallel import multihost
 
     if dist.is_initialized():
         if dist.get_world_size() != n_devices:
             raise ValueError(f"dryrun_multichip({n_devices}) in a world of "
                              f"{dist.get_world_size()} ranks")
-        _dryrun_rank(n_devices, sdl, log)
+        _dryrun_rank(n_devices, sdl, log, multihost.device())
         return
     if n_devices == 1:
-        _dryrun_rank(1, sdl, log)
+        _dryrun_rank(1, sdl, log, multihost.default_device(0, 1, platform))
         return
+    multihost.default_device(0, 1, platform)  # no card: raise here, once
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p)}
@@ -130,9 +135,9 @@ def dryrun_multichip(n_devices: int, platform: str = "auto",
                                outs[r][-3000:] for r, _ in failed))
 
 
-def _dryrun_rank(n: int, sdl: str | None, log) -> None:
-    """One rank of the dry run, in an initialised group of ``n`` ranks (or
-    alone, n = 1)."""
+def _dryrun_rank(n: int, sdl: str | None, log, device) -> None:
+    """One rank of the dry run on ``device``, in an initialised group of
+    ``n`` ranks (or alone, n = 1)."""
     import torch
 
     from pathtracerpython_tpu_torch.diff import adam, make_train_step
@@ -146,11 +151,11 @@ def _dryrun_rank(n: int, sdl: str | None, log) -> None:
     from pathtracerpython_tpu_torch.render.integrator import render
 
     say = log if multihost.is_primary() else (lambda *a: None)
-    scene = _cornell(sdl, DRYRUN_SIZE, multihost.device(), say)
+    scene = _cornell(sdl, DRYRUN_SIZE, device, say)
 
     # shape 1: the fast training step on dp x geom = 2
     geom = 2 if n % 2 == 0 else 1
-    mesh = make_mesh(dp=n // geom, geom=geom)
+    mesh = make_mesh(dp=n // geom, geom=geom, device=device)
     cfg = RenderConfig(mode="fast", n_samples=1, n_bounces=2,
                        n_light_samples=1)
     with torch.no_grad():
@@ -169,7 +174,7 @@ def _dryrun_rank(n: int, sdl: str | None, log) -> None:
 
     # shape 2: a reference-mode render on a geom = 4 ring
     if n % 4 == 0:
-        mesh4 = make_mesh(dp=n // 4, geom=4)
+        mesh4 = make_mesh(dp=n // 4, geom=4, device=device)
         cfg_ref = RenderConfig(mode="reference", n_samples=1, n_bounces=2,
                                n_light_samples=1)
         with torch.no_grad():
@@ -182,7 +187,7 @@ def _dryrun_rank(n: int, sdl: str | None, log) -> None:
             f"(mean={float(rad.mean()):.6f})")
 
     # shape 3: the soft estimator, pure dp
-    mesh_dp = make_mesh(dp=n, geom=1)
+    mesh_dp = make_mesh(dp=n, geom=1, device=device)
     cfg_f = RenderConfig(mode="fast", n_samples=1, n_bounces=2,
                          n_light_samples=1, soft_vis_beta=0.05)
     with torch.no_grad():
@@ -194,7 +199,7 @@ def _dryrun_rank(n: int, sdl: str | None, log) -> None:
 
     # shape 4: the bounce pipeline, bit-equal to the single-rank render
     if n % 2 == 0:
-        mesh_pp = make_mesh(pp=2, dp=n // 2)
+        mesh_pp = make_mesh(pp=2, dp=n // 2, device=device)
         cfg_pp = RenderConfig(mode="fast", n_samples=1, n_bounces=2,
                               n_light_samples=1)
         with torch.no_grad():
@@ -237,7 +242,7 @@ def main(argv=None) -> int:
     multihost.initialize(init_method=args.init, world_size=args.dryrun,
                          rank=args.rank, platform=args.platform)
     try:
-        _dryrun_rank(args.dryrun, args.sdl, print)
+        _dryrun_rank(args.dryrun, args.sdl, print, multihost.device())
         multihost.sync()
     finally:
         multihost.shutdown()

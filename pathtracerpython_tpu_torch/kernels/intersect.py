@@ -373,12 +373,11 @@ def plucker_plane(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
     return not_par & (t > T_MIN) & (col(30) > 0.5), t
 
 
-def plucker_rows(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
-    """The Plücker test of [..., T, 36] pack rows against [..., 1, R] ray
-    rows -> (hit [..., T, R] incl. the valid column, t [..., T, R]);
-    ``_plucker_block``, with each side product written out as six products
-    summed left to right (the two pad columns contribute nothing), which is
-    the order of ``csrc/plucker.cuh``."""
+def plucker_sides(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
+    """The three edge side products [..., T, R] of [..., T, 36] pack rows
+    against [..., 1, R] ray rows, each written out as six products summed
+    left to right (the two pad columns contribute nothing), which is the
+    order of ``csrc/plucker.cuh``."""
     col = lambda c: pack[..., c:c + 1]
     # the ray's moment o x d, once per ray
     mx = oy * dz - oz * dy
@@ -389,10 +388,18 @@ def plucker_rows(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
         return (col(c) * mx + col(c + 1) * my + col(c + 2) * mz
                 + col(c + 3) * dx + col(c + 4) * dy + col(c + 5) * dz)
 
+    return side(0), side(8), side(16)
+
+
+def plucker_rows(pack: torch.Tensor, ox, oy, oz, dx, dy, dz):
+    """The Plücker test of [..., T, 36] pack rows against [..., 1, R] ray
+    rows -> (hit [..., T, R] incl. the valid column, t [..., T, R]);
+    ``_plucker_block`` with the sides of ``plucker_sides``."""
     # pad and degenerate rows have all-zero sides, so they count as inside:
     # the plane's parallel test and the valid column are what rejects them
     plane, t = plucker_plane(pack, ox, oy, oz, dx, dy, dz)
-    return plucker_inside(side(0), side(8), side(16)) & plane, t
+    sides = plucker_sides(pack, ox, oy, oz, dx, dy, dz)
+    return plucker_inside(*sides) & plane, t
 
 
 class PairTest(NamedTuple):

@@ -42,8 +42,10 @@ import sys
 import torch
 import torch.distributed as dist
 
-# What ``initialize`` chose (backend None: a single process).
-_STATE: dict = {"backend": None, "device": None, "staged": False}
+# What ``initialize`` chose (backend None: a single process; device None:
+# this rank's device is ``default_device(0, 1, platform)``).
+_STATE: dict = {"backend": None, "device": None, "staged": False,
+                "platform": "auto"}
 
 
 def _env_int(name: str) -> int | None:
@@ -53,16 +55,21 @@ def _env_int(name: str) -> int | None:
 
 def default_device(local_rank: int, local_world: int,
                    platform: str = "auto") -> torch.device:
-    """A rank's device: the CPU when asked for or without a card; else its
-    own card where the host has one per local rank, the one card where the
-    host has a single card. More local ranks than cards, on a host of
-    several cards, raises ``ValueError``: ranks would pile onto one card
-    and leave the others idle."""
-    if platform == "cpu" or not torch.cuda.is_available():
-        if platform == "cuda":
-            raise RuntimeError("no CUDA device: pass platform='cpu' to run "
-                               "the ranks on the CPU")
+    """A rank's device: the CPU when ``platform`` is "cpu"; else its own
+    card where the host has one per local rank, the one card where the
+    host has a single card. Without a card, "auto" and "cuda" raise
+    ``RuntimeError``: nothing falls back to the CPU unasked. More local
+    ranks than cards, on a host of several cards, raises ``ValueError``:
+    ranks would pile onto one card and leave the others idle."""
+    if platform not in ("auto", "cuda", "cpu"):
+        raise ValueError(f"platform={platform!r}: expected 'auto', 'cuda' "
+                         "or 'cpu'")
+    if platform == "cpu":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the ranks run on the card; pass "
+                           "platform='cpu' (or a mesh's device='cpu') to "
+                           "run them on the CPU")
     cards = torch.cuda.device_count()
     if local_world <= cards:
         return torch.device("cuda", local_rank)
@@ -87,7 +94,8 @@ def initialize(init_method: str | None = None,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``)
     is read; without it, or with a world of one, nothing is initialised.
     ``platform`` ("auto", "cuda" or "cpu") places the rank (see
-    ``default_device``); ``backend`` None chooses NCCL where each local rank
+    ``default_device``), in a world of one too, where it is what
+    ``device()`` answers; ``backend`` None chooses NCCL where each local rank
     has a card of its own, else gloo. Calling it again in an initialised
     process returns the answer of the first call."""
     if dist.is_initialized():
@@ -96,7 +104,8 @@ def initialize(init_method: str | None = None,
         "WORLD_SIZE")
     rank = rank if rank is not None else _env_int("RANK")
     if world_size is None or world_size <= 1:
-        _STATE.update(backend=None, device=None, staged=False)
+        _STATE.update(backend=None, device=None, staged=False,
+                      platform=platform)
         return False
     if rank is None:
         raise ValueError("a world of more than one rank needs this rank's "
@@ -121,7 +130,8 @@ def initialize(init_method: str | None = None,
                             init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     staged = backend == "gloo" and device.type == "cuda"
-    _STATE.update(backend=backend, device=device, staged=staged)
+    _STATE.update(backend=backend, device=device, staged=staged,
+                  platform=platform)
     if rank == 0:
         log(f"[parallel] {world_size} ranks, backend {backend}, transport "
             f"{describe_transport()}, rank 0 on {device}")
@@ -146,11 +156,12 @@ def backend() -> str | None:
 
 
 def device() -> torch.device:
-    """This rank's device: the one ``initialize`` chose, else the first
-    card, else the CPU."""
+    """This rank's device: the one ``initialize`` chose, else the one of
+    the platform it was given (the card, unless it was "cpu"). Without a
+    card and without ``platform="cpu"`` it raises ``RuntimeError``."""
     if _STATE["device"] is not None:
         return _STATE["device"]
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return default_device(0, 1, _STATE["platform"])
 
 
 def world_size() -> int:
@@ -263,7 +274,7 @@ def shutdown() -> None:
     """Leave the process group (no-op in a single process)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _STATE.update(backend=None, device=None, staged=False)
+    _STATE.update(backend=None, device=None, staged=False, platform="auto")
 
 
 def launch_hint(n: int, argv=None) -> str:

@@ -4,11 +4,11 @@ The counterpart of the JAX package's ``scripts/bf16_probe.py``. One tile of
 triangles against a wavefront of rays, the classic test's operations in
 float32 and in bf16 (operands cast at load, every product, sum and
 difference rounded to bf16, the reciprocal taken in float32 and rounded,
-comparisons in float32); the output is the number of triangles each ray
-hits (``csrc/probe_bf16.cu``). It prints one JSON line per variant (ms,
-G pairs/s, and for bf16 how its counts differ from float32's) and the ratio
-bf16 / f32. A bf16 pre-test ahead of the float32 sweeps can only pay if
-that ratio is near 2.
+comparisons in float32, or in bf16 where that is exact); the output is the
+number of triangles each ray hits (``csrc/probe_bf16.cu``). It prints one
+JSON line per variant (ms, G pairs/s, and for bf16 how its counts differ
+from float32's) and the ratio bf16 / f32. A bf16 pre-test ahead of the
+float32 sweeps can only pay if that ratio is near 2.
 
     python -m pathtracerpython_tpu_torch.probes.bf16_probe [n_rays_log2] \\
         [--tris 512] [--reps 8] [--device cpu]

@@ -5,13 +5,19 @@ triangles against a wavefront of rays, per-ray (t, index) of the nearest
 hit (t = 3e38 and index = 2^31 - 1 on a miss), in four variants
 (``csrc/probe_plucker.cu``):
 
-- ``mt``: classic Möller–Trumbore on the CUDA cores;
+- ``mt``: classic Möller–Trumbore on the CUDA cores (K1's test);
 - ``plucker_fma``: the Plücker form with its side products as float32
-  multiplies and adds on the CUDA cores, K3's production form;
+  multiplies and adds on the CUDA cores, K3's arithmetic;
 - ``plucker_tf32``: the side products as one pass of TF32
-  ``mma.sync.m16n8k8`` on the tensor cores;
+  ``wgmma.mma_async.m64n64k8`` on the tensor cores;
 - ``plucker_3xtf32``: the same with every operand split into two TF32
   values and three passes.
+
+The three Plücker variants test the sides' signs first and compute the
+plane's t only on the pairs whose sides agree (``inside_pairs`` counts
+them). The tensor-core variants read the triangles' TF32 operands split
+once per pack (``tf32_tiles``, built by ``make_packs`` with the Plücker
+pack).
 
 It prints one JSON line per variant (ms, G tests/s, the share of rays whose
 winner differs from ``mt``'s, the largest float64 barycentric margin among
@@ -34,6 +40,7 @@ import ctypes
 import functools
 import json
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,12 +51,16 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     CLASSIC,
     IMAX,
     PLUCKER,
+    CullBoxes,
     PairTest,
     check_input,
+    chunk_rows,
+    cull_pairs,
     nearest_t_idx_plain,
     plucker_inside,
     plucker_pack,
     plucker_plane,
+    plucker_sides,
 )
 
 VARIANTS = ("mt", "plucker_fma", "plucker_tf32", "plucker_3xtf32")
@@ -60,9 +71,15 @@ MAX_T_ERR = 1e-3
 # Launches of the CUDA kernel since the counts were last reset, by variant.
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
+# Triangles a tile of the tensor-core variants (wgmma's M), and a tile's
+# floats in ``tf32_tiles``: seven parts of 64 rows x 8.
+MMA_ROWS = 64
+TILE_FLOATS = 7 * MMA_ROWS * 8
+
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # tripack, pack36, T
+    ctypes.c_void_p, ctypes.c_void_p,                 # tripack, pack36
+    ctypes.c_void_p, ctypes.c_int,                    # tiles, T
     ctypes.c_int,                                     # variant
     ctypes.c_void_p, ctypes.c_void_p,                 # t_out, idx_out
     ctypes.c_int, ctypes.c_void_p,                    # device, stream
@@ -91,6 +108,74 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     zero: ``cvt.rna.tf32.f32``."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+class ProbePacks(NamedTuple):
+    """What the variants read besides the [T, 12] pack: the Plücker pack
+    f32[T, 36] and its TF32 tiles (``tf32_tiles``)."""
+
+    pack36: torch.Tensor
+    tiles: torch.Tensor
+
+
+def tf32_tiles(pack36: torch.Tensor) -> torch.Tensor:
+    """The tensor-core variants' operands, split once per pack:
+    f32[ceil(T / 64), 3584], each tile the shared-memory image that its
+    kernel copies in one piece (``csrc/probe_plucker.cu``): the TF32 hi
+    parts of the three edges' rows (direction | moment | 0 0), the plane
+    rows (pack columns 24-31: n | v0 | valid | occluder), then the lo parts
+    (``tf32(x - hi)``). An edge part is 64 rows x 8 values in K-major core
+    matrices: value (row r, k) at (r // 8) * 64 + (k // 4) * 32 + (r % 8)
+    * 4 + k % 4. Rows past T are zero, so not valid."""
+    t_count = pack36.shape[0]
+    nt = -(-t_count // MMA_ROWS)
+    rows = pack36.new_zeros((nt * MMA_ROWS, pack36.shape[1]))
+    rows[:t_count] = pack36
+    rows = rows.view(nt, MMA_ROWS, -1)
+    edges = rows[..., :24].reshape(nt, MMA_ROWS, 3, 8).permute(0, 2, 1, 3)
+    hi = tf32(edges)
+    lo = tf32(edges - hi)
+
+    def core(x):   # [nt, 3, 64, 8] -> [nt, 3, 512] in core-matrix order
+        return x.reshape(nt, 3, 8, 8, 2, 4).permute(0, 1, 2, 4, 3, 5) \
+            .reshape(nt, 3, MMA_ROWS * 8)
+
+    plane = rows[..., 24:32].reshape(nt, 1, MMA_ROWS * 8)
+    return torch.cat([core(hi), plane, core(lo)], dim=1) \
+        .reshape(nt, TILE_FLOATS).contiguous()
+
+
+def make_packs(tripack: torch.Tensor) -> ProbePacks:
+    """The Plücker pack of ``tripack`` and its TF32 tiles."""
+    pack36 = plucker_pack(tripack)
+    return ProbePacks(pack36, tf32_tiles(pack36))
+
+
+def inside_pairs(o3, d3, pack36, cull: CullBoxes | None = None,
+                 reach: torch.Tensor | None = None) -> tuple[int, int]:
+    """(pairs, inside): the (ray, valid row) pairs counted, and those of
+    them whose three edge sides agree in sign, the sides in float32 as
+    ``plucker_fma`` forms them: the pairs on which a sign-first sweep
+    computes the plane's t. Without ``cull`` every pair counts. With
+    ``cull`` (the ``nearest_cull_boxes`` of the [T, 12] pack of the same
+    rows) and ``reach`` f32[N] (each lane's winner's t, BIG on a miss),
+    only the pairs whose tile and group boxes the lane meets up to its
+    reach (``cull_pairs``): those a culled nearest sweep still tests once
+    its running best is its winner."""
+    n = o3.shape[1]
+    rays = [o3[k:k + 1] for k in range(3)] + [d3[k:k + 1] for k in range(3)]
+    pairs = inside = 0
+    step = chunk_rows(n)
+    for lo in range(0, pack36.shape[0], step):
+        rows = pack36[lo:lo + step]
+        use = (rows[:, 30:31] > 0.5).expand(-1, n)
+        if cull is not None:
+            use = use & cull_pairs(cull, lo, lo + rows.shape[0], rays[:3],
+                                   rays[3:], reach[None, :])
+        pairs += int(use.sum())
+        sides = plucker_sides(rows, *rays)
+        inside += int((plucker_inside(*sides) & use).sum())
+    return pairs, inside
 
 
 def plucker_rows_tf32(pack, ox, oy, oz, dx, dy, dz, split: bool):
@@ -142,10 +227,10 @@ def probe_plain(o3, d3, tripack, variant: str):
     return torch.where(miss, BIG, t), torch.where(miss, IMAX, idx)
 
 
-def probe(o3, d3, tripack, variant: str, pack36=None):
+def probe(o3, d3, tripack, variant: str, packs: ProbePacks | None = None):
     """The variant's sweep: its CUDA kernel on CUDA tensors (or raises), its
-    plain version on CPU tensors. ``pack36``: ``plucker_pack(tripack)`` if
-    the caller has it already."""
+    plain version on CPU tensors. ``packs``: ``make_packs(tripack)`` if the
+    caller has them already."""
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r}: expected one of {VARIANTS}")
     device = o3.device
@@ -157,16 +242,19 @@ def probe(o3, d3, tripack, variant: str, pack36=None):
         return probe_plain(o3, d3, tripack, variant)
     if device.type != "cuda":
         raise ValueError(f"no probe kernel for device {device}")
-    if pack36 is None:
-        pack36 = plucker_pack(tripack)
-    check_input("pack36", pack36, device, torch.float32,
+    if packs is None:
+        packs = make_packs(tripack)
+    check_input("pack36", packs.pack36, device, torch.float32,
                 (tripack.shape[0], 36))
+    check_input("tiles", packs.tiles, device, torch.float32,
+                (-(-tripack.shape[0] // MMA_ROWS), TILE_FLOATS))
     t = torch.empty(n, dtype=torch.float32, device=device)
     idx = torch.empty(n, dtype=torch.int32, device=device)
     fn = build.function("ptt_probe_plucker", _ARGTYPES)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(o3.data_ptr(), d3.data_ptr(), n, tripack.data_ptr(),
-             pack36.data_ptr(), tripack.shape[0], VARIANTS.index(variant),
+             packs.pack36.data_ptr(), packs.tiles.data_ptr(),
+             tripack.shape[0], VARIANTS.index(variant),
              t.data_ptr(), idx.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(
@@ -253,12 +341,12 @@ def run(n_rays: int = 262144, n_tris: int = 512, reps: int = 20,
     gate."""
     dev = resolve_device(device)
     o3, d3, tripack = make_inputs(n_rays, n_tris, seed, dev)
-    pack36 = plucker_pack(tripack)
+    packs = make_packs(tripack)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu (plain versions, host clock)")
     rows, want = [], None
     for variant in VARIANTS:
-        sweep = lambda: probe(o3, d3, tripack, variant, pack36)
+        sweep = lambda: probe(o3, d3, tripack, variant, packs)
         got = sweep()
         want = got if want is None else want
         ms = time_ms(sweep, reps, dev)

@@ -534,35 +534,78 @@ def test_mt_impl_on_a_cuda_tensor_never_runs_the_plain_version(cuda,
     torch.cuda.synchronize()
 
 
+# The probes at two sizes (rays, triangles, seed): P1's sign-first sweeps
+# (the tensor-core ones on wgmma, tiles built on the card as on the CPU)
+# and P2's packed bf16 and 4-ray float32 sweeps against their plain
+# versions; bit for bit where the arithmetic is the plain version's.
+P1_SIZES = [pytest.param((40000 + 77, 300, 1), id="40077x300"),
+            pytest.param((8192, 128, 3), id="8192x128")]
+P2_SIZES = [pytest.param((50001, 300, 1), id="50001x300"),
+            pytest.param((8192, 128, 3), id="8192x128")]
+
+
+@pytest.mark.parametrize("size", P1_SIZES)
 @pytest.mark.parametrize("variant", ["mt", "plucker_fma", "plucker_tf32",
                                      "plucker_3xtf32"])
-def test_mma_probe_kernel_matches_plain(cuda, variant):
+def test_mma_probe_kernel_matches_plain(cuda, variant, size):
     from pathtracerpython_tpu_torch.probes import mma_probe
 
-    o3, d3, tripack = mma_probe.make_inputs(40000 + 77, 300, 1, cuda)
+    o3, d3, tripack = mma_probe.make_inputs(*size, cuda)
+    packs = mma_probe.make_packs(tripack)
+    assert torch.equal(packs.tiles.cpu(),
+                       mma_probe.tf32_tiles(packs.pack36.cpu()))
     before = mma_probe.LAUNCHES[variant]
-    got = mma_probe.probe(o3, d3, tripack, variant)
+    got = mma_probe.probe(o3, d3, tripack, variant, packs)
+    torch.cuda.synchronize()
     assert mma_probe.LAUNCHES[variant] == before + 1
     want = mma_probe.probe_plain(o3, d3, tripack, variant)
-    torch.cuda.synchronize()
     diff = mma_probe.compare(tripack, o3, d3, got, want)
     assert 1.0 - diff["winner_diff_share"] >= MIN_AGREE, diff
     assert diff["max_t_err"] <= 1e-5, diff
-    assert bool((got[1] != mma_probe.IMAX).any())
+    if "tf32" not in variant:   # CUDA-core arithmetic: the plain bits
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    hits = got[1] != mma_probe.IMAX
+    assert bool(hits.any())
+    assert torch.equal(got[0][~hits], torch.full_like(got[0][~hits],
+                                                      mma_probe.BIG))
 
 
+@pytest.mark.parametrize("size", P2_SIZES)
 @pytest.mark.parametrize("variant", ["f32", "bf16"])
-def test_bf16_probe_kernel_matches_plain(cuda, variant):
+def test_bf16_probe_kernel_matches_plain(cuda, variant, size):
     from pathtracerpython_tpu_torch.probes import bf16_probe
 
-    o3, d3, tripack = bf16_probe.make_inputs(50001, 300, 1, cuda)
+    o3, d3, tripack = bf16_probe.make_inputs(*size, cuda)
     before = bf16_probe.LAUNCHES[variant]
     got = bf16_probe.hit_count(o3, d3, tripack, variant)
+    torch.cuda.synchronize()
     assert bf16_probe.LAUNCHES[variant] == before + 1
     want = bf16_probe.hit_count_plain(o3, d3, tripack, variant)
-    torch.cuda.synchronize()
     assert got.sum().item() > 0
-    assert (got == want).float().mean().item() >= MIN_AGREE
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["plucker_fma", "plucker_tf32",
+                                     "plucker_3xtf32"])
+def test_mma_probe_every_pair_inside(cuda, variant):
+    """200 copies of one large triangle that every ray's line crosses well
+    inside: every pair's sides agree, so the tensor-core sweeps' per-tile
+    queue of inside pairs overflows and the lanes compute the rest
+    themselves; the winner is the first copy, t the plain version's."""
+    from pathtracerpython_tpu_torch.probes import mma_probe
+
+    o3, d3, _ = mma_probe.make_inputs(4096, 1, 5, cuda)
+    row = torch.tensor([-1e3, -1e3, 0.0, 3e3, -1e3, 0.0, -1e3, 3e3, 0.0,
+                        1.0, 1.0, 0.0], device=cuda)
+    tripack = row.repeat(200, 1).contiguous()
+    got = mma_probe.probe(o3, d3, tripack, variant)
+    want = mma_probe.probe_plain(o3, d3, tripack, variant)
+    torch.cuda.synchronize()
+    hits = want[1] != mma_probe.IMAX
+    assert 0.3 < hits.float().mean().item() < 0.7
+    assert torch.equal(got[1], want[1])
+    assert bool((want[1][hits] == 0).all())
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
 
 
 # The box cull of K2, K4 and K3's dense any-hit: the culled kernels give the

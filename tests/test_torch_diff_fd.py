@@ -235,7 +235,8 @@ def test_sharded_and_checkpointed_fits_refuse(flat_scene, tmp_path):
     w, h = flat_scene.meta.width, flat_scene.meta.height
     o, d = make_primary_rays(flat_scene.eye, flat_scene.ortho, w, h)
     grads = []
-    for fn in (make_render_fn(cfg, mesh=make_mesh(), geom_axis="geom"),
+    for fn in (make_render_fn(cfg, mesh=make_mesh(device="cpu"),
+                              geom_axis="geom"),
                make_render_fn(cfg)):
         v0 = flat_scene.tri_v0.clone().requires_grad_(True)
         fn(o, d, torch.arange(w * h), apply_params(

@@ -115,7 +115,7 @@ def test_degenerate_mesh_renders_alone():
     from pathtracerpython_tpu_torch.scene.arrays import pack_scene
 
     scene = pack_scene(cornell_box_scene(6, 6), pad_to=32, device="cpu")
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     assert mesh.shape == {"dp": 1, "geom": 1} and mesh.size == 1
     cfg = RenderConfig(n_samples=2, n_bounces=2)
     with torch.no_grad():
@@ -123,7 +123,33 @@ def test_degenerate_mesh_renders_alone():
         b = render(scene, cfg, seed=4)
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="world has 1"):
-        make_mesh(dp=2)
+        make_mesh(dp=2, device="cpu")
+
+
+def test_without_a_card_nothing_picks_the_cpu_unasked():
+    """No card: a rank's default device, ``multihost.device()``,
+    ``make_mesh()`` and the dry run of one rank raise, naming the way to
+    the CPU; asked for, the CPU is there (``initialize(platform="cpu")``
+    in a world of one too)."""
+    from pathtracerpython_tpu_torch.entry import dryrun_multichip
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is the card")
+    for fn in (lambda: multihost.default_device(0, 1), multihost.device,
+               make_mesh, lambda: make_mesh(dp=1, geom=1),
+               lambda: dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="platform='cpu'"):
+            fn()
+    cpu = torch.device("cpu")
+    assert multihost.default_device(0, 1, "cpu") == cpu
+    assert make_mesh(device="cpu").device == cpu
+    assert not multihost.initialize(world_size=1, platform="cpu")
+    try:
+        assert multihost.device() == cpu and make_mesh().device == cpu
+    finally:
+        multihost.shutdown()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.device()
 
 
 @pytest.fixture

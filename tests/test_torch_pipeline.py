@@ -74,7 +74,8 @@ def test_pipelined_rejects_uneven_stage_split(ranks, scene):
     assert "stages" in str(ranks[2][0]["raised:uneven"])
     # and on the degenerate mesh, where the pp axis is missing
     with pytest.raises(ValueError, match="no axis"):
-        render_pipelined(scene, RenderConfig(n_bounces=2), make_mesh())
+        render_pipelined(scene, RenderConfig(n_bounces=2),
+                         make_mesh(device="cpu"))
 
 
 def test_pp_mesh_makes_only_the_groups_callers_use(ranks):
@@ -89,7 +90,7 @@ def test_pp_mesh_makes_only_the_groups_callers_use(ranks):
 def test_pipelined_refuses_the_soft_estimator(scene):
     cfg = RenderConfig(n_bounces=2, soft_vis_beta=0.05)
     with pytest.raises(ValueError, match="soft"):
-        render_pipelined(scene, cfg, make_mesh(), pp_axis="dp")
+        render_pipelined(scene, cfg, make_mesh(device="cpu"), pp_axis="dp")
 
 
 def test_pipelined_matches_jax(ranks):

@@ -200,7 +200,8 @@ def test_unsupported_options_raise(case):
                               device="cpu")
     cfg = RenderConfig(n_samples=1, n_bounces=1, **UNSUPPORTED[case])
     with torch.no_grad():
-        got = render_sharded(scene, cfg, make_mesh(), geom_axis="geom")
+        got = render_sharded(scene, cfg, make_mesh(device="cpu"),
+                             geom_axis="geom")
         want = render(scene, cfg)
     assert want.max() > 0
     assert torch.equal(got, want)

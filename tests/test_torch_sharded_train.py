@@ -108,9 +108,9 @@ def test_triangle_grads_under_a_ring_refuse(ranks, world):
 
 
 def test_ring_refuses_before_any_silent_zero():
-    """In one process too: a ring of one rank (``make_mesh()``) with
-    triangle tensors that require grad gives the unsharded step's params
-    and gradient."""
+    """In one process too: a ring of one rank (``make_mesh(device=
+    "cpu")``) with triangle tensors that require grad gives the unsharded
+    step's params and gradient."""
     from pathtracerpython_tpu_torch.parallel import make_mesh
 
     scene = train_scene()
@@ -118,7 +118,7 @@ def test_ring_refuses_before_any_silent_zero():
     with torch.no_grad():
         target = render(scene, cfg, seed=1)
     got = {}
-    for mesh, axis in ((make_mesh(), "geom"), (None, None)):
+    for mesh, axis in ((make_mesh(device="cpu"), "geom"), (None, None)):
         params = {k: v.clone().requires_grad_(True)
                   for k, v in train_start(scene, ("tri_v0",)).items()}
         step = make_train_step(torch.optim.SGD(list(params.values()),
