@@ -73,6 +73,14 @@ phase fails:
      cache, the cache it returned and the cache the render carries, its
      bits K6's on all lanes, each pass (the vote-ordered guess lists, then
      the lanes left open) held to its culled model and timed alone;
+   - the two-pass protocol of the uncached sweeps on the same wavefronts:
+     K5 in blocks of 1024 and 512 and K6 over the first PASS1_K slots of
+     each block's list, the finality kernel (csrc/two_pass.cu) against its
+     plain twin bit for bit (flags and bound), the survivors compacted and
+     swept again over their own lists; both branches (the one M_DIV takes
+     and the other forced by m_div) equal to the one-pass kernel bit for
+     bit, with the survivor share, pass 1, select, compaction and pass 2
+     timed alone and the two-pass wrapper in turns with the one-pass one;
    - K3, the Plücker form of the four sweeps that follow the ``mt_impl``
      knob: dense nearest and dense any-hit on the Cornell and box-field
      wavefronts, cluster-sparse nearest and
@@ -100,7 +108,10 @@ phase fails:
      complete, so no dense fallback exists); the same render with
      accel="sparse" (K5, K6), with nee_cache="on" added (K5, K7 twice per
      bounce) and with accel="walker" (K8, K9), each within 1e-6 of the
-     hybrid's radiance, with its launch counts;
+     hybrid's radiance, with its launch counts; the sparse and hybrid
+     renders again with both two-pass auto flags on, each equal to its
+     default render bit for bit and timed in turns with it, with the
+     launches of K5, K6 and the finality kernel;
    - the 300-box field at 128x128 with accel="hybrid" against
      accel="none" on the card, a 400-box field's hybrid render on the
      card against the CPU (also sparse with the cache, and walker), and
@@ -279,6 +290,7 @@ primary rays, K5, K8 and K3's sparse nearest the 100k field's); "none
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1671,6 +1683,209 @@ def check_k3_sparse(label, scene, o3, d3u, shadow, stride, rows, k5, occ6):
         f"{classic_ms:.3f} ms)")
 
 
+# The two-pass protocol of the uncached sweeps (kernels/sparse.py:
+# two_pass_nearest, two_pass_any_hit) on the 100k field's wavefronts: K5 in
+# blocks of 1024 (the hybrid's) and 512 (accel="sparse"), K6, and the
+# finality test csrc/two_pass.cu.
+TWO_PASS_KEYS = ("K5 two-pass", "K5@512 two-pass", "K6 two-pass",
+                 "two-pass select")
+TWO_PASS_ROW_KEYS = ("pass1_ms", "select_ms", "compact_ms", "pass2_ms",
+                     "one_pass_ms", "survivors", "survivor_share", "branch",
+                     "wrapper_ms", "lanes", "lane_m")
+TWO_PASS_NEVER_FITS = 10**6  # m_div whose pass 2 is one block: the big branch
+# Operations of one slab test (cluster.cuh: slab_hit): per axis two
+# subtractions, two products, a min and a max; two mins and two maxes across
+# the axes, the clamp, and the comparison with its slack
+SLAB_OPS = 22
+
+
+def two_pass_turns(one, two, reps: int = 5) -> tuple[float, float]:
+    """The one-pass and the two-pass wrapper timed in turns on one card
+    (one, two, two, one; ``reps`` calls a turn after one warm-up call
+    each): each one's mean ms over its two turns."""
+    one()
+    two()
+    times = {one: [], two: []}
+    for fn in (one, two, two, one):
+        times[fn].append(cuda_ms(fn, reps))
+    return statistics.mean(times[one]), statistics.mean(times[two])
+
+
+def check_two_pass(kind, name, label, scene, rays, r_blk, want, one_row,
+                   rows, plain: bool) -> None:
+    """The two-pass protocol of ``kind`` ("nearest": K5; "any-hit": K6) on
+    one wavefront ``rays`` ((o3, d3u) or (o3, d3u, maxd)) in blocks of
+    ``r_blk``, against ``want``, the one-pass kernel's result: the
+    protocol's steps run and timed alone as the wrapper runs them (pass 1
+    over the first PASS1_K slots, the finality test, the compaction, pass
+    2 over the survivors' own lists), the finality kernel's flags and bound
+    equal to its plain twin's bit for bit, and the wrapper in both branches
+    (the one M_DIV takes, the other forced by ``m_div``) equal to ``want``
+    bit for bit; the wrapper timed in turns with the one-pass wrapper.
+    ``one_row``: the one-pass kernel's report row of the same wavefront,
+    whose bound the protocol shares (the same function on the same
+    inputs). ``plain``: also time the protocol with every step plain (the
+    walks at full width take seconds). Appends to ``rows[name]`` and to
+    ``rows["two-pass select"]``."""
+    from pathtracerpython_tpu_torch.kernels import intersect, sparse
+
+    nearest = kind == "nearest"
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    o3, d3u = rays[0], rays[1]
+    maxd = None if nearest else rays[2]
+    n = o3.shape[1]
+    if nearest:
+        lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+            (-(-n // r_blk),), intersect.BIG, device=o3.device), r_blk)
+        launch = lambda r, li, words=None: sparse._launch(
+            *r, tripack, aabb8, li, r_blk, words=words)
+        plain_sweep = lambda r, li: sparse.sparse_nearest_plain(
+            *r, tripack, aabb8, li, r_blk)
+        wrapper = lambda k, m_div=sparse.M_DIV: sparse.sparse_nearest_t_idx_cm(
+            o3, d3u, scene, r_blk=r_blk, two_pass=k, m_div=m_div)
+        make_lists = lambda r: sparse.block_lists(aabb8, r[0], r[1], torch.full(
+            (r[0].shape[1] // r_blk,), intersect.BIG, device=o3.device),
+            r_blk)
+    else:
+        lists = sparse.window_lists(aabb8, o3, d3u, maxd, r_blk)
+        cull = sparse.scene_cluster_cull_boxes(scene)
+        launch = lambda r, li, words=None: sparse._launch_any_hit(
+            *r, tripack, aabb8, li, r_blk, cull)
+        plain_sweep = lambda r, li: sparse.sparse_any_hit_plain(
+            *r, tripack, aabb8, li, r_blk)
+        wrapper = lambda k, m_div=sparse.M_DIV: sparse.sparse_any_hit_cm(
+            o3, d3u, maxd, scene, two_pass=k, m_div=m_div)
+        make_lists = lambda r: sparse.window_lists(aabb8, *r, r_blk)
+    k = sparse.PASS1_K
+    head, drops = sparse.truncate_lists(lists, k)
+    m = sparse.pass2_size(n, r_blk, sparse.M_DIV)
+
+    def pass1():
+        words = sparse.walk_words(n, o3.device) if nearest else None
+        return launch(rays, head, words), words
+
+    def select(first, words, want_ne=False):
+        if nearest:
+            return sparse.nearest_select(o3, d3u, aabb8, drops, r_blk,
+                                         *first, words, want_ne)
+        return sparse.any_hit_select(o3, d3u, maxd, first, aabb8, drops,
+                                     r_blk, want_ne)
+
+    def select_kernel(first, words):
+        # the launch alone, the scene's box made beforehand
+        state = [words] if nearest else [first, maxd]
+        entry = ("ptt_two_pass_nearest_select" if nearest
+                 else "ptt_two_pass_any_hit_select")
+        return sparse.launch_select(entry, state, o3, d3u, aabb8, box,
+                                    drops, r_blk)
+
+    def plain_select(first):
+        if nearest:
+            reach = torch.where(first[1] >= 0, first[0], intersect.BIG)
+            return sparse.two_pass_flags_plain(o3, d3u, aabb8, drops, r_blk,
+                                               reach)
+        return sparse.two_pass_flags_plain(o3, d3u, aabb8, drops, r_blk,
+                                           maxd, sparse.any_hit_open(
+                                               first, maxd))
+
+    box = sparse.scene_box(aabb8)
+    first, words = pass1()
+    flags, ne = select(first, words, want_ne=True)
+    if not torch.equal(select_kernel(first, words)[0], flags):
+        fail(f"two-pass select {name} {label}: the launch alone gives other "
+             f"flags than the wrapper")
+    (want_flags, want_ne), select_plain_ms = once_ms(
+        lambda: plain_select(first))
+    if not (torch.equal(flags, want_flags) and torch.equal(ne, want_ne)):
+        fail(f"two-pass select {name} {label}: flags differ from its plain "
+             f"twin on {int((flags != want_flags).sum())} lanes, the bound "
+             f"on {int((ne != want_ne).sum())}")
+    cnt = int(flags.sum())
+    natural = "compacted" if cnt <= m else "whole"
+    # the compacted pass 2 of the survivors, at the cap that holds them
+    m2 = m if cnt <= m else sparse.pass2_size(n, r_blk, 1)
+
+    def compact():
+        sel, _ = sparse.two_pass_select(flags, m2)
+        rays2 = sparse.parked_rays(o3, d3u, maxd, sel, m2)
+        rays2 = rays2[:2] if nearest else rays2
+        return sel, rays2, make_lists(rays2)
+
+    sel, rays2, lists2 = compact()
+    pass1_ms = cuda_ms(pass1, 10)
+    select_ms = cuda_ms(lambda: select(first, words), 10)
+    kernel_ms = cuda_ms(lambda: select_kernel(first, words), 10)
+    compact_ms = cuda_ms(compact, 10)
+    pass2_ms = cuda_ms(lambda: launch(rays2, lists2), 10)
+    one_ms, two_ms = two_pass_turns(lambda: wrapper(0), lambda: wrapper(k))
+    # both branches through the wrapper, bit for bit
+    forced = TWO_PASS_NEVER_FITS if natural == "compacted" else 1
+    for m_div in (sparse.M_DIV, forced):
+        got = wrapper(k, m_div)
+        got = got if nearest else (got,)
+        wants = want if nearest else (want,)
+        diff = max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, wants))
+        if not all(torch.equal(g, w) for g, w in zip(got, wants)):
+            fail(f"{name} {label}, m_div {m_div}: not equal to the one-pass "
+                 f"sweep (max abs diff {diff})")
+    if forced == TWO_PASS_NEVER_FITS and cnt <= sparse.pass2_size(
+            n, r_blk, forced):
+        fail(f"{name} {label}: m_div {forced} did not force the whole "
+             f"wavefront ({cnt} survivors)")
+    p_ms = None
+    if plain:
+        def plain_two_pass():
+            p1 = plain_sweep(rays, head)
+            fl, _ = plain_select(p1)
+            s, c = sparse.two_pass_select(fl, m)
+            if c > m:
+                return plain_sweep(rays, lists)
+            r2 = sparse.parked_rays(o3, d3u, maxd, s, m)
+            r2 = r2[:2] if nearest else r2
+            p2 = plain_sweep(r2, make_lists(r2))
+            if nearest:
+                return tuple(a.index_copy(0, s, b[:c]) for a, b in zip(p1, p2))
+            return p1.index_copy(0, s, p2[:c])
+
+        _, p_ms = once_ms(plain_two_pass)
+    # the finality kernel's bound: the bytes it must move (the rays, pass
+    # 1's state, the drops and the boxes they name once, the flags) or its
+    # slab tests, whichever takes longer
+    state = (words,) if nearest else (first, maxd)
+    named = int(drops.ids[drops.keys < intersect.BIG].unique().numel())
+    nbytes = (tensor_bytes(o3, d3u, *state, *drops, flags)
+              + named * BOX_FLOATS * 4)
+    b_sel = bound(nbytes, n * (drops.ids.shape[1] + 1), SLAB_OPS)
+    share = cnt / n
+    log(f"[2] {name} {label}: {n} lanes in blocks of {r_blk}, pass 1 over "
+        f"{k} of at most {int(lists.ncand.max())} slots a block; "
+        f"{cnt} unfinished ({share:.4f}), pass 2 cap {m} (M_DIV "
+        f"{sparse.M_DIV}): the {natural} branch; both branches equal to the "
+        f"one-pass sweep bit for bit (m_div {sparse.M_DIV} and {forced}); "
+        f"flags and bound equal to the plain twin's")
+    log(f"[2] {name} {label} times: pass 1 {pass1_ms:.3f} ms, select "
+        f"{select_ms:.4f} ms (the kernel alone {kernel_ms:.4f}, plain "
+        f"{select_plain_ms:.3f}, bound {b_sel[0]:.4f} by {b_sel[1]}), "
+        f"compaction {compact_ms:.3f} ms, "
+        f"pass 2 {pass2_ms:.3f} ms over {m2} lanes; in turns: two-pass "
+        f"{two_ms:.3f} ms, one-pass {one_ms:.3f} ms (wrappers, lists "
+        f"included)" + ("" if p_ms is None else
+                        f"; plain two-pass {p_ms:.3f} ms"))
+    steps = dict(pass1_ms=pass1_ms, select_ms=select_ms,
+                 compact_ms=compact_ms, pass2_ms=pass2_ms, one_pass_ms=one_ms,
+                 survivors=cnt, survivor_share=share, pass2_cap=m,
+                 pass2_lanes=m2, branch=natural, forced_m_div=forced)
+    rows[name].append(report_row(
+        label, 0.0, two_ms, p_ms, (one_row["bound_ms"], one_row["bound_by"]),
+        **steps))
+    rows["two-pass select"].append(report_row(
+        f"{name} {label}", 0.0, kernel_ms, select_plain_ms, b_sel,
+        wrapper_ms=select_ms, lanes=n, lane_m=drops.ids.shape[1],
+        survivors=cnt, survivor_share=share))
+
+
 def check_probes(rows) -> None:
     """Every variant of P1 and P2 at the probes' default sizes against its
     plain version, with times and bounds; fails if a variant reads under
@@ -1817,6 +2032,7 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
 
     rows = {k: [] for k in ("K1", "K2", "K4", "K5", "K5@512", "K6", "K7",
                             "K8", "K9", *K3_KEYS, *P1_KEYS, *P2_KEYS,
+                            *TWO_PASS_KEYS,
                             "K1 morton", "K3 nearest morton", "K2 morton",
                             "K4 morton", "K1 large100k")}
     for name, scene in scenes:
@@ -1900,6 +2116,14 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
         check_k7(label, large, shadow, cache if b > 1 else None, occ6,
                  stride, rows["K7"])
         check_k3_sparse(label, large, o3, d3u, shadow, stride, rows, k5, occ6)
+        for name, r_blk, want in (("K5 two-pass", r1024, (t5, i5)),
+                                  ("K5@512 two-pass", sparse.R_BLK, k5)):
+            check_two_pass("nearest", name, label, large, (o3, d3u), r_blk,
+                           want, rows[name.replace(" two-pass", "")][-1],
+                           rows, plain=b == 1)
+        check_two_pass("any-hit", "K6 two-pass", label, large, sh,
+                       sparse.R_BLK, occ6, rows["K6"][-1], rows,
+                       plain=b == 1)
         log(f"[2] {label}, one wavefront's nearest sweep: dense K1 (culled) "
             f"{rows['K1 large100k'][-1]['kernel_all_ms']:.3f} ms, K5@1024 "
             f"{rows['K5'][-1]['kernel_all_ms']:.3f} ms, K5@512 "
@@ -1918,6 +2142,7 @@ def reset_launches() -> None:
     intersect.LAUNCHES = intersect.ANY_HIT_LAUNCHES = 0
     nee.LAUNCHES = sparse.LAUNCHES = walker.LAUNCHES = 0
     sparse.ANY_HIT_LAUNCHES = sparse.ANY_HIT_IDX_LAUNCHES = 0
+    sparse.SELECT_LAUNCHES = 0
     walker.NEAREST_LAUNCHES = 0
     intersect.PLUCKER_LAUNCHES = intersect.PLUCKER_ANY_HIT_LAUNCHES = 0
     sparse.PLUCKER_LAUNCHES = sparse.PLUCKER_ANY_HIT_LAUNCHES = 0
@@ -1933,7 +2158,81 @@ def read_launches() -> dict:
             "K3 nearest": intersect.PLUCKER_LAUNCHES,
             "K3 any-hit": intersect.PLUCKER_ANY_HIT_LAUNCHES,
             "K3 sparse nearest": sparse.PLUCKER_LAUNCHES,
-            "K3 sparse any-hit": sparse.PLUCKER_ANY_HIT_LAUNCHES}
+            "K3 sparse any-hit": sparse.PLUCKER_ANY_HIT_LAUNCHES,
+            "two-pass select": sparse.SELECT_LAUNCHES}
+
+
+@contextlib.contextmanager
+def two_pass_auto():
+    """Both two-pass auto flags on, as scripts/bench_large.py turns them on
+    in the JAX package (TWO_PASS_MIN stays: the 100k field's wavefronts
+    are past it); restored after."""
+    from pathtracerpython_tpu_torch.kernels import sparse
+
+    before = sparse.TWO_PASS_NEAREST_AUTO, sparse.TWO_PASS_ANY_AUTO
+    sparse.TWO_PASS_NEAREST_AUTO = sparse.TWO_PASS_ANY_AUTO = True
+    try:
+        yield
+    finally:
+        sparse.TWO_PASS_NEAREST_AUTO, sparse.TWO_PASS_ANY_AUTO = before
+
+
+def two_pass_renders(large, large_cfg, variant_rad) -> dict:
+    """The 100k field's sparse and hybrid renders with both auto flags on:
+    the radiance of the default render of each bit for bit; each sweep with
+    a two-pass form launches once or twice a bounce (pass 1, and pass 2
+    unless nothing survives), the finality kernel once a bounce and sweep;
+    then each against its default render in turns. Returns the launches of
+    each."""
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    counts = {}
+    for what, kw, sweeps, other in (
+            ("accel='sparse'", dict(accel="sparse"), ("K5", "K6"), {}),
+            ("accel='auto'", {}, ("K5",), {"K9": LARGE_BOUNCES})):
+        label = f"100k box field, {what}, two-pass auto flags on"
+        cfg = dataclasses.replace(large_cfg, **kw)
+        with two_pass_auto():
+            reset_launches()
+            rad = render(large, cfg, seed=0)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        log(f"[3] {label}: launches {launches}")
+        check_radiance(label, rad, CORNELL_SIZE * CORNELL_SIZE)
+        diff = (rad - variant_rad[what]).abs().max().item()
+        log(f"[3] {label} against the default render: max abs diff {diff:.3g}"
+            f" ({'equal' if torch.equal(rad, variant_rad[what]) else 'not equal'})")
+        if not torch.equal(rad, variant_rad[what]):
+            fail(f"{label}: radiance differs from the default render (max "
+                 f"abs diff {diff})")
+        for key, n in launches.items():
+            if key in sweeps:
+                ok = LARGE_BOUNCES <= n <= 2 * LARGE_BOUNCES
+            elif key == "two-pass select":
+                ok = n == len(sweeps) * LARGE_BOUNCES
+            else:
+                ok = n == other.get(key, 0)
+            if not ok:
+                fail(f"{label}: {n} launches of {key}")
+        counts[what] = launches
+        seeds = iter(range(1000))
+        one = lambda: render(large, cfg, seed=next(seeds))
+
+        def two():
+            with two_pass_auto():
+                return render(large, cfg, seed=next(seeds))
+
+        times = {one: [], two: []}
+        for fn in (one, two):
+            timed_runs(fn, warmup=2, reps=0)
+        for fn in (one, two, two, one):
+            times[fn] += timed_runs(fn, warmup=0, reps=5)
+        log(f"[3] {label}, in turns with the default render: two-pass "
+            f"{statistics.median(times[two]):.3f} ms/render (min "
+            f"{min(times[two]):.3f}, max {max(times[two]):.3f}), one-pass "
+            f"{statistics.median(times[one]):.3f} (min {min(times[one]):.3f},"
+            f" max {max(times[one]):.3f}); medians of 10")
+    return counts
 
 
 def check_radiance(label, rad, pixels) -> None:
@@ -2023,7 +2322,7 @@ def phase3_render(cornell, large, many) -> dict:
     )
 
     none = dict.fromkeys(("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K9",
-                          *K3_KEYS), 0)
+                          *K3_KEYS, "two-pass select"), 0)
     cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
                        n_bounces=CORNELL_BOUNCES,
                        n_light_samples=NEE_SAMPLES, batch_samples=True)
@@ -2109,6 +2408,8 @@ def phase3_render(cornell, large, many) -> dict:
         hold_population(f"100k box field, {what}, Plücker against classic",
                         rad_v, variant_rad[what])
 
+    two_pass = two_pass_renders(large, large_cfg, variant_rad)
+
     size = HYBRID_CHECK_SIZE
     field = pack_scene(box_field_scene(n_boxes=FIELD_BOXES, width=size,
                                        height=size))
@@ -2188,7 +2489,11 @@ def phase3_render(cornell, large, many) -> dict:
             "K6": variant_counts["accel='sparse'"]["K6"],
             "K7": variant_counts["accel='sparse', nee_cache='on'"]["K7"],
             "K8": variant_counts["accel='walker'"]["K8"],
-            "K9": large_counts["K9"]}
+            "K9": large_counts["K9"],
+            "K5 two-pass": two_pass["accel='auto'"]["K5"],
+            "K5@512 two-pass": two_pass["accel='sparse'"]["K5"],
+            "K6 two-pass": two_pass["accel='sparse'"]["K6"],
+            "two-pass select": two_pass["accel='sparse'"]["two-pass select"]}
 
 
 # The gradient phase: the fit_albedo slice and the backwards. Card against
@@ -4571,7 +4876,8 @@ def main() -> None:
     log("[2] sweep x hierarchy " + json.dumps(
         {k: [{f: r[f] for f in r if f not in ("err",)} for r in rows[k]]
          for k in ("K5", "K5@512", "K8", "K6", "K7", "K9",
-                   "K3 sparse nearest", "K3 sparse any-hit")}))
+                   "K3 sparse nearest", "K3 sparse any-hit",
+                   *TWO_PASS_KEYS)}))
     log("[2] K3 beside its classic twins " + json.dumps(
         {k: [{f: r[f] for f in ("label", "ms", "classic_ms", "classic_agree")}
              for r in rows[k]] for k in ("K3 nearest", "K3 any-hit")}))
@@ -4593,7 +4899,12 @@ def main() -> None:
                  "K8": (NEAREST_BACKWARD, hier["K8"]),
                  "K3 sparse nearest": (NEAREST_BACKWARD,
                                        hier["K3 sparse nearest"]),
-                 "K2": (NEE_BACKWARD, bits["nee_backward_ms"])}
+                 "K2": (NEE_BACKWARD, bits["nee_backward_ms"]),
+                 "K5 two-pass": (NEAREST_BACKWARD, hier["K5"]),
+                 "K5@512 two-pass": (NEAREST_BACKWARD, hier["K5"]),
+                 "K6 two-pass": (NO_BACKWARD, None),
+                 "two-pass select": ("none (its flags choose lanes; no "
+                                     "gradient flows through them)", None)}
     # each kernel at its main path's first wavefront: K1, K2 the Cornell
     # primary rays, K4 the first shadow rays of the 300-box field's render
     # with 9 NEE samples (the render its launches are counted on), K3's
@@ -4647,6 +4958,18 @@ def main() -> None:
            "scripts/mxu_probe.py:136") for key in P1_KEYS),
         *((key, f"{key} probes.bf16_probe", "probe_bf16.cu",
            "scripts/bf16_probe.py:82") for key in P2_KEYS),
+        ("K5 two-pass", "K5 sparse_nearest_t_idx_cm two_pass=4 "
+         "r_blk=1024 (pass 1, select, pass 2)", "sparse_nearest.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1713"),
+        ("K5@512 two-pass", "K5 sparse_nearest_t_idx_cm two_pass=4 "
+         "r_blk=512 (pass 1, select, pass 2)", "sparse_nearest.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1713"),
+        ("K6 two-pass", "K6 sparse_any_hit_cm two_pass=4 (pass 1, select, "
+         "pass 2)", "sparse_any_hit.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:1820"),
+        ("two-pass select", "two-pass select nearest_select / "
+         "any_hit_select", "two_pass.cu",
+         "pathtracerpython_tpu/kernels/sparse_pallas.py:430"),
     ):
         main_label = {"K4": f"{MANY_NEE_LABEL} bounce 1",
                       "K3 any-hit": "boxfield bounce 1"}.get(
@@ -4671,6 +4994,11 @@ def main() -> None:
             **({"parallel_launches_per_rank": par_launches[key]}
                if key in par_launches else {}),
             **{k: first[k] for k in PROBE_KEYS if k in first},
+            **({k: first[k] for k in TWO_PASS_ROW_KEYS if k in first}
+               if key in TWO_PASS_KEYS else {}),
+            **({"tpu_kernel": "none: _lane_unseen_bound and the finality "
+                              "tests are XLA in the JAX package"}
+               if key == "two-pass select" else {}),
         })
     for k in kernels:
         if k["launches"] < 1:

@@ -188,15 +188,10 @@ def _walk_kernels(port, scene, o3, d3, shadow):
                       device=so.device)
     cache = sparse.sparse_any_hit_cached_cm(*shadow_args, scene, cold,
                                             relevant=rel)[1]
-    if hasattr(sparse, "cached_passes"):
-        k7 = lambda rays, lists: sparse._launch_any_hit_idx(
-            *rays, tripack, aabb8, lists, sparse.R_BLK, cull)
-        passes = sparse.cached_passes(*shadow_args, tripack, aabb8, cull,
-                                      cache, rel)[:2]
-        passes = [(p.rays, p.lists) for p in passes]
-    else:
-        k7, passes = _k7_before_boxes(port, sparse, shadow_args, tripack,
-                                      aabb8, cache, rel)
+    k7 = lambda rays, lists: sparse._launch_any_hit_idx(
+        *rays, tripack, aabb8, lists, sparse.R_BLK, cull)
+    passes = [(p.rays, p.lists) for p in sparse.cached_passes(
+        *shadow_args, tripack, aabb8, cull, cache, rel)[:2]]
     return {
         "K5@1024": lambda: sparse._launch(o3, d3, tripack, aabb8, l1024,
                                           1024),
@@ -217,46 +212,12 @@ def _walk_kernels(port, scene, o3, d3, shadow):
     }
 
 
-def _k7_before_boxes(port, sparse, rays, tripack, aabb8, cache, rel):
-    """K7's launch and its two passes' (rays, lists) in a checkout from
-    before K7 took the cluster boxes and ``sparse.cached_passes`` (the
-    parent ``9da5438``), the passes formed as its
-    ``sparse_any_hit_cached_cm`` forms them. Goes once no parent of
-    interest lacks them."""
-    import torch
-
-    def k7(rays, lists):
-        return sparse._launch_any_hit_idx(*rays, tripack, aabb8, lists,
-                                          sparse.R_BLK)
-
-    o3, d3, maxd = rays
-    guess = sparse.guess_lists(torch.where(rel, cache, -1), aabb8.shape[0],
-                               sparse.R_BLK)
-    sel = torch.nonzero(~k7(rays, guess)[0] & rel).flatten()
-    m = sparse.pass2_size(o3.shape[1])
-    pass2 = rays
-    if sel.shape[0] <= m:   # compacted: the open lanes, the tail parked
-        sort = port["ops.sort"]
-        pass2 = (o3.new_tensor(sort.PARK_ORIGIN)[:, None].repeat(1, m),
-                 d3.new_tensor(sort.PARK_DIR)[:, None].repeat(1, m),
-                 torch.ones(m, dtype=maxd.dtype, device=maxd.device))
-        pass2[0][:, :sel.shape[0]] = o3[:, sel]
-        pass2[1][:, :sel.shape[0]] = d3[:, sel]
-        pass2[2][:sel.shape[0]] = maxd[sel]
-    return k7, [(rays, guess),
-                (pass2, sparse.window_lists(aabb8, *pass2, sparse.R_BLK))]
-
-
 def _probe_kernels(port):
     """Every variant of P1 and P2 as ``fn()`` at the probes' default sizes
-    on their seeded inputs, P1's packs built beforehand (``make_packs``;
-    in a checkout from before it, such as the parent of the sign-first
-    probes that PERF.md's old-and-new probe times were read against, the
-    Plücker pack its ``probe`` takes)."""
+    on their seeded inputs, P1's packs built beforehand (``make_packs``)."""
     mma, bf16 = port["probes.mma_probe"], port["probes.bf16_probe"]
     o3, d3, tripack = mma.make_inputs(262144, 512, 0, "cuda")
-    packs = (mma.make_packs(tripack) if hasattr(mma, "make_packs")
-             else port["kernels.intersect"].plucker_pack(tripack))
+    packs = mma.make_packs(tripack)
     out = {f"P1 {v}": (lambda v=v: mma.probe(o3, d3, tripack, v, packs))
            for v in mma.VARIANTS}
     bo3, bd3, btri = bf16.make_inputs(1 << 20, 512, 0, "cuda")

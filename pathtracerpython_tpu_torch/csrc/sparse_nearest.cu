@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(ptt::kThreads)
 sparse_nearest_kernel(const float* __restrict__ o3,
                       const float* __restrict__ d3, int n,
                       const float* __restrict__ tripack,
-                      const float* __restrict__ aabb8, int n_clusters,
+                      const float* __restrict__ aabb8, int n_cols,
                       const int* __restrict__ ids,
                       const float* __restrict__ keys,
                       const int* __restrict__ ncand, int r_blk,
@@ -97,7 +97,7 @@ sparse_nearest_kernel(const float* __restrict__ o3,
       reads ? ptt::read_word(words, me.lane) : ptt::kNoHitWord;
   unsigned long long visits = 0;
 
-  const size_t row = static_cast<size_t>(me.block) * n_clusters;
+  const size_t row = static_cast<size_t>(me.block) * n_cols;
   // the unit's stop at its first slot, before anything is staged
   best = ptt::word_min(best, seen);
   if (!__syncthreads_or(me.live && keys[row + unit.first] <=
@@ -158,24 +158,24 @@ finish_kernel(const unsigned long long* __restrict__ words, int n,
 template <class Form>
 int launch_sparse_nearest(const float* o3, const float* d3, int n,
                           const float* pack, const float* aabb8,
-                          int n_clusters, const int* ids, const float* keys,
+                          int n_cols, const int* ids, const float* keys,
                           const int* ncand, int r_blk,
                           unsigned long long* words, float* t_out,
                           int* idx_out, unsigned long long* stats, int device,
                           void* stream) {
-  if (n <= 0 || n_clusters < 1 || r_blk < 1 || words == nullptr)
+  if (n <= 0 || n_cols < 1 || r_blk < 1 || words == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = ptt::walk_grid(n, r_blk, n_clusters);
+  const dim3 grid = ptt::walk_grid(n, r_blk, n_cols);
   if (stats == nullptr)
     sparse_nearest_kernel<Form, false><<<grid, ptt::kThreads, 0, st>>>(
-        o3, d3, n, pack, aabb8, n_clusters, ids, keys, ncand, r_blk, words,
+        o3, d3, n, pack, aabb8, n_cols, ids, keys, ncand, r_blk, words,
         stats);
   else
     sparse_nearest_kernel<Form, true><<<grid, ptt::kThreads, 0, st>>>(
-        o3, d3, n, pack, aabb8, n_clusters, ids, keys, ncand, r_blk, words,
+        o3, d3, n, pack, aabb8, n_cols, ids, keys, ncand, r_blk, words,
         stats);
   const cudaError_t walked = cudaGetLastError();
   if (walked != cudaSuccess) return static_cast<int>(walked);
@@ -187,9 +187,11 @@ int launch_sparse_nearest(const float* o3, const float* d3, int n,
 }  // namespace
 
 // o3, d3: float32 [3, n] (d3 unit length); tripack: float32 [C * 128, 12];
-// aabb8: float32 [C, 8]; ids: int32 [ceil(n / r_blk), C] and keys: float32
-// [ceil(n / r_blk), C], row b holding block b's clusters and their entry
-// bounds front to back; ncand: int32 [ceil(n / r_blk)]; words: uint64 [n]
+// aabb8: float32 [C, 8]; ids: int32 [ceil(n / r_blk), n_cols] and keys:
+// float32 [ceil(n / r_blk), n_cols], row b holding block b's clusters and
+// their entry bounds front to back (n_cols: C for the full lists, fewer for
+// the two-pass protocol's truncated ones, whose grid is then as short);
+// ncand: int32 [ceil(n / r_blk)]; words: uint64 [n]
 // scratch, every bit set on entry (null is refused); t_out: float32 [n];
 // idx_out: int32 [n]; stats: null, or three 64-bit counters
 // (cluster.cuh: WalkCounter) that the launch adds to. Launches the walk
@@ -197,14 +199,14 @@ int launch_sparse_nearest(const float* o3, const float* d3, int n,
 // ``device`` and returns cudaGetLastError() as an int (0 = launched).
 extern "C" int ptt_sparse_nearest(const float* o3, const float* d3, int n,
                                   const float* tripack, const float* aabb8,
-                                  int n_clusters, const int* ids,
+                                  int n_cols, const int* ids,
                                   const float* keys, const int* ncand,
                                   int r_blk, unsigned long long* words,
                                   float* t_out, int* idx_out,
                                   unsigned long long* stats, int device,
                                   void* stream) {
   return launch_sparse_nearest<ptt::ClassicForm>(
-      o3, d3, n, tripack, aabb8, n_clusters, ids, keys, ncand, r_blk, words,
+      o3, d3, n, tripack, aabb8, n_cols, ids, keys, ncand, r_blk, words,
       t_out, idx_out, stats, device, stream);
 }
 
@@ -213,10 +215,10 @@ extern "C" int ptt_sparse_nearest(const float* o3, const float* d3, int n,
 // clusters, their AABBs and the lists are the classic pack's.
 extern "C" int ptt_plucker_sparse_nearest(
     const float* o3, const float* d3, int n, const float* pack36,
-    const float* aabb8, int n_clusters, const int* ids, const float* keys,
+    const float* aabb8, int n_cols, const int* ids, const float* keys,
     const int* ncand, int r_blk, unsigned long long* words, float* t_out,
     int* idx_out, unsigned long long* stats, int device, void* stream) {
   return launch_sparse_nearest<ptt::PluckerForm>(
-      o3, d3, n, pack36, aabb8, n_clusters, ids, keys, ncand, r_blk, words,
+      o3, d3, n, pack36, aabb8, n_cols, ids, keys, ncand, r_blk, words,
       t_out, idx_out, stats, device, stream);
 }

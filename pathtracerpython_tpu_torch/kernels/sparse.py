@@ -52,16 +52,26 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
 pack's) and give the dense Plücker sweep's result bit for bit. K7 has no
 Plücker form and stays classic under the knob, as in the JAX package.
 
+**The two-pass protocol** of the uncached sweeps (``two_pass=`` /
+``m_div=`` of K5's and K6's entries, and of K3's sparse sweeps; off by
+default, as in the JAX package, unless TWO_PASS_NEAREST_AUTO /
+TWO_PASS_ANY_AUTO are set): pass 1 walks the first PASS1_K slots of each
+block's list (``truncate_lists``), the finality test (csrc/two_pass.cu,
+plain twin ``two_pass_flags_plain``) keeps the lanes that pass 1 cannot
+have finished, and pass 2 sweeps those again, compacted, over their own
+lists (``two_pass_nearest``, ``two_pass_any_hit``); the result is the
+one-pass result bit for bit. Both passes run in the form of the
+``mt_impl`` knob, where the JAX package's pass 1 is always classic.
+
 Left behind as TPU machinery: the packed [seg|active|rb|cl] work words,
 the SMEM budgets (``W_PER_RB``, ``CHUNK_RB``, ``W_SMEM_ENTRIES``), grouping,
-the grid cascade, the interpret-mode caps, and the truncated-list two-pass
-protocol of the uncached sweeps (``two_pass`` / ``PASS1_K``) with
-``REFINE_K``, both off by default there. The occluder cache's own two
-passes are ported (K7).
+the grid cascade, the interpret-mode caps, and ``REFINE_K`` (0, which does
+nothing, in the JAX package). The occluder cache's own two passes are
+ported (K7).
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/sparse_nearest.cu``,
-``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``; the first two
-hold both forms) or raises; on a
+``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``,
+``csrc/two_pass.cu``; the first two hold both forms) or raises; on a
 CPU tensor it runs its plain version, the same walk in PyTorch, vectorized
 over ray blocks slot by slot.
 
@@ -131,6 +141,19 @@ MID_ROWS = 8
 CLUSTER_BOXES = C_TRI // SPAN_ROWS + C_TRI // MID_ROWS + C_TRI // CULL_GROUP
 K_GUESS = 8        # voted cached clusters per ray block in K7's pass 1
 CACHE_M_DIV = 2    # K7's pass 2 is compacted when it fits n / CACHE_M_DIV
+# The two-pass protocol of the uncached sweeps (``two_pass=`` of K5's and
+# K6's entries), the JAX package's constants: pass-1 candidate clusters
+# per block (sparse_pallas.py:1588, PASS1_K); dropped clusters a lane gets
+# its own exact entry for (:403, LANE_M); pass 2 is compacted when it fits
+# n / M_DIV lanes (:1604, M_DIV); two_pass=None turns the protocol on only
+# from TWO_PASS_MIN lanes (:1605) and only where the sweep's auto flag is
+# set (:1589, :1591; off, as there). All are read at every call.
+PASS1_K = 4
+LANE_M = 8
+M_DIV = 2
+TWO_PASS_MIN = 32768
+TWO_PASS_NEAREST_AUTO = False
+TWO_PASS_ANY_AUTO = False
 
 # Launches of the CUDA kernels since the counts were last reset: K5, K6, K7,
 # and K3's cluster-sparse nearest and any-hit.
@@ -139,6 +162,9 @@ ANY_HIT_LAUNCHES = 0
 ANY_HIT_IDX_LAUNCHES = 0
 PLUCKER_LAUNCHES = 0
 PLUCKER_ANY_HIT_LAUNCHES = 0
+# Launches of the two-pass protocol's finality test (csrc/two_pass.cu),
+# both entries
+SELECT_LAUNCHES = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # o3, d3, n
@@ -173,6 +199,26 @@ _ANY_HIT_IDX_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,                   # occ_out, cl_out
     ctypes.c_void_p,                                    # stats (or null)
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
+]
+
+# the two-pass finality test's two entries (csrc/two_pass.cu): the pass-1
+# state (K5's words; K6's marks and maxd), then the drops
+_SELECT_TAIL = [
+    ctypes.c_void_p, ctypes.c_void_p,                   # aabb8, scene box
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # drop ids, keys, far
+    ctypes.c_int, ctypes.c_int,                         # lane_m, r_blk
+    ctypes.c_void_p, ctypes.c_void_p,                   # flags, ne (or null)
+    ctypes.c_int, ctypes.c_void_p,                      # device, stream
+]
+_NEAREST_SELECT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
+    ctypes.c_void_p,                                    # words
+    *_SELECT_TAIL,
+]
+_ANY_HIT_SELECT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
+    ctypes.c_void_p, ctypes.c_void_p,                   # occ, maxd
+    *_SELECT_TAIL,
 ]
 
 
@@ -797,20 +843,30 @@ def check_rays(o3, d3_unit, scene, what: str, maxd=None):
 
 
 def sparse_nearest_t_idx_cm(o3: torch.Tensor, d3_unit: torch.Tensor, scene,
-                            r_blk: int = R_BLK, mt_impl: str | None = None):
+                            r_blk: int = R_BLK, mt_impl: str | None = None,
+                            two_pass: int | None = None, m_div: int = M_DIV):
     """Closest forward hit of rays o3/d3_unit f32[3, N] (d3_unit of unit
     length) through the cluster hierarchy, in blocks of ``r_blk`` rays
     (the sparse hierarchy's R_BLK; the hybrid passes
     R_BLK_HYBRID_NEAREST); the result of the dense ``nearest_t_idx_cm`` in
     the same form ``mt_impl`` (None: ``intersect.MT_IMPL``), bit for bit:
     (t [N] — 0 on a miss, idx [N] int32 — -1 on a miss); its gradients
-    too (``intersect.nearest_entry``)."""
+    too (``intersect.nearest_entry``: one re-solve over the whole
+    wavefront, whatever the passes).
+
+    ``two_pass``: pass-1 candidate clusters per block of the two-pass
+    protocol (``two_pass_nearest``), 0 for one pass, None for
+    ``resolve_two_pass`` with TWO_PASS_NEAREST_AUTO; ``m_div``: pass 2 is
+    compacted when its lanes fit ``pass2_size(N, r_blk, m_div)``. The
+    result is the one-pass result bit for bit either way."""
     return nearest_entry(
-        lambda o, d, sc: _sparse_nearest_t_idx(o, d, sc, r_blk, mt_impl),
+        lambda o, d, sc: _sparse_nearest_t_idx(o, d, sc, r_blk, mt_impl,
+                                               two_pass, m_div),
         o3, d3_unit, scene)
 
 
-def _sparse_nearest_t_idx(o3, d3_unit, scene, r_blk, mt_impl):
+def _sparse_nearest_t_idx(o3, d3_unit, scene, r_blk, mt_impl, two_pass,
+                          m_div):
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse nearest-hit")
@@ -820,21 +876,30 @@ def _sparse_nearest_t_idx(o3, d3_unit, scene, r_blk, mt_impl):
     nrb = -(-n // r_blk)
     tmax = torch.full((nrb,), BIG, dtype=o3.dtype, device=device)
     lists = block_lists(aabb8, o3, d3_unit, tmax, r_blk)
-    if plucker:
-        # the clusters and their boxes are the classic pack's; only the
-        # rows a ray is tested against change
-        pack36 = scene_plucker_pack(scene, PACK_ROWS)
-        sweep = (sparse_nearest_plucker_plain if device.type == "cpu"
-                 else _launch_plucker)
-        return sweep(o3, d3_unit, pack36, aabb8, lists, r_blk)
+    # under "plucker" the clusters and their boxes are the classic pack's;
+    # only the rows a ray is tested against change
+    pack = scene_plucker_pack(scene, PACK_ROWS) if plucker else tripack
     if device.type == "cpu":
-        return sparse_nearest_plain(o3, d3_unit, tripack, aabb8, lists, r_blk)
-    return _launch(o3, d3_unit, tripack, aabb8, lists, r_blk)
+        plain = sparse_nearest_plucker_plain if plucker else \
+            sparse_nearest_plain
+        sweep = lambda o, d, li, words=None: plain(o, d, pack, aabb8, li,
+                                                    r_blk)
+    else:
+        launch = _launch_plucker if plucker else _launch
+        sweep = lambda o, d, li, words=None: launch(o, d, pack, aabb8, li,
+                                                     r_blk, words=words)
+    k = resolve_two_pass(two_pass, n, TWO_PASS_NEAREST_AUTO)
+    if k == 0:
+        return sweep(o3, d3_unit, lists)
+    return two_pass_nearest(sweep, o3, d3_unit, aabb8, lists, r_blk, k,
+                            m_div)
 
 
 def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
                       maxd: torch.Tensor, scene,
-                      mt_impl: str | None = None) -> torch.Tensor:
+                      mt_impl: str | None = None,
+                      two_pass: int | None = None,
+                      m_div: int = M_DIV) -> torch.Tensor:
     """K6: whether an occluder triangle blocks each shadow ray o3/d3_unit
     f32[3, N] (d3_unit of unit length) at t < maxd - 1e-4, through the
     cluster hierarchy in blocks of R_BLK rays; bool[N], the result of the
@@ -842,7 +907,9 @@ def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     ``intersect.MT_IMPL``). Lanes with maxd = 0 (parked) are never
     occluded. The cached any-hit K7 (``sparse_any_hit_cached_cm``) has no
     Plücker form and stays classic under the knob, as in the JAX
-    package."""
+    package. ``two_pass`` and ``m_div``: as in
+    ``sparse_nearest_t_idx_cm`` (``two_pass_any_hit``; None reads
+    TWO_PASS_ANY_AUTO); the bits are the one-pass bits either way."""
     o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     plucker = resolve_mt_impl(mt_impl) == "plucker"
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "sparse any-hit",
@@ -854,21 +921,294 @@ def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     if o3.device.type == "cpu":
         plain = (sparse_any_hit_plucker_plain if plucker
                  else sparse_any_hit_plain)
-        return plain(o3, d3_unit, maxd, pack, aabb8, lists, R_BLK)
-    # the clusters, their boxes and the lists are the classic pack's; only
-    # the rows a ray is tested against change with the form
-    launch = _launch_plucker_any_hit if plucker else _launch_any_hit
-    return launch(o3, d3_unit, maxd, pack, aabb8, lists, R_BLK,
-                  scene_cluster_cull_boxes(scene))
+        sweep = lambda o, d, md, li: plain(o, d, md, pack, aabb8, li, R_BLK)
+    else:
+        # the clusters, their boxes and the lists are the classic pack's;
+        # only the rows a ray is tested against change with the form
+        launch = _launch_plucker_any_hit if plucker else _launch_any_hit
+        cull = scene_cluster_cull_boxes(scene)
+        sweep = lambda o, d, md, li: launch(o, d, md, pack, aabb8, li, R_BLK,
+                                            cull)
+    k = resolve_two_pass(two_pass, n, TWO_PASS_ANY_AUTO)
+    if k == 0:
+        return sweep(o3, d3_unit, maxd, lists)
+    return two_pass_any_hit(sweep, o3, d3_unit, maxd, aabb8, lists, k,
+                            m_div)
 
 
 def pass2_size(n: int, r_blk: int = R_BLK, m_div: int = CACHE_M_DIV) -> int:
-    """Lanes of K7's compacted pass 2 for a wavefront of ``n``: n / m_div,
-    at least one block, in whole blocks (``_pass2_size`` on the wavefront
-    padded to whole blocks)."""
+    """Lanes of a compacted pass 2 (K7's, and the two-pass protocol's) for
+    a wavefront of ``n``: n / m_div, at least one block, in whole blocks
+    (``_pass2_size`` on the wavefront padded to whole blocks)."""
     n_pad = -(-n // r_blk) * r_blk
     m = max(r_blk, -(-n_pad // m_div))
     return -(-m // r_blk) * r_blk
+
+
+def parked_rays(o3, d3_unit, maxd, sel, m: int):
+    """The lanes ``sel`` (i64, at most ``m``) of a wavefront compacted to
+    ``m`` lanes, the tail parked at PARK_ORIGIN / PARK_DIR with window 1
+    (``_gather_parked``: a parked lane's block lists no cluster). Returns
+    (o3, d3_unit, maxd), the last None where ``maxd`` is."""
+    cnt = sel.shape[0]
+    o2 = o3.new_tensor(PARK_ORIGIN)[:, None].repeat(1, m)
+    d2 = o3.new_tensor(PARK_DIR)[:, None].repeat(1, m)
+    o2[:, :cnt] = o3[:, sel]
+    d2[:, :cnt] = d3_unit[:, sel]
+    if maxd is None:
+        return o2, d2, None
+    md2 = torch.ones(m, dtype=maxd.dtype, device=maxd.device)
+    md2[:cnt] = maxd[sel]
+    return o2, d2, md2
+
+
+# ---------------------------------------------------------------------------
+# The two-pass protocol of the uncached sweeps (the JAX package's
+# ``two_pass`` of ``sparse_nearest_t_idx_cm`` and ``sparse_any_hit_cm``,
+# sparse_pallas.py:1968-2014, :2103-2137). Pass 1 walks the first k slots
+# of each block's list (K5, K6 or K3's sparse sweeps, unchanged: they walk
+# ``ncand`` slots). The finality test (csrc/two_pass.cu, or
+# ``two_pass_flags_plain``) bounds from below, per lane, the entry of every
+# cluster pass 1 dropped; a lane whose pass-1 result that bound cannot
+# change is final. The rest are compacted into ``pass2_size`` lanes (the
+# tail parked) and swept again over the full lists of their new blocks;
+# where they do not fit, the whole wavefront is swept again in one pass.
+# The per-lane gate of the walks is conservative by SLAB_EPS, and so is the
+# finality test, so the result is the one-pass result bit for bit.
+#
+# Choosing the branch reads the unfinished lanes' count on the host
+# (``torch.nonzero``): one synchronization per call, which the JAX
+# package's ``lax.cond`` does not pay, as in K7's ``cached_passes``.
+
+
+class Drops(NamedTuple):
+    """What a truncated pass dropped, per ray block: its first LANE_M
+    dropped list slots (ids, and keys: the block's entry bound, BIG where a
+    slot names no candidate) and ``far``, the key of the slot after them
+    (BIG when the list ends there)."""
+
+    ids: torch.Tensor    # i32[nrb, m]
+    keys: torch.Tensor   # f32[nrb, m]
+    far: torch.Tensor    # f32[nrb]
+
+
+def resolve_two_pass(two_pass: int | None, n: int, default_on: bool) -> int:
+    """Pass-1 candidate clusters per block (0: one pass), as
+    ``_resolve_two_pass``: None is PASS1_K for wavefronts of TWO_PASS_MIN
+    lanes and more where ``default_on`` (the sweep's auto flag), else 0."""
+    if two_pass is None:
+        return PASS1_K if default_on and n >= TWO_PASS_MIN else 0
+    if int(two_pass) < 0:
+        raise ValueError(f"two_pass must be >= 0 or None, not {two_pass}")
+    return int(two_pass)
+
+
+def truncate_lists(lists: BlockLists, k: int) -> tuple[BlockLists, Drops]:
+    """The first ``k`` slots of every block's front-to-back list (the
+    lists ``candidate_worklist(..., trunc_k=k)`` keeps; a narrower list of
+    the same format, so the walks need nothing new), and what they drop:
+    the next LANE_M slots and the key after them."""
+    c = lists.ids.shape[1]
+    lo, hi = min(k, c), min(k + LANE_M, c)
+    head = BlockLists(lists.ids[:, :lo].contiguous(),
+                      lists.keys[:, :lo].contiguous(),
+                      lists.ncand.clamp_max(k))
+    far = (lists.keys[:, hi].contiguous() if hi < c else
+           torch.full_like(lists.ncand, BIG, dtype=lists.keys.dtype))
+    return head, Drops(lists.ids[:, lo:hi].contiguous(),
+                       lists.keys[:, lo:hi].contiguous(), far)
+
+
+def lane_slab_enter_exit(o3, d3, blo, bhi):
+    """Exact per-lane slab interval, ``_lane_slab_enter_exit``: ``o3`` /
+    ``d3`` [3, *ray-shape], ``blo`` / ``bhi`` [3, *box-shape], broadcast
+    against each other past the leading axis; the reciprocal's |d| clamped
+    to 1e-12. Returns (enter, exit), not clamped."""
+    inv = lane_inv(d3)
+    enter = exit_ = None
+    for k in range(3):
+        lo = (blo[k] - o3[k]) * inv[k]
+        hi = (bhi[k] - o3[k]) * inv[k]
+        tn, tf = torch.minimum(lo, hi), torch.maximum(lo, hi)
+        enter = tn if enter is None else torch.maximum(enter, tn)
+        exit_ = tf if exit_ is None else torch.minimum(exit_, tf)
+    return enter, exit_
+
+
+def lane_unseen_bound(o3, d3_unit, aabb8, drops: Drops,
+                      r_blk: int) -> torch.Tensor:
+    """Per lane, a lower bound f32[N] on the entry of every cluster its
+    block's truncated list dropped (``_lane_unseen_bound``): the lane's own
+    slab entry, clamped to >= 0, into each of the ``drops`` it hits (a miss
+    bounds nothing), and ``drops.far`` beyond them; BIG when nothing was
+    dropped."""
+    n = o3.shape[1]
+    nrb, m = drops.ids.shape
+    cut = lambda x: pad_repeat_last(x, r_blk).reshape(3, nrb, 1, r_blk)
+    boxes = aabb8[drops.ids.to(torch.int64)]              # [nrb, m, 8]
+    blo = boxes[..., 0:3].movedim(-1, 0)[..., None]       # [3, nrb, m, 1]
+    bhi = boxes[..., 3:6].movedim(-1, 0)[..., None]
+    enter, exit_ = lane_slab_enter_exit(cut(o3), cut(d3_unit), blo, bhi)
+    enter0 = torch.clamp_min(enter, 0.0)                  # [nrb, m, r_blk]
+    seen = (exit_ >= enter0 - SLAB_EPS) & (drops.keys < BIG)[:, :, None]
+    lane = torch.where(seen, enter0, BIG)
+    bound = lane.amin(dim=1) if m else torch.full(
+        (nrb, r_blk), BIG, dtype=o3.dtype, device=o3.device)
+    return torch.minimum(bound, drops.far[:, None]).reshape(-1)[:n]
+
+
+def scene_box(aabb8: torch.Tensor) -> torch.Tensor:
+    """The box of every non-empty cluster box, f32[8] (min.xyz | max.xyz |
+    0 | 0; inverted where every cluster is empty)."""
+    nonempty = (aabb8[:, 0] <= aabb8[:, 3])[:, None]
+    lo = torch.where(nonempty, aabb8[:, 0:3], BIG).amin(dim=0)
+    hi = torch.where(nonempty, aabb8[:, 3:6], -BIG).amax(dim=0)
+    return torch.cat([lo, hi, lo.new_zeros(2)])
+
+
+def two_pass_flags_plain(o3, d3_unit, aabb8, drops: Drops, r_blk: int,
+                         reach: torch.Tensor,
+                         open_: torch.Tensor | None = None):
+    """The finality test of csrc/two_pass.cu in PyTorch: a lane is
+    unfinished where it is ``open_`` (None: every lane), its ray meets
+    ``scene_box`` (a ray that misses it misses every cluster: a parked lane
+    or one leaving the scene is final) and ``lane_unseen_bound`` < ``reach``
+    + SLAB_EPS. ``reach``: the nearest sweep's pass-1 t (BIG on a miss),
+    or the any-hit's maxd with ``open_`` its unblocked lanes that can be
+    blocked at all. Returns (unfinished bool[N], the bound f32[N])."""
+    ne = lane_unseen_bound(o3, d3_unit, aabb8, drops, r_blk)
+    meets, _ = lane_slab(scene_box(aabb8), o3, lane_inv(d3_unit))
+    unfinished = meets & (ne < reach + SLAB_EPS)
+    if open_ is not None:
+        unfinished = unfinished & open_
+    return unfinished, ne
+
+
+def any_hit_open(occ: torch.Tensor, maxd: torch.Tensor) -> torch.Tensor:
+    """The any-hit lanes pass 1 left open: not blocked, and blockable at
+    all (the walks' gate: maxd - T_MIN > T_MIN; parked lanes have maxd
+    0)."""
+    return ~occ & (maxd - T_MIN > T_MIN)
+
+
+def nearest_select(o3, d3_unit, aabb8, drops: Drops, r_blk: int, t, idx,
+                   words: torch.Tensor | None = None, want_ne: bool = False):
+    """The finality test of the nearest sweep's pass 1 (t, idx). On a CUDA
+    tensor it launches csrc/two_pass.cu, which reads pass 1's merged
+    ``words`` (K5's scratch, required there), on a CPU tensor it runs
+    ``two_pass_flags_plain``. Returns (unfinished bool[N], the bound
+    f32[N] where ``want_ne``, else None)."""
+    if o3.device.type == "cpu":
+        flags, ne = two_pass_flags_plain(o3, d3_unit, aabb8, drops, r_blk,
+                                         torch.where(idx >= 0, t, BIG))
+        return flags, (ne if want_ne else None)
+    if words is None:
+        raise ValueError("nearest_select on the card reads pass 1's words")
+    return launch_select("ptt_two_pass_nearest_select", [words], o3,
+                         d3_unit, aabb8, scene_box(aabb8), drops, r_blk,
+                         want_ne)
+
+
+def any_hit_select(o3, d3_unit, maxd, occ, aabb8, drops: Drops, r_blk: int,
+                   want_ne: bool = False):
+    """The finality test of the any-hit's pass 1 ``occ``: csrc/two_pass.cu
+    on a CUDA tensor, ``two_pass_flags_plain`` on a CPU one. Returns
+    (unfinished bool[N], the bound f32[N] where ``want_ne``, else None)."""
+    if o3.device.type == "cpu":
+        flags, ne = two_pass_flags_plain(o3, d3_unit, aabb8, drops, r_blk,
+                                         maxd, any_hit_open(occ, maxd))
+        return flags, (ne if want_ne else None)
+    return launch_select("ptt_two_pass_any_hit_select", [occ, maxd], o3,
+                         d3_unit, aabb8, scene_box(aabb8), drops, r_blk,
+                         want_ne)
+
+
+def launch_select(entry: str, state: list, o3, d3_unit, aabb8, box,
+                  drops: Drops, r_blk: int, want_ne: bool = False):
+    """Launch ``entry``, one of csrc/two_pass.cu's two finality tests, on
+    pass 1's ``state`` ([words] of K5, or [occ, maxd] of K6) with the
+    scene's ``box``; returns (flags bool[N], the bound f32[N] or None)."""
+    global SELECT_LAUNCHES
+    n = o3.shape[1]
+    flags = torch.empty(n, dtype=torch.bool, device=o3.device)
+    ne = (torch.empty(n, dtype=torch.float32, device=o3.device) if want_ne
+          else None)
+    argtypes = (_NEAREST_SELECT_ARGTYPES if len(state) == 1
+                else _ANY_HIT_SELECT_ARGTYPES)
+    fn = build.function(entry, argtypes)
+    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    err = fn(o3.data_ptr(), d3_unit.data_ptr(), n,
+             *(x.data_ptr() for x in state), aabb8.data_ptr(),
+             box.data_ptr(), drops.ids.data_ptr(), drops.keys.data_ptr(),
+             drops.far.data_ptr(), drops.ids.shape[1], r_blk,
+             flags.data_ptr(), None if ne is None else ne.data_ptr(),
+             o3.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
+    SELECT_LAUNCHES += 1
+    return flags, ne
+
+
+def two_pass_select(unfinished: torch.Tensor, m: int):
+    """The stable compaction of ``_compact_select`` with the cap ``m``
+    (``pass2_size``): (sel i64[min(cnt, m)], the unfinished lanes in lane
+    order, and their count cnt); pass 2 is compacted iff cnt <= m.
+    ``torch.nonzero`` reads the count on the host."""
+    sel = torch.nonzero(unfinished).flatten()
+    return sel[:m], sel.shape[0]
+
+
+def two_pass_nearest(sweep, o3, d3_unit, aabb8, lists: BlockLists,
+                     r_blk: int, k: int, m_div: int = M_DIV):
+    """The two-pass nearest sweep over the full ``lists`` of (o3,
+    d3_unit): ``sweep(o3, d3_unit, lists, words)`` is the one-pass sweep
+    (K5 or K3's sparse nearest, which fill ``words``, the scratch of
+    ``walk_words``, on the card; a plain walk on the CPU). Pass 1 over the
+    first ``k`` slots, ``nearest_select``, then pass 2 over the compacted
+    unfinished lanes' own lists, or the one-pass sweep of the whole
+    wavefront where they do not fit ``pass2_size(N, r_blk, m_div)``.
+    Returns (t, idx), the one-pass result."""
+    n = o3.shape[1]
+    head, drops = truncate_lists(lists, k)
+    words = None if o3.device.type == "cpu" else walk_words(n, o3.device)
+    t1, i1 = sweep(o3, d3_unit, head, words)
+    unfinished, _ = nearest_select(o3, d3_unit, aabb8, drops, r_blk, t1, i1,
+                                   words)
+    m = pass2_size(n, r_blk, m_div)
+    sel, cnt = two_pass_select(unfinished, m)
+    if cnt > m:
+        return sweep(o3, d3_unit, lists)
+    if cnt == 0:
+        return t1, i1
+    o2, d2, _ = parked_rays(o3, d3_unit, None, sel, m)
+    tmax = torch.full((m // r_blk,), BIG, dtype=o3.dtype, device=o3.device)
+    t2, i2 = sweep(o2, d2, block_lists(aabb8, o2, d2, tmax, r_blk))
+    return t1.index_copy(0, sel, t2[:cnt]), i1.index_copy(0, sel, i2[:cnt])
+
+
+def two_pass_any_hit(sweep, o3, d3_unit, maxd, aabb8, lists: BlockLists,
+                     k: int, m_div: int = M_DIV) -> torch.Tensor:
+    """The two-pass any-hit over the full window ``lists`` (blocks of
+    R_BLK): ``sweep(o3, d3_unit, maxd, lists)`` is the one-pass sweep (K6
+    or K3's sparse any-hit; a plain walk on the CPU). Pass 1 over the first
+    ``k`` slots, ``any_hit_select``, then pass 2 over the compacted open
+    lanes (occlusions of pass 1 are real hits, so final), or the whole
+    wavefront in one pass where they do not fit. Returns the one-pass
+    bits."""
+    n = o3.shape[1]
+    head, drops = truncate_lists(lists, k)
+    occ1 = sweep(o3, d3_unit, maxd, head)
+    unfinished, _ = any_hit_select(o3, d3_unit, maxd, occ1, aabb8, drops,
+                                   R_BLK)
+    m = pass2_size(n, R_BLK, m_div)
+    sel, cnt = two_pass_select(unfinished, m)
+    if cnt > m:
+        return sweep(o3, d3_unit, maxd, lists)
+    if cnt == 0:
+        return occ1
+    rays2 = parked_rays(o3, d3_unit, maxd, sel, m)
+    occ2 = sweep(*rays2, window_lists(aabb8, *rays2, R_BLK))
+    return occ1.index_copy(0, sel, occ2[:cnt])
 
 
 def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
@@ -955,13 +1295,7 @@ def cached_passes(o3, d3_unit, maxd, tripack, aabb8, cull, guess_cl,
     cnt, m = sel.shape[0], pass2_size(o3.shape[1])
     if cnt > m:
         return first, run(rays, window_lists(aabb8, *rays, R_BLK)), None
-    o2 = o3.new_tensor(PARK_ORIGIN)[:, None].repeat(1, m)
-    d2 = o3.new_tensor(PARK_DIR)[:, None].repeat(1, m)
-    md2 = torch.ones(m, dtype=maxd.dtype, device=maxd.device)
-    o2[:, :cnt] = o3[:, sel]
-    d2[:, :cnt] = d3_unit[:, sel]
-    md2[:cnt] = maxd[sel]
-    rays2 = (o2, d2, md2)
+    rays2 = parked_rays(o3, d3_unit, maxd, sel, m)
     return first, run(rays2, window_lists(aabb8, *rays2, R_BLK)), sel
 
 
@@ -993,15 +1327,17 @@ def walk_stats(stats: torch.Tensor) -> dict:
 
 
 def _launch_nearest(o3, d3_unit, pack, aabb8, lists, r_blk, entry: str,
-                    stats: torch.Tensor | None = None):
+                    stats: torch.Tensor | None = None,
+                    words: torch.Tensor | None = None):
     n = o3.shape[1]
-    words = walk_words(n, o3.device)
+    if words is None:
+        words = walk_words(n, o3.device)
     t = torch.empty(n, dtype=torch.float32, device=o3.device)
     idx = torch.empty(n, dtype=torch.int32, device=o3.device)
     fn = build.function(entry, _ARGTYPES)
     stream = torch.cuda.current_stream(o3.device).cuda_stream
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), n, pack.data_ptr(),
-             aabb8.data_ptr(), aabb8.shape[0], lists.ids.data_ptr(),
+             aabb8.data_ptr(), lists.ids.shape[1], lists.ids.data_ptr(),
              lists.keys.data_ptr(), lists.ncand.data_ptr(), r_blk,
              words.data_ptr(), t.data_ptr(), idx.data_ptr(),
              None if stats is None else stats.data_ptr(), o3.device.index,
@@ -1011,18 +1347,23 @@ def _launch_nearest(o3, d3_unit, pack, aabb8, lists, r_blk, entry: str,
     return t, idx
 
 
-def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk, stats=None):
+def _launch(o3, d3_unit, tripack, aabb8, lists, r_blk, stats=None,
+            words=None):
+    """K5 over ``lists``: (t, idx). ``words``: the scratch of
+    ``walk_words``, for a caller that reads the merged words after it (the
+    two-pass protocol's finality test); None makes one."""
     global LAUNCHES
     out = _launch_nearest(o3, d3_unit, tripack, aabb8, lists, r_blk,
-                          "ptt_sparse_nearest", stats)
+                          "ptt_sparse_nearest", stats, words)
     LAUNCHES += 1
     return out
 
 
-def _launch_plucker(o3, d3_unit, pack36, aabb8, lists, r_blk, stats=None):
+def _launch_plucker(o3, d3_unit, pack36, aabb8, lists, r_blk, stats=None,
+                    words=None):
     global PLUCKER_LAUNCHES
     out = _launch_nearest(o3, d3_unit, pack36, aabb8, lists, r_blk,
-                          "ptt_plucker_sparse_nearest", stats)
+                          "ptt_plucker_sparse_nearest", stats, words)
     PLUCKER_LAUNCHES += 1
     return out
 

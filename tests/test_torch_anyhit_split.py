@@ -63,6 +63,16 @@ SPLITS = [(kind, segment, order) for kind in KINDS
                                  (32, "random"))]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def field():
     """box_field(400): 4,804 triangles in morton order, 40 clusters, so a

@@ -45,6 +45,16 @@ print(json.dumps({
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_port_never_imports_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -82,7 +92,7 @@ def test_sources_are_in_the_package():
                      "nee.cu", "plucker.cuh", "probe_bf16.cu",
                      "probe_plucker.cu", "sparse_any_hit.cu",
                      "sparse_any_hit_idx.cu", "sparse_nearest.cu",
-                     "walker_any_hit.cu", "walker_nearest.cu"]
+                     "two_pass.cu", "walker_any_hit.cu", "walker_nearest.cu"]
 
 
 def _c_parameters(source: str, entry: str) -> list[str]:

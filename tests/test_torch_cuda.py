@@ -47,6 +47,16 @@ MC_ATOL = 1e-5            # K2 mean cosine on lanes whose bits agree
 RENDER_TOL = 1e-4         # card against CPU radiance, on 99% of pixels
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -1191,3 +1201,90 @@ def test_dryrun_multichip_two_ranks_share_the_card(cuda):
     text = "\n".join(lines)
     assert "through host buffers" in text and "on cuda:0" in text
     assert "pp-pipeline render bit-matches single" in text
+
+
+def _parked_rays(scene, cuda):
+    """``_rays`` with the lanes 400-699 parked, as the integrator parks
+    dead lanes."""
+    from pathtracerpython_tpu_torch.ops.sort import PARK_DIR, PARK_ORIGIN
+
+    o3, d3u = _rays(scene)
+    o3[:, 400:700] = torch.tensor(PARK_ORIGIN, device=cuda)[:, None]
+    d3u[:, 400:700] = torch.tensor(PARK_DIR, device=cuda)[:, None]
+    return o3, d3u
+
+
+@pytest.mark.parametrize("which", ["nearest", "any-hit"])
+@pytest.mark.parametrize("r_blk", [512, 1024])
+def test_two_pass_select_kernel_equals_plain(cuda, which, r_blk,
+                                             monkeypatch):
+    """csrc/two_pass.cu's flags and bound against its plain twin
+    ``two_pass_flags_plain``, bit for bit, on pass 1 of K5 (its merged
+    words) or K6, parked lanes included, at both LANE_M."""
+    scene = _scene("boxfield2000", cuda)
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    if which == "nearest":
+        o3, d3u = _parked_rays(scene, cuda)
+        nrb = -(-o3.shape[1] // r_blk)
+        lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+            (nrb,), intersect.BIG, device=cuda), r_blk)
+    else:
+        o3, d3u, maxd = _shadow_rays(scene)
+        r_blk = sparse.R_BLK
+        lists = sparse.window_lists(aabb8, o3, d3u, maxd, r_blk)
+    for lane_m in (0, sparse.LANE_M):
+        monkeypatch.setattr(sparse, "LANE_M", lane_m)
+        head, drops = sparse.truncate_lists(lists, sparse.PASS1_K)
+        before = sparse.SELECT_LAUNCHES
+        if which == "nearest":
+            words = sparse.walk_words(o3.shape[1], cuda)
+            t1, i1 = sparse._launch(o3, d3u, tripack, aabb8, head, r_blk,
+                                    words=words)
+            flags, ne = sparse.nearest_select(o3, d3u, aabb8, drops, r_blk,
+                                              t1, i1, words, want_ne=True)
+            want = sparse.two_pass_flags_plain(
+                o3, d3u, aabb8, drops, r_blk,
+                torch.where(i1 >= 0, t1, intersect.BIG))
+        else:
+            cull = sparse.scene_cluster_cull_boxes(scene)
+            occ1 = sparse._launch_any_hit(o3, d3u, maxd, tripack, aabb8,
+                                          head, r_blk, cull)
+            flags, ne = sparse.any_hit_select(o3, d3u, maxd, occ1, aabb8,
+                                              drops, r_blk, want_ne=True)
+            want = sparse.two_pass_flags_plain(
+                o3, d3u, aabb8, drops, r_blk, maxd,
+                sparse.any_hit_open(occ1, maxd))
+        assert sparse.SELECT_LAUNCHES == before + 1
+        assert torch.equal(flags, want[0]) and torch.equal(ne, want[1])
+        assert flags.any() and not flags.all()
+
+
+@pytest.mark.parametrize("form", ["classic", "plucker"])
+@pytest.mark.parametrize("r_blk", [512, 1024])
+def test_two_pass_nearest_on_card_equals_one_pass(cuda, r_blk, form):
+    """K5 (or K3's sparse nearest) in two passes, pass 2 compacted or the
+    whole wavefront again, gives the one-pass winners and t bit for bit."""
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u = _parked_rays(scene, cuda)
+    want = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene, r_blk=r_blk,
+                                          mt_impl=form, two_pass=0)
+    for k, m_div in ((4, 1), (4, 10**6), (1, 2), (2, sparse.M_DIV)):
+        before = sparse.SELECT_LAUNCHES
+        got = sparse.sparse_nearest_t_idx_cm(o3, d3u, scene, r_blk=r_blk,
+                                             mt_impl=form, two_pass=k,
+                                             m_div=m_div)
+        assert sparse.SELECT_LAUNCHES == before + 1
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("form", ["classic", "plucker"])
+def test_two_pass_any_hit_on_card_equals_one_pass(cuda, form):
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u, maxd = _shadow_rays(scene)
+    want = sparse.sparse_any_hit_cm(o3, d3u, maxd, scene, mt_impl=form,
+                                    two_pass=0)
+    for k, m_div in ((4, 1), (4, 10**6), (1, 2), (2, sparse.M_DIV)):
+        got = sparse.sparse_any_hit_cm(o3, d3u, maxd, scene, mt_impl=form,
+                                       two_pass=k, m_div=m_div)
+        assert torch.equal(got, want)

@@ -224,7 +224,7 @@ def test_camera_fit_recovers_eye(flat_scene):
     assert err < err0 * 0.35, (err0, err)
 
 
-def test_sharded_and_checkpointed_fits_refuse(flat_scene, tmp_path):
+def test_sharded_and_checkpointed_fits_run(flat_scene, tmp_path):
     """Neither refuses any more: a vertex gradient under a geometry ring
     (here of one rank) is the unsharded loss's, bit for bit; a checkpointed
     fit runs and writes its step."""

@@ -21,6 +21,7 @@ say no for it all the same."""
 import itertools
 
 import pytest
+import torch
 
 from pathtracerpython_tpu.kernels.nee_pallas import FUSED_NEE_MAX_LIGHT_TRIS
 from pathtracerpython_tpu.kernels.sparse_pallas import (
@@ -41,6 +42,16 @@ GRID = dict(
     sort_rays=("auto", "on", "off"),
     sort_nee=("auto", "on", "off"),
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,16 @@ from torch_parity import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _scenes():
     # box_field(48): 580 triangles padded to 640 > 512, so the JAX kernel
     # runs its AABB-culled path over two triangle blocks

@@ -13,6 +13,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from pathtracerpython_tpu_torch.scene import native
 from pathtracerpython_tpu_torch.scene.arrays import _morton_argsort, load_scene
@@ -28,6 +29,16 @@ from torch_parity import port_leaves
 needs_native = pytest.mark.skipif(
     not native.native_available(),
     reason="no C++ compiler to build the native loader")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _same_mesh(a, b):

@@ -32,6 +32,16 @@ from torch_parity import GRAZING_MARGIN, occlusion_margin_f64, to_jax_desc
 MC_ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _desc(n_light_tris):
     desc = synthetic.cornell_box_scene(24, 24)
     if n_light_tris == 8:

@@ -46,6 +46,16 @@ T_RTOL_JAX = 1e-5      # t against the JAX Plücker kernel, equal winners
 T_TOL_CLASSIC = 2e-4   # t against the classic form, equal winners
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def cornell():
     return pack_pair(synthetic.cornell_box_scene(24, 24), pad_to=32)

@@ -33,6 +33,16 @@ POP_MEAN = 1e-3
 POP_Q999 = 0.05
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def cornell():
     """The Cornell stand-in at 32x32: 3,072 radiance values, so the

@@ -33,6 +33,16 @@ RTOL = ATOL = 1e-4
 MIN_CLOSE = 0.99
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _pair(desc, **pack):
     """The port's and the JAX package's packing of one description;
     ``tri_order="morton"`` is the JAX package's ``morton_order=True``."""

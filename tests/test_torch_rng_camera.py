@@ -15,6 +15,16 @@ from pathtracerpython_tpu_torch.ops import camera, rng
 SEEDS = [0, 1, 7, 2**31 - 1, 2**31 + 5, 2**32 - 1, 2**32 + 3, 2**40 + 12345]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _words(n, seed):
     return np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint64)
 

@@ -18,6 +18,16 @@ RTOL = ATOL = 1e-6
 N = 4096
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _rng(seed=0):
     return np.random.default_rng(seed)
 

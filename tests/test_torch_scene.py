@@ -58,6 +58,16 @@ unknown record here
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def sdl_path(tmp_path):
     for name, text in (("a.obj", _OBJ_A), ("b.obj", _OBJ_B),

@@ -90,7 +90,7 @@ def test_sharded_step_matches_single(ranks, world, name):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_triangle_grads_under_a_ring_refuse(ranks, world):
+def test_triangle_grads_under_a_ring_match_one_device(ranks, world):
     """Under a ring (dp x geom = 1 x 2, 2 x 2) a ``tri_v0`` step no longer
     refuses: it gives the single step, its gradient included, so it was
     never silently zero."""
@@ -107,7 +107,7 @@ def test_triangle_grads_under_a_ring_refuse(ranks, world):
                                    rtol=1e-5, atol=1e-7)
 
 
-def test_ring_refuses_before_any_silent_zero():
+def test_ring_of_one_rank_gives_the_unsharded_grads():
     """In one process too: a ring of one rank (``make_mesh(device=
     "cpu")``) with triangle tensors that require grad gives the unsharded
     step's params and gradient."""

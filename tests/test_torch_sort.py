@@ -16,6 +16,16 @@ from pathtracerpython_tpu_torch.scene import arrays, synthetic
 from torch_parity import to_jax_desc
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def field():
     desc = synthetic.box_field_scene(n_boxes=80, width=24, height=24)

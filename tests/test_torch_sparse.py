@@ -34,6 +34,16 @@ from torch_parity import (
 R_BLK = sparse.R_BLK_HYBRID_NEAREST
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def field():
     """box_field(80): 964 triangles in morton order, 8 clusters."""

@@ -15,6 +15,16 @@ from pathtracerpython_tpu_torch.scene import arrays, synthetic
 from pathtracerpython_tpu_torch.viz import plot
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: with one intra-op thread these tests take
+    the same time alone and do not fight the other test workers for cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def cornell():
     return arrays.pack_scene(synthetic.cornell_box_scene(6, 6), pad_to=32,

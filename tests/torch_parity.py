@@ -7,12 +7,15 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from pathtracerpython_tpu.kernels import sparse_pallas as sp
 from pathtracerpython_tpu.scene import obj as jax_obj
 from pathtracerpython_tpu.scene import arrays as jax_arrays
 from pathtracerpython_tpu.scene import sdl as jax_sdl
 from pathtracerpython_tpu.scene.arrays import DATA_FIELDS
+from pathtracerpython_tpu_torch.ops.geometry import normalize3
+from pathtracerpython_tpu_torch.ops.sort import PARK_DIR, PARK_ORIGIN
 from pathtracerpython_tpu_torch.scene import arrays as port_arrays
 
 # Tolerances of the kernels' plain versions against the JAX kernels in
@@ -22,6 +25,20 @@ from pathtracerpython_tpu_torch.scene import arrays as port_arrays
 # only where a ray grazes a triangle edge.
 T_RTOL = T_ATOL = 1e-6
 GRAZING_MARGIN = 1e-5
+
+
+def field_rays(n, seed, parked=()):
+    """Incoherent rays inside a box field (tests/test_sparse.py's
+    ``_random_rays``) as torch tensors o3, d3u f32[3, n], with the lane
+    ranges ``parked`` parked as the integrator parks dead lanes."""
+    rs = np.random.default_rng(seed)
+    o = rs.uniform([-8, -1, -16], [8, 1.5, 3], (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    for lo, hi in parked:
+        o[lo:hi] = PARK_ORIGIN
+        d[lo:hi] = PARK_DIR
+    o3 = torch.from_numpy(np.ascontiguousarray(o.T))
+    return o3, normalize3(torch.from_numpy(np.ascontiguousarray(d.T)))
 
 
 def to_jax_desc(desc):
