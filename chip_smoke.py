@@ -97,6 +97,15 @@ phase fails:
      against its plain version and its bound (the plane counted on the
      pairs whose sides agree), then the probes' own entry points, whose
      JSON lines are printed;
+   - scatter_rows (csrc/scatter_rows.cu, the sum of every table gradient)
+     on the calls one backward of the bench training step makes, captured
+     (the triangle pack onto 64 rows, the light table onto 2, mat_rgb), and on
+     the 100k field's tri_v0 backward (onto 100,096 rows): bit for bit its
+     order's model ``gather.scatter_rows_model``, the same bits in four
+     launches (one on a second stream), no stream sync in the call, within
+     1e-6 of the absolute sum from the float64 sum and from its plain
+     version; its time beside the plain version's, the float32 weighted
+     bincount's (the library call), index_add_'s and its sort's;
 3. the full renders:
    - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
      radiance finite, non-negative and not constant; K1 and K2 launched
@@ -146,14 +155,17 @@ phase fails:
      vertex params: ms of the forward alone, of forward and backward, of a
      whole step and of the no-grad render (CUDA events, median of 10 after
      2 warm-ups), the fwd:bwd ratio, the peak memory, the launches of one
-     step, whether two runs of its gradients are bit-equal, and one
-     backward under torch.profiler (device busy, top operators);
+     step, its gradients bit-equal over three runs, one audited backward
+     (below), the stream syncs of one backward with the kernel and with
+     the weighted bincount it replaced, and one backward under
+     torch.profiler (device busy, top operators);
    - tri_v0's gradient on the 100k field at 128x128 through accel="auto"
      (K5, K9 detached), "walker" (K8) and "sparse" under
      ``mt_impl="plucker"`` (K3's sparse nearest) against accel="none" (K1;
-     K3's dense nearest for the Plücker form) within GRAD_RTOL, and the
-     backward of K5's, K8's and K3's sparse nearest sweep timed alone on
-     the field's primary rays and pack;
+     K3's dense nearest for the Plücker form) within GRAD_RTOL, each run
+     twice for the same bits and each hierarchy's backward audited, and
+     the backward of K5's, K8's and K3's sparse nearest sweep timed alone
+     on the field's primary rays and pack;
 3s. soft and pose (the soft estimator is plain PyTorch, as the JAX
    package's is plain XLA: no kernel of its own; every check fails the
    run):
@@ -169,7 +181,7 @@ phase fails:
      the cluster soft sweep's records equal to the dense sweep's on every
      camera ray and on shadow rays from 16 floor patches, its visibility
      within 5e-3 of the dense one, no dense fallback; ms, peak memory and
-     fallbacks of one soft render and its backward;
+     fallbacks of one soft render and its backward, which is audited;
    - ``apps.fit_pose.run(object_name="cube")`` with the app's defaults
      (planar, 120 steps a level, pyramid 40x40 then 128x128, 4 beta stages
      0.12 -> 0.03, 1 spp, 1 bounce) at Adam(0.03), seeds 0-5: at each
@@ -179,6 +191,8 @@ phase fails:
    - ``fit_pose`` light mode (30 steps) and ``apps.fit_camera`` (20): the
      lateral and eye errors fall, K1 and K2 launched once per sample pass
      and bounce of each step and render (none in the backwards);
+   - the soft pose step at 4 spp and fit_camera's first step, each run
+     twice for the same bits and audited once;
    - the training step of the bench configuration with ``remat_bounces``
      off and on: gradients within 1e-6 relative L2 per field, K1 and K2 4
      then 8 launches a step, peak memory and ms a step both ways;
@@ -208,8 +222,8 @@ phase fails:
      whether it was used, its parse time and the Python parser's on a
      100,000-triangle box field written as OBJ, packed leaves equal;
    - ``fit_albedo --checkpoint-every 5`` for 10 steps, stopped at step 5
-     and resumed: the loss falls, and the curve is the uninterrupted run's
-     within FIT_CURVE_RTOL;
+     and resumed: the loss falls, and the losses and the final params are
+     the uninterrupted run's bit for bit;
 3p. parallel/ on torch.distributed (every check fails the run; the card is
    one GPU, so two ranks share it and talk through gloo with host staging,
    and their ms are the machinery's cost, not scaling; the kernel library
@@ -228,6 +242,7 @@ phase fails:
      - the sharded training step, dp = 2 and geom = 2, on the stand-in at
        128x128 (mat_rgb, light_color, eye; Adam(1e-2)): loss within rtol
        1e-6, params within rtol 1e-5 / atol 1e-7 of the single-device step;
+       each audited once;
      - the ring train step: the Cornell cell (512x512, 4 spp as lanes, 4
        bounces, 3 NEE, 64 rows) with material, emission, vertex and
        light-vertex params under geom = 2 (dp = ranks / 2): loss within
@@ -236,7 +251,8 @@ phase fails:
        does not own, and its home rows' gradient that of its ring's rays,
        the other ranks' part included; bounces x (geom - 1) reverse shifts;
        ms a step in turns with the single step, bytes forward and backward,
-       launches and peak memory;
+       launches and peak memory; the step again on each rank, bit-equal,
+       and audited once;
      - the soft ring: the soft pose step (the stand-in at 128x128, beta
        0.03, 1 bounce, 3 NEE, 4 spp; radiance within 1e-5, pose gradient
        within 1e-4 relative L2 of one device), and the soft 600-box field
@@ -278,14 +294,23 @@ row for a nearest lane) stays in those rows as ``all_pairs_bound_ms``,
 beside the pairs tested, needed and all and the shares of tiles and groups
 skipped. The library is built with -fmad=false, so the 67 TFLOP/s, which
 count a fused multiply-add as two, are twice what its un-fused code can
-reach. No single PyTorch call computes a ray-triangle sweep, so
-``library_ms`` is null. Each row names its kernel's ``backward``: the
+reach. No single PyTorch call computes a ray-triangle sweep, so the
+sweeps' ``library_ms`` is null; scatter_rows' is the float32 weighted
+bincount's. Each row names its kernel's ``backward``: the
 nearest sweeps' (K1, K3's nearest sweeps, K5, K8) and the fused NEE's (K2)
 re-solve in plain PyTorch, with ``backward_ms``, one call on the kernel's
 own wavefront and pack (K1, K3's dense nearest and K2 the Cornell bench's
 primary rays, K5, K8 and K3's sparse nearest the 100k field's); "none
-(detached)" for the any-hits. The last line is
-``{"ok": true, "device": {...}}``.
+(detached)" for the any-hits.
+
+An audited backward (every gradient path above) runs once more as a
+check-only pass under ``utils.determinism.SumAudit`` and
+``torch.use_deterministic_algorithms(True, warn_only=True)``, set for the
+pass alone: it fails the run if a float sum adds two lanes into one
+address (the order a device's atomics would choose), and the line before
+the card's name lists each path's sums and the ops torch flags. Every
+"[bits]" line is a gate. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -2138,7 +2163,9 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
 
 def reset_launches() -> None:
     from pathtracerpython_tpu_torch.kernels import intersect, nee, sparse, walker
+    from pathtracerpython_tpu_torch.ops import gather
 
+    gather.LAUNCHES = 0
     intersect.LAUNCHES = intersect.ANY_HIT_LAUNCHES = 0
     nee.LAUNCHES = sparse.LAUNCHES = walker.LAUNCHES = 0
     sparse.ANY_HIT_LAUNCHES = sparse.ANY_HIT_IDX_LAUNCHES = 0
@@ -2150,6 +2177,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     from pathtracerpython_tpu_torch.kernels import intersect, nee, sparse, walker
+    from pathtracerpython_tpu_torch.ops import gather
 
     return {"K1": intersect.LAUNCHES, "K2": nee.LAUNCHES,
             "K4": intersect.ANY_HIT_LAUNCHES, "K5": sparse.LAUNCHES,
@@ -2159,7 +2187,14 @@ def read_launches() -> dict:
             "K3 any-hit": intersect.PLUCKER_ANY_HIT_LAUNCHES,
             "K3 sparse nearest": sparse.PLUCKER_LAUNCHES,
             "K3 sparse any-hit": sparse.PLUCKER_ANY_HIT_LAUNCHES,
-            "two-pass select": sparse.SELECT_LAUNCHES}
+            "two-pass select": sparse.SELECT_LAUNCHES,
+            "scatter_rows": gather.LAUNCHES}
+
+
+def sweep_launches(launches: dict) -> dict:
+    """The launches of the sweeps (every count but the backwards'
+    ``scatter_rows``) that were not zero."""
+    return {k: v for k, v in launches.items() if v and k != "scatter_rows"}
 
 
 @contextlib.contextmanager
@@ -2321,8 +2356,8 @@ def phase3_render(cornell, large, many) -> dict:
         grid_light,
     )
 
-    none = dict.fromkeys(("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K9",
-                          *K3_KEYS, "two-pass select"), 0)
+    # every count, the backwards' scatter_rows too: a render launches none
+    none = dict.fromkeys(read_launches(), 0)
     cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
                        n_bounces=CORNELL_BOUNCES,
                        n_light_samples=NEE_SAMPLES, batch_samples=True)
@@ -2498,10 +2533,11 @@ def phase3_render(cornell, large, many) -> dict:
 
 # The gradient phase: the fit_albedo slice and the backwards. Card against
 # CPU: the same params, target and key, the kernels against their plain
-# versions; the card's rsqrt, sin, cos and its summation order (atomics in
-# the backward's scatters) round differently, so each field's gradient may
-# differ in the last bits, and a grazing ray that flips a winner would move
-# a field by far more. Relative L2 per field.
+# versions; the card's rsqrt, sin, cos and its summation order (the
+# scatter_rows kernel's fixed tree against the CPU's serial bincount) round
+# differently, so each field's gradient may differ in the last bits, and a
+# grazing ray that flips a winner would move a field by far more. Relative
+# L2 per field.
 FIT_STEPS = 10    # of apps/fit_albedo.py, at its own configuration
 GRAD_RTOL = 1e-4
 GRAD_FIELDS = ("mat_rgb", "light_color", "ambient", "tri_v0", "light_v0",
@@ -2517,6 +2553,319 @@ NEAREST_BACKWARD = ("NearestTIdx.backward: intersect.nearest_bwd, each "
 NEE_BACKWARD = ("NeeMeanCos.backward: nee.smooth_mean_cos recomputed in "
                 "plain PyTorch, occlusion fixed")
 NO_BACKWARD = "none (detached)"
+# The table gradients' sum, ops/gather.py:scatter_rows: on the card
+# csrc/scatter_rows.cu (a stable sort of the rows, then two levels of sums in
+# an order fixed by the inputs). No TPU kernel: in the JAX package it is
+# XLA's scatter-add, the transpose of a gather. Its phase-2 rows are the
+# calls the bench step's backward makes, captured from one backward, and
+# the 100k field's tri_v0 backward on its primary rays.
+SCATTER_REL_TOL = 1e-6   # of the float64 sum, relative to the absolute sum
+SCATTER_RUNS = 3         # runs of a gradient that must give the same bits
+SCATTER_BACKWARD = "none (it is the backwards' sum)"
+# path -> one audited backward's report: the float sums whose lanes met at
+# one address (a gate: there must be none) or not, and the ops that
+# torch.use_deterministic_algorithms(True, warn_only=True) warned of
+AUDIT = {}
+
+
+def determinism_audit(label: str, fn) -> dict:
+    """Run ``fn()`` (a forward and its backward) once as a check-only pass:
+    under ``utils.determinism.SumAudit`` and anomaly mode (which names the
+    forward line of each backward node), with
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` set for the
+    pass alone (and uninitialized memory left unfilled). Records the report
+    in AUDIT; fails if a float sum met two lanes at one address, or if the
+    mode saw no backward op."""
+    import warnings
+
+    from pathtracerpython_tpu_torch.utils.determinism import SumAudit
+
+    def flagged(caught) -> list:
+        return sorted({str(w.message).split(". ")[0][:160] for w in caught
+                       if "determinis" in str(w.message)})
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # the control: a weighted bincount on the card, which the mode
+        # must flag, so that an empty list below means what it says
+        with warnings.catch_warnings(record=True) as control:
+            warnings.simplefilter("always")
+            torch.bincount(torch.zeros(1, dtype=torch.int64, device="cuda"),
+                           weights=torch.ones(1, device="cuda"))
+        with warnings.catch_warnings(record=True) as caught, \
+                torch.autograd.detect_anomaly(check_nan=False), \
+                SumAudit() as audit:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    if not flagged(control):
+        fail("the deterministic mode's warnings are not caught: a weighted "
+             "bincount on the card was not flagged")
+    row = {**audit.report(), "flagged_by_torch": flagged(caught)}
+    AUDIT[label] = row
+    log(f"[audit] {label}: float sums meeting at one address "
+        f"{row['shared']}; with distinct addresses {row['unique']}; flagged "
+        f"by torch's deterministic mode {row['flagged_by_torch']}; "
+        f"{row['ops']} ops seen, "
+        f"{row['backward_ops']} in the backward")
+    if audit.backward_ops == 0:
+        fail(f"audit of {label}: the dispatch mode saw no backward op")
+    if audit.shared:
+        fail(f"audit of {label}: float sums add lanes into one address in "
+             f"an order the device chooses: {row['shared']}")
+    return row
+
+
+def hold_bits_equal(label: str, runs: list) -> None:
+    """Fail unless every run's gradients (dicts of tensors) equal the first
+    run's bit for bit."""
+    for i, run in enumerate(runs[1:], start=2):
+        differ = [k for k in runs[0] if not torch.equal(run[k], runs[0][k])]
+        if differ:
+            fail(f"{label}: run {i}'s gradients of {differ} differ from run "
+                 "1's bits")
+    log(f"[bits] {label}: gradients bit-equal over {len(runs)} runs "
+        f"({sorted(runs[0])})")
+
+
+def capture_scatters(fn) -> list[dict]:
+    """Run ``fn()`` with each caller of ``scatter_rows`` (ops/gather.py's
+    gathers, kernels/intersect.py's nearest_bwd, kernels/nee.py's
+    NeeMeanCos) recording a copy of its inputs, strides kept, in call
+    order."""
+    from pathtracerpython_tpu_torch.kernels import intersect, nee
+    from pathtracerpython_tpu_torch.ops import gather
+
+    calls = []
+    callers = ((gather, "cm_take"), (intersect, "nearest_bwd"),
+               (nee, "NeeMeanCos"))
+    saved = {module: module.scatter_rows for module, _ in callers}
+
+    def recording(caller, real):
+        def record(values, rows, n_rows):
+            calls.append({"caller": caller, "values": values.detach().clone(),
+                          "rows": rows.detach().clone(), "n_rows": n_rows})
+            return real(values, rows, n_rows)
+        return record
+
+    for module, caller in callers:
+        module.scatter_rows = recording(caller, saved[module])
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for module, real in saved.items():
+            module.scatter_rows = real
+    return calls
+
+
+def check_scatter(label: str, call: dict, report: list) -> None:
+    """csrc/scatter_rows.cu on one captured call: its order's model
+    (``gather.scatter_rows_model``) bit for bit; the same bits in
+    SCATTER_RUNS launches and on a second stream; no stream sync in the
+    call (sync debug mode "error"); within SCATTER_REL_TOL of the float64
+    sum and of its plain version, relative to the absolute sum; and the
+    times (CUDA events, mean of 10) of the kernel, its plain version (a
+    float64 bincount rounded once), the float32 weighted bincount the
+    backwards used before (the library call), index_add_ into a zero table
+    and the wrapper's stable sort alone. Bound: the values, the rows and
+    the table once over the memory rate."""
+    from pathtracerpython_tpu_torch.ops import gather
+
+    v, r, n_rows = call["values"], call["rows"], call["n_rows"]
+    n, c = v.shape
+    got = gather.scatter_rows(v, r, n_rows)
+    if not torch.equal(got, gather.scatter_rows_model(v, r, n_rows)):
+        fail(f"scatter_rows {label}: the kernel differs from its order's "
+             "model")
+    runs = [gather.scatter_rows(v, r, n_rows)
+            for _ in range(SCATTER_RUNS - 1)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(gather.scatter_rows(v, r, n_rows))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, got) for x in runs):
+        fail(f"scatter_rows {label}: launches give different bits")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gather.scatter_rows(v, r, n_rows)
+    except RuntimeError as e:
+        fail(f"scatter_rows {label}: the call synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    exact = torch.zeros((n_rows, c), dtype=torch.float64,
+                        device="cuda").index_add_(0, r, v.double())
+    scale = torch.zeros_like(exact).index_add_(0, r, v.double().abs())
+
+    def rel(x):
+        return float(((x.double() - exact).abs()
+                      / scale.clamp_min(1e-30)).max())
+
+    plain = gather.scatter_rows_plain(v, r, n_rows)
+    bins = (r[:, None] * c + torch.arange(c, device="cuda")).reshape(-1)
+    flat = v.reshape(-1)
+
+    def bincount32():   # the function as it stood: float32 atomics
+        return torch.bincount(bins, weights=flat, minlength=n_rows * c)
+
+    k_rel, p_rel = rel(got), rel(plain)
+    b_rel = rel(bincount32().reshape(n_rows, c))
+    against_plain = float(((got.double() - plain.double()).abs()
+                           / scale.clamp_min(1e-30)).max())
+    if not (k_rel <= SCATTER_REL_TOL and against_plain <= SCATTER_REL_TOL):
+        fail(f"scatter_rows {label}: {k_rel} of the absolute sum from the "
+             f"float64 sum, {against_plain} from the plain version; bound "
+             f"{SCATTER_REL_TOL}")
+    ms = cuda_ms(lambda: gather.scatter_rows(v, r, n_rows), 10)
+    plain_ms = cuda_ms(lambda: gather.scatter_rows_plain(v, r, n_rows), 10)
+    bincount_ms = cuda_ms(bincount32, 10)
+    index_add_ms = cuda_ms(lambda: torch.zeros(
+        (n_rows, c), device="cuda").index_add_(0, r, v), 10)
+    sort_ms = cuda_ms(lambda: torch.sort(r.to(torch.int32), stable=True), 10)
+    nbytes = n * c * v.element_size() + tensor_bytes(r) + n_rows * c * 4
+    row = report_row(label, float((got - plain).abs().max()), ms, plain_ms,
+                     bound(nbytes, 0, 0), library_ms=bincount_ms,
+                     index_add_ms=index_add_ms, sort_ms=sort_ms, lanes=n,
+                     cols=c, n_rows=n_rows, caller=call["caller"],
+                     contiguous=v.is_contiguous(), kernel_rel_err=k_rel,
+                     kernel_plain_rel_err=against_plain, plain_rel_err=p_rel,
+                     bincount32_rel_err=b_rel)
+    report.append(row)
+    layout = "contiguous" if v.is_contiguous() else "strided"
+    log(f"[2] scatter_rows {label}: {n} lanes x {c} onto {n_rows} rows "
+        f"({call['caller']}, {layout}): the model's bits, {SCATTER_RUNS + 1} launches bit-equal (one on "
+        f"a second stream), no sync; of the absolute sum, {k_rel:.3g} from "
+        f"float64 and {against_plain:.3g} from the plain version (the float32"
+        f" bincount {b_rel:.3g} from float64); kernel {ms:.4f} ms (the "
+        f"stable sort alone {sort_ms:.4f}), plain {plain_ms:.4f} ms, float32 "
+        f"bincount {bincount_ms:.4f} ms, index_add_ {index_add_ms:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms by bytes")
+
+
+def bench_step_grads(cornell):
+    """The training step of the bench configuration (Cornell 512^2, 4 spp
+    as lanes, 4 bounces, 3 NEE, STEP_FIELDS, mat_rgb at half the truth):
+    ``grads(key)``, one forward and backward from fresh leaves -> {field:
+    grad}."""
+    from pathtracerpython_tpu_torch.diff import (
+        camera_pixel_loss,
+        make_render_fn,
+    )
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    cfg = RenderConfig(mode="fast", n_samples=CORNELL_SPP,
+                       n_bounces=CORNELL_BOUNCES,
+                       n_light_samples=NEE_SAMPLES, batch_samples=True)
+    with torch.no_grad():
+        target = render(cornell, cfg, seed=0)
+    start = {f: getattr(cornell, f).detach().clone() for f in STEP_FIELDS}
+    start["mat_rgb"] = start["mat_rgb"] * 0.5
+    pids = torch.arange(target.shape[0], device="cuda")
+    render_fn = make_render_fn(cfg)
+
+    def grads(key) -> dict:
+        params = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+        camera_pixel_loss(params, cornell, target, render_fn, pids,
+                          key).backward()
+        return {k: p.grad for k, p in params.items()}
+
+    return grads
+
+
+def phase2_scatter(cornell, large) -> list:
+    """csrc/scatter_rows.cu on the inputs the main path gives it: the bench
+    step's backward's calls for the triangle pack (nearest_bwd: 2^20 lanes x 9
+    onto 64 rows), the light table (NeeMeanCos: 3 x 2^20 x 9 onto 2) and
+    mat_rgb (cm_take: 2^20 x 3, strided, onto the materials), and the 100k
+    field's tri_v0 backward (K5 under NearestTIdx on its 512^2 primary
+    rays: 262,144 x 9 onto 100,096 rows)."""
+    from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
+    from pathtracerpython_tpu_torch.ops.geometry import (
+        nearest_hit_cm,
+        normalize3,
+    )
+
+    grads = bench_step_grads(cornell)
+    calls = capture_scatters(lambda: grads((0, 5)))
+    o, d = make_primary_rays(large.eye, large.ortho, CORNELL_SIZE,
+                             CORNELL_SIZE)
+    o3, d3u = o.T.contiguous(), normalize3(d.T).contiguous()
+
+    def tri_backward():
+        leaves = {f: getattr(large, f).detach().clone().requires_grad_(True)
+                  for f in ("tri_v0", "tri_v1", "tri_v2")}
+        t = nearest_hit_cm(o3, d3u, dataclasses.replace(large, **leaves),
+                           accel="auto").t
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        t.backward(torch.randn(t.shape[0], generator=gen, device="cuda"))
+
+    calls += capture_scatters(tri_backward)
+
+    def pick(caller, c=None, n_rows=None):
+        for call in calls:
+            if (call["caller"] == caller
+                    and c in (None, call["values"].shape[1])
+                    and n_rows in (None, call["n_rows"])):
+                return call
+        seen = [(x["caller"], tuple(x["values"].shape), x["n_rows"])
+                for x in calls]
+        fail(f"phase 2: no call of scatter_rows from {caller} with {c} "
+             f"columns onto {n_rows} rows: {seen}")
+
+    report = []
+    for label, call in (
+            ("bench step pack", pick("nearest_bwd", 9,
+                                     cornell.num_padded_triangles)),
+            ("bench step light table", pick("NeeMeanCos")),
+            ("bench step mat_rgb", pick("cm_take", 3,
+                                        cornell.mat_rgb.shape[0])),
+            ("100k field tri_v0", pick("nearest_bwd", 9,
+                                       large.num_padded_triangles))):
+        check_scatter(label, call, report)
+    return report
+
+
+def backward_syncs(loss_fn) -> int:
+    """The stream syncs of one backward of ``loss_fn()``, as the sync debug
+    mode "warn" reports them (the forward runs before the mode is set)."""
+    import warnings
+
+    loss = loss_fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@contextlib.contextmanager
+def bincount_backwards():
+    """Every caller of ``scatter_rows`` on the weighted bincount (the plain
+    version, as the backwards summed before the kernel), restored after."""
+    from pathtracerpython_tpu_torch.kernels import intersect, nee
+    from pathtracerpython_tpu_torch.ops import gather
+
+    saved = {m: m.scatter_rows for m in (gather, intersect, nee)}
+    for m in saved:
+        m.scatter_rows = gather.scatter_rows_plain
+    try:
+        yield
+    finally:
+        for m, real in saved.items():
+            m.scatter_rows = real
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2725,7 +3074,9 @@ def grad_train_step(cornell, card: str) -> dict:
     params: ms of the forward alone (the loss with its graph), of forward
     and backward, of a whole step (Adam included) and of the no-grad
     render, by CUDA events, median of 10 after 2 warm-ups; peak memory;
-    launches of one step; and whether two runs give the same bits."""
+    launches of one step; the gradients bit-equal over SCATTER_RUNS runs
+    (a gate); one audited backward; and the stream syncs of one backward
+    with the kernel and with the weighted bincount it replaced."""
     from pathtracerpython_tpu_torch.diff import (
         adam,
         camera_pixel_loss,
@@ -2777,17 +3128,23 @@ def grad_train_step(cornell, card: str) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    # two runs of one step's gradients from the same params and key
-    runs = []
-    for _ in range(2):
-        for p in params.values():
-            p.grad = None
-        camera_pixel_loss(params, cornell, target, render_fn, pids,
-                          (0, 5)).backward()
-        runs.append({k: p.grad.clone() for k, p in params.items()})
-    same = {k: bool(torch.equal(runs[0][k], runs[1][k])) for k in params}
-    trace = profile_backward(lambda: camera_pixel_loss(
-        params, cornell, target, render_fn, pids, (0, 6)), card)
+    # SCATTER_RUNS runs of one step's gradients from the same params and
+    # key: every table gradient is summed by the kernel, so the same bits
+    grads = bench_step_grads(cornell)
+    runs = [grads((0, 5)) for _ in range(SCATTER_RUNS)]
+    hold_bits_equal("training step", runs)
+    determinism_audit("train step cornell", lambda: grads((0, 5)))
+
+    def loss():
+        return camera_pixel_loss(params, cornell, target, render_fn, pids,
+                                 (0, 6))
+
+    syncs = {"scatter_rows kernel": backward_syncs(loss)}
+    with bincount_backwards():
+        syncs["weighted bincount (before)"] = backward_syncs(loss)
+    log(f"[3g] stream syncs in one backward of the training step ({card}; "
+        f"sync debug mode 'warn'): {syncs}")
+    trace = profile_backward(loss, card)
     backward = times["forward_backward"] - times["forward"]
     row = {
         "cell": (f"train step cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp "
@@ -2796,15 +3153,17 @@ def grad_train_step(cornell, card: str) -> dict:
         **{f"{k}_ms": v for k, v in times.items()},
         "backward_ms": backward, "fwd_bwd_ratio": times["forward"] / backward,
         "peak_memory_bytes": peak, "launches_per_step": launches,
-        "grads_bit_equal_across_two_runs": same, "backward_trace": trace,
+        f"grads_bit_equal_across_{SCATTER_RUNS}_runs": True,
+        "backward_syncs": syncs, "backward_trace": trace,
     }
     log(f"[3g] training step ({card}): forward {times['forward']:.3f} ms, "
         f"forward+backward {times['forward_backward']:.3f} ms (backward "
         f"{backward:.3f} ms, fwd:bwd {row['fwd_bwd_ratio']:.3f}), whole step "
         f"{times['step']:.3f} ms, the no-grad render {times['render_no_grad']:.3f} "
         f"ms; peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
-        f"gradients bit-equal across two runs: {same}")
-    if launches["K1"] != CORNELL_BOUNCES or launches["K2"] != CORNELL_BOUNCES:
+        f"gradients bit-equal across {SCATTER_RUNS} runs")
+    if launches["K1"] != CORNELL_BOUNCES or launches["K2"] != CORNELL_BOUNCES \
+            or launches["scatter_rows"] < 1:
         fail(f"training step: launches {launches}")
     return row
 
@@ -2845,7 +3204,8 @@ def grad_hierarchies() -> dict:
     HIER_SIZE^2 (1 spp, 2 bounces): accel="auto" (K5, K9 detached),
     "walker" (K8, K9) and "sparse" under mt_impl="plucker" (K3's sparse
     nearest, its any-hit detached) against accel="none" (K1 and K2; K3's
-    dense nearest and K2 for the Plücker form), each with its launches;
+    dense nearest and K2 for the Plücker form), each with its launches and
+    run twice for the same bits, each hierarchy's backward audited once;
     and the backward of each hierarchy's nearest sweep timed alone on the
     field's primary rays and pack."""
     from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
@@ -2868,14 +3228,20 @@ def grad_hierarchies() -> dict:
     out = {}
 
     def run(label, **kw):
+        cfg = dataclasses.replace(base, **kw)
         reset_launches()
-        loss, grads = camera_grads(scene, dataclasses.replace(base, **kw),
-                                   params, target, (0, 2))
+        loss, grads = camera_grads(scene, cfg, params, target, (0, 2))
         torch.cuda.synchronize()
         launches = {k: v for k, v in read_launches().items() if v}
         log(f"[3g] 100k field {HIER_SIZE}^2 {label}: loss {loss!r}, "
             f"|d tri_v0| {grads['tri_v0'].norm().item():.6g}, launches "
             f"{launches}")
+        again = camera_grads(scene, cfg, params, target, (0, 2))[1]
+        hold_bits_equal(f"100k field {HIER_SIZE}^2 {label}", [grads, again])
+        if kw.get("accel", "auto") != "none":
+            determinism_audit(f"100k field tri_v0 {label}",
+                              lambda: camera_grads(scene, cfg, params,
+                                                   target, (0, 2)))
         return grads, launches
 
     dense, out["none"] = run("accel='none'", accel="none")
@@ -2934,8 +3300,9 @@ SPP_SWEEP = (1, 2, 4, 8)
 # fit_pose --object cube, run once a seed: on the card a run ends either
 # near the pose (offset <= 0.048 and yaw <= 0.064 rad) or in a second basin
 # (yaw 0.20-0.37), or with the yaw right and the offset off, in about one
-# run in three (scripts/soft_fit_seeds.py; the card's float atomics make one
-# seed's runs differ; the JAX app stalls on the CPU too). A run recovers
+# run in three (scripts/soft_fit_seeds.py, measured while the card's float
+# atomics made one seed's runs differ; the JAX app stalls on the CPU too;
+# since the scatter_rows kernel a seed's runs repeat). A run recovers
 # below these bounds, and one run of the six must
 FIT_SEEDS = (0, 1, 2, 3, 4, 5)
 FIT_RECOVERED_OFFSET = 0.1  # of 0.5
@@ -3216,6 +3583,10 @@ def soft_cluster_sweeps(card: str) -> dict:
     if not torch.isfinite(v0.grad).all() or v0.grad.abs().sum() == 0:
         fail("soft render 600-box field: tri_v0's gradient is not finite "
              "or zero")
+    determinism_audit("soft 600-box field backward", lambda: render(
+        dataclasses.replace(scene, tri_v0=scene.tri_v0.clone()
+                            .requires_grad_(True)), cfg, seed=0)
+        .mean().backward())
     out["render"] = {"forward_ms": (t1 - t0) * 1e3,
                      "backward_ms": (t2 - t1) * 1e3,
                      "no_grad_ms": nograd_ms, "peak_memory_bytes": peak,
@@ -3229,11 +3600,10 @@ def soft_cluster_sweeps(card: str) -> dict:
     return out
 
 
-def pose_step_times(card: str, spp: int, beta: float = SOFT_BETA) -> dict:
+def pose_step_setup(spp: int, beta: float = SOFT_BETA):
     """One step of the object fit on the stand-in at 128^2 (planar pose of
-    the tall cube from fit_pose's start, 1 bounce): ms of the forward with
-    its graph and of forward + backward (CUDA events, median of 5 after 1
-    warm-up), and the peak memory of one step."""
+    the tall cube from fit_pose's start, 1 bounce): (loss_fn(params,
+    target), the start params requiring grad, the target)."""
     from pathtracerpython_tpu_torch.apps import fit_pose
     from pathtracerpython_tpu_torch.apps.fit_albedo import (
         fit_scene_description,
@@ -3256,6 +3626,14 @@ def pose_step_times(card: str, spp: int, beta: float = SOFT_BETA) -> dict:
     params = torch.tensor(fit_pose.initial_params("cube", "planar",
                                                   (0.4, 0.0, 0.3), 0.25),
                           device="cuda", requires_grad=True)
+    return loss_fn, params, target
+
+
+def pose_step_times(card: str, spp: int, beta: float = SOFT_BETA) -> dict:
+    """``pose_step_setup``'s step: ms of the forward with its graph and of
+    forward + backward (CUDA events, median of 5 after 1 warm-up), and the
+    peak memory of one step."""
+    loss_fn, params, target = pose_step_setup(spp, beta)
 
     def fwd():
         return loss_fn(params, target)
@@ -3442,13 +3820,14 @@ def soft_fit_pose(card: str) -> dict:
 def launch_counted_fit(label, run, want: int) -> dict:
     """Run an app's fit with the launch counts set to 0 just before and
     read just after; K1 and K2 must have launched ``want`` times each (the
-    backwards launch none)."""
+    backwards launch no sweep)."""
     reset_launches()
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_launches().items() if v}
-    log(f"[3s] {label}: launches {launches} (expected K1 = K2 = {want})")
-    if launches != {"K1": want, "K2": want}:
+    log(f"[3s] {label}: launches {launches} (expected K1 = K2 = {want}; "
+        "scatter_rows where a table's gradient is summed)")
+    if sweep_launches(launches) != {"K1": want, "K2": want}:
         fail(f"{label}: launches {launches}, expected K1 = K2 = {want}")
     return {**result, "launches": launches}
 
@@ -3532,7 +3911,7 @@ def remat_step(cornell, card: str) -> dict:
         log(f"[3s] train step, remat_bounces={remat} ({card}): {ms:.2f} ms "
             f"a step, peak memory {peak / 2**30:.3f} GiB, launches "
             f"{launches}")
-        if launches != {"K1": want, "K2": want}:
+        if sweep_launches(launches) != {"K1": want, "K2": want}:
             fail(f"remat_bounces={remat}: launches {launches}, expected "
                  f"K1 = K2 = {want}")
     errs = {k: rel_l2(grads[True][k], grads[False][k]) for k in STEP_FIELDS}
@@ -3544,6 +3923,43 @@ def remat_step(cornell, card: str) -> dict:
              f"L2), bound {REMAT_RTOL}")
     out["rel_l2"] = errs
     return out
+
+
+def soft_grads_bit_equal(card: str) -> dict:
+    """The soft pose step at 4 spp (``pose_step_setup``) and fit_camera's
+    first step (the stand-in at 128^2, 2 spp as passes, 2 bounces, 3 NEE,
+    the eye offset by fit_camera.OFFSET, the fit's first key), each run
+    twice from the same params and key: the gradients bit-equal; each
+    backward audited once."""
+    from pathtracerpython_tpu_torch.apps import fit_camera
+    from pathtracerpython_tpu_torch.apps.fit_albedo import load_fit_scene
+    from pathtracerpython_tpu_torch.ops import rng
+    from pathtracerpython_tpu_torch.render.config import RenderConfig
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    loss_fn, params, target = pose_step_setup(4)
+
+    def pose():
+        params.grad = None
+        loss_fn(params, target).backward()
+        return {"pose": params.grad.clone()}
+
+    hold_bits_equal(f"soft pose step 4 spp ({card})", [pose(), pose()])
+    determinism_audit("soft pose step 4 spp", pose)
+    scene, _ = load_fit_scene(None, "cuda")
+    cfg = RenderConfig(mode="fast", n_samples=fit_camera.SPP,
+                       n_bounces=fit_camera.BOUNCES)
+    with torch.no_grad():
+        target = render(scene, cfg, seed=0)
+    start = {"eye": scene.eye + scene.eye.new_tensor(fit_camera.OFFSET)}
+    key = rng.split(0)[1]   # the fit's first step
+
+    def camera():
+        return camera_grads(scene, cfg, start, target, key)[1]
+
+    hold_bits_equal(f"fit_camera's first step ({card})", [camera(), camera()])
+    determinism_audit("fit_camera first step", camera)
+    return {"pose_step": "bit-equal", "fit_camera_step": "bit-equal"}
 
 
 def phase3_soft(cornell, card: str) -> dict:
@@ -3560,6 +3976,7 @@ def phase3_soft(cornell, card: str) -> dict:
               "cluster": soft_cluster_sweeps(card),
               "fit_pose_object": soft_fit_pose(card),
               **soft_light_and_camera(card),
+              "bits": soft_grads_bit_equal(card),
               "remat": remat_step(cornell, card)}
     report["spp"] = [pose_step_times(card, spp) for spp in SPP_SWEEP]
     log(f"[3s] soft pose step against spp at {SOFT_SIZE}^2 ({card}; the "
@@ -3588,9 +4005,6 @@ CLI_TIMEOUT_S = 600
 NATIVE_BOXES = LARGE_BOXES  # 100,000 triangles written out as OBJ
 CKPT_FIT_STEPS = 10
 CKPT_EVERY = 5
-# a resumed fit against the uninterrupted one on the card: the scatters'
-# float atomics round in their own order, so the losses agree to rounding
-FIT_CURVE_RTOL = 1e-4
 
 
 def reference_card_vs_cpu() -> dict:
@@ -3846,9 +4260,9 @@ def native_loader_phase() -> dict:
 def fit_checkpoint_phase(card: str) -> dict:
     """``fit_albedo --checkpoint-every 5`` for 10 steps on the card, stopped
     at step 5 and resumed, against an uninterrupted run: the resumed run
-    starts at step 5, the loss falls, and the two loss curves agree within
-    FIT_CURVE_RTOL (bits only on the CPU: the card's scatters use float
-    atomics)."""
+    starts at step 5, the loss falls, and the two fits' losses and final
+    params (their step-10 checkpoints) are equal bit for bit: every step's
+    gradients have the same bits on every run."""
     import tempfile
 
     from pathtracerpython_tpu_torch.apps import fit_albedo
@@ -3864,21 +4278,27 @@ def fit_checkpoint_phase(card: str) -> dict:
         full = losses(os.path.join(tmp, "full"), CKPT_FIT_STEPS)
         first = losses(os.path.join(tmp, "part"), CKPT_EVERY)
         rest = losses(os.path.join(tmp, "part"), CKPT_FIT_STEPS)
-        last = CheckpointManager(os.path.join(tmp, "part", "ckpt")
-                                 ).latest_step()
+        mgrs = {run: CheckpointManager(os.path.join(tmp, run, "ckpt"))
+                for run in ("full", "part")}
+        last = mgrs["part"].latest_step()
+        params = {run: mgr.restore(CKPT_FIT_STEPS)["params"]
+                  for run, mgr in mgrs.items()}
     curve = first + rest
-    rel = max(abs(a - b) / abs(b) for a, b in zip(curve, full))
+    differ = [k for k in params["full"]
+              if not torch.equal(params["part"][k], params["full"][k])]
     log(f"[3r] fit_albedo --checkpoint-every {CKPT_EVERY} on {card}: "
         f"uninterrupted {full}; stopped at {len(first)} and resumed "
-        f"{curve}; max relative difference {rel:.3g}")
+        f"{curve}; losses {'equal' if curve == full else 'NOT equal'}, "
+        f"final params {sorted(params['full'])} "
+        f"{'equal' if not differ else f'NOT equal: {differ}'}")
     if len(first) != CKPT_EVERY or len(rest) != CKPT_FIT_STEPS - CKPT_EVERY \
             or last != CKPT_FIT_STEPS:
         fail(f"fit resume: {len(first)} + {len(rest)} steps, last "
              f"checkpoint {last}")
-    if not curve[-1] < curve[0] or rel > FIT_CURVE_RTOL:
-        fail(f"fit resume: loss {curve[0]} -> {curve[-1]}, curves differ "
-             f"by {rel}")
-    return {"uninterrupted": full, "resumed": curve, "max_rel_diff": rel}
+    if not curve[-1] < curve[0] or curve != full or differ:
+        fail(f"fit resume: loss {curve[0]} -> {curve[-1]}; the resumed fit's "
+             f"losses or params {differ} differ from the uninterrupted one's")
+    return {"uninterrupted": full, "resumed": curve, "bit_equal": True}
 
 
 def phase3_reference(cornell, card: str) -> dict:
@@ -3907,7 +4327,7 @@ PAR_LOSS_RTOL = 1e-6    # tests/test_diff.py's sharded-step tolerances
 PAR_PARAM_RTOL = 1e-5
 PAR_PARAM_ATOL = 1e-7
 PAR_CLI_SIZE = 64
-PAR_RING_GRAD_RTOL = 1e-4   # the hierarchies' tri_v0 gate (float atomics)
+PAR_RING_GRAD_RTOL = 1e-4   # the hierarchies' tri_v0 gate (shards sum apart)
 PAR_SOFT_ATOL = 1e-5        # soft radiance: the coverage sums' order
 PAR_SOFT_SPP = 4
 PAR_TIMEOUT_S = 900
@@ -4132,7 +4552,9 @@ def par_train(say) -> dict:
     """The sharded training step (dp = 2, and geom = 2) on the stand-in at
     PAR_TRAIN_SIZE^2 (the dry run's params, Adam(1e-2)): loss and params
     within tests/test_diff.py's tolerances of the single-device card
-    step."""
+    step; each sharded step audited once (a check-only pass)."""
+    import torch.distributed as dist
+
     from pathtracerpython_tpu_torch.diff import adam, make_train_step
     from pathtracerpython_tpu_torch.parallel import make_mesh
     from pathtracerpython_tpu_torch.render.config import RenderConfig
@@ -4164,6 +4586,9 @@ def par_train(say) -> dict:
             ("dp", dict(dp=PAR_WORLD), None),
             ("geom", dict(dp=1, geom=PAR_WORLD), "geom")):
         loss, p = step(make_mesh(**mesh_kw), geom_axis)
+        determinism_audit(
+            f"sharded train step {name}={PAR_WORLD} rank {dist.get_rank()}",
+            lambda: step(make_mesh(**mesh_kw), geom_axis))
         rel = abs(loss - loss1) / abs(loss1)
         worst = max(float(((p[k] - p1[k]).abs()
                            - PAR_PARAM_RTOL * p1[k].abs()).max())
@@ -4209,7 +4634,8 @@ def par_ring_train(say) -> dict:
     home rows the gradient of its ring's rays, the other ranks' part
     included (arrived through the reverse shifts); reverse shifts a step
     = bounces x (geom - 1); ms a step in turns with the single step, bytes
-    forward and backward, launches and peak memory."""
+    forward and backward, launches and peak memory; the step run again on
+    each rank for the same bits, and audited once."""
     import torch.distributed as dist
 
     from pathtracerpython_tpu_torch.diff import (
@@ -4282,10 +4708,17 @@ def par_ring_train(say) -> dict:
     counts = {"shifts": ring.SHIFTS, "bytes_sent": ring.BYTES_SENT,
               "back_shifts": ring.BACK_SHIFTS,
               "back_bytes": ring.BACK_BYTES}
+    # the same step again: the same bits on this rank; then one audited
+    # backward
+    rank = dist.get_rank()
+    hold_bits_equal(f"ring train step, rank {rank}",
+                    [local, grads(ring_fn)[1]])
+    determinism_audit(f"ring train step rank {rank}",
+                      lambda: grads(ring_fn))
     group, _ = mesh.line(("dp", "geom"))
     total = {k: transport("all_reduce", v, group) for k, v in local.items()}
     row = {"mesh": dict(mesh.shape), "shard_rows": per_rows, "loss": loss,
-           "single_loss": loss1,
+           "single_loss": loss1, "grads_bit_equal_across_2_runs": True,
            "loss_rel_diff": abs(loss - loss1) / abs(loss1),
            "grad_rel_l2": {k: rel_l2(total[k], g1[k]) for k in g1},
            "launches_per_rank": launches, **counts,
@@ -4518,6 +4951,7 @@ def parallel_rank(rank: int, init: str, out_path: str) -> None:
         report["train_step"] = par_train(say)
         report["ring_train"] = par_ring_train(say)
         report["soft_ring"] = par_soft_ring(say)
+        report["audit"] = AUDIT
         multihost.sync()
     finally:
         multihost.shutdown()
@@ -4833,8 +5267,13 @@ def main() -> None:
         "is read")
     rows = phase2_kernels([("cornell", cornell), ("boxfield", field)], morton,
                           many, large)
+    rows["scatter_rows"] = phase2_scatter(cornell, large)
     launches = {**phase3_render(cornell, large, many), **phase3_probes()}
     grads = phase3_grad(cornell, card)
+    # the table gradients' sum launches in the backwards: its count is one
+    # bench training step's
+    launches["scatter_rows"] = grads["train_step"]["launches_per_step"][
+        "scatter_rows"]
     phase3_soft(cornell, card)
     phase3_reference(cornell, card)
     parallel = phase3_parallel(card)
@@ -4878,6 +5317,7 @@ def main() -> None:
          for k in ("K5", "K5@512", "K8", "K6", "K7", "K9",
                    "K3 sparse nearest", "K3 sparse any-hit",
                    *TWO_PASS_KEYS)}))
+    log("[2] scatter_rows " + json.dumps(rows["scatter_rows"]))
     log("[2] K3 beside its classic twins " + json.dumps(
         {k: [{f: r[f] for f in ("label", "ms", "classic_ms", "classic_agree")}
              for r in rows[k]] for k in ("K3 nearest", "K3 any-hit")}))
@@ -4904,7 +5344,8 @@ def main() -> None:
                  "K5@512 two-pass": (NEAREST_BACKWARD, hier["K5"]),
                  "K6 two-pass": (NO_BACKWARD, None),
                  "two-pass select": ("none (its flags choose lanes; no "
-                                     "gradient flows through them)", None)}
+                                     "gradient flows through them)", None),
+                 "scatter_rows": (SCATTER_BACKWARD, None)}
     # each kernel at its main path's first wavefront: K1, K2 the Cornell
     # primary rays, K4 the first shadow rays of the 300-box field's render
     # with 9 NEE samples (the render its launches are counted on), K3's
@@ -4970,6 +5411,9 @@ def main() -> None:
         ("two-pass select", "two-pass select nearest_select / "
          "any_hit_select", "two_pass.cu",
          "pathtracerpython_tpu/kernels/sparse_pallas.py:430"),
+        ("scatter_rows", "scatter_rows ops/gather.py (every table "
+         "gradient)", "scatter_rows.cu",
+         "pathtracerpython_tpu/ops/gather.py:50"),
     ):
         main_label = {"K4": f"{MANY_NEE_LABEL} bounce 1",
                       "K3 any-hit": "boxfield bounce 1"}.get(
@@ -4985,7 +5429,7 @@ def main() -> None:
             "max_abs_err": max(r["err"] for r in rows[key]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": None,
+            "library_ms": first.get("library_ms"),
             "backward": backward[0],
             **({"backward_ms": backward[1]} if backward[1] else {}),
             **{k: first[k] for k in CULL_KEYS if k in first},
@@ -4999,6 +5443,15 @@ def main() -> None:
             **({"tpu_kernel": "none: _lane_unseen_bound and the finality "
                               "tests are XLA in the JAX package"}
                if key == "two-pass select" else {}),
+            **({"tpu_kernel": "none: XLA's scatter-add, the transpose of "
+                              "take_rows' gather, in the JAX package",
+                "library": "torch.bincount(weights=) in float32, the "
+                           "backwards' sum before the kernel",
+                **{k: first[k] for k in (
+                    "index_add_ms", "sort_ms", "lanes", "cols", "n_rows",
+                    "kernel_rel_err", "kernel_plain_rel_err",
+                    "bincount32_rel_err")}}
+               if key == "scatter_rows" else {}),
         })
     for k in kernels:
         if k["launches"] < 1:
@@ -5006,6 +5459,11 @@ def main() -> None:
         if k["ms"] < k["bound_ms"]:
             fail(f"{k['name']}: {k['ms']} ms reads under its bound "
                  f"{k['bound_ms']} ms")
+    for rank in parallel["ranks"]:
+        AUDIT.update(rank.get("audit", {}))
+    log("[audit] float sums per audited backward (none may meet at one "
+        "address) and the ops torch's deterministic mode flags: "
+        + json.dumps(AUDIT))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

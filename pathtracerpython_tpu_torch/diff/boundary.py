@@ -70,6 +70,7 @@ from pathtracerpython_tpu_torch.kernels.sparse import (
     pack_for_sparse,
     pad_repeat_last,
 )
+from pathtracerpython_tpu_torch.ops.gather import take_rows
 from pathtracerpython_tpu_torch.ops.geometry import safe_normalize
 
 BAND_SIGMAS = 6.0   # extended-hit acceptance: margin > -BAND_SIGMAS * beta
@@ -351,7 +352,9 @@ def soft_block_candidates(o3, d3, tmax_rb, scene,
 def _gather_soft_tris(scene, cids, cvalid):
     """Differentiable gather of the candidate clusters' triangles:
     (v0, v1, v2 [M, 3], occluder bool[M], tri_ok bool[M], gidx i32[M]) with
-    M = k * SOFT_C_TRI; invalid slots are masked by tri_ok."""
+    M = k * SOFT_C_TRI; invalid slots are masked by tri_ok. Out-of-range
+    slots all read row 0, so the vertices' gradients are summed into the
+    table by ``take_rows``' ``scatter_rows``."""
     tidx = (cids[:, None].to(torch.int64) * SOFT_C_TRI + torch.arange(
         SOFT_C_TRI, device=cids.device)[None, :]).reshape(-1)
     in_range = tidx < scene.tri_v0.shape[0]
@@ -359,8 +362,8 @@ def _gather_soft_tris(scene, cids, cvalid):
     slot_ok = cvalid.repeat_interleave(SOFT_C_TRI)
     tri_ok = slot_ok & in_range & scene.tri_valid[safe]
     occl = scene.tri_occluder[safe] & tri_ok
-    return (scene.tri_v0[safe], scene.tri_v1[safe], scene.tri_v2[safe], occl,
-            tri_ok, safe.to(torch.int32))
+    return (take_rows(scene.tri_v0, safe), take_rows(scene.tri_v1, safe),
+            take_rows(scene.tri_v2, safe), occl, tri_ok, safe.to(torch.int32))
 
 
 def _lex_min(t, margin, gidx, accept, biased: bool):

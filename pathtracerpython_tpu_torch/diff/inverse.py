@@ -235,8 +235,9 @@ def fit(params: dict, optimizer: Callable, base_scene: SceneTensors,
     is saved every ``checkpoint_every`` steps (0: never) as step i + 1, and
     a call that finds a checkpoint there resumes from the latest: a fit
     stopped at step k and resumed gives the uninterrupted fit's params bit
-    for bit where the steps are deterministic (on the CPU; on the card the
-    scatters' float atomics round in their own order). A checkpoint of
+    for bit, on the CPU and on the card (every table gradient is summed by
+    ``ops.gather.scatter_rows`` in an order fixed by its inputs, so a step's
+    gradients have the same bits on every run). A checkpoint of
     another fit (see ``_fit_identity``), or one past ``steps``, is refused
     with a ``ValueError``. With a ``mesh`` every step is sharded
     (``make_train_step``); only the primary rank writes checkpoints."""

@@ -90,9 +90,10 @@ def test_sources_are_in_the_package():
     assert names == ["aabb.cuh", "any_hit.cu", "any_hit_walk.cuh",
                      "cluster.cuh", "mt.cuh", "nearest.cu",
                      "nee.cu", "plucker.cuh", "probe_bf16.cu",
-                     "probe_plucker.cu", "sparse_any_hit.cu",
-                     "sparse_any_hit_idx.cu", "sparse_nearest.cu",
-                     "two_pass.cu", "walker_any_hit.cu", "walker_nearest.cu"]
+                     "probe_plucker.cu", "scatter_rows.cu",
+                     "sparse_any_hit.cu", "sparse_any_hit_idx.cu",
+                     "sparse_nearest.cu", "two_pass.cu", "walker_any_hit.cu",
+                     "walker_nearest.cu"]
 
 
 def _c_parameters(source: str, entry: str) -> list[str]:

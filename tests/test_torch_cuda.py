@@ -1288,3 +1288,136 @@ def test_two_pass_any_hit_on_card_equals_one_pass(cuda, form):
         got = sparse.sparse_any_hit_cm(o3, d3u, maxd, scene, mt_impl=form,
                                        two_pass=k, m_div=m_div)
         assert torch.equal(got, want)
+
+
+# the table gradients' sum (ops/gather.py:scatter_rows, csrc/scatter_rows.cu):
+# (lanes, columns, rows) of the bench step's three calls (mat_rgb, the
+# tripack, the light table), the 100k field's tri_v0 backward, and edges
+SCATTER_SHAPES = {
+    "mat_rgb": (2**20, 3, 8),
+    "tripack": (2**20, 9, 64),
+    "light_table": (3 * 2**20, 9, 2),
+    "rows_100096": (2**18, 9, 100096),
+    "one_row": (4097, 3, 1),
+    "ragged_1007": (1007, 9, 64),
+    "no_lanes": (0, 9, 5),
+}
+SCATTER_REL_TOL = 1e-6   # of the float64 sum, relative to the absolute sum
+
+
+def _scatter_inputs(shape, cuda, seed=0):
+    """values f32[N, C] and rows i64[N] made on the card from a seed, the
+    low rows taking more lanes (a wavefront's big triangles)."""
+    n, c, n_rows = SCATTER_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    values = torch.randn((n, c), generator=gen, device=cuda)
+    u = torch.rand(n, generator=gen, device=cuda)
+    rows = (u * u * n_rows).to(torch.int64).clamp_max(n_rows - 1)
+    return values, rows, n_rows
+
+
+def _hold_scatter(got, values, rows, n_rows, what, exact=None):
+    """Each entry of ``got`` within SCATTER_REL_TOL of ``exact`` (by default
+    the float64 sum), relative to the sum of the absolute values it adds."""
+    if exact is None:
+        exact = torch.zeros((n_rows, values.shape[1]), dtype=torch.float64,
+                            device=values.device).index_add_(
+                                0, rows, values.double())
+    scale = torch.zeros_like(exact).index_add_(0, rows, values.double().abs())
+    err = (got.double() - exact).abs()
+    assert bool((err <= SCATTER_REL_TOL * scale).all()), (
+        what, float((err / scale.clamp_min(1e-30)).max()))
+
+
+@pytest.mark.parametrize("shape", sorted(SCATTER_SHAPES))
+def test_scatter_rows_kernel_equals_its_order_model(cuda, shape):
+    """The kernel gives its order's model bit for bit, is within the bound
+    of the float64 sum and of its plain version (a float64 bincount rounded
+    once); one launch a call (none with no lanes); a strided [N, C] view,
+    as TakeColumns passes, gives the contiguous copy's bits."""
+    from pathtracerpython_tpu_torch.ops import gather
+
+    values, rows, n_rows = _scatter_inputs(shape, cuda)
+    before = gather.LAUNCHES
+    got = gather.scatter_rows(values, rows, n_rows)
+    assert gather.LAUNCHES == before + (1 if rows.numel() else 0)
+    assert got.shape == (n_rows, values.shape[1])
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gather.scatter_rows_model(values, rows, n_rows))
+    _hold_scatter(got, values, rows, n_rows, "kernel")
+    plain = gather.scatter_rows_plain(values, rows, n_rows)
+    _hold_scatter(plain, values, rows, n_rows, "plain")
+    _hold_scatter(got, values, rows, n_rows, "kernel against plain",
+                  exact=plain.double())
+    strided = values.T.contiguous().T
+    assert torch.equal(gather.scatter_rows(strided, rows, n_rows), got)
+
+
+def test_scatter_rows_bit_equal_across_launches_and_streams(cuda):
+    """Three launches on the current stream and one on a second stream give
+    the same bits (the light table: 3 x 2^20 lanes onto 2 rows)."""
+    from pathtracerpython_tpu_torch.ops import gather
+
+    values, rows, n_rows = _scatter_inputs("light_table", cuda, seed=1)
+    runs = [gather.scatter_rows(values, rows, n_rows) for _ in range(3)]
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        runs.append(gather.scatter_rows(values, rows, n_rows))
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+
+
+@pytest.mark.parametrize("shape", ["tripack", "rows_100096"])
+def test_scatter_rows_reads_nothing_back(cuda, shape):
+    """The call (sort, two kernels) runs clean under the sync debug mode
+    "error": no host read, so no stream sync."""
+    from pathtracerpython_tpu_torch.ops import gather
+
+    values, rows, n_rows = _scatter_inputs(shape, cuda, seed=2)
+    gather.scatter_rows(values, rows, n_rows)   # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gather.scatter_rows(values, rows, n_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_train_step_gradients_bit_equal_across_three_runs(cuda):
+    """One training step's gradients of every material, emission and
+    vertex field on the Cornell stand-in (64^2, 2 spp as lanes, 3 bounces,
+    3 NEE): the same bits in three runs from the same params and key, every
+    table gradient through the kernel."""
+    from pathtracerpython_tpu_torch.diff import (
+        camera_pixel_loss,
+        make_render_fn,
+    )
+    from pathtracerpython_tpu_torch.ops import gather
+
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(64, 64), pad_to=32,
+                              device=cuda)
+    cfg = RenderConfig(n_samples=2, n_bounces=3, n_light_samples=3,
+                       batch_samples=True)
+    with torch.no_grad():
+        target = render(scene, cfg, seed=0)
+    fields = ("mat_rgb", "mat_ka", "mat_kd", "light_color", "ambient",
+              "tri_v0", "tri_v1", "tri_v2", "light_v0", "light_v1",
+              "light_v2")
+    runs = []
+    for _ in range(3):
+        params = {f: getattr(scene, f).detach().clone().requires_grad_(True)
+                  for f in fields}
+        before = gather.LAUNCHES
+        camera_pixel_loss(params, scene, target, make_render_fn(cfg),
+                          torch.arange(target.shape[0], device=cuda),
+                          (0, 5)).backward()
+        assert gather.LAUNCHES > before
+        runs.append({f: p.grad for f, p in params.items()})
+    for f in fields:
+        assert torch.isfinite(runs[0][f]).all(), f
+        assert torch.equal(runs[1][f], runs[0][f]), f
+        assert torch.equal(runs[2][f], runs[0][f]), f
