@@ -99,13 +99,16 @@ phase fails:
      JSON lines are printed;
    - scatter_rows (csrc/scatter_rows.cu, the sum of every table gradient)
      on the calls one backward of the bench training step makes, captured
-     (the triangle pack onto 64 rows, the light table onto 2, mat_rgb), and on
-     the 100k field's tri_v0 backward (onto 100,096 rows): bit for bit its
+     (the triangle pack onto 64 rows, the light table onto 2, mat_rgb), on
+     the 100k field's tri_v0 backward (onto 100,096 rows) and on 2^20 x 9
+     lanes onto 3, 4, 113 and 114 rows (each side of its paths' limits),
+     each row naming its path (tiny, narrow or wide): bit for bit its
      order's model ``gather.scatter_rows_model``, the same bits in four
      launches (one on a second stream), no stream sync in the call, within
      1e-6 of the absolute sum from the float64 sum and from its plain
      version; its time beside the plain version's, the float32 weighted
-     bincount's (the library call), index_add_'s and its sort's;
+     bincount's (the library call), index_add_'s and a stable sort's of
+     the rows (which only the wide path runs);
 3. the full renders:
    - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
      radiance finite, non-negative and not constant; K1 and K2 launched
@@ -433,11 +436,17 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events.
+    ``queued``: the stream is held by a spin kernel (about 0.1 ms a run)
+    while the host queues the runs, so a call whose host side outlasts its
+    device work reads its device time; a call that reads back to the host
+    waits for the device each time and reads as without."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(200_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -2554,14 +2563,19 @@ NEE_BACKWARD = ("NeeMeanCos.backward: nee.smooth_mean_cos recomputed in "
                 "plain PyTorch, occlusion fixed")
 NO_BACKWARD = "none (detached)"
 # The table gradients' sum, ops/gather.py:scatter_rows: on the card
-# csrc/scatter_rows.cu (a stable sort of the rows, then two levels of sums in
-# an order fixed by the inputs). No TPU kernel: in the JAX package it is
-# XLA's scatter-add, the transpose of a gather. Its phase-2 rows are the
-# calls the bench step's backward makes, captured from one backward, and
-# the 100k field's tri_v0 backward on its primary rays.
+# csrc/scatter_rows.cu (narrow tables with no sort, each thread's or each
+# warp's lanes in lane order, then fixed trees; wide tables a stable sort,
+# then runs of equal keys in windows of 32 sorted positions; an order fixed
+# by the inputs either way). No TPU kernel: in the JAX package it is XLA's
+# scatter-add, the transpose of a gather. Its phase-2 rows are the calls
+# the bench step's backward makes, captured from one backward, the 100k
+# field's tri_v0 backward on its primary rays, and 2^20 x 9 lanes onto
+# each side of the kernel's two limits (gather.plan: tiny up to 32 table
+# entries, narrow up to 1024, wide past it).
 SCATTER_REL_TOL = 1e-6   # of the float64 sum, relative to the absolute sum
 SCATTER_RUNS = 3         # runs of a gradient that must give the same bits
 SCATTER_BACKWARD = "none (it is the backwards' sum)"
+SCATTER_EDGE_ROWS = (3, 4, 113, 114)   # x 9 columns: 27 | 36, 1017 | 1026
 # path -> one audited backward's report: the float sums whose lanes met at
 # one address (a gate: there must be none) or not, and the ops that
 # torch.use_deterministic_algorithms(True, warn_only=True) warned of
@@ -2670,15 +2684,18 @@ def check_scatter(label: str, call: dict, report: list) -> None:
     SCATTER_RUNS launches and on a second stream; no stream sync in the
     call (sync debug mode "error"); within SCATTER_REL_TOL of the float64
     sum and of its plain version, relative to the absolute sum; and the
-    times (CUDA events, mean of 10) of the kernel, its plain version (a
-    float64 bincount rounded once), the float32 weighted bincount the
-    backwards used before (the library call), index_add_ into a zero table
-    and the wrapper's stable sort alone. Bound: the values, the rows and
+    times (CUDA events, mean of 10, the calls queued behind a spin:
+    ``cuda_ms(..., queued=True)``) of the kernel (its path from
+    ``gather.plan``), and its call unqueued, its plain version (a float64 bincount rounded once),
+    the float32 weighted bincount the backwards used before (the library
+    call), index_add_ into a zero table and a stable sort of the rows
+    alone (which only the wide path runs). Bound: the values, the rows and
     the table once over the memory rate."""
     from pathtracerpython_tpu_torch.ops import gather
 
     v, r, n_rows = call["values"], call["rows"], call["n_rows"]
     n, c = v.shape
+    path = gather.plan(n, c, n_rows)[0]
     got = gather.scatter_rows(v, r, n_rows)
     if not torch.equal(got, gather.scatter_rows_model(v, r, n_rows)):
         fail(f"scatter_rows {label}: the kernel differs from its order's "
@@ -2723,30 +2740,37 @@ def check_scatter(label: str, call: dict, report: list) -> None:
         fail(f"scatter_rows {label}: {k_rel} of the absolute sum from the "
              f"float64 sum, {against_plain} from the plain version; bound "
              f"{SCATTER_REL_TOL}")
-    ms = cuda_ms(lambda: gather.scatter_rows(v, r, n_rows), 10)
-    plain_ms = cuda_ms(lambda: gather.scatter_rows_plain(v, r, n_rows), 10)
-    bincount_ms = cuda_ms(bincount32, 10)
+    ms = cuda_ms(lambda: gather.scatter_rows(v, r, n_rows), 10, queued=True)
+    call_ms = cuda_ms(lambda: gather.scatter_rows(v, r, n_rows), 10)
+    plain_ms = cuda_ms(lambda: gather.scatter_rows_plain(v, r, n_rows), 10,
+                       queued=True)
+    bincount_ms = cuda_ms(bincount32, 10, queued=True)
     index_add_ms = cuda_ms(lambda: torch.zeros(
-        (n_rows, c), device="cuda").index_add_(0, r, v), 10)
-    sort_ms = cuda_ms(lambda: torch.sort(r.to(torch.int32), stable=True), 10)
+        (n_rows, c), device="cuda").index_add_(0, r, v), 10, queued=True)
+    sort_ms = cuda_ms(lambda: torch.sort(r.to(torch.int32), stable=True), 10,
+                      queued=True)
     nbytes = n * c * v.element_size() + tensor_bytes(r) + n_rows * c * 4
     row = report_row(label, float((got - plain).abs().max()), ms, plain_ms,
                      bound(nbytes, 0, 0), library_ms=bincount_ms,
-                     index_add_ms=index_add_ms, sort_ms=sort_ms, lanes=n,
-                     cols=c, n_rows=n_rows, caller=call["caller"],
+                     index_add_ms=index_add_ms, sort_ms=sort_ms,
+                     call_ms=call_ms, lanes=n,
+                     cols=c, n_rows=n_rows, path=path, caller=call["caller"],
                      contiguous=v.is_contiguous(), kernel_rel_err=k_rel,
                      kernel_plain_rel_err=against_plain, plain_rel_err=p_rel,
                      bincount32_rel_err=b_rel)
     report.append(row)
     layout = "contiguous" if v.is_contiguous() else "strided"
     log(f"[2] scatter_rows {label}: {n} lanes x {c} onto {n_rows} rows "
-        f"({call['caller']}, {layout}): the model's bits, {SCATTER_RUNS + 1} launches bit-equal (one on "
-        f"a second stream), no sync; of the absolute sum, {k_rel:.3g} from "
+        f"({call['caller']}, {layout}, {path} path): kernel / plain / "
+        f"float32 bincount / index_add_ / bound {ms:.4f} / {plain_ms:.4f} / "
+        f"{bincount_ms:.4f} / {index_add_ms:.4f} / {row['bound_ms']:.4f} ms "
+        f"(bytes; a stable sort of the rows alone {sort_ms:.4f}; each timed "
+        f"queued behind a spin, and the kernel's call unqueued "
+        f"{call_ms:.4f}); the "
+        f"model's bits, {SCATTER_RUNS + 1} launches bit-equal (one on a "
+        f"second stream), no sync; of the absolute sum, {k_rel:.3g} from "
         f"float64 and {against_plain:.3g} from the plain version (the float32"
-        f" bincount {b_rel:.3g} from float64); kernel {ms:.4f} ms (the "
-        f"stable sort alone {sort_ms:.4f}), plain {plain_ms:.4f} ms, float32 "
-        f"bincount {bincount_ms:.4f} ms, index_add_ {index_add_ms:.4f} ms, "
-        f"bound {row['bound_ms']:.4f} ms by bytes")
+        f" bincount {b_rel:.3g} from float64)")
 
 
 def bench_step_grads(cornell):
@@ -2784,9 +2808,11 @@ def phase2_scatter(cornell, large) -> list:
     """csrc/scatter_rows.cu on the inputs the main path gives it: the bench
     step's backward's calls for the triangle pack (nearest_bwd: 2^20 lanes x 9
     onto 64 rows), the light table (NeeMeanCos: 3 x 2^20 x 9 onto 2) and
-    mat_rgb (cm_take: 2^20 x 3, strided, onto the materials), and the 100k
+    mat_rgb (cm_take: 2^20 x 3, strided, onto the materials), the 100k
     field's tri_v0 backward (K5 under NearestTIdx on its 512^2 primary
-    rays: 262,144 x 9 onto 100,096 rows)."""
+    rays: 262,144 x 9 onto 100,096 rows), and 2^20 x 9 lanes from a seed
+    onto SCATTER_EDGE_ROWS rows, the two sides of the tiny and of the
+    narrow path's limits."""
     from pathtracerpython_tpu_torch.ops.camera import make_primary_rays
     from pathtracerpython_tpu_torch.ops.geometry import (
         nearest_hit_cm,
@@ -2830,6 +2856,18 @@ def phase2_scatter(cornell, large) -> list:
             ("100k field tri_v0", pick("nearest_bwd", 9,
                                        large.num_padded_triangles))):
         check_scatter(label, call, report)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for n_rows in SCATTER_EDGE_ROWS:
+        u = torch.rand(2**20, generator=gen, device="cuda")
+        check_scatter(f"edge onto {n_rows} rows", {
+            "caller": "seeded", "n_rows": n_rows,
+            "values": torch.randn((2**20, 9), generator=gen, device="cuda"),
+            "rows": (u * u * n_rows).to(torch.int64).clamp_max(n_rows - 1)},
+            report)
+    paths = {row["path"] for row in report}
+    if paths != {"tiny", "narrow", "wide"}:
+        fail(f"phase 2: scatter_rows' rows took the paths {paths}, not all "
+             "three")
     return report
 
 
@@ -3145,6 +3183,10 @@ def grad_train_step(cornell, card: str) -> dict:
     log(f"[3g] stream syncs in one backward of the training step ({card}; "
         f"sync debug mode 'warn'): {syncs}")
     trace = profile_backward(loss, card)
+    if trace["sort_ms_calls"][1]:
+        fail(f"training step: one backward ran aten::sort "
+             f"{trace['sort_ms_calls'][1]} times; every table of the step "
+             "is narrow, so scatter_rows sorts nothing")
     backward = times["forward_backward"] - times["forward"]
     row = {
         "cell": (f"train step cornell {CORNELL_SIZE}^2 {CORNELL_SPP}spp "
@@ -3185,17 +3227,21 @@ def profile_backward(loss_fn, card: str, top: int = 6) -> dict:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         fail("profile of the backward: the trace shows no device kernel")
-    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:top]
+    aten = [e for e in events if e.device_type == DeviceType.CPU
+            and e.key.startswith("aten::")]
+    ops = sorted(aten, key=lambda e: -e.self_device_time_total)[:top]
+    sort = [e for e in aten if e.key == "aten::sort"]
     row = {"device_busy_ms": sum(e.self_device_time_total
                                  for e in kernels) / 1e3,
            "device_kernels": sum(e.count for e in kernels),
            "top_ops_ms": {e.key: [e.self_device_time_total / 1e3, e.count]
-                          for e in ops}}
+                          for e in ops},
+           "sort_ms_calls": [sum(e.self_device_time_total for e in sort) / 1e3,
+                             sum(e.count for e in sort)]}
     log(f"[3g] one backward under torch.profiler ({card}): device busy "
         f"{row['device_busy_ms']:.3f} ms in {row['device_kernels']} device "
-        f"kernels; top operators [ms, calls] {json.dumps(row['top_ops_ms'])}")
+        f"kernels; top operators [ms, calls] {json.dumps(row['top_ops_ms'])}"
+        f"; aten::sort [ms, calls] {row['sort_ms_calls']}")
     return row
 
 
@@ -5449,6 +5495,7 @@ def main() -> None:
                            "backwards' sum before the kernel",
                 **{k: first[k] for k in (
                     "index_add_ms", "sort_ms", "lanes", "cols", "n_rows",
+                    "path",
                     "kernel_rel_err", "kernel_plain_rel_err",
                     "bincount32_rel_err")}}
                if key == "scatter_rows" else {}),

@@ -29,7 +29,21 @@ by name; default all):
   mean of 20 launches after 3 warm-up launches. The ``probes`` cell times
   every variant of the probes P1 (262,144 rays x 512 triangles) and P2
   (2^20 rays x 512 triangles) so, on the probes' seeded inputs, their
-  packs built beforehand; it renders nothing;
+  packs built beforehand; it renders nothing. The ``scatter`` cell times
+  ``ops.gather.scatter_rows`` (the table gradients' sum, on the card
+  csrc/scatter_rows.cu) on the calls one backward of the bench training
+  step makes (the Cornell stand-in, 512x512, 4 spp as lanes, 4 bounces, 3
+  NEE; captured), all of them in a row, on the 100k field's tri_v0
+  backward of its primary rays, and on 2^20 x 9 lanes onto 3, 4, 113 and
+  114 rows (the edges of the kernel's paths), with the float32 weighted
+  bincount and index_add_ on the same inputs beside them, each timed with
+  the stream held while the host queues the calls (device time), the
+  kernel's calls also without and split by device kernel under
+  torch.profiler; and profiles one
+  backward of the bench step (device busy ms, device kernels, the top
+  operators, aten::sort's ms and calls, and the device ms of the sum's own
+  kernels and of any sort's); it renders nothing, and keeps
+  that backward's gradients, which the comparison holds run against run;
 - renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
   forms, the Cornell cell also in reference mode and, in both modes,
@@ -50,7 +64,9 @@ It prints, and writes to ``FILE`` as JSON, every run's times by wavefront,
 the largest absolute difference of each render between every change run
 and every parent run, and between the two runs of each checkout, and
 each render's launches and device busy ms by run, with whether the
-launches of all four runs are equal. Needs a
+launches of all four runs are equal; with the ``scatter`` cell also its
+profiled backward by run and the largest difference of its gradients
+between every two runs. Needs a
 CUDA device; nothing here runs on the CPU.
 """
 
@@ -95,6 +111,12 @@ CELLS = {
 
 # the cell of the probes P1 and P2 (kernel times only)
 PROBES = "probes"
+# the cell of the table gradients' sum (times, one profiled backward)
+SCATTER = "scatter"
+# the bench training step's params (chip_smoke.py STEP_FIELDS)
+STEP_FIELDS = ("mat_rgb", "mat_ka", "mat_kd", "light_color", "ambient",
+               "tri_v0", "tri_v1", "tri_v2", "light_v0", "light_v1",
+               "light_v2")
 
 
 def _scene(port, cell):
@@ -226,12 +248,183 @@ def _probe_kernels(port):
     return out
 
 
-def _ms(fn, reps: int = 20) -> float:
+def _capture_scatters(port, fn) -> list:
+    """Run ``fn()`` with every caller of ``scatter_rows`` recording its
+    inputs (strides kept) in call order."""
+    import torch
+
+    calls = []
+    modules = [port[m] for m in ("ops.gather", "kernels.intersect",
+                                 "kernels.nee")]
+    saved = [m.scatter_rows for m in modules]
+
+    def recording(real):
+        def record(values, rows, n_rows):
+            calls.append((values.detach().clone(), rows.detach().clone(),
+                          n_rows))
+            return real(values, rows, n_rows)
+        return record
+
+    for m, real in zip(modules, saved):
+        m.scatter_rows = recording(real)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for m, real in zip(modules, saved):
+            m.scatter_rows = real
+    return calls
+
+
+def _scatter_cell(port):
+    """The ``scatter`` cell: ({name: fn()} to time, the bench step's
+    ``loss()`` (fresh leaves and a forward -> (params, loss)))."""
+    import dataclasses
+
+    import torch
+
+    gather = port["ops.gather"]
+    diff = port["diff"]
+    cornell = _scene(port, "cornell")
+    cfg = port["render.config"].RenderConfig(
+        mode="fast", n_samples=4, n_bounces=4, n_light_samples=NEE_SAMPLES,
+        batch_samples=True)
+    with torch.no_grad():
+        target = port["render.integrator"].render(cornell, cfg, seed=0)
+    start = {f: getattr(cornell, f).detach().clone() for f in STEP_FIELDS}
+    start["mat_rgb"] = start["mat_rgb"] * 0.5
+    pids = torch.arange(target.shape[0], device="cuda")
+    render_fn = diff.make_render_fn(cfg)
+
+    def loss():
+        params = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+        return params, diff.camera_pixel_loss(params, cornell, target,
+                                              render_fn, pids, (0, 5))
+
+    def backward():
+        params, value = loss()
+        value.backward()
+
+    step_calls = _capture_scatters(port, backward)
+    labels = {}
+    for v, r, n_rows in step_calls:
+        labels.setdefault(f"bench step {v.shape[0]}x{v.shape[1]} onto "
+                          f"{n_rows}" + ("" if v.is_contiguous()
+                                         else " strided"), (v, r, n_rows))
+    large = port["scene.arrays"].pack_scene(
+        port["scene.synthetic"].box_field_scene(n_boxes=8333, width=512,
+                                                height=512),
+        tri_order="morton")
+    geometry, camera = port["ops.geometry"], port["ops.camera"]
+    o, d = camera.make_primary_rays(large.eye, large.ortho, 512, 512)
+    o3, d3 = o.T.contiguous(), geometry.normalize3(d.T).contiguous()
+
+    def tri_backward():
+        leaves = {f: getattr(large, f).detach().clone().requires_grad_(True)
+                  for f in ("tri_v0", "tri_v1", "tri_v2")}
+        t = geometry.nearest_hit_cm(o3, d3, dataclasses.replace(
+            large, **leaves), accel="auto").t
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        t.backward(torch.randn(t.shape[0], generator=gen, device="cuda"))
+
+    v, r, n_rows = next(c for c in _capture_scatters(port, tri_backward)
+                        if c[2] == large.num_padded_triangles)
+    labels[f"100k tri_v0 {v.shape[0]}x{v.shape[1]} onto {n_rows}"] = (
+        v, r, n_rows)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for n_rows in (3, 4, 113, 114):
+        u = torch.rand(2**20, generator=gen, device="cuda")
+        labels[f"edge 1048576x9 onto {n_rows}"] = (
+            torch.randn((2**20, 9), generator=gen, device="cuda"),
+            (u * u * n_rows).to(torch.int64).clamp_max(n_rows - 1), n_rows)
+    fns = {}
+    for label, (v, r, n_rows) in labels.items():
+        c = v.shape[1]
+        bins = (r[:, None] * c + torch.arange(c, device="cuda")).reshape(-1)
+        fns[f"{label} kernel"] = (lambda v=v, r=r, n=n_rows:
+                                  gather.scatter_rows(v, r, n))
+        fns[f"{label} bincount32"] = (
+            lambda bins=bins, v=v, n=n_rows * c: torch.bincount(
+                bins, weights=v.reshape(-1), minlength=n))
+        fns[f"{label} index_add_"] = (
+            lambda v=v, r=r, n=n_rows: torch.zeros(
+                (n, v.shape[1]), device="cuda").index_add_(0, r, v))
+
+    def all_step_calls():
+        for v, r, n_rows in step_calls:
+            gather.scatter_rows(v, r, n_rows)
+
+    fns[f"bench step's {len(step_calls)} calls kernel"] = all_step_calls
+    return fns, loss
+
+
+def _kernel_split(fn, reps: int = 10) -> dict:
+    """{device kernel: us a call} of ``fn()`` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def _profile_backward(loss) -> dict:
+    """The backward of one ``loss()`` (its forward run before) under
+    torch.profiler: device busy ms, device kernels, the top 6 aten
+    operators by self device ms, aten::sort's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss()[1].backward()
+    _, value = loss()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        value.backward()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.key.startswith("aten::")]
+    sort = [e for e in ops if e.key == "aten::sort"]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:6]
+    # the device kernels of scatter_rows (either design) and of any sort
+    mine = [e for e in kernels if any(w in e.key for w in (
+        "tiny_kernel", "narrow_kernel", "grid_tree_kernel", "windows_kernel",
+        "rows_kernel", "runs_kernel", "RadixSort", "radix_sort"))]
+    return {"device_busy_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3,
+            "device_kernels": sum(e.count for e in kernels),
+            "top_ops_ms": {e.key: [e.self_device_time_total / 1e3, e.count]
+                           for e in top},
+            "sort_ms": sum(e.self_device_time_total for e in sort) / 1e3,
+            "sort_calls": sum(e.count for e in sort),
+            "scatter_and_sort_kernels_ms": {
+                e.key[:80]: [e.self_device_time_total / 1e3, e.count]
+                for e in mine}}
+
+
+def _ms(fn, reps: int = 20, queued: bool = False) -> float:
+    """Mean ms of ``fn()`` over ``reps`` calls by CUDA events. ``queued``:
+    the stream is held by a spin kernel (about 0.1 ms a call) while the
+    host queues the calls, so a call whose host side outlasts its device
+    work reads its device time (a call that reads back to the host still
+    waits for the device and reads as before)."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(200_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -308,12 +501,32 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
     port = {m: importlib.import_module(f"pathtracerpython_tpu_torch.{m}")
             for m in ("kernels.intersect", "kernels.nee", "kernels.sparse",
                       "kernels.walker", "ops.rng", "ops.camera",
-                      "ops.geometry", "ops.sort", "parallel",
+                      "ops.gather", "ops.geometry", "ops.sort", "parallel",
+                      "diff",
                       "probes.bf16_probe", "probes.mma_probe",
                       "render.config", "render.integrator",
                       "scene.arrays", "scene.synthetic")}
-    times, records = {}, {}
+    times, records, profiles = {}, {}, {}
     for cell in cells:
+        if cell == SCATTER:
+            fns, loss = _scatter_cell(port)
+            for name, run in fns.items():
+                for _ in range(3):
+                    run()
+                times[f"{cell} {name}"] = [_ms(run, queued=True)
+                                           for _ in range(3)]
+                if name.endswith(" kernel"):
+                    times[f"{cell} {name} unqueued"] = [_ms(run)
+                                                        for _ in range(3)]
+                    profiles[f"{name} split us"] = _kernel_split(run)
+            params, value = loss()
+            value.backward()
+            torch.save({k: p.grad.cpu() for k, p in params.items()},
+                       f"{out}_{cell}_grads.pt")
+            profiles["bench step backward"] = _profile_backward(loss)
+            del fns, loss, params, value
+            torch.cuda.empty_cache()
+            continue
         if cell == PROBES:
             for name, run in _probe_kernels(port).items():
                 for _ in range(3):
@@ -339,7 +552,8 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
         del scene
         torch.cuda.empty_cache()
     with open(out + ".json", "w") as f:
-        json.dump({"times": times, "renders": records}, f)
+        json.dump({"times": times, "renders": records,
+                   "profiles": profiles}, f)
 
 
 def compare(other: str, work: str, cells) -> dict:
@@ -359,7 +573,10 @@ def compare(other: str, work: str, cells) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     result = {"card": smi, "order": list(ORDER), "kernel_ms": {},
-              "radiance_max_abs_diff": {}, "renders": {}}
+              "radiance_max_abs_diff": {}, "renders": {},
+              "profiles": {key: [r.get("profiles", {}).get(key)
+                                 for _, _, r in runs]
+                           for key in runs[0][2].get("profiles", {})}}
     for key, record in runs[0][2]["renders"].items():
         per_run = [r["renders"][key] for _, _, r in runs]
         result["renders"][key] = {
@@ -377,7 +594,15 @@ def compare(other: str, work: str, cells) -> dict:
         result["kernel_ms"][key]["median"] = {
             side: statistics.median(v)
             for side, v in result["kernel_ms"][key].items()}
-    for cell in (c for c in cells if c != PROBES):
+    if SCATTER in cells:
+        grads = [(side, torch.load(f"{out}_{SCATTER}_grads.pt"))
+                 for side, out, _ in runs]
+        result["scatter_grads_max_abs_diff"] = {
+            f"run{i} {si} - run{j} {sj}": max(
+                (gi[k] - gj[k]).abs().max().item() for k in gi)
+            for i, (si, gi) in enumerate(grads)
+            for j, (sj, gj) in enumerate(grads[i + 1:], start=i + 1)}
+    for cell in (c for c in cells if c not in (PROBES, SCATTER)):
         for name in CELLS[cell][5]:
             rad = [(side, torch.load(f"{out}_{cell}_{name}.pt"))
                    for side, out, _ in runs]
@@ -397,8 +622,9 @@ def main() -> None:
     ap.add_argument("--work", default=os.path.join(THIS_ROOT, "build",
                                                    "compare_trees"),
                     help="directory for the runs' files")
-    ap.add_argument("--cells", nargs="+", choices=[*CELLS, PROBES],
-                    default=[*CELLS, PROBES], help="the cells to compare")
+    ap.add_argument("--cells", nargs="+", choices=[*CELLS, PROBES, SCATTER],
+                    default=[*CELLS, PROBES, SCATTER],
+                    help="the cells to compare")
     ap.add_argument("--worker", metavar="TREE",
                     help="one run in checkout TREE (times to OUT.json)")
     ap.add_argument("--no-renders", action="store_true",

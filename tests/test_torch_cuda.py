@@ -1291,28 +1291,44 @@ def test_two_pass_any_hit_on_card_equals_one_pass(cuda, form):
 
 
 # the table gradients' sum (ops/gather.py:scatter_rows, csrc/scatter_rows.cu):
-# (lanes, columns, rows) of the bench step's three calls (mat_rgb, the
-# tripack, the light table), the 100k field's tri_v0 backward, and edges
+# (lanes, columns, rows, how the lanes pick their rows) of the bench step's
+# three calls (mat_rgb and the light table on the tiny path, the tripack on
+# the narrow one), the 100k field's tri_v0 backward (the wide path, sorted),
+# each path's edges (``gather.plan``: tiny up to 32 table entries, narrow
+# up to 1024) and the other edges
 SCATTER_SHAPES = {
-    "mat_rgb": (2**20, 3, 8),
-    "tripack": (2**20, 9, 64),
-    "light_table": (3 * 2**20, 9, 2),
-    "rows_100096": (2**18, 9, 100096),
-    "one_row": (4097, 3, 1),
-    "ragged_1007": (1007, 9, 64),
-    "no_lanes": (0, 9, 5),
+    "mat_rgb": (2**20, 3, 8, "skewed"),
+    "tripack": (2**20, 9, 64, "skewed"),
+    "light_table": (3 * 2**20, 9, 2, "skewed"),
+    "rows_100096": (2**18, 9, 100096, "skewed"),
+    "one_row": (4097, 3, 1, "skewed"),
+    "ragged_1007": (1007, 9, 64, "skewed"),
+    "no_lanes": (0, 9, 5, "skewed"),
+    "tiny_edge_27": (2**20, 9, 3, "skewed"),
+    "narrow_past_tiny_36": (2**20, 9, 4, "skewed"),
+    "narrow_edge_1017": (2**20, 9, 113, "skewed"),
+    "wide_past_narrow_1026": (2**20, 9, 114, "skewed"),
+    "one_column": (2**18, 1, 20, "skewed"),
+    "tiny_widest_32": (2**18, 32, 1, "skewed"),
+    "narrow_33_columns": (2**18, 33, 2, "skewed"),
+    "wide_33_columns": (2**18, 33, 40, "skewed"),
+    "narrow_every_lane_one_row": (2**20, 9, 64, "one"),
+    "wide_every_lane_one_row": (2**18, 9, 100096, "one"),
 }
 SCATTER_REL_TOL = 1e-6   # of the float64 sum, relative to the absolute sum
 
 
 def _scatter_inputs(shape, cuda, seed=0):
     """values f32[N, C] and rows i64[N] made on the card from a seed, the
-    low rows taking more lanes (a wavefront's big triangles)."""
-    n, c, n_rows = SCATTER_SHAPES[shape]
+    low rows taking more lanes (a wavefront's big triangles), or every lane
+    on the middle row."""
+    n, c, n_rows, how = SCATTER_SHAPES[shape]
     gen = torch.Generator(device=cuda).manual_seed(seed)
     values = torch.randn((n, c), generator=gen, device=cuda)
     u = torch.rand(n, generator=gen, device=cuda)
     rows = (u * u * n_rows).to(torch.int64).clamp_max(n_rows - 1)
+    if how == "one":
+        rows = torch.full_like(rows, n_rows // 2)
     return values, rows, n_rows
 
 
@@ -1331,10 +1347,11 @@ def _hold_scatter(got, values, rows, n_rows, what, exact=None):
 
 @pytest.mark.parametrize("shape", sorted(SCATTER_SHAPES))
 def test_scatter_rows_kernel_equals_its_order_model(cuda, shape):
-    """The kernel gives its order's model bit for bit, is within the bound
-    of the float64 sum and of its plain version (a float64 bincount rounded
-    once); one launch a call (none with no lanes); a strided [N, C] view,
-    as TakeColumns passes, gives the contiguous copy's bits."""
+    """The kernel gives its order's model bit for bit on each path, is
+    within the bound of the float64 sum and of its plain version (a float64
+    bincount rounded once); one launch a call (none with no lanes); a
+    strided [N, C] view, as TakeColumns passes, gives the contiguous copy's
+    bits."""
     from pathtracerpython_tpu_torch.ops import gather
 
     values, rows, n_rows = _scatter_inputs(shape, cuda)
@@ -1353,12 +1370,29 @@ def test_scatter_rows_kernel_equals_its_order_model(cuda, shape):
     assert torch.equal(gather.scatter_rows(strided, rows, n_rows), got)
 
 
-def test_scatter_rows_bit_equal_across_launches_and_streams(cuda):
-    """Three launches on the current stream and one on a second stream give
-    the same bits (the light table: 3 x 2^20 lanes onto 2 rows)."""
+@pytest.mark.parametrize("shape", ["tripack", "rows_100096"])
+def test_scatter_rows_takes_any_integer_rows(cuda, shape):
+    """Rows of int64, int32 or int16 (the narrow path reads the first two
+    as they are and casts the rest) give the same bits."""
     from pathtracerpython_tpu_torch.ops import gather
 
-    values, rows, n_rows = _scatter_inputs("light_table", cuda, seed=1)
+    values, rows, n_rows = _scatter_inputs(shape, cuda, seed=3)
+    want = gather.scatter_rows(values, rows, n_rows)
+    kinds = (torch.int32, torch.int16) if n_rows < 2**15 else (torch.int32,)
+    for dtype in kinds:
+        assert torch.equal(
+            gather.scatter_rows(values, rows.to(dtype), n_rows), want), dtype
+
+
+@pytest.mark.parametrize("shape", ["light_table", "tripack", "rows_100096",
+                                   "narrow_edge_1017",
+                                   "wide_past_narrow_1026"])
+def test_scatter_rows_bit_equal_across_launches_and_streams(cuda, shape):
+    """Three launches on the current stream and one on a second stream give
+    the same bits, on each path."""
+    from pathtracerpython_tpu_torch.ops import gather
+
+    values, rows, n_rows = _scatter_inputs(shape, cuda, seed=1)
     runs = [gather.scatter_rows(values, rows, n_rows) for _ in range(3)]
     side = torch.cuda.Stream(device=cuda)
     side.wait_stream(torch.cuda.current_stream(cuda))
@@ -1370,10 +1404,12 @@ def test_scatter_rows_bit_equal_across_launches_and_streams(cuda):
         assert torch.equal(r, runs[0])
 
 
-@pytest.mark.parametrize("shape", ["tripack", "rows_100096"])
+@pytest.mark.parametrize("shape", ["light_table", "tripack", "rows_100096",
+                                   "narrow_edge_1017",
+                                   "wide_past_narrow_1026"])
 def test_scatter_rows_reads_nothing_back(cuda, shape):
-    """The call (sort, two kernels) runs clean under the sync debug mode
-    "error": no host read, so no stream sync."""
+    """The call (on the wide path the sort too) runs clean under the sync
+    debug mode "error": no host read, so no stream sync."""
     from pathtracerpython_tpu_torch.ops import gather
 
     values, rows, n_rows = _scatter_inputs(shape, cuda, seed=2)

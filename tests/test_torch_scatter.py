@@ -35,7 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (lanes, columns, rows, how the lanes pick their rows): the bench step's
 # three shapes at a small N (mat_rgb, the tripack, the light table), then
-# the edges the kernel's levels meet
+# the edges the kernel's paths meet (``gather.plan``: tiny up to TINY_SLOTS
+# = 32 entries, narrow up to NARROW_SLOTS = 1024, wide past it)
 CASES = {
     "mat_rgb": (4096, 3, 8, "skewed"),
     "tripack": (4096, 9, 64, "skewed"),
@@ -47,7 +48,23 @@ CASES = {
     "every_lane_one_row": (5000, 9, 7, "one"),
     "ragged_1007": (1007, 9, 64, "skewed"),
     "one_lane": (1, 12, 3, "uniform"),
+    "tiny_edge_27": (3000, 9, 3, "skewed"),
+    "narrow_past_tiny_36": (3000, 9, 4, "skewed"),
+    "narrow_edge_1017": (3000, 9, 113, "skewed"),
+    "wide_past_narrow_1026": (3000, 9, 114, "skewed"),
+    "one_column": (3000, 1, 20, "skewed"),
+    "tiny_widest_32": (1500, 32, 1, "uniform"),
+    "narrow_33_columns": (1500, 33, 2, "skewed"),
+    "wide_33_columns": (1500, 33, 40, "skewed"),
+    "wide_one_row_of_many": (3000, 9, 500, "one"),
+    "wide_skewed_empty_rows": (4000, 3, 2000, "skewed"),
 }
+# path each case must take: the cases above cover all three
+PATHS = {"mat_rgb": "tiny", "light_table": "tiny", "tiny_edge_27": "tiny",
+         "tiny_widest_32": "tiny", "tripack": "narrow",
+         "narrow_past_tiny_36": "narrow", "narrow_edge_1017": "narrow",
+         "narrow_33_columns": "narrow", "rows_100096": "wide",
+         "wide_past_narrow_1026": "wide", "wide_33_columns": "wide"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -197,6 +214,196 @@ def test_model_order_is_fixed_by_the_inputs():
     _hold(b.numpy(), values, rows, n_rows, "permuted lanes")
 
 
+def _emulate_kernel(values, rows, n_rows):
+    """csrc/scatter_rows.cu's loops transcribed one add at a time in numpy
+    float32 (a thread's or a warp's serial adds, the shuffle-down trees
+    lane by lane, the wide path's segmented scan with its shuffles, the
+    row ends the windows write and their owners read), independent of the
+    vectorised model; small inputs only."""
+    f32 = np.float32
+    n, c = values.shape
+    out = np.zeros((n_rows, c), f32)
+    if n == 0:
+        return out
+
+    def warp_tree(x):                      # x: 32 lanes -> lane 0
+        x = list(x)
+        off = 16
+        while off:
+            x = [f32(x[i] + x[i + off]) if i + off < 32 else x[i]
+                 for i in range(32)]
+            off //= 2
+        return x[0]
+
+    def warps_tree(x):
+        x = list(x)
+        h = len(x) // 2
+        while h:
+            x = [f32(x[i] + x[i + h]) for i in range(h)]
+            h //= 2
+        return x[0]
+
+    path, blocks, rpb = gather.plan(n, c, n_rows)
+    t_n, w_n = gather.THREADS, gather.WARPS
+    slots = n_rows * c
+
+    def key(lane, end):
+        if lane >= end:
+            return -1
+        r = int(rows[lane])
+        return r if 0 <= r < n_rows else -1
+
+    if path != "wide":
+        part = np.zeros((blocks, slots), f32)
+        for b in range(blocks):
+            first = b * rpb * t_n
+            end = min(first + rpb * t_n, n)
+            if path == "tiny":
+                acc = np.zeros((t_n, slots), f32)
+                for t in range(t_n):
+                    for q in range(rpb):
+                        lane = first + q * t_n + t
+                        k = key(lane, end)
+                        for j in range(c if k >= 0 else 0):
+                            acc[t, k * c + j] = f32(acc[t, k * c + j]
+                                                    + values[lane, j])
+                sums = [warp_tree(acc[32 * w:32 * w + 32, s])
+                        for w in range(w_n) for s in range(slots)]
+                sums = np.array(sums, f32).reshape(w_n, slots)
+            else:
+                table = np.zeros((w_n, slots), f32)
+                for w in range(w_n):
+                    for q in range(rpb):
+                        step = first + w * 32 + q * t_n
+                        ks = [key(step + lane, end) for lane in range(32)]
+                        for k in sorted(set(ks) - {-1}):
+                            peers = [lane for lane in range(32)
+                                     if ks[lane] == k]
+                            for j in range(c):
+                                a = table[w, k * c + j]
+                                for lane in peers:
+                                    a = f32(a + values[step + lane, j])
+                                table[w, k * c + j] = a
+                sums = table
+            part[b] = [warps_tree(sums[:, s]) for s in range(slots)]
+        for e in range(slots):
+            lanes = np.zeros(32, f32)
+            for j in range(32):
+                for b in range(j, blocks, 32):
+                    lanes[j] = f32(lanes[j] + part[b, e])
+            out.reshape(-1)[e] = warp_tree(lanes)
+        return out
+
+    order = np.argsort(rows.astype(np.int32), kind="stable")
+    keys = rows.astype(np.int32)[order]
+    windows = -(-n // 32)
+    part = np.zeros((windows, 2, c), f32)
+    row_end = {}
+    int_min = np.iinfo(np.int32).min
+    for w in range(windows):
+        p0 = 32 * w
+        k = [int(keys[p0 + i]) if p0 + i < n else int_min for i in range(32)]
+        in_table = [p0 + i < n and 0 <= k[i] < n_rows for i in range(32)]
+        head = [max(h for h in range(i + 1) if h == 0 or k[h] != k[h - 1])
+                for i in range(32)]
+        starts0 = p0 == 0 or int(keys[p0 - 1]) != k[0]
+        goes_on = p0 + 32 < n and int(keys[p0 + 32]) == k[31]
+        x = np.array([[values[order[p0 + i], j] if in_table[i] else f32(0)
+                       for j in range(c)] for i in range(32)], f32)
+        off = 1
+        while off < 32:            # every lane reads its neighbour's old x
+            x = np.array([[f32(x[i - off, j] + x[i, j]) if i - off >= head[i]
+                           else x[i, j] for j in range(c)]
+                          for i in range(32)], f32)
+            off *= 2
+        for i in range(32):
+            if not in_table[i] or not (i == 31 or k[i] != k[i + 1]):
+                continue
+            if head[i] == 0 and not starts0 and not (i == 31 and goes_on):
+                row_end[k[i]] = p0 + i + 1
+            if (head[i] > 0 or starts0) and not (i == 31 and goes_on):
+                out[k[i]] = x[i]
+                continue
+            if head[i] == 0:
+                part[w, 0] = x[i]
+            if i == 31:
+                part[w, 1] = x[i]
+    for w in range(windows):
+        nxt = 32 * w + 32
+        if nxt >= n:
+            continue
+        k = int(keys[nxt - 1])
+        if not 0 <= k < n_rows or int(keys[nxt]) != k:
+            continue
+        if w > 0 and int(keys[32 * w]) == k and int(keys[32 * w - 1]) == k:
+            continue
+        m = (row_end[k] - 1) // 32 - w + 1
+        for j in range(c):
+            lanes = np.zeros(32, f32)
+            for lane in range(32):
+                for i in range(lane, m, 32):
+                    lanes[lane] = f32(lanes[lane]
+                                      + part[w + i, 1 if i == 0 else 0, j])
+            out[k, j] = warp_tree(lanes)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_model_is_the_kernels_loops(case):
+    """The vectorised model gives, bit for bit, what the kernel's loops
+    give when run one add at a time (``_emulate_kernel``); on the path the
+    case is meant to take; and a component-major [N, C] view, as
+    TakeColumns hands over, gives its contiguous copy's bits."""
+    values, rows, n_rows = _inputs(case, seed=7)
+    n, c = values.shape
+    if case in PATHS:
+        assert gather.plan(n, c, n_rows)[0] == PATHS[case]
+    v, r = torch.from_numpy(values), torch.from_numpy(rows)
+    model = gather.scatter_rows_model(v, r, n_rows)
+    assert np.array_equal(model.numpy().view(np.int32),
+                          _emulate_kernel(values, rows, n_rows).view(np.int32))
+    strided = torch.from_numpy(np.ascontiguousarray(values.T)).T
+    assert torch.equal(gather.scatter_rows_model(strided, r, n_rows), model)
+
+
+@pytest.mark.parametrize("path,lanes,cols,n_rows", [
+    ("tiny", 2 * gather.GRID * gather.THREADS + 7, 1, 5),
+    ("narrow", gather.GRID * gather.THREADS + 300, 1, 40),
+])
+def test_model_is_the_kernels_loops_over_many_rounds(path, lanes, cols,
+                                                     n_rows):
+    """Past GRID x THREADS lanes each narrow block takes several rounds
+    (and the last block fewer): the model against the kernel's loops
+    there, one column (so the one-add-at-a-time loops stay short)."""
+    rng = np.random.default_rng(8)
+    values = rng.standard_normal((lanes, cols)).astype(np.float32)
+    rows = np.minimum(rng.exponential(n_rows / 6, lanes).astype(np.int64),
+                      n_rows - 1)
+    got_path, blocks, rpb = gather.plan(lanes, cols, n_rows)
+    assert got_path == path and rpb > 1 and blocks <= gather.GRID
+    model = gather.scatter_rows_model(torch.from_numpy(values),
+                                      torch.from_numpy(rows), n_rows)
+    _hold(model.numpy(), values, rows, n_rows, path)
+    assert np.array_equal(model.numpy().view(np.int32),
+                          _emulate_kernel(values, rows, n_rows).view(np.int32))
+
+
+def test_plan_follows_the_table_and_the_lanes():
+    """The path follows n_rows * C alone (tiny up to TINY_SLOTS, narrow up
+    to NARROW_SLOTS, wide past it); a narrow grid is at most GRID blocks,
+    none of them empty, each of rpb rounds of THREADS lanes."""
+    for n_rows, c, path in ((2, 9, "tiny"), (32, 1, "tiny"), (8, 4, "tiny"),
+                            (33, 1, "narrow"), (64, 9, "narrow"),
+                            (1024, 1, "narrow"), (1025, 1, "wide"),
+                            (100096, 9, "wide")):
+        assert gather.plan(1000, c, n_rows)[0] == path, (n_rows, c)
+    for n in (1, 255, 256, 257, 135168, 135169, 3 * 2**20, 2**31 - 1):
+        _, blocks, rpb = gather.plan(n, 9, 2)
+        rounds = -(-n // gather.THREADS)
+        assert blocks <= gather.GRID and (blocks - 1) * rpb < rounds \
+            <= blocks * rpb, n
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     """On a CPU tensor the kernel's wrapper raises: the dispatcher takes the
     plain version only because the tensor lies on the CPU, and nothing
@@ -208,9 +415,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_entry_signature_and_constants_match():
     """``gather._ARGTYPES`` follows ``ptt_scatter_rows``'s parameters (a
-    pointer for each pointer, an int for each int), and RUN / TINY_ROWS /
-    TINY_THREADS / ROW_THREADS, which the model's order follows, are the
-    kernel's constants."""
+    pointer for each pointer, a long long for each long long, an int for
+    each int), and THREADS / GRID / TINY_SLOTS / NARROW_SLOTS / WINDOW,
+    which the model's paths, grids and order follow, are the kernel's
+    constants."""
     with open(os.path.join(build.CSRC_DIR, "scatter_rows.cu")) as f:
         text = f.read()
     head = text.index('extern "C" int ptt_scatter_rows(')
@@ -218,13 +426,18 @@ def test_entry_signature_and_constants_match():
               text[text.index("(", head) + 1:text.index(")", head)].split(",")]
     assert len(params) == len(gather._ARGTYPES), params
     for decl, argtype in zip(params, gather._ARGTYPES):
-        want = ctypes.c_void_p if "*" in decl else ctypes.c_int
+        want = (ctypes.c_void_p if "*" in decl else ctypes.c_longlong
+                if decl.startswith("long long") else ctypes.c_int)
         assert argtype is want, (decl, argtype)
-    for name, value in (("kRun", gather.RUN), ("kTinyRows", gather.TINY_ROWS),
-                        ("kTinyThreads", gather.TINY_THREADS),
-                        ("kRowThreads", gather.ROW_THREADS)):
+    for name, value in (("kThreads", gather.THREADS), ("kGrid", gather.GRID),
+                        ("kTinySlots", gather.TINY_SLOTS),
+                        ("kNarrowSlots", gather.NARROW_SLOTS),
+                        ("kWindow", gather.WINDOW)):
         decl = text[text.index(f"constexpr int {name} = "):].split(";")[0]
         assert int(decl.split("=")[1]) == value, name
+    assert gather.WARPS * 32 == gather.THREADS
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    assert "atomic" not in code.lower(), "the kernel uses no atomics"
 
 
 def test_package_never_sets_the_deterministic_flag():
