@@ -72,15 +72,22 @@ phase fails:
      counting instance inside the band; its two-pass protocol with a cold
      cache, the cache it returned and the cache the render carries, its
      bits K6's on all lanes, each pass (the vote-ordered guess lists, then
-     the lanes left open) held to its culled model and timed alone;
+     the lanes left open) held to its culled model and timed alone, and
+     the compaction between them (the compact entry of csrc/two_pass.cu)
+     bit for bit its plain twin and torch.nonzero's order, timed against
+     its bound and the library path it replaced (torch.nonzero and the
+     gather);
    - the two-pass protocol of the uncached sweeps on the same wavefronts:
      K5 in blocks of 1024 and 512 and K6 over the first PASS1_K slots of
-     each block's list, the finality kernel (csrc/two_pass.cu) against its
-     plain twin bit for bit (flags and bound), the survivors compacted and
-     swept again over their own lists; both branches (the one M_DIV takes
-     and the other forced by m_div) equal to the one-pass kernel bit for
-     bit, with the survivor share, pass 1, select, compaction and pass 2
-     timed alone and the two-pass wrapper in turns with the one-pass one;
+     each block's list, the select-and-compact kernel (csrc/two_pass.cu)
+     against its plain twins bit for bit (flags, bound, slots, count,
+     branch word and pass 2's rays) and torch.nonzero's order, the
+     survivors swept again over their own lists; both branches (the one
+     M_DIV takes and the other forced by m_div) equal to the one-pass
+     kernel bit for bit, with the survivor share, pass 1, the kernel (and
+     the library path it replaced: the flags, torch.nonzero and the
+     gather), pass 2's lists, pass 2 and the fallback timed alone and the
+     two-pass wrapper in turns with the one-pass one;
    - K3, the Plücker form of the four sweeps that follow the ``mt_impl``
      knob: dense nearest and dense any-hit on the Cornell and box-field
      wavefronts, cluster-sparse nearest and
@@ -119,11 +126,12 @@ phase fails:
      launched once per bounce, K1, K2 and K4 never (the lists are
      complete, so no dense fallback exists); the same render with
      accel="sparse" (K5, K6), with nee_cache="on" added (K5, K7 twice per
-     bounce) and with accel="walker" (K8, K9), each within 1e-6 of the
-     hybrid's radiance, with its launch counts; the sparse and hybrid
-     renders again with both two-pass auto flags on, each equal to its
-     default render bit for bit and timed in turns with it, with the
-     launches of K5, K6 and the finality kernel;
+     bounce, the select-and-compact kernel's compact entry once) and with
+     accel="walker" (K8, K9), each within 1e-6 of the hybrid's radiance,
+     with its launch counts; the sparse and hybrid renders again with both
+     two-pass auto flags on, each equal to its default render bit for bit
+     and timed in turns with it, with the launches of K5, K6 and the
+     select-and-compact kernel;
    - the 300-box field at 128x128 with accel="hybrid" against
      accel="none" on the card, a 400-box field's hybrid render on the
      card against the CPU (also sparse with the cache, and walker), and
@@ -187,7 +195,7 @@ phase fails:
      fallbacks of one soft render and its backward, which is audited;
    - ``apps.fit_pose.run(object_name="cube")`` with the app's defaults
      (planar, 120 steps a level, pyramid 40x40 then 128x128, 4 beta stages
-     0.12 -> 0.03, 1 spp, 1 bounce) at Adam(0.03), seeds 0-5: at each
+     0.12 -> 0.03, 1 spp, 1 bounce) at Adam(0.03), seeds 0-2: at each
      level the loss of its last beta stage (one objective, one key) is
      lower at the pose the level ended with than at the fit's initial
      pose, and one seed recovers the pose; ms a step, fwd:bwd, peak;
@@ -438,15 +446,16 @@ def fail(msg: str) -> None:
 
 def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events.
-    ``queued``: the stream is held by a spin kernel (about 0.1 ms a run)
-    while the host queues the runs, so a call whose host side outlasts its
-    device work reads its device time; a call that reads back to the host
-    waits for the device each time and reads as without."""
+    ``queued``: the stream is held by a spin kernel (about 0.25 ms a run,
+    past the host time of a call of ten launches) while the host queues the
+    runs, so a call whose host side outlasts its device work reads its
+    device time; a call that reads back to the host waits for the device
+    each time and reads as without."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if queued:
-        torch.cuda._sleep(200_000 * reps)
+        torch.cuda._sleep(500_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -507,6 +516,15 @@ def timed_runs(fn, warmup: int, reps: int) -> list[float]:
     for _ in range(reps):
         times.append(cuda_ms(fn, 1))
     return times
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, with a line of the phase's wall seconds after it (the
+    script's limit is 1,200 s)."""
+    start = time.monotonic()
+    out = fn(*args)
+    log(f"[time] {phase}: {time.monotonic() - start:.1f} s")
+    return out
 
 
 def phase0_identity() -> tuple[str, str]:
@@ -1522,7 +1540,8 @@ def hold_k7(what, got, model, tripack, rays, plain) -> float:
     return max(err, check_clusters(f"{what} against plain", got[1], plain))
 
 
-def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
+def check_k7(label, scene, shadow, carried, occ6, stride, report,
+             select_rows) -> None:
     """K7 on one wavefront of shadow rays. On the full lists: the kernel
     against its culled model (``k7_model``) on every ``stride``-th block,
     bits and first blocking clusters equal on every lane, and its clusters
@@ -1534,7 +1553,8 @@ def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
     per path lane, or None); each pass as the entry runs it
     (``sparse.cached_passes``) held to its culled model and timed alone
     beside its bound (a pass 2 on the whole wavefront is the full lists'
-    run)."""
+    run); the compaction between the passes (csrc/two_pass.cu's compact
+    entry) by ``check_compact``, its rows appended to ``select_rows``."""
     from pathtracerpython_tpu_torch.kernels import intersect, sparse
     from pathtracerpython_tpu_torch.ops.sort import permute_minor
 
@@ -1589,6 +1609,8 @@ def check_k7(label, scene, shadow, carried, occ6, stride, report) -> None:
                  "occluded lane, or the reverse")
         first, second, sel = sparse.cached_passes(o3, d3, maxd, tripack,
                                                   aabb8, cull, guess, rel)
+        check_compact(f"K7 {label} {what} cache", o3, d3, maxd,
+                      ~first.occ & rel, select_rows)
         both = {"pass 1": first} if sel is None else {"pass 1": first,
                                                       "pass 2": second}
         passes = {}
@@ -1720,17 +1742,22 @@ def check_k3_sparse(label, scene, o3, d3u, shadow, stride, rows, k5, occ6):
 # The two-pass protocol of the uncached sweeps (kernels/sparse.py:
 # two_pass_nearest, two_pass_any_hit) on the 100k field's wavefronts: K5 in
 # blocks of 1024 (the hybrid's) and 512 (accel="sparse"), K6, and the
-# finality test csrc/two_pass.cu.
+# select-and-compact kernel csrc/two_pass.cu (whose compact entry the
+# occluder cache runs, check_compact).
 TWO_PASS_KEYS = ("K5 two-pass", "K5@512 two-pass", "K6 two-pass",
                  "two-pass select")
-TWO_PASS_ROW_KEYS = ("pass1_ms", "select_ms", "compact_ms", "pass2_ms",
+TWO_PASS_ROW_KEYS = ("pass1_ms", "select_ms", "library_select_ms",
+                     "pass2_lists_ms", "pass2_ms", "fallback_ms",
                      "one_pass_ms", "survivors", "survivor_share", "branch",
-                     "wrapper_ms", "lanes", "lane_m")
+                     "kernel_unqueued_ms", "lanes", "slots", "lane_m")
 TWO_PASS_NEVER_FITS = 10**6  # m_div whose pass 2 is one block: the big branch
 # Operations of one slab test (cluster.cuh: slab_hit): per axis two
 # subtractions, two products, a min and a max; two mins and two maxes across
 # the axes, the clamp, and the comparison with its slack
 SLAB_OPS = 22
+# Bytes a pass-2 slot takes: its lane (int64) and its ray (o, d: 6 floats;
+# the any-hit's and the cache's also the window)
+SLOT_BYTES = {False: 8 + 24, True: 8 + 28}
 
 
 def two_pass_turns(one, two, reps: int = 5) -> tuple[float, float]:
@@ -1745,27 +1772,132 @@ def two_pass_turns(one, two, reps: int = 5) -> tuple[float, float]:
     return statistics.mean(times[one]), statistics.mean(times[two])
 
 
+def library_compaction(flags, m, o3, d3u, maxd):
+    """The compaction as the port ran it before the select-and-compact
+    kernel, with library calls: ``torch.nonzero`` (which reads the count
+    back to the host), then the parked gather of the first m lanes into m
+    slots (PARK_ORIGIN / PARK_DIR, window 1 past them). Returns (sel
+    i64[min(count, m)], count, rays)."""
+    from pathtracerpython_tpu_torch.ops.sort import PARK_DIR, PARK_ORIGIN
+
+    sel = torch.nonzero(flags).flatten()
+    count = sel.shape[0]
+    sel = sel[:m]
+    k = sel.shape[0]
+    o2 = o3.new_tensor(PARK_ORIGIN)[:, None].repeat(1, m)
+    d2 = o3.new_tensor(PARK_DIR)[:, None].repeat(1, m)
+    o2[:, :k] = o3[:, sel]
+    d2[:, :k] = d3u[:, sel]
+    if maxd is None:
+        return sel, count, (o2, d2)
+    md2 = torch.ones(m, dtype=maxd.dtype, device=maxd.device)
+    md2[:k] = maxd[sel]
+    return sel, count, (o2, d2, md2)
+
+
+def hold_selection(what, got, want, flags, n: int, library) -> int:
+    """The kernel's Selection ``got`` against its plain twin's ``want``
+    (every field bit for bit) and against the library path's (sel, count,
+    rays) ``library``: the same count, the same lanes in the same order (the
+    slots up to the count where it fits the cap), the same rays. Fails
+    otherwise; returns the count."""
+    fields = ("sel", "count", "taken", "ncand_fb")
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if (g is None) != (w is None) or (g is not None
+                                          and not torch.equal(g, w)):
+            fail(f"{what}: {f} differs from the plain twin's")
+    for k, (g, w) in enumerate(zip(got.rays, want.rays)):
+        if not torch.equal(g, w):
+            fail(f"{what}: pass-2 ray field {k} differs from the plain "
+                 f"twin's on {int((g != w).sum())} of {g.numel()} values")
+    if got.flags is not None and not torch.equal(got.flags, flags):
+        fail(f"{what}: flags differ from the plain twin's")
+    count = int(got.count[0])
+    m = got.sel.shape[0]
+    sel, lib_count, rays = library
+    if lib_count != count:
+        fail(f"{what}: count {count}, torch.nonzero's {lib_count}")
+    if bool(got.taken[0]) != (count > m):
+        fail(f"{what}: taken is {bool(got.taken[0])} at count {count} of "
+             f"{m} slots")
+    if count <= m:
+        if not (torch.equal(got.sel[:count], sel)
+                and bool((got.sel[count:] == n).all())):
+            fail(f"{what}: the slots are not torch.nonzero's lanes")
+        if not all(torch.equal(g, w) for g, w in zip(got.rays, rays)):
+            fail(f"{what}: the rays differ from the library gather's")
+    elif not bool((got.sel == n).all()):
+        fail(f"{what}: a slot is not parked past the cap")
+    return count
+
+
+def check_compact(label, o3, d3u, maxd, unfinished, rows) -> dict:
+    """csrc/two_pass.cu's compact entry (``sparse.select_compact``, the
+    occluder cache's pass-2 compaction) on the lanes ``unfinished``: bit
+    for bit its plain twin, torch.nonzero's lanes in its order, and the
+    library gather's rays; timed (queued: device time; and unqueued)
+    against its bound and the library path it replaced (torch.nonzero, its
+    host read and the gather). Appends to ``rows``; returns the row."""
+    from pathtracerpython_tpu_torch.kernels import sparse
+
+    n = o3.shape[1]
+    m = sparse.pass2_size(n)
+    step = lambda: sparse.select_compact(unfinished, m, o3, d3u, maxd)
+    got = step()
+    want, p_ms = once_ms(lambda: sparse.select_compact_plain(
+        unfinished, m, o3, d3u, maxd))
+    library = lambda: library_compaction(unfinished, m, o3, d3u, maxd)
+    cnt = hold_selection(f"compact {label}", got, want, None, n, library())
+    ms = cuda_ms(step, 10, queued=True)
+    unqueued = cuda_ms(step, 10)
+    lib_ms = cuda_ms(library, 10)
+    # the flags read once, every slot written once, the count and the
+    # branch word; the survivors' rays only where they fit the cap (past
+    # it every slot is parked, and no ray need be read)
+    nbytes = (tensor_bytes(unfinished) + (cnt * 28 if cnt <= m else 0)
+              + m * SLOT_BYTES[True] + 5)
+    b = bound(nbytes, 0, 0)
+    branch = "compacted" if cnt <= m else "whole"
+    log(f"[2] select_compact {label}: {n} lanes, {cnt} open "
+        f"({cnt / n:.4f}), {m} slots: the {branch} branch; slots, count, "
+        f"rays and branch equal to the plain twin's and to torch.nonzero's "
+        f"order; kernel {ms:.4f} ms (unqueued {unqueued:.4f}), library path "
+        f"(torch.nonzero and the gather) {lib_ms:.4f} ms, plain {p_ms:.3f} "
+        f"ms, bound {b[0]:.4f} ms by {b[1]}")
+    row = report_row(f"compact {label}", 0.0, ms, p_ms, b, library_ms=lib_ms,
+                     kernel_unqueued_ms=unqueued, lanes=n, slots=m,
+                     survivors=cnt, survivor_share=cnt / n, branch=branch,
+                     lane_m=0)
+    rows.append(row)
+    return row
+
+
 def check_two_pass(kind, name, label, scene, rays, r_blk, want, one_row,
                    rows, plain: bool) -> None:
     """The two-pass protocol of ``kind`` ("nearest": K5; "any-hit": K6) on
     one wavefront ``rays`` ((o3, d3u) or (o3, d3u, maxd)) in blocks of
     ``r_blk``, against ``want``, the one-pass kernel's result: the
     protocol's steps run and timed alone as the wrapper runs them (pass 1
-    over the first PASS1_K slots, the finality test, the compaction, pass
-    2 over the survivors' own lists), the finality kernel's flags and bound
-    equal to its plain twin's bit for bit, and the wrapper in both branches
-    (the one M_DIV takes, the other forced by ``m_div``) equal to ``want``
-    bit for bit; the wrapper timed in turns with the one-pass wrapper.
-    ``one_row``: the one-pass kernel's report row of the same wavefront,
-    whose bound the protocol shares (the same function on the same
-    inputs). ``plain``: also time the protocol with every step plain (the
-    walks at full width take seconds). Appends to ``rows[name]`` and to
-    ``rows["two-pass select"]``."""
+    over the first PASS1_K slots, the select-and-compact kernel, pass 2's
+    lists and pass 2 over the slots, the fallback over the full lists with
+    the counts the kernel left), the kernel's flags, bound, slots, count,
+    branch and rays equal to its plain twins' bit for bit and its lanes to
+    torch.nonzero's, and the wrapper in both branches (the one M_DIV takes,
+    the other forced by ``m_div``) equal to ``want`` bit for bit; the
+    wrapper timed in turns with the one-pass wrapper. The kernel is timed
+    against its bound and against the library path it replaced (the flags,
+    torch.nonzero and the gather). ``one_row``: the one-pass kernel's
+    report row of the same wavefront, whose bound the protocol shares (the
+    same function on the same inputs). ``plain``: also time the protocol
+    with every step plain (the walks at full width take seconds). Appends
+    to ``rows[name]`` and to ``rows["two-pass select"]``."""
     from pathtracerpython_tpu_torch.kernels import intersect, sparse
 
     nearest = kind == "nearest"
     tripack = sparse.pack_for_sparse(scene)
     aabb8 = sparse.cluster_aabbs(tripack)
+    box = sparse.scene_cluster_box(scene)
     o3, d3u = rays[0], rays[1]
     maxd = None if nearest else rays[2]
     n = o3.shape[1]
@@ -1799,59 +1931,61 @@ def check_two_pass(kind, name, label, scene, rays, r_blk, want, one_row,
         words = sparse.walk_words(n, o3.device) if nearest else None
         return launch(rays, head, words), words
 
-    def select(first, words, want_ne=False):
+    def select(first, words, slots=m, **kw):
+        # the wrapper's step: the kernel and its finish, the box cached
         if nearest:
-            return sparse.nearest_select(o3, d3u, aabb8, drops, r_blk,
-                                         *first, words, want_ne)
-        return sparse.any_hit_select(o3, d3u, maxd, first, aabb8, drops,
-                                     r_blk, want_ne)
+            return sparse.nearest_select_compact(
+                o3, d3u, aabb8, box, drops, r_blk, *first, words, slots,
+                lists.ncand, **kw)
+        return sparse.any_hit_select_compact(
+            o3, d3u, maxd, first, aabb8, box, drops, r_blk, slots,
+            lists.ncand, **kw)
 
-    def select_kernel(first, words):
-        # the launch alone, the scene's box made beforehand
-        state = [words] if nearest else [first, maxd]
-        entry = ("ptt_two_pass_nearest_select" if nearest
-                 else "ptt_two_pass_any_hit_select")
-        return sparse.launch_select(entry, state, o3, d3u, aabb8, box,
-                                    drops, r_blk)
-
-    def plain_select(first):
+    def plain_flags(first):
         if nearest:
             reach = torch.where(first[1] >= 0, first[0], intersect.BIG)
             return sparse.two_pass_flags_plain(o3, d3u, aabb8, drops, r_blk,
-                                               reach)
-        return sparse.two_pass_flags_plain(o3, d3u, aabb8, drops, r_blk,
-                                           maxd, sparse.any_hit_open(
-                                               first, maxd))
+                                               reach, box=box)
+        return sparse.two_pass_flags_plain(
+            o3, d3u, aabb8, drops, r_blk, maxd,
+            sparse.any_hit_open(first, maxd), box=box)
 
-    box = sparse.scene_box(aabb8)
+    def library(first, words):
+        # the path the kernel replaced: the finality flags (the kernel's,
+        # one slot), torch.nonzero and the gather
+        flags = select(first, words, 1, want_flags=True).flags
+        return library_compaction(flags, m, o3, d3u, maxd)
+
     first, words = pass1()
-    flags, ne = select(first, words, want_ne=True)
-    if not torch.equal(select_kernel(first, words)[0], flags):
-        fail(f"two-pass select {name} {label}: the launch alone gives other "
-             f"flags than the wrapper")
-    (want_flags, want_ne), select_plain_ms = once_ms(
-        lambda: plain_select(first))
-    if not (torch.equal(flags, want_flags) and torch.equal(ne, want_ne)):
+    s = select(first, words, want_flags=True, want_ne=True)
+    (want_flags, want_ne), flags_plain_ms = once_ms(lambda: plain_flags(first))
+    if not (torch.equal(s.flags, want_flags) and torch.equal(s.ne, want_ne)):
         fail(f"two-pass select {name} {label}: flags differ from its plain "
-             f"twin on {int((flags != want_flags).sum())} lanes, the bound "
-             f"on {int((ne != want_ne).sum())}")
-    cnt = int(flags.sum())
+             f"twin on {int((s.flags != want_flags).sum())} lanes, the bound "
+             f"on {int((s.ne != want_ne).sum())}")
+    want_s, compact_plain_ms = once_ms(lambda: sparse.select_compact_plain(
+        want_flags, m, o3, d3u, maxd, lists.ncand))
+    cnt = hold_selection(f"two-pass select {name} {label}", s, want_s,
+                         want_flags, n, library(first, words))
+    bare = select(first, words)
+    if not all(torch.equal(a, b) for a, b in zip(
+            (bare.sel, bare.count, bare.taken, *bare.rays),
+            (s.sel, s.count, s.taken, *s.rays))):
+        fail(f"two-pass select {name} {label}: the launch without flags and "
+             "bound gives other slots")
     natural = "compacted" if cnt <= m else "whole"
-    # the compacted pass 2 of the survivors, at the cap that holds them
+    # pass 2 over the compacted survivors, at the cap that holds them
     m2 = m if cnt <= m else sparse.pass2_size(n, r_blk, 1)
-
-    def compact():
-        sel, _ = sparse.two_pass_select(flags, m2)
-        rays2 = sparse.parked_rays(o3, d3u, maxd, sel, m2)
-        rays2 = rays2[:2] if nearest else rays2
-        return sel, rays2, make_lists(rays2)
-
-    sel, rays2, lists2 = compact()
+    rays2 = (s if cnt <= m else select(first, words, m2)).rays
+    lists2 = make_lists(rays2)
+    fallback = lists._replace(ncand=s.ncand_fb)
     pass1_ms = cuda_ms(pass1, 10)
-    select_ms = cuda_ms(lambda: select(first, words), 10)
-    kernel_ms = cuda_ms(lambda: select_kernel(first, words), 10)
-    compact_ms = cuda_ms(compact, 10)
+    kernel_ms = cuda_ms(lambda: select(first, words), 10, queued=True)
+    unqueued_ms = cuda_ms(lambda: select(first, words), 10)
+    library_ms = cuda_ms(lambda: library(first, words), 10)
+    lists2_ms = cuda_ms(lambda: make_lists(rays2), 10)
     pass2_ms = cuda_ms(lambda: launch(rays2, lists2), 10)
+    fallback_ms = cuda_ms(lambda: launch(rays, fallback), 10)
     one_ms, two_ms = two_pass_turns(lambda: wrapper(0), lambda: wrapper(k))
     # both branches through the wrapper, bit for bit
     forced = TWO_PASS_NEVER_FITS if natural == "compacted" else 1
@@ -1872,25 +2006,26 @@ def check_two_pass(kind, name, label, scene, rays, r_blk, want, one_row,
     if plain:
         def plain_two_pass():
             p1 = plain_sweep(rays, head)
-            fl, _ = plain_select(p1)
-            s, c = sparse.two_pass_select(fl, m)
-            if c > m:
-                return plain_sweep(rays, lists)
-            r2 = sparse.parked_rays(o3, d3u, maxd, s, m)
-            r2 = r2[:2] if nearest else r2
-            p2 = plain_sweep(r2, make_lists(r2))
+            fl, _ = plain_flags(p1)
+            sp = sparse.select_compact_plain(fl, m, o3, d3u, maxd,
+                                             lists.ncand)
+            p2 = plain_sweep(sp.rays, make_lists(sp.rays))
+            p_all = plain_sweep(rays, lists._replace(ncand=sp.ncand_fb))
             if nearest:
-                return tuple(a.index_copy(0, s, b[:c]) for a, b in zip(p1, p2))
-            return p1.index_copy(0, s, p2[:c])
+                return tuple(torch.where(sp.taken, a, sparse.scatter_back(
+                    b, sp.sel, c)) for a, b, c in zip(p_all, p1, p2))
+            return torch.where(sp.taken, p_all,
+                               sparse.scatter_back(p1, sp.sel, p2))
 
         _, p_ms = once_ms(plain_two_pass)
-    # the finality kernel's bound: the bytes it must move (the rays, pass
-    # 1's state, the drops and the boxes they name once, the flags) or its
-    # slab tests, whichever takes longer
+    # the kernel's bound: the bytes it must move (the rays, pass 1's state,
+    # the drops and the boxes they name once, the full lists' counts and the
+    # fallback's, every slot of pass 2 written once) or its slab tests,
+    # whichever takes longer
     state = (words,) if nearest else (first, maxd)
     named = int(drops.ids[drops.keys < intersect.BIG].unique().numel())
-    nbytes = (tensor_bytes(o3, d3u, *state, *drops, flags)
-              + named * BOX_FLOATS * 4)
+    nbytes = (tensor_bytes(o3, d3u, *state, *drops, lists.ncand, s.ncand_fb)
+              + named * BOX_FLOATS * 4 + m * SLOT_BYTES[not nearest] + 5)
     b_sel = bound(nbytes, n * (drops.ids.shape[1] + 1), SLAB_OPS)
     share = cnt / n
     log(f"[2] {name} {label}: {n} lanes in blocks of {r_blk}, pass 1 over "
@@ -1898,26 +2033,32 @@ def check_two_pass(kind, name, label, scene, rays, r_blk, want, one_row,
         f"{cnt} unfinished ({share:.4f}), pass 2 cap {m} (M_DIV "
         f"{sparse.M_DIV}): the {natural} branch; both branches equal to the "
         f"one-pass sweep bit for bit (m_div {sparse.M_DIV} and {forced}); "
-        f"flags and bound equal to the plain twin's")
-    log(f"[2] {name} {label} times: pass 1 {pass1_ms:.3f} ms, select "
-        f"{select_ms:.4f} ms (the kernel alone {kernel_ms:.4f}, plain "
-        f"{select_plain_ms:.3f}, bound {b_sel[0]:.4f} by {b_sel[1]}), "
-        f"compaction {compact_ms:.3f} ms, "
-        f"pass 2 {pass2_ms:.3f} ms over {m2} lanes; in turns: two-pass "
-        f"{two_ms:.3f} ms, one-pass {one_ms:.3f} ms (wrappers, lists "
-        f"included)" + ("" if p_ms is None else
-                        f"; plain two-pass {p_ms:.3f} ms"))
-    steps = dict(pass1_ms=pass1_ms, select_ms=select_ms,
-                 compact_ms=compact_ms, pass2_ms=pass2_ms, one_pass_ms=one_ms,
-                 survivors=cnt, survivor_share=share, pass2_cap=m,
-                 pass2_lanes=m2, branch=natural, forced_m_div=forced)
+        f"flags, bound, slots, count, branch and rays equal to the plain "
+        f"twins', the slots torch.nonzero's lanes")
+    log(f"[2] {name} {label} times: pass 1 {pass1_ms:.3f} ms, select and "
+        f"compact {kernel_ms:.4f} ms (unqueued {unqueued_ms:.4f}; the "
+        f"library path it replaced, flags, torch.nonzero and the gather, "
+        f"{library_ms:.4f}; plain {flags_plain_ms + compact_plain_ms:.3f}; "
+        f"bound {b_sel[0]:.4f} by {b_sel[1]}), pass 2's lists "
+        f"{lists2_ms:.3f} ms, pass 2 {pass2_ms:.3f} ms over {m2} lanes, the "
+        f"fallback over the lists with the kernel's counts {fallback_ms:.3f} "
+        f"ms; in turns: two-pass {two_ms:.3f} ms, one-pass {one_ms:.3f} ms "
+        f"(wrappers, lists included)" + (
+            "" if p_ms is None else f"; plain two-pass {p_ms:.3f} ms"))
+    steps = dict(pass1_ms=pass1_ms, select_ms=kernel_ms,
+                 library_select_ms=library_ms, pass2_lists_ms=lists2_ms,
+                 pass2_ms=pass2_ms, fallback_ms=fallback_ms,
+                 one_pass_ms=one_ms, survivors=cnt, survivor_share=share,
+                 pass2_cap=m, pass2_lanes=m2, branch=natural,
+                 forced_m_div=forced)
     rows[name].append(report_row(
         label, 0.0, two_ms, p_ms, (one_row["bound_ms"], one_row["bound_by"]),
         **steps))
     rows["two-pass select"].append(report_row(
-        f"{name} {label}", 0.0, kernel_ms, select_plain_ms, b_sel,
-        wrapper_ms=select_ms, lanes=n, lane_m=drops.ids.shape[1],
-        survivors=cnt, survivor_share=share))
+        f"{name} {label}", 0.0, kernel_ms, flags_plain_ms + compact_plain_ms,
+        b_sel, library_ms=library_ms, kernel_unqueued_ms=unqueued_ms,
+        lanes=n, slots=m, lane_m=drops.ids.shape[1], survivors=cnt,
+        survivor_share=share, branch=natural))
 
 
 def check_probes(rows) -> None:
@@ -2148,7 +2289,7 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
             r_blk=sparse.R_BLK, launch=sparse._launch_any_hit,
             wrapper=sparse.sparse_any_hit_cm, others=[("K9", occ9)])
         check_k7(label, large, shadow, cache if b > 1 else None, occ6,
-                 stride, rows["K7"])
+                 stride, rows["K7"], rows["two-pass select"])
         check_k3_sparse(label, large, o3, d3u, shadow, stride, rows, k5, occ6)
         for name, r_blk, want in (("K5 two-pass", r1024, (t5, i5)),
                                   ("K5@512 two-pass", sparse.R_BLK, k5)):
@@ -2224,10 +2365,10 @@ def two_pass_auto():
 def two_pass_renders(large, large_cfg, variant_rad) -> dict:
     """The 100k field's sparse and hybrid renders with both auto flags on:
     the radiance of the default render of each bit for bit; each sweep with
-    a two-pass form launches once or twice a bounce (pass 1, and pass 2
-    unless nothing survives), the finality kernel once a bounce and sweep;
-    then each against its default render in turns. Returns the launches of
-    each."""
+    a two-pass form launches three times a bounce (pass 1, pass 2 and the
+    fallback, the branch chosen on the device), the select-and-compact
+    kernel once a bounce and sweep; then each against its default render
+    in turns. Returns the launches of each."""
     from pathtracerpython_tpu_torch.render.integrator import render
 
     counts = {}
@@ -2251,7 +2392,7 @@ def two_pass_renders(large, large_cfg, variant_rad) -> dict:
                  f"abs diff {diff})")
         for key, n in launches.items():
             if key in sweeps:
-                ok = LARGE_BOUNCES <= n <= 2 * LARGE_BOUNCES
+                ok = n == 3 * LARGE_BOUNCES
             elif key == "two-pass select":
                 ok = n == len(sweeps) * LARGE_BOUNCES
             else:
@@ -2409,7 +2550,8 @@ def phase3_render(cornell, large, many) -> dict:
 
     # the same render through the other hierarchies. K7 runs twice per
     # bounce, whatever the cache holds: pass 1 over the guess lists, then
-    # pass 2 over the full lists (compacted or whole)
+    # pass 2 over the full lists (compacted or whole), and between them the
+    # compact entry of the select-and-compact kernel once
     variant_counts, variant_rad = {"accel='auto'": large_counts}, {
         "accel='auto'": rad}
     for what, kw, want in (
@@ -2417,7 +2559,8 @@ def phase3_render(cornell, large, many) -> dict:
          {"K5": LARGE_BOUNCES, "K6": LARGE_BOUNCES}),
         ("accel='sparse', nee_cache='on'",
          dict(accel="sparse", nee_cache="on"),
-         {"K5": LARGE_BOUNCES, "K7": 2 * LARGE_BOUNCES}),
+         {"K5": LARGE_BOUNCES, "K7": 2 * LARGE_BOUNCES,
+          "two-pass select": LARGE_BOUNCES}),
         ("accel='walker'", dict(accel="walker"),
          {"K8": LARGE_BOUNCES, "K9": LARGE_BOUNCES}),
     ):
@@ -2537,7 +2680,10 @@ def phase3_render(cornell, large, many) -> dict:
             "K5 two-pass": two_pass["accel='auto'"]["K5"],
             "K5@512 two-pass": two_pass["accel='sparse'"]["K5"],
             "K6 two-pass": two_pass["accel='sparse'"]["K6"],
-            "two-pass select": two_pass["accel='sparse'"]["two-pass select"]}
+            "two-pass select": variant_counts[
+                "accel='sparse', nee_cache='on'"]["two-pass select"],
+            "two-pass select, two-pass auto flags": two_pass[
+                "accel='sparse'"]["two-pass select"]}
 
 
 # The gradient phase: the fit_albedo slice and the backwards. Card against
@@ -3349,8 +3495,8 @@ SPP_SWEEP = (1, 2, 4, 8)
 # run in three (scripts/soft_fit_seeds.py, measured while the card's float
 # atomics made one seed's runs differ; the JAX app stalls on the CPU too;
 # since the scatter_rows kernel a seed's runs repeat). A run recovers
-# below these bounds, and one run of the six must
-FIT_SEEDS = (0, 1, 2, 3, 4, 5)
+# below these bounds, and one run of the three must
+FIT_SEEDS = (0, 1, 2)
 FIT_RECOVERED_OFFSET = 0.1  # of 0.5
 FIT_RECOVERED_YAW = 0.1     # rad, of 0.25
 # the rise of a stalled run's 128^2 level, in its last beta stage's loss,
@@ -5263,6 +5409,7 @@ def _arg(flag: str) -> str | None:
 
 def main() -> None:
     global PAR_WORLD
+    started = time.monotonic()
     PAR_WORLD = int(_arg("--world") or PAR_WORLD)
     rank = _arg("--parallel-rank")
     if rank is not None:
@@ -5270,7 +5417,7 @@ def main() -> None:
         parallel_rank(int(rank), _arg("--init"), _arg("--out"))
         return
     card, name = phase0_identity()
-    phase1_build()
+    timed("phase 1", phase1_build)
     only = _arg("--only")
     if only is not None:
         # phase 3p alone, for working on it: no result lines
@@ -5311,18 +5458,21 @@ def main() -> None:
         f"padded) and large box field ({large.meta.n_triangles} tris, "
         f"{large.num_padded_triangles} padded, morton order); no scene file "
         "is read")
-    rows = phase2_kernels([("cornell", cornell), ("boxfield", field)], morton,
-                          many, large)
-    rows["scatter_rows"] = phase2_scatter(cornell, large)
-    launches = {**phase3_render(cornell, large, many), **phase3_probes()}
-    grads = phase3_grad(cornell, card)
+    rows = timed("phase 2", phase2_kernels,
+                 [("cornell", cornell), ("boxfield", field)], morton, many,
+                 large)
+    rows["scatter_rows"] = timed("phase 2 scatter_rows", phase2_scatter,
+                                 cornell, large)
+    launches = {**timed("phase 3", phase3_render, cornell, large, many),
+                **timed("phase 3 probes", phase3_probes)}
+    grads = timed("phase 3g", phase3_grad, cornell, card)
     # the table gradients' sum launches in the backwards: its count is one
     # bench training step's
     launches["scatter_rows"] = grads["train_step"]["launches_per_step"][
         "scatter_rows"]
-    phase3_soft(cornell, card)
-    phase3_reference(cornell, card)
-    parallel = phase3_parallel(card)
+    timed("phase 3s", phase3_soft, cornell, card)
+    timed("phase 3r", phase3_reference, cornell, card)
+    parallel = timed("phase 3p", phase3_parallel, card)
     large_label = (f"large100k {CORNELL_SIZE}^2 {LARGE_SPP}spp "
                    f"{LARGE_BOUNCES}b")
     cell_args = [
@@ -5348,11 +5498,13 @@ def main() -> None:
           f"{MANY_NEE_BOUNCES}b {MANY_NEE_SAMPLES}nee", many, MANY_NEE_SPP,
           MANY_NEE_BOUNCES), dict(nee=MANY_NEE_SAMPLES)),
     ]
-    cells = [time_render(*args, **kw) for args, kw in cell_args]
+    cells = timed("phase 4", lambda: [time_render(*args, **kw)
+                                      for args, kw in cell_args])
     log("[4] cells " + json.dumps(cells))
-    turns = [row for (args, kw) in cell_args if kw.get("mt_impl")
-             for row in time_in_turns(*args, **{
-                 k: v for k, v in kw.items() if k != "mt_impl"})]
+    turns = timed("phase 4 turns", lambda: [
+        row for (args, kw) in cell_args if kw.get("mt_impl")
+        for row in time_in_turns(*args, **{
+            k: v for k, v in kw.items() if k != "mt_impl"})])
     log("[4] classic and Plücker in turns " + json.dumps(turns))
     if "--profile" in sys.argv[1:]:
         prof = [profile_render(*args, c["ms_per_render"], **kw)
@@ -5446,16 +5598,18 @@ def main() -> None:
         *((key, f"{key} probes.bf16_probe", "probe_bf16.cu",
            "scripts/bf16_probe.py:82") for key in P2_KEYS),
         ("K5 two-pass", "K5 sparse_nearest_t_idx_cm two_pass=4 "
-         "r_blk=1024 (pass 1, select, pass 2)", "sparse_nearest.cu",
+         "r_blk=1024 (pass 1, select, pass 2, fallback)",
+         "sparse_nearest.cu",
          "pathtracerpython_tpu/kernels/sparse_pallas.py:1713"),
         ("K5@512 two-pass", "K5 sparse_nearest_t_idx_cm two_pass=4 "
-         "r_blk=512 (pass 1, select, pass 2)", "sparse_nearest.cu",
+         "r_blk=512 (pass 1, select, pass 2, fallback)", "sparse_nearest.cu",
          "pathtracerpython_tpu/kernels/sparse_pallas.py:1713"),
         ("K6 two-pass", "K6 sparse_any_hit_cm two_pass=4 (pass 1, select, "
-         "pass 2)", "sparse_any_hit.cu",
+         "pass 2, fallback)", "sparse_any_hit.cu",
          "pathtracerpython_tpu/kernels/sparse_pallas.py:1820"),
-        ("two-pass select", "two-pass select nearest_select / "
-         "any_hit_select", "two_pass.cu",
+        ("two-pass select", "two-pass select select_compact (the occluder "
+         "cache) / nearest_select_compact / any_hit_select_compact",
+         "two_pass.cu",
          "pathtracerpython_tpu/kernels/sparse_pallas.py:430"),
         ("scatter_rows", "scatter_rows ops/gather.py (every table "
          "gradient)", "scatter_rows.cu",
@@ -5486,8 +5640,13 @@ def main() -> None:
             **{k: first[k] for k in PROBE_KEYS if k in first},
             **({k: first[k] for k in TWO_PASS_ROW_KEYS if k in first}
                if key in TWO_PASS_KEYS else {}),
-            **({"tpu_kernel": "none: _lane_unseen_bound and the finality "
-                              "tests are XLA in the JAX package"}
+            **({"tpu_kernel": "none: _lane_unseen_bound, the finality "
+                              "tests, _compact_select, _gather_parked and "
+                              "lax.cond are XLA in the JAX package",
+                "library": "torch.nonzero (a host read) and the parked "
+                           "gather, after the flags",
+                "launches_two_pass_auto": launches[
+                    "two-pass select, two-pass auto flags"]}
                if key == "two-pass select" else {}),
             **({"tpu_kernel": "none: XLA's scatter-add, the transpose of "
                               "take_rows' gather, in the JAX package",
@@ -5511,6 +5670,7 @@ def main() -> None:
     log("[audit] float sums per audited backward (none may meet at one "
         "address) and the ops torch's deterministic mode flags: "
         + json.dumps(AUDIT))
+    log(f"[time] total: {time.monotonic() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

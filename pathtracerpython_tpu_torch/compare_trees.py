@@ -43,7 +43,16 @@ by name; default all):
   backward of the bench step (device busy ms, device kernels, the top
   operators, aten::sort's ms and calls, and the device ms of the sum's own
   kernels and of any sort's); it renders nothing, and keeps
-  that backward's gradients, which the comparison holds run against run;
+  that backward's gradients, which the comparison holds run against run.
+  The ``two_pass`` cell times, on the 100k field's wavefronts, the select
+  step on pass 1 of K5 (blocks of 512) and of K6 and the occluder cache's
+  compaction of K7's open lanes, as each checkout runs them (the
+  select-and-compact kernel csrc/two_pass.cu, or the finality kernel,
+  torch.nonzero and the parked gather), unqueued and queued, and the
+  two-pass and one-pass wrappers, and splits each select step's device
+  time by device kernel under torch.profiler; its renders are the 100k
+  field's sparse render with the occluder cache and its sparse and hybrid
+  renders with both two-pass auto flags on;
 - renders the cell with seed 0: the Cornell cell (512x512, 4 spp, 4
   bounces) and the boxfield300 cell (512x512, 2 spp, 3 bounces) in both
   forms, the Cornell cell also in reference mode and, in both modes,
@@ -106,7 +115,18 @@ CELLS = {
                                          "mt_impl": "plucker"},
                       "hybrid plucker": {"mt_impl": "plucker"},
                   }),
+    # the two-pass protocol and the occluder cache's compaction on the 100k
+    # field: the select steps and the wrappers (_two_pass_steps), and the
+    # renders that run them
+    "two_pass": (("box_field_scene", {"n_boxes": 8333}),
+                 {"tri_order": "morton"}, 2, 2, 3, {
+                     "sparse+cache": {"accel": "sparse", "nee_cache": "on"},
+                     "sparse two-pass": {"accel": "sparse",
+                                         "two_pass_auto": True},
+                     "hybrid two-pass": {"two_pass_auto": True},
+                 }),
 }
+TWO_PASS = "two_pass"
 
 
 # the cell of the probes P1 and P2 (kernel times only)
@@ -232,6 +252,77 @@ def _walk_kernels(port, scene, o3, d3, shadow):
         "K7 pass 1": lambda: k7(*passes[0]),
         "K7 pass 2": lambda: k7(*passes[1]),
     }
+
+
+def _two_pass_steps(port, scene, o3, d3, shadow):
+    """The two-pass protocol's steps on the 100k field's wavefronts as the
+    checkout runs them, as ``fn()``: the select step on pass 1 of K5 in
+    blocks of 512 and of K6 (truncated to PASS1_K slots; lists, pass 1 and
+    the scene's box made beforehand), and the occluder cache's compaction
+    of K7's open lanes after a cold pass 1: a checkout with the
+    select-and-compact kernel (csrc/two_pass.cu) runs it; one without runs
+    the finality kernel, torch.nonzero and the parked gather. Then the
+    two-pass wrappers (two_pass=4, the branch M_DIV takes) and the one-pass
+    ones."""
+    import torch
+
+    intersect, sparse = port["kernels.intersect"], port["kernels.sparse"]
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    cull = sparse.scene_cluster_cull_boxes(scene)
+    so, sd, sm = (x.contiguous() for x in (shadow.o3, shadow.d3,
+                                            shadow.maxd))
+    rel = shadow.relevant.contiguous()
+    n, ns, r_blk = o3.shape[1], so.shape[1], sparse.R_BLK
+    lists = sparse.block_lists(aabb8, o3, d3, torch.full(
+        (-(-n // r_blk),), intersect.BIG, device=o3.device), r_blk)
+    head, drops = sparse.truncate_lists(lists, sparse.PASS1_K)
+    words = sparse.walk_words(n, o3.device)
+    t1, i1 = sparse._launch(o3, d3, tripack, aabb8, head, r_blk, words=words)
+    wl = sparse.window_lists(aabb8, so, sd, sm, r_blk)
+    whead, wdrops = sparse.truncate_lists(wl, sparse.PASS1_K)
+    occ1 = sparse._launch_any_hit(so, sd, sm, tripack, aabb8, whead, r_blk,
+                                  cull)
+    cold = torch.full((ns,), -1, dtype=torch.int32, device=so.device)
+    k7 = sparse._launch_any_hit_idx(so, sd, sm, tripack, aabb8,
+                                    sparse.guess_lists(cold, aabb8.shape[0]),
+                                    r_blk, cull)[0]
+    open_lanes = ~k7 & rel
+    m, ms = sparse.pass2_size(n, r_blk), sparse.pass2_size(ns, r_blk)
+    if hasattr(sparse, "select_compact"):
+        box = sparse.scene_cluster_box(scene)
+        steps = {
+            "select nearest@512": lambda: sparse.nearest_select_compact(
+                o3, d3, aabb8, box, drops, r_blk, t1, i1, words, m,
+                lists.ncand),
+            "select any-hit": lambda: sparse.any_hit_select_compact(
+                so, sd, sm, occ1, aabb8, box, wdrops, r_blk, ms, wl.ncand),
+            "compact K7 cold": lambda: sparse.select_compact(
+                open_lanes, ms, so, sd, sm)}
+    else:
+        def compacted(flags, m, o, d, md):
+            sel, cnt = sparse.two_pass_select(flags, m)
+            if cnt <= m:
+                sparse.parked_rays(o, d, md, sel, m)
+
+        steps = {
+            "select nearest@512": lambda: compacted(sparse.nearest_select(
+                o3, d3, aabb8, drops, r_blk, t1, i1, words)[0], m, o3, d3,
+                None),
+            "select any-hit": lambda: compacted(sparse.any_hit_select(
+                so, sd, sm, occ1, aabb8, wdrops, r_blk)[0], ms, so, sd, sm),
+            "compact K7 cold": lambda: compacted(open_lanes, ms, so, sd,
+                                                 sm)}
+    for k in (0, 4):
+        what = "two-pass" if k else "one-pass"
+        for rb in (sparse.R_BLK_HYBRID_NEAREST, r_blk):
+            steps[f"K5@{rb} {what} wrapper"] = (
+                lambda k=k, rb=rb: sparse.sparse_nearest_t_idx_cm(
+                    o3, d3, scene, r_blk=rb, two_pass=k))
+        steps[f"K6 {what} wrapper"] = (
+            lambda k=k: sparse.sparse_any_hit_cm(so, sd, sm, scene,
+                                                 two_pass=k))
+    return steps
 
 
 def _probe_kernels(port):
@@ -414,7 +505,7 @@ def _profile_backward(loss) -> dict:
 
 def _ms(fn, reps: int = 20, queued: bool = False) -> float:
     """Mean ms of ``fn()`` over ``reps`` calls by CUDA events. ``queued``:
-    the stream is held by a spin kernel (about 0.1 ms a call) while the
+    the stream is held by a spin kernel (about 0.25 ms a call) while the
     host queues the calls, so a call whose host side outlasts its device
     work reads its device time (a call that reads back to the host still
     waits for the device and reads as before)."""
@@ -424,7 +515,7 @@ def _ms(fn, reps: int = 20, queued: bool = False) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if queued:
-        torch.cuda._sleep(200_000 * reps)
+        torch.cuda._sleep(500_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -473,9 +564,25 @@ def _render_fn(port, scene, spp: int, bounces: int, kw: dict):
     (``ring``: through ``render_sharded`` on a ring of one rank)."""
     kw = dict(kw)
     ring = kw.pop("ring", False)
+    auto = kw.pop("two_pass_auto", False)
     cfg = port["render.config"].RenderConfig(**{
         "mode": "fast", "n_samples": spp, "n_bounces": bounces,
         "n_light_samples": NEE_SAMPLES, "batch_samples": True, **kw})
+    if auto:
+        sparse = port["kernels.sparse"]
+
+        def render():
+            # both two-pass auto flags on, as scripts/bench_large.py turns
+            # them on in the JAX package; restored after
+            before = sparse.TWO_PASS_NEAREST_AUTO, sparse.TWO_PASS_ANY_AUTO
+            sparse.TWO_PASS_NEAREST_AUTO = sparse.TWO_PASS_ANY_AUTO = True
+            try:
+                return port["render.integrator"].render(scene, cfg, seed=0)
+            finally:
+                (sparse.TWO_PASS_NEAREST_AUTO,
+                 sparse.TWO_PASS_ANY_AUTO) = before
+
+        return render
     if ring:
         parallel = port["parallel"]
         mesh = parallel.make_mesh()
@@ -537,14 +644,22 @@ def worker(tree: str, out: str, cells, renders: bool = True) -> None:
         _, _, wave_spp, spp, bounces, cell_renders = CELLS[cell]
         for b, (o3, d3, shadow) in enumerate(
                 _wavefronts(port, scene, wave_spp), start=1):
-            kernels = (_walk_kernels(port, scene, o3, d3, shadow)
-                       if cell == "large100k"
-                       else _dense_kernels(port, scene, o3, d3))
+            if cell == TWO_PASS:
+                kernels = _two_pass_steps(port, scene, o3, d3, shadow)
+            elif cell == "large100k":
+                kernels = _walk_kernels(port, scene, o3, d3, shadow)
+            else:
+                kernels = _dense_kernels(port, scene, o3, d3)
             for name, run in kernels.items():
                 for _ in range(3):
                     run()
                 times[f"{cell} bounce {b} {name}"] = [_ms(run)
                                                       for _ in range(3)]
+                if cell == TWO_PASS and not name.endswith("wrapper"):
+                    times[f"{cell} bounce {b} {name} queued"] = [
+                        _ms(run, queued=True) for _ in range(3)]
+                    profiles[f"bounce {b} {name} split us"] = _kernel_split(
+                        run)
         for name, kw in (cell_renders if renders else {}).items():
             render = _render_fn(port, scene, spp, bounces, kw)
             torch.save(render().cpu(), f"{out}_{cell}_{name}.pt")

@@ -41,8 +41,10 @@ The hierarchy of the JAX package's ``kernels/sparse_pallas.py``:
   cull) merged per lane by an atomicMin on its first blocking list slot,
   so that a unit drops a lane only on a smaller slot than the one it
   reaches; ``any_hit_walk(..., merge="first_slot")`` models that walk.
-  Choosing pass 2's form reads the open lanes' count on the host once a
-  call, where the JAX package branches on the device (``lax.cond``).
+  The open lanes are compacted by the compact entry of csrc/two_pass.cu
+  (``select_compact``); choosing pass 2's form reads its ``taken`` word on
+  the host once a call, where the JAX package branches on the device
+  (``lax.cond``).
 
 **K3, the Plücker form.** K5 and K6 follow the ``MT_IMPL`` knob of
 ``kernels/intersect.py`` (or their ``mt_impl`` keyword), as
@@ -56,12 +58,15 @@ Plücker form and stays classic under the knob, as in the JAX package.
 ``m_div=`` of K5's and K6's entries, and of K3's sparse sweeps; off by
 default, as in the JAX package, unless TWO_PASS_NEAREST_AUTO /
 TWO_PASS_ANY_AUTO are set): pass 1 walks the first PASS1_K slots of each
-block's list (``truncate_lists``), the finality test (csrc/two_pass.cu,
-plain twin ``two_pass_flags_plain``) keeps the lanes that pass 1 cannot
-have finished, and pass 2 sweeps those again, compacted, over their own
-lists (``two_pass_nearest``, ``two_pass_any_hit``); the result is the
-one-pass result bit for bit. Both passes run in the form of the
-``mt_impl`` knob, where the JAX package's pass 1 is always classic.
+block's list (``truncate_lists``), the select-and-compact kernel
+(csrc/two_pass.cu; plain twins ``two_pass_flags_plain`` and
+``select_compact_plain``) keeps the lanes that pass 1 cannot have
+finished and compacts them into pass 2's slots, and pass 2 sweeps those
+again over their own lists (``two_pass_nearest``, ``two_pass_any_hit``);
+where they do not fit, the whole wavefront is swept again, the branch
+chosen on the device. The result is the one-pass result bit for bit. Both
+passes run in the form of the ``mt_impl`` knob, where the JAX package's
+pass 1 is always classic.
 
 Left behind as TPU machinery: the packed [seg|active|rb|cl] work words,
 the SMEM budgets (``W_PER_RB``, ``CHUNK_RB``, ``W_SMEM_ENTRIES``), grouping,
@@ -72,8 +77,9 @@ ported (K7).
 On a CUDA tensor each wrapper launches its kernel (``csrc/sparse_nearest.cu``,
 ``csrc/sparse_any_hit.cu``, ``csrc/sparse_any_hit_idx.cu``,
 ``csrc/two_pass.cu``; the first two hold both forms) or raises; on a
-CPU tensor it runs its plain version, the same walk in PyTorch, vectorized
-over ray blocks slot by slot.
+CPU tensor it runs its plain version, the same walk (or the same
+compaction) in PyTorch, the walks vectorized over ray blocks slot by
+slot.
 
 **Gradients.** K5 and K3's sparse nearest run under
 ``intersect.nearest_entry``, the dense sweep's ``NearestTIdx``: the walk
@@ -162,8 +168,9 @@ ANY_HIT_LAUNCHES = 0
 ANY_HIT_IDX_LAUNCHES = 0
 PLUCKER_LAUNCHES = 0
 PLUCKER_ANY_HIT_LAUNCHES = 0
-# Launches of the two-pass protocol's finality test (csrc/two_pass.cu),
-# both entries
+# Launches of the select-and-compact kernel (csrc/two_pass.cu, each with
+# its finish), all three entries: the two finality tests and the compact
+# entry of the occluder cache
 SELECT_LAUNCHES = 0
 
 _ARGTYPES = [
@@ -201,25 +208,41 @@ _ANY_HIT_IDX_ARGTYPES = [
     ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
 
-# the two-pass finality test's two entries (csrc/two_pass.cu): the pass-1
-# state (K5's words; K6's marks and maxd), then the drops
-_SELECT_TAIL = [
+# csrc/two_pass.cu's three entries: the pass-1 state (K5's words; K6's
+# marks and maxd; the compact entry's flags and maxd), the drops of the two
+# finality entries, the slots of pass 2, then the finality test's outputs
+_SELECT_DROPS = [
     ctypes.c_void_p, ctypes.c_void_p,                   # aabb8, scene box
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # drop ids, keys, far
     ctypes.c_int, ctypes.c_int,                         # lane_m, r_blk
-    ctypes.c_void_p, ctypes.c_void_p,                   # flags, ne (or null)
-    ctypes.c_int, ctypes.c_void_p,                      # device, stream
 ]
+_SELECT_SLOTS = [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,        # m, ncand, nrb
+    ctypes.c_void_p,                                    # scratch (zeroed)
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # sel, count, taken
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # o2, d2, md2
+    ctypes.c_void_p,                                    # ncand_fb (or null)
+]
+_SELECT_END = [ctypes.c_int, ctypes.c_void_p]           # device, stream
+_FLAGS_OUT = [ctypes.c_void_p, ctypes.c_void_p]         # flags, ne (or null)
 _NEAREST_SELECT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
     ctypes.c_void_p,                                    # words
-    *_SELECT_TAIL,
+    *_SELECT_DROPS, *_SELECT_SLOTS, *_FLAGS_OUT, *_SELECT_END,
 ]
 _ANY_HIT_SELECT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
     ctypes.c_void_p, ctypes.c_void_p,                   # occ, maxd
-    *_SELECT_TAIL,
+    *_SELECT_DROPS, *_SELECT_SLOTS, *_FLAGS_OUT, *_SELECT_END,
 ]
+_COMPACT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # o3, d3, n
+    ctypes.c_void_p, ctypes.c_void_p,                   # flags, maxd
+    *_SELECT_SLOTS, *_SELECT_END,
+]
+# lanes a CTA of the select-and-compact kernel covers (csrc/mt.cuh:
+# kThreads): its status words are one a tile
+SELECT_TILE = 256
 
 
 def resolve_accel(accel: str, n_padded_tris: int) -> str:
@@ -891,8 +914,8 @@ def _sparse_nearest_t_idx(o3, d3_unit, scene, r_blk, mt_impl, two_pass,
     k = resolve_two_pass(two_pass, n, TWO_PASS_NEAREST_AUTO)
     if k == 0:
         return sweep(o3, d3_unit, lists)
-    return two_pass_nearest(sweep, o3, d3_unit, aabb8, lists, r_blk, k,
-                            m_div)
+    return two_pass_nearest(sweep, o3, d3_unit, aabb8,
+                            scene_cluster_box(scene), lists, r_blk, k, m_div)
 
 
 def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
@@ -932,8 +955,8 @@ def sparse_any_hit_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     k = resolve_two_pass(two_pass, n, TWO_PASS_ANY_AUTO)
     if k == 0:
         return sweep(o3, d3_unit, maxd, lists)
-    return two_pass_any_hit(sweep, o3, d3_unit, maxd, aabb8, lists, k,
-                            m_div)
+    return two_pass_any_hit(sweep, o3, d3_unit, maxd, aabb8,
+                            scene_cluster_box(scene), lists, k, m_div)
 
 
 def pass2_size(n: int, r_blk: int = R_BLK, m_div: int = CACHE_M_DIV) -> int:
@@ -945,40 +968,27 @@ def pass2_size(n: int, r_blk: int = R_BLK, m_div: int = CACHE_M_DIV) -> int:
     return -(-m // r_blk) * r_blk
 
 
-def parked_rays(o3, d3_unit, maxd, sel, m: int):
-    """The lanes ``sel`` (i64, at most ``m``) of a wavefront compacted to
-    ``m`` lanes, the tail parked at PARK_ORIGIN / PARK_DIR with window 1
-    (``_gather_parked``: a parked lane's block lists no cluster). Returns
-    (o3, d3_unit, maxd), the last None where ``maxd`` is."""
-    cnt = sel.shape[0]
-    o2 = o3.new_tensor(PARK_ORIGIN)[:, None].repeat(1, m)
-    d2 = o3.new_tensor(PARK_DIR)[:, None].repeat(1, m)
-    o2[:, :cnt] = o3[:, sel]
-    d2[:, :cnt] = d3_unit[:, sel]
-    if maxd is None:
-        return o2, d2, None
-    md2 = torch.ones(m, dtype=maxd.dtype, device=maxd.device)
-    md2[:cnt] = maxd[sel]
-    return o2, d2, md2
-
-
 # ---------------------------------------------------------------------------
 # The two-pass protocol of the uncached sweeps (the JAX package's
 # ``two_pass`` of ``sparse_nearest_t_idx_cm`` and ``sparse_any_hit_cm``,
 # sparse_pallas.py:1968-2014, :2103-2137). Pass 1 walks the first k slots
 # of each block's list (K5, K6 or K3's sparse sweeps, unchanged: they walk
-# ``ncand`` slots). The finality test (csrc/two_pass.cu, or
-# ``two_pass_flags_plain``) bounds from below, per lane, the entry of every
-# cluster pass 1 dropped; a lane whose pass-1 result that bound cannot
-# change is final. The rest are compacted into ``pass2_size`` lanes (the
-# tail parked) and swept again over the full lists of their new blocks;
-# where they do not fit, the whole wavefront is swept again in one pass.
-# The per-lane gate of the walks is conservative by SLAB_EPS, and so is the
-# finality test, so the result is the one-pass result bit for bit.
+# ``ncand`` slots). The select-and-compact kernel (csrc/two_pass.cu; plain
+# twins ``two_pass_flags_plain`` and ``select_compact_plain``) bounds from
+# below, per lane, the entry of every cluster pass 1 dropped; a lane whose
+# pass-1 result that bound cannot change is final. The rest are compacted
+# into ``pass2_size`` slots (the tail parked), which pass 2 sweeps over the
+# full lists of their new blocks; where they do not fit, the whole
+# wavefront is swept again in one pass. The per-lane gate of the walks is
+# conservative by SLAB_EPS, and so is the finality test, so the result is
+# the one-pass result bit for bit.
 #
-# Choosing the branch reads the unfinished lanes' count on the host
-# (``torch.nonzero``): one synchronization per call, which the JAX
-# package's ``lax.cond`` does not pay, as in K7's ``cached_passes``.
+# The branch is chosen on the device, as the JAX package's ``lax.cond``
+# chooses it: the kernel writes the count, the slots and a ``taken`` word;
+# pass 2 always runs over its m slots (all parked when taken, so its lists
+# are empty), and so does the fallback over the full lists with the counts
+# ``ncand_fb`` (all 0 unless taken, so its units exit at once); ``taken``
+# picks one of the two. Nothing is read back to the host.
 
 
 class Drops(NamedTuple):
@@ -1066,18 +1076,29 @@ def scene_box(aabb8: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi, lo.new_zeros(2)])
 
 
+def scene_cluster_box(scene) -> torch.Tensor:
+    """``scene_box`` of the scene's sparse pack's cluster boxes, cached per
+    scene beside ``scene_cluster_cull_boxes``: the two-pass sweeps pass it
+    to the finality test, so no call reduces the boxes again."""
+    return _scene_derived(scene, "cluster box", lambda: scene_box(
+        cluster_aabbs(pack_for_sparse(scene))))
+
+
 def two_pass_flags_plain(o3, d3_unit, aabb8, drops: Drops, r_blk: int,
                          reach: torch.Tensor,
-                         open_: torch.Tensor | None = None):
+                         open_: torch.Tensor | None = None,
+                         box: torch.Tensor | None = None):
     """The finality test of csrc/two_pass.cu in PyTorch: a lane is
     unfinished where it is ``open_`` (None: every lane), its ray meets
-    ``scene_box`` (a ray that misses it misses every cluster: a parked lane
-    or one leaving the scene is final) and ``lane_unseen_bound`` < ``reach``
-    + SLAB_EPS. ``reach``: the nearest sweep's pass-1 t (BIG on a miss),
-    or the any-hit's maxd with ``open_`` its unblocked lanes that can be
-    blocked at all. Returns (unfinished bool[N], the bound f32[N])."""
+    ``box`` (None: ``scene_box(aabb8)``; a ray that misses it misses every
+    cluster: a parked lane or one leaving the scene is final) and
+    ``lane_unseen_bound`` < ``reach`` + SLAB_EPS. ``reach``: the nearest
+    sweep's pass-1 t (BIG on a miss), or the any-hit's maxd with ``open_``
+    its unblocked lanes that can be blocked at all. Returns (unfinished
+    bool[N], the bound f32[N])."""
     ne = lane_unseen_bound(o3, d3_unit, aabb8, drops, r_blk)
-    meets, _ = lane_slab(scene_box(aabb8), o3, lane_inv(d3_unit))
+    box = scene_box(aabb8) if box is None else box
+    meets, _ = lane_slab(box, o3, lane_inv(d3_unit))
     unfinished = meets & (ne < reach + SLAB_EPS)
     if open_ is not None:
         unfinished = unfinished & open_
@@ -1091,124 +1112,271 @@ def any_hit_open(occ: torch.Tensor, maxd: torch.Tensor) -> torch.Tensor:
     return ~occ & (maxd - T_MIN > T_MIN)
 
 
+class Selection(NamedTuple):
+    """What the select-and-compact kernel (csrc/two_pass.cu) or its plain
+    twin gives for a wavefront of N lanes and a pass 2 of m slots."""
+
+    sel: torch.Tensor      # i64[m] slot s: the s-th unfinished lane; N
+    #                        past the count, and everywhere when taken
+    count: torch.Tensor    # i32[1] the unfinished lanes
+    taken: torch.Tensor    # bool[1] count > m: the fallback's branch
+    rays: tuple            # pass 2's (o2, d2) f32[3, m] and, with maxd,
+    #                        md2 f32[m]; a slot with sel N is parked at
+    #                        PARK_ORIGIN / PARK_DIR with window 1
+    ncand_fb: torch.Tensor | None  # i32[nrb] the full lists' counts where
+    #                                taken, else 0 (None: none given)
+    flags: torch.Tensor | None = None  # bool[N] unfinished, where asked
+    ne: torch.Tensor | None = None     # f32[N] the finality bound, asked
+
+
+def select_compact_plain(unfinished: torch.Tensor, m: int, o3, d3_unit,
+                         maxd: torch.Tensor | None = None,
+                         ncand: torch.Tensor | None = None) -> Selection:
+    """The compaction and the finish of csrc/two_pass.cu in PyTorch, as the
+    JAX package has them: ``_compact_select`` (a cumsum; the s-th
+    unfinished lane to slot s while s < m), ``_gather_parked`` (the slots'
+    rays, the rest parked) and the branch of ``lax.cond`` (count <= m),
+    decided on the tensors, never on the host. Where the count exceeds m,
+    every slot is parked and ``ncand_fb`` is ``ncand`` (else 0)."""
+    n = unfinished.shape[0]
+    device = unfinished.device
+    pos = torch.cumsum(unfinished.to(torch.int64), 0) - 1
+    count = unfinished.sum(dtype=torch.int32).reshape(1)
+    taken = count > m
+    slot = torch.where(unfinished & (pos < m) & ~taken, pos, m)
+    sel = torch.full((m + 1,), n, dtype=torch.int64, device=device)
+    sel = sel.scatter(0, slot, torch.arange(n, device=device))[:m]
+    valid = sel < n
+    lane = sel.clamp_max(n - 1)
+    park = lambda at: o3.new_tensor(at)[:, None]
+    rays = (torch.where(valid, o3[:, lane], park(PARK_ORIGIN)),
+            torch.where(valid, d3_unit[:, lane], park(PARK_DIR)))
+    if maxd is not None:
+        rays += (torch.where(valid, maxd[lane], 1.0),)
+    ncand_fb = None if ncand is None else torch.where(taken, ncand, 0)
+    return Selection(sel, count, taken, rays, ncand_fb)
+
+
+def scatter_back(dst: torch.Tensor, sel: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
+    """``_scatter_back``: ``dst`` [N] with ``src[s]`` written at lane
+    ``sel[s]`` for every slot s; the sentinel N drops a slot (``mode=
+    "drop"``), through a buffer of N + 1 lanes whose last is the
+    sentinel's."""
+    n = dst.shape[0]
+    return torch.cat([dst, dst[:1]]).index_copy_(0, sel, src)[:n]
+
+
 def nearest_select(o3, d3_unit, aabb8, drops: Drops, r_blk: int, t, idx,
-                   words: torch.Tensor | None = None, want_ne: bool = False):
-    """The finality test of the nearest sweep's pass 1 (t, idx). On a CUDA
-    tensor it launches csrc/two_pass.cu, which reads pass 1's merged
-    ``words`` (K5's scratch, required there), on a CPU tensor it runs
-    ``two_pass_flags_plain``. Returns (unfinished bool[N], the bound
-    f32[N] where ``want_ne``, else None)."""
-    if o3.device.type == "cpu":
-        flags, ne = two_pass_flags_plain(o3, d3_unit, aabb8, drops, r_blk,
-                                         torch.where(idx >= 0, t, BIG))
-        return flags, (ne if want_ne else None)
-    if words is None:
-        raise ValueError("nearest_select on the card reads pass 1's words")
-    return launch_select("ptt_two_pass_nearest_select", [words], o3,
-                         d3_unit, aabb8, scene_box(aabb8), drops, r_blk,
-                         want_ne)
+                   words: torch.Tensor | None = None, want_ne: bool = False,
+                   box: torch.Tensor | None = None):
+    """The finality test of the nearest sweep's pass 1 (t, idx) alone:
+    ``nearest_select_compact`` into one slot, which nothing reads (on the
+    card it reads pass 1's merged ``words``, K5's scratch).
+    ``box``: the scene's box (None: ``scene_box(aabb8)``). Returns
+    (unfinished bool[N], the bound f32[N] where ``want_ne``, else None)."""
+    s = nearest_select_compact(o3, d3_unit, aabb8,
+                               scene_box(aabb8) if box is None else box,
+                               drops, r_blk, t, idx, words, 1,
+                               want_flags=True, want_ne=want_ne)
+    return s.flags, s.ne
 
 
 def any_hit_select(o3, d3_unit, maxd, occ, aabb8, drops: Drops, r_blk: int,
-                   want_ne: bool = False):
-    """The finality test of the any-hit's pass 1 ``occ``: csrc/two_pass.cu
-    on a CUDA tensor, ``two_pass_flags_plain`` on a CPU one. Returns
-    (unfinished bool[N], the bound f32[N] where ``want_ne``, else None)."""
+                   want_ne: bool = False, box: torch.Tensor | None = None):
+    """The finality test of the any-hit's pass 1 ``occ`` alone:
+    ``any_hit_select_compact`` into one slot; the arguments as
+    ``nearest_select``'s. Returns (unfinished bool[N], the bound f32[N]
+    where ``want_ne``, else None)."""
+    s = any_hit_select_compact(o3, d3_unit, maxd, occ, aabb8,
+                               scene_box(aabb8) if box is None else box,
+                               drops, r_blk, 1, want_flags=True,
+                               want_ne=want_ne)
+    return s.flags, s.ne
+
+
+def nearest_select_compact(o3, d3_unit, aabb8, box, drops: Drops,
+                           r_blk: int, t, idx, words, m: int,
+                           ncand: torch.Tensor | None = None,
+                           want_flags: bool = False,
+                           want_ne: bool = False) -> Selection:
+    """The nearest sweep's finality test on its pass 1 (t, idx; on the
+    card K5's merged ``words``) and the compaction of its unfinished lanes
+    into ``m`` slots: csrc/two_pass.cu's nearest entry on a CUDA tensor,
+    ``two_pass_flags_plain`` and ``select_compact_plain`` on a CPU one.
+    ``box``: the scene's box (``scene_cluster_box``); ``ncand``: the full
+    lists' counts, which ``ncand_fb`` copies where taken."""
     if o3.device.type == "cpu":
         flags, ne = two_pass_flags_plain(o3, d3_unit, aabb8, drops, r_blk,
-                                         maxd, any_hit_open(occ, maxd))
-        return flags, (ne if want_ne else None)
-    return launch_select("ptt_two_pass_any_hit_select", [occ, maxd], o3,
-                         d3_unit, aabb8, scene_box(aabb8), drops, r_blk,
-                         want_ne)
+                                         torch.where(idx >= 0, t, BIG),
+                                         box=box)
+        return _plain_selection(flags, ne, m, o3, d3_unit, None, ncand,
+                                want_flags, want_ne)
+    if words is None:
+        raise ValueError("the nearest select on the card reads pass 1's "
+                         "words")
+    return _launch_select("ptt_two_pass_nearest_select",
+                          _NEAREST_SELECT_ARGTYPES, [words], o3, d3_unit,
+                          None, m, ncand,
+                          _drop_args(aabb8, box, drops, r_blk, o3.device),
+                          _tiles(o3.shape[1], r_blk), want_flags, want_ne)
 
 
-def launch_select(entry: str, state: list, o3, d3_unit, aabb8, box,
-                  drops: Drops, r_blk: int, want_ne: bool = False):
-    """Launch ``entry``, one of csrc/two_pass.cu's two finality tests, on
-    pass 1's ``state`` ([words] of K5, or [occ, maxd] of K6) with the
-    scene's ``box``; returns (flags bool[N], the bound f32[N] or None)."""
+def any_hit_select_compact(o3, d3_unit, maxd, occ, aabb8, box,
+                           drops: Drops, r_blk: int, m: int,
+                           ncand: torch.Tensor | None = None,
+                           want_flags: bool = False,
+                           want_ne: bool = False) -> Selection:
+    """The any-hit's finality test on its pass 1 ``occ`` and the compaction
+    of its open lanes (with their windows) into ``m`` slots: csrc/
+    two_pass.cu's any-hit entry on a CUDA tensor, the plain twins on a CPU
+    one; the arguments as ``nearest_select_compact``'s."""
+    if o3.device.type == "cpu":
+        flags, ne = two_pass_flags_plain(o3, d3_unit, aabb8, drops, r_blk,
+                                         maxd, any_hit_open(occ, maxd),
+                                         box=box)
+        return _plain_selection(flags, ne, m, o3, d3_unit, maxd, ncand,
+                                want_flags, want_ne)
+    check_input("occ", occ, o3.device, torch.bool, (o3.shape[1],))
+    return _launch_select("ptt_two_pass_any_hit_select",
+                          _ANY_HIT_SELECT_ARGTYPES, [occ, maxd], o3, d3_unit,
+                          maxd, m, ncand,
+                          _drop_args(aabb8, box, drops, r_blk, o3.device),
+                          _tiles(o3.shape[1], r_blk), want_flags, want_ne)
+
+
+def select_compact(unfinished: torch.Tensor, m: int, o3, d3_unit,
+                   maxd: torch.Tensor | None = None,
+                   ncand: torch.Tensor | None = None) -> Selection:
+    """The compaction of the lanes ``unfinished`` bool[N] into ``m`` slots
+    (with their windows where ``maxd`` is given): csrc/two_pass.cu's
+    compact entry on a CUDA tensor, ``select_compact_plain`` on a CPU
+    one."""
+    if o3.device.type == "cpu":
+        return select_compact_plain(unfinished, m, o3, d3_unit, maxd, ncand)
+    check_input("unfinished", unfinished, o3.device, torch.bool,
+                (o3.shape[1],))
+    return _launch_select("ptt_select_compact", _COMPACT_ARGTYPES,
+                          [unfinished, maxd], o3, d3_unit, maxd, m, ncand,
+                          None, _tiles(o3.shape[1], SELECT_TILE))
+
+
+def _plain_selection(flags, ne, m, o3, d3_unit, maxd, ncand, want_flags,
+                     want_ne) -> Selection:
+    s = select_compact_plain(flags, m, o3, d3_unit, maxd, ncand)
+    return s._replace(flags=flags if want_flags else None,
+                      ne=ne if want_ne else None)
+
+
+def _tiles(n: int, r_blk: int) -> int:
+    """The select kernel's CTAs: each covers one slice of SELECT_TILE
+    lanes of one ray block of ``r_blk``."""
+    return -(-n // r_blk) * -(-r_blk // SELECT_TILE)
+
+
+def _drop_args(aabb8, box, drops: Drops, r_blk: int, device) -> list:
+    """The finality entries' drop arguments, checked: the kernel reads
+    aabb8's rows as 16-byte vectors."""
+    check_input("aabb8", aabb8, device, torch.float32, (None, 8))
+    check_input("scene box", box, device, torch.float32, (8,))
+    if aabb8.data_ptr() % 16:
+        raise ValueError("aabb8 must be 16-byte aligned")
+    nrb, lane_m = drops.ids.shape
+    check_input("drop ids", drops.ids, device, torch.int32, (nrb, lane_m))
+    check_input("drop keys", drops.keys, device, torch.float32,
+                (nrb, lane_m))
+    check_input("far", drops.far, device, torch.float32, (nrb,))
+    return [aabb8.data_ptr(), box.data_ptr(), drops.ids.data_ptr(),
+            drops.keys.data_ptr(), drops.far.data_ptr(), lane_m, r_blk]
+
+
+def _launch_select(entry: str, argtypes: list, state: list, o3, d3_unit,
+                   maxd, m: int, ncand, drop_args: list | None, tiles: int,
+                   want_flags: bool = False,
+                   want_ne: bool = False) -> Selection:
+    """Launch ``entry``, one of csrc/two_pass.cu's three entries, on
+    ``state`` (pass 1's: [words] of K5, [occ, maxd] of K6; the compact
+    entry's [flags, maxd]) with ``drop_args`` (None for the compact
+    entry), into ``m`` slots; the scratch of its ``tiles`` status words
+    and tile counter zeroed here."""
     global SELECT_LAUNCHES
-    n = o3.shape[1]
-    flags = torch.empty(n, dtype=torch.bool, device=o3.device)
-    ne = (torch.empty(n, dtype=torch.float32, device=o3.device) if want_ne
-          else None)
-    argtypes = (_NEAREST_SELECT_ARGTYPES if len(state) == 1
-                else _ANY_HIT_SELECT_ARGTYPES)
+    n, device = o3.shape[1], o3.device
+    if m < 1:
+        raise ValueError(f"pass 2 needs at least one slot, not {m}")
+    if ncand is not None:
+        check_input("ncand", ncand, device, torch.int32, (None,))
+    empty = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=device)
+    scratch = torch.zeros(tiles + 1, dtype=torch.int64, device=device)
+    sel, count = empty(m, dtype=torch.int64), empty(1, dtype=torch.int32)
+    taken = empty(1, dtype=torch.bool)
+    rays = (empty(3, m), empty(3, m)) + (() if maxd is None else (empty(m),))
+    ncand_fb = None if ncand is None else torch.empty_like(ncand)
+    flags = empty(n, dtype=torch.bool) if want_flags else None
+    ne = empty(n) if want_ne else None
+    ptr = lambda x: None if x is None else x.data_ptr()
+    slots = [m, ptr(ncand), 0 if ncand is None else ncand.shape[0],
+             scratch.data_ptr(), sel.data_ptr(), count.data_ptr(),
+             taken.data_ptr(), rays[0].data_ptr(), rays[1].data_ptr(),
+             ptr(rays[2] if len(rays) == 3 else None), ptr(ncand_fb)]
     fn = build.function(entry, argtypes)
-    stream = torch.cuda.current_stream(o3.device).cuda_stream
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(o3.data_ptr(), d3_unit.data_ptr(), n,
-             *(x.data_ptr() for x in state), aabb8.data_ptr(),
-             box.data_ptr(), drops.ids.data_ptr(), drops.keys.data_ptr(),
-             drops.far.data_ptr(), drops.ids.shape[1], r_blk,
-             flags.data_ptr(), None if ne is None else ne.data_ptr(),
-             o3.device.index, stream)
+             *(ptr(x) for x in state), *(drop_args or []), *slots,
+             *([] if drop_args is None else [ptr(flags), ptr(ne)]),
+             device.index, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed: CUDA error {err}")
     SELECT_LAUNCHES += 1
-    return flags, ne
+    return Selection(sel, count, taken, rays, ncand_fb, flags, ne)
 
 
-def two_pass_select(unfinished: torch.Tensor, m: int):
-    """The stable compaction of ``_compact_select`` with the cap ``m``
-    (``pass2_size``): (sel i64[min(cnt, m)], the unfinished lanes in lane
-    order, and their count cnt); pass 2 is compacted iff cnt <= m.
-    ``torch.nonzero`` reads the count on the host."""
-    sel = torch.nonzero(unfinished).flatten()
-    return sel[:m], sel.shape[0]
-
-
-def two_pass_nearest(sweep, o3, d3_unit, aabb8, lists: BlockLists,
+def two_pass_nearest(sweep, o3, d3_unit, aabb8, box, lists: BlockLists,
                      r_blk: int, k: int, m_div: int = M_DIV):
     """The two-pass nearest sweep over the full ``lists`` of (o3,
     d3_unit): ``sweep(o3, d3_unit, lists, words)`` is the one-pass sweep
     (K5 or K3's sparse nearest, which fill ``words``, the scratch of
     ``walk_words``, on the card; a plain walk on the CPU). Pass 1 over the
-    first ``k`` slots, ``nearest_select``, then pass 2 over the compacted
-    unfinished lanes' own lists, or the one-pass sweep of the whole
-    wavefront where they do not fit ``pass2_size(N, r_blk, m_div)``.
+    first ``k`` slots, ``nearest_select_compact`` into ``pass2_size(N,
+    r_blk, m_div)`` slots, pass 2 over the slots' own lists, and the
+    one-pass sweep of the whole wavefront over the lists with the counts
+    ``ncand_fb`` (nothing to walk unless the survivors did not fit);
+    ``taken`` picks. ``box``: the scene's box (``scene_cluster_box``).
     Returns (t, idx), the one-pass result."""
     n = o3.shape[1]
     head, drops = truncate_lists(lists, k)
     words = None if o3.device.type == "cpu" else walk_words(n, o3.device)
     t1, i1 = sweep(o3, d3_unit, head, words)
-    unfinished, _ = nearest_select(o3, d3_unit, aabb8, drops, r_blk, t1, i1,
-                                   words)
     m = pass2_size(n, r_blk, m_div)
-    sel, cnt = two_pass_select(unfinished, m)
-    if cnt > m:
-        return sweep(o3, d3_unit, lists)
-    if cnt == 0:
-        return t1, i1
-    o2, d2, _ = parked_rays(o3, d3_unit, None, sel, m)
+    s = nearest_select_compact(o3, d3_unit, aabb8, box, drops, r_blk, t1, i1,
+                               words, m, lists.ncand)
+    o2, d2 = s.rays
     tmax = torch.full((m // r_blk,), BIG, dtype=o3.dtype, device=o3.device)
     t2, i2 = sweep(o2, d2, block_lists(aabb8, o2, d2, tmax, r_blk))
-    return t1.index_copy(0, sel, t2[:cnt]), i1.index_copy(0, sel, i2[:cnt])
+    t_all, i_all = sweep(o3, d3_unit, lists._replace(ncand=s.ncand_fb))
+    return (torch.where(s.taken, t_all, scatter_back(t1, s.sel, t2)),
+            torch.where(s.taken, i_all, scatter_back(i1, s.sel, i2)))
 
 
-def two_pass_any_hit(sweep, o3, d3_unit, maxd, aabb8, lists: BlockLists,
-                     k: int, m_div: int = M_DIV) -> torch.Tensor:
+def two_pass_any_hit(sweep, o3, d3_unit, maxd, aabb8, box,
+                     lists: BlockLists, k: int,
+                     m_div: int = M_DIV) -> torch.Tensor:
     """The two-pass any-hit over the full window ``lists`` (blocks of
     R_BLK): ``sweep(o3, d3_unit, maxd, lists)`` is the one-pass sweep (K6
     or K3's sparse any-hit; a plain walk on the CPU). Pass 1 over the first
-    ``k`` slots, ``any_hit_select``, then pass 2 over the compacted open
-    lanes (occlusions of pass 1 are real hits, so final), or the whole
-    wavefront in one pass where they do not fit. Returns the one-pass
-    bits."""
+    ``k`` slots, ``any_hit_select_compact``, pass 2 over the compacted open
+    lanes (occlusions of pass 1 are real hits, so final), and the whole
+    wavefront over the lists with the counts ``ncand_fb``, as in
+    ``two_pass_nearest``. Returns the one-pass bits."""
     n = o3.shape[1]
     head, drops = truncate_lists(lists, k)
     occ1 = sweep(o3, d3_unit, maxd, head)
-    unfinished, _ = any_hit_select(o3, d3_unit, maxd, occ1, aabb8, drops,
-                                   R_BLK)
     m = pass2_size(n, R_BLK, m_div)
-    sel, cnt = two_pass_select(unfinished, m)
-    if cnt > m:
-        return sweep(o3, d3_unit, maxd, lists)
-    if cnt == 0:
-        return occ1
-    rays2 = parked_rays(o3, d3_unit, maxd, sel, m)
-    occ2 = sweep(*rays2, window_lists(aabb8, *rays2, R_BLK))
-    return occ1.index_copy(0, sel, occ2[:cnt])
+    s = any_hit_select_compact(o3, d3_unit, maxd, occ1, aabb8, box, drops,
+                               R_BLK, m, lists.ncand)
+    occ2 = sweep(*s.rays, window_lists(aabb8, *s.rays, R_BLK))
+    occ_all = sweep(o3, d3_unit, maxd, lists._replace(ncand=s.ncand_fb))
+    return torch.where(s.taken, occ_all, scatter_back(occ1, s.sel, occ2))
 
 
 def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
@@ -1226,14 +1394,9 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
     hits, so they are final. The lanes it left open re-sweep their full
     candidate lists in pass 2: compacted to ``pass2_size(N)`` lanes (the
     tail parked) when they fit, else the whole wavefront (a cold cache);
-    ``cached_passes`` runs the two. ``relevant`` bool[N] (optional): lanes whose result the caller
-    discards (False) do not vote and never reach pass 2, so exactness
-    holds on relevant lanes only.
-
-    Choosing the branch reads the open lanes' count on the host: one
-    synchronization per call, which the JAX package's ``lax.cond`` does
-    not pay. It stays until the bounce sweep is captured in a CUDA graph,
-    which needs that choice made on the device."""
+    ``cached_passes`` runs the two. ``relevant`` bool[N] (optional): lanes
+    whose result the caller discards (False) do not vote and never reach
+    pass 2, so exactness holds on relevant lanes only."""
     o3, d3_unit, maxd, scene = detach_occlusion(o3, d3_unit, maxd, scene)
     device = o3.device
     n, tripack, aabb8 = check_rays(o3, d3_unit, scene, "cached any-hit",
@@ -1249,9 +1412,8 @@ def sparse_any_hit_cached_cm(o3: torch.Tensor, d3_unit: torch.Tensor,
                                        cull, guess_cl, relevant)
     if sel is None:
         return second.occ, second.cl
-    cnt = sel.shape[0]
-    return (first.occ.index_copy(0, sel, second.occ[:cnt]),
-            first.cl.index_copy(0, sel, second.cl[:cnt]))
+    return (scatter_back(first.occ, sel, second.occ),
+            scatter_back(first.cl, sel, second.cl))
 
 
 class CachedPass(NamedTuple):
@@ -1271,10 +1433,19 @@ def cached_passes(o3, d3_unit, maxd, tripack, aabb8, cull, guess_cl,
     or its plain version where ``cull`` is None (a CPU wavefront). Returns
     (pass 1, pass 2, sel), each pass a ``CachedPass``: pass 1 over the
     ``guess_lists`` of ``guess_cl`` (-1 on the lanes ``relevant`` leaves
-    out), pass 2 over the full lists of the ``sel`` lanes (i64, in lane
-    order) that pass 1 left open, compacted to ``pass2_size(N)`` lanes with
-    the tail parked at PARK_ORIGIN with window 1; ``sel`` is None where the
-    open lanes do not fit and pass 2 ran on the whole wavefront."""
+    out), pass 2 over the full lists of the lanes that pass 1 left open,
+    compacted by ``select_compact`` (csrc/two_pass.cu's compact entry on
+    the card) to ``pass2_size(N)`` slots with the tail parked at
+    PARK_ORIGIN with window 1: ``sel`` i64 holds each slot's lane (N for a
+    parked slot); it is None where the open lanes do not fit and pass 2 ran
+    on the whole wavefront.
+
+    Choosing between the two reads the kernel's ``taken`` word on the
+    host: one synchronization per call, which the JAX package's
+    ``lax.cond`` does not pay. Choosing on the device, as the uncached
+    two-pass sweeps do, would build the whole wavefront's window lists on
+    every call, so the read stays until the bounce sweep is captured in a
+    CUDA graph, which decides it."""
     if cull is None:
         def run(rays, lists):
             occ, cl = sparse_any_hit_idx_plain(*rays, tripack, aabb8, lists,
@@ -1291,12 +1462,10 @@ def cached_passes(o3, d3_unit, maxd, tripack, aabb8, cull, guess_cl,
     rays = (o3, d3_unit, maxd)
     first = run(rays, guess_lists(guess_cl, aabb8.shape[0], R_BLK))
     unfinished = ~first.occ if relevant is None else ~first.occ & relevant
-    sel = torch.nonzero(unfinished).flatten()  # stable; the host read
-    cnt, m = sel.shape[0], pass2_size(o3.shape[1])
-    if cnt > m:
+    s = select_compact(unfinished, pass2_size(o3.shape[1]), *rays)
+    if bool(s.taken):   # the host read
         return first, run(rays, window_lists(aabb8, *rays, R_BLK)), None
-    rays2 = parked_rays(o3, d3_unit, maxd, sel, m)
-    return first, run(rays2, window_lists(aabb8, *rays2, R_BLK)), sel
+    return first, run(s.rays, window_lists(aabb8, *s.rays, R_BLK)), s.sel
 
 
 def walk_words(n: int, device) -> torch.Tensor:

@@ -1290,6 +1290,148 @@ def test_two_pass_any_hit_on_card_equals_one_pass(cuda, form):
         assert torch.equal(got, want)
 
 
+
+def _select_case(which, r_blk, cuda, lane_m, monkeypatch):
+    """The 2000-box field's pass 1 of ``which`` in blocks of ``r_blk`` at
+    LANE_M ``lane_m``: (rays (o3, d3u, maxd or None), the full lists, the
+    scene's box, ``select(m, **kw)``: the kernel's entry on it, ``plain(m)``:
+    (its plain Selection, the plain flags, the plain bound or None))."""
+    scene = _scene("boxfield2000", cuda)
+    tripack = sparse.pack_for_sparse(scene)
+    aabb8 = sparse.cluster_aabbs(tripack)
+    box = sparse.scene_cluster_box(scene)
+    monkeypatch.setattr(sparse, "LANE_M", lane_m)
+    if which == "nearest":
+        o3, d3u = _parked_rays(scene, cuda)
+        maxd = None
+        nrb = -(-o3.shape[1] // r_blk)
+        lists = sparse.block_lists(aabb8, o3, d3u, torch.full(
+            (nrb,), intersect.BIG, device=cuda), r_blk)
+        head, drops = sparse.truncate_lists(lists, sparse.PASS1_K)
+        words = sparse.walk_words(o3.shape[1], cuda)
+        t1, i1 = sparse._launch(o3, d3u, tripack, aabb8, head, r_blk,
+                                words=words)
+        select = lambda m, **kw: sparse.nearest_select_compact(
+            o3, d3u, aabb8, box, drops, r_blk, t1, i1, words, m,
+            lists.ncand, **kw)
+        flags_of = lambda: sparse.two_pass_flags_plain(
+            o3, d3u, aabb8, drops, r_blk,
+            torch.where(i1 >= 0, t1, intersect.BIG), box=box)
+    else:
+        o3, d3u, maxd = _shadow_rays(scene)
+        lists = sparse.window_lists(aabb8, o3, d3u, maxd, r_blk)
+        head, drops = sparse.truncate_lists(lists, sparse.PASS1_K)
+        occ1 = sparse._launch_any_hit(o3, d3u, maxd, tripack, aabb8, head,
+                                      r_blk,
+                                      sparse.scene_cluster_cull_boxes(scene))
+        if which == "any-hit":
+            select = lambda m, **kw: sparse.any_hit_select_compact(
+                o3, d3u, maxd, occ1, aabb8, box, drops, r_blk, m,
+                lists.ncand, **kw)
+            flags_of = lambda: sparse.two_pass_flags_plain(
+                o3, d3u, aabb8, drops, r_blk, maxd,
+                sparse.any_hit_open(occ1, maxd), box=box)
+        else:   # the compact entry on the open lanes, as the cache's
+            unfinished = sparse.any_hit_open(occ1, maxd)
+            select = lambda m, **kw: sparse.select_compact(
+                unfinished, m, o3, d3u, maxd, lists.ncand)
+            flags_of = lambda: (unfinished, None)
+
+    def plain(m):
+        flags, ne = flags_of()
+        return (sparse.select_compact_plain(flags, m, o3, d3u, maxd,
+                                            lists.ncand), flags, ne)
+
+    return (o3, d3u, maxd), lists, select, plain
+
+
+@pytest.mark.parametrize("which", ["nearest", "any-hit", "compact"])
+@pytest.mark.parametrize("r_blk", [512, 1024])
+def test_select_compact_kernel_equals_plain(cuda, which, r_blk,
+                                            monkeypatch):
+    """csrc/two_pass.cu's three entries against their plain twins
+    (``two_pass_flags_plain``, ``select_compact_plain``) bit for bit: the
+    slots, the count, ``taken``, pass 2's rays (and windows), the
+    fallback's counts, the flags and the bound; on pass 1 of K5 or K6,
+    parked lanes included, at LANE_M 0 and 8, both branches forced (one
+    slot: the fallback; N slots: compacted). One launch a call."""
+    for lane_m in (0, sparse.LANE_M):
+        rays, lists, select, plain = _select_case(which, r_blk, cuda,
+                                                  lane_m, monkeypatch)
+        n = rays[0].shape[1]
+        for m in (1, n):
+            before = sparse.SELECT_LAUNCHES
+            got = select(m) if which == "compact" else select(
+                m, want_flags=True, want_ne=True)
+            assert sparse.SELECT_LAUNCHES == before + 1
+            want, flags, ne = plain(m)
+            torch.cuda.synchronize()
+            cnt = int(want.count[0])
+            assert 0 < cnt < n
+            assert bool(got.taken[0]) == (m == 1) == bool(want.taken[0])
+            for g, w in zip((got.sel, got.count, got.taken, *got.rays,
+                             got.ncand_fb),
+                            (want.sel, want.count, want.taken, *want.rays,
+                             want.ncand_fb)):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+            if which != "compact":
+                assert torch.equal(got.flags, flags)
+                assert torch.equal(got.ne, ne)
+
+
+@pytest.mark.parametrize("which", ["nearest", "any-hit", "compact"])
+def test_select_compact_bit_equal_across_launches_and_streams(
+        cuda, which, monkeypatch):
+    """Three launches on the current stream and one on a second stream give
+    the same slots, count and rays: the positions are prefix sums in lane
+    order, whatever order the CTAs run in."""
+    rays, _, select, _ = _select_case(which, sparse.R_BLK, cuda,
+                                      sparse.LANE_M, monkeypatch)
+    m = sparse.pass2_size(rays[0].shape[1], sparse.R_BLK, 1)
+    runs = [select(m) for _ in range(3)]
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        runs.append(select(m))
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert not bool(runs[0].taken[0])
+    for r in runs[1:]:
+        for g, w in zip((r.sel, r.count, *r.rays), (runs[0].sel,
+                                                    runs[0].count,
+                                                    *runs[0].rays)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["classic", "plucker"])
+def test_two_pass_wrappers_read_nothing_back(cuda, form):
+    """The two-pass sweeps, in both branches, run clean under the sync
+    debug mode "error" (no host read, so no stream sync) and give the
+    one-pass results bit for bit."""
+    scene = _scene("boxfield2000", cuda)
+    o3, d3u = _parked_rays(scene, cuda)
+    so, sd, maxd = _shadow_rays(scene)
+    calls = {
+        "nearest": lambda k, m_div: sparse.sparse_nearest_t_idx_cm(
+            o3, d3u, scene, mt_impl=form, two_pass=k, m_div=m_div),
+        "any-hit": lambda k, m_div: (sparse.sparse_any_hit_cm(
+            so, sd, maxd, scene, mt_impl=form, two_pass=k, m_div=m_div),)}
+    for name, call in calls.items():
+        want = call(0, sparse.M_DIV)
+        call(4, 1)    # builds and loads; the scene's box cached
+        torch.cuda.synchronize()
+        got = {}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for m_div in (1, 10**6):
+                got[m_div] = call(4, m_div)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        for m_div, out in got.items():
+            assert all(torch.equal(g, w) for g, w in zip(out, want)), (
+                name, m_div)
+
 # the table gradients' sum (ops/gather.py:scatter_rows, csrc/scatter_rows.cu):
 # (lanes, columns, rows, how the lanes pick their rows) of the bench step's
 # three calls (mat_rgb and the light table on the tiny path, the tripack on

@@ -1,13 +1,15 @@
 """The two-pass protocol of the uncached cluster sweeps (``kernels/sparse.py``:
 ``two_pass=`` / ``m_div=`` of K5's and K6's entries, ``truncate_lists``,
 ``lane_unseen_bound``, the finality test ``two_pass_flags_plain``, the
-compaction ``two_pass_select``) on the CPU, where every step is its plain
+compaction ``select_compact_plain``) on the CPU, where every step is its plain
 version, against the JAX package's ``kernels/sparse_pallas.py``: its
 ``candidate_worklist(..., trunc_k=)``, ``_lane_unseen_bound``,
 ``_compact_select`` and ``_resolve_two_pass`` called directly (its two-pass
 sweeps, with the Pallas kernels in interpret mode, are held in
-tests/test_torch_two_pass_jax.py). The finality kernel itself
-(``csrc/two_pass.cu``) runs on the card (``tests/test_torch_cuda.py``).
+tests/test_torch_two_pass_jax.py; the compaction, the parked gather and the
+scatter-back in tests/test_torch_select_compact.py). The select-and-compact
+kernel itself (``csrc/two_pass.cu``) runs on the card
+(``tests/test_torch_cuda.py``).
 
 Tolerances: the port's lists, drops and bounds are the JAX package's bit
 for bit; two passes give the one-pass result bit for bit (winners, t,
@@ -248,14 +250,24 @@ def test_parked_lanes_are_final(field, wavefronts):
 
 
 def test_select_matches_compact_select():
+    """``select_compact_plain``'s slots and count are ``_compact_select``'s
+    (the slots up to the count or the cap), and ``pass2_size`` is
+    ``_pass2_size``."""
     rs = np.random.default_rng(3)
     for n, share, m in ((1000, 0.3, 512), (1000, 0.8, 512), (10, 0.0, 8)):
         unfinished = rs.uniform(size=n) < share
-        sel, cnt = sparse.two_pass_select(torch.from_numpy(unfinished), m)
+        o3 = torch.zeros(3, n)
+        s = sparse.select_compact_plain(torch.from_numpy(unfinished), m, o3,
+                                        o3)
+        cnt = int(s.count[0])
         jsel, jcnt = sp._compact_select(jnp.asarray(unfinished), m)
         assert cnt == int(jcnt)
-        np.testing.assert_array_equal(sel.numpy(),
-                                      np.asarray(jsel)[:min(cnt, m)])
+        assert bool(s.taken[0]) == (cnt > m)
+        if cnt <= m:
+            np.testing.assert_array_equal(s.sel[:cnt].numpy(),
+                                          np.asarray(jsel)[:cnt])
+        else:
+            assert (s.sel == n).all()   # the fallback: every slot parked
     for n, r_blk, m_div in ((1000, 512, 2), (700, 256, 10**6), (1, 512, 2),
                             (2**20, 1024, 2)):
         n_pad = -(-n // r_blk) * r_blk
@@ -264,18 +276,22 @@ def test_select_matches_compact_select():
 
 
 class _Branches:
-    """Spies on ``two_pass_select``: each call's (count, cap)."""
+    """Spies on ``select_compact_plain``, the compaction that the CPU
+    runs: each call's (count, cap), read from its count and its ``taken``
+    word, which must agree."""
 
     def __init__(self, monkeypatch):
         self.calls = []
-        real = sparse.two_pass_select
+        real = sparse.select_compact_plain
 
-        def spy(unfinished, m):
-            sel, cnt = real(unfinished, m)
+        def spy(unfinished, m, *args, **kw):
+            s = real(unfinished, m, *args, **kw)
+            cnt = int(s.count[0])
+            assert bool(s.taken[0]) == (cnt > m)
             self.calls.append((cnt, m))
-            return sel, cnt
+            return s
 
-        monkeypatch.setattr(sparse, "two_pass_select", spy)
+        monkeypatch.setattr(sparse, "select_compact_plain", spy)
 
 
 @pytest.fixture(scope="module")
@@ -404,13 +420,24 @@ def _c_parameters(entry: str) -> list[str]:
     return [" ".join(p.split()) for p in body.split(",")]
 
 
-@pytest.mark.parametrize("entry,argtypes,state", [
+SLOTS = ["m", "ncand", "nrb", "scratch", "sel", "count", "taken", "o2", "d2",
+         "md2", "ncand_fb"]
+DROPS = ["aabb8", "scene_box", "drop_ids", "drop_keys", "far", "lane_m",
+         "r_blk"]
+
+
+@pytest.mark.parametrize("entry,argtypes,state,tail", [
     ("ptt_two_pass_nearest_select", sparse._NEAREST_SELECT_ARGTYPES,
-     ["words"]),
+     ["words"], DROPS + SLOTS + ["flags_out", "ne_out"]),
     ("ptt_two_pass_any_hit_select", sparse._ANY_HIT_SELECT_ARGTYPES,
-     ["occ", "maxd"]),
+     ["occ", "maxd"], DROPS + SLOTS + ["flags_out", "ne_out"]),
+    ("ptt_select_compact", sparse._COMPACT_ARGTYPES, ["flags", "maxd"],
+     SLOTS),
 ])
-def test_select_entries_match_their_argtypes(entry, argtypes, state):
+def test_select_entries_match_their_argtypes(entry, argtypes, state, tail):
+    """csrc/two_pass.cu's three entries take what ``_launch_select``
+    passes: their parameters in the order and of the kinds of their
+    ctypes argtypes."""
     params = _c_parameters(entry)
     assert len(params) == len(argtypes), params
     for decl, argtype in zip(params, argtypes):
@@ -418,6 +445,4 @@ def test_select_entries_match_their_argtypes(entry, argtypes, state):
     names = [decl.split("*")[-1].split()[-1] for decl in params]
     assert names[:3] == ["o3", "d3", "n"]
     assert names[3:3 + len(state)] == state
-    assert names[3 + len(state):] == [
-        "aabb8", "scene_box", "drop_ids", "drop_keys", "far", "lane_m",
-        "r_blk", "flags", "ne_out", "device", "stream"]
+    assert names[3 + len(state):] == tail + ["device", "stream"]
