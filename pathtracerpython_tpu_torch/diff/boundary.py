@@ -72,6 +72,7 @@ from pathtracerpython_tpu_torch.kernels.sparse import (
 )
 from pathtracerpython_tpu_torch.ops.gather import take_rows
 from pathtracerpython_tpu_torch.ops.geometry import safe_normalize
+from pathtracerpython_tpu_torch.utils.metrics import span
 
 BAND_SIGMAS = 6.0   # extended-hit acceptance: margin > -BAND_SIGMAS * beta
 T_MIN = 1e-4
@@ -342,7 +343,8 @@ def soft_block_candidates(o3, d3, tmax_rb, scene,
         enter, hit = candidate_enter_hit(aabb8, o3.detach(), d3.detach(),
                                          tmax_rb, SOFT_R_BLK)
         key = torch.where(hit, torch.clamp_min(enter, 0.0), BIG)
-        n_max = int(hit.sum(dim=1).max())
+        with span("ptt.host_read"):
+            n_max = int(hit.sum(dim=1).max())
         k = max(1, min(n_max, SOFT_KMAX, aabb8.shape[0]))
         vals, ids = torch.topk(-key, k, dim=1)
     return Candidates(ids.to(torch.int32), vals > -BIG,

@@ -61,6 +61,7 @@ from pathtracerpython_tpu_torch.scene.arrays import (
     SceneTensors,
     recompute_derived,
 )
+from pathtracerpython_tpu_torch.utils.metrics import span
 
 # Fields that may appear in a params dict.
 MATERIAL_FIELDS = ("mat_rgb", "mat_ka", "mat_kd", "mat_ks", "mat_kt", "mat_n")
@@ -187,14 +188,18 @@ def make_train_step(optimizer: torch.optim.Optimizer,
                         p.grad = transport("all_reduce", p.grad, group)
 
     def train_step(params: dict, key) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = camera_pixel_loss(params, base_scene, target, render_fn,
-                                 pixel_ids, key)
-        loss.backward()
-        if reduce_grads is not None:
-            reduce_grads()
-        optimizer.step()
-        return loss.detach()
+        with span("ptt.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with span("ptt.forward"):
+                loss = camera_pixel_loss(params, base_scene, target,
+                                         render_fn, pixel_ids, key)
+            with span("ptt.backward"):
+                loss.backward()
+                if reduce_grads is not None:
+                    reduce_grads()
+            with span("ptt.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return train_step
 

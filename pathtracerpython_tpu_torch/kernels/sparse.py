@@ -122,6 +122,7 @@ from pathtracerpython_tpu_torch.kernels.intersect import (
     scene_tripack,
 )
 from pathtracerpython_tpu_torch.ops.sort import PARK_DIR, PARK_ORIGIN
+from pathtracerpython_tpu_torch.utils.metrics import span
 
 # Scenes from this many padded triangles up resolve accel="auto" to
 # AUTO_LARGE, the hybrid: this sparse nearest sweep and the walker any-hit
@@ -1463,7 +1464,9 @@ def cached_passes(o3, d3_unit, maxd, tripack, aabb8, cull, guess_cl,
     first = run(rays, guess_lists(guess_cl, aabb8.shape[0], R_BLK))
     unfinished = ~first.occ if relevant is None else ~first.occ & relevant
     s = select_compact(unfinished, pass2_size(o3.shape[1]), *rays)
-    if bool(s.taken):   # the host read
+    with span("ptt.host_read"):
+        taken = bool(s.taken)
+    if taken:
         return first, run(rays, window_lists(aabb8, *rays, R_BLK)), None
     return first, run(s.rays, window_lists(aabb8, *s.rays, R_BLK)), s.sel
 

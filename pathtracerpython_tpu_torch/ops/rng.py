@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from pathtracerpython_tpu_torch.utils.metrics import span
+
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 _MASK = 0xFFFFFFFF
@@ -115,11 +117,12 @@ def uniforms(k0: int, k1: int, counters: torch.Tensor, n_draws: int):
     Draws 2k and 2k+1 for counter c are the (y0, y1) outputs of the single
     hash threefry(key, (c, k)). ``counters``: integer tensor of 32-bit
     path ids."""
-    c = counters.to(torch.int64) & _MASK
-    out = []
-    for d in range(0, n_draws, 2):
-        y0, y1 = threefry2x32(k0, k1, c, d >> 1)
-        out.append(_to_unit_interval(y0))
-        if d + 1 < n_draws:
-            out.append(_to_unit_interval(y1))
-    return torch.stack(out, dim=0)
+    with span("ptt.rng"):
+        c = counters.to(torch.int64) & _MASK
+        out = []
+        for d in range(0, n_draws, 2):
+            y0, y1 = threefry2x32(k0, k1, c, d >> 1)
+            out.append(_to_unit_interval(y0))
+            if d + 1 < n_draws:
+                out.append(_to_unit_interval(y1))
+        return torch.stack(out, dim=0)

@@ -124,6 +124,7 @@ from pathtracerpython_tpu_torch.ops.sort import (
 )
 from pathtracerpython_tpu_torch.render.config import RenderConfig
 from pathtracerpython_tpu_torch.scene.arrays import SceneTensors
+from pathtracerpython_tpu_torch.utils.metrics import count, span
 
 # purpose salts for per-bounce key derivation
 _P_NEE = 0
@@ -605,7 +606,10 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
     the sweep parks dead lanes on a ray that touches no cluster; a pure
     lane permutation (the counters carry the RNG), so the radiance equals
     the unsorted path's."""
-    state, sweep_o3, sweep_d3 = sort_and_park(state, sort_bounds)
+    count("lane_bounces", state.alive.numel())
+    count("live_lane_bounces", state.alive)
+    with span("ptt.sort"):
+        state, sweep_o3, sweep_d3 = sort_and_park(state, sort_bounds)
     nk0, nk1 = rng.fold(k0, k1, bounce_idx * 4 + _P_NEE)
     sk0, sk1 = rng.fold(k0, k1, bounce_idx * 4 + _P_SCATTER)
     u_nee = rng.uniforms(nk0, nk1, state.counters, cfg.n_light_samples * 5)
@@ -619,42 +623,45 @@ def bounce_step(state: RayState, bounce_idx: int, scene: SceneTensors,
         shading_n3 = arrival_side_normal(hit.normal3, d_in3)
         occ_hint, nee_cache = state.nee_occ_hint, state.nee_cache
     else:
-        hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
-                             mt_impl=cfg.mt_impl, mode=cfg.mode,
-                             geom_axis=cfg.geom_axis)
+        with span("ptt.nearest"):
+            hit = nearest_hit_cm(sweep_o3, sweep_d3, scene, accel=cfg.accel,
+                                 mt_impl=cfg.mt_impl, mode=cfg.mode,
+                                 geom_axis=cfg.geom_axis)
         mat = resolve_materials(scene, hit.material)
         # one arrival-side normal for both direct light and scattering;
         # reference mode keeps the raw winding normal
         shading_n3 = (arrival_side_normal(hit.normal3, d_in3)
                       if cfg.mode == "fast" else hit.normal3)
-        color3, occ_hint, nee_cache = shade(
-            hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
-            state.alive, state.nee_occ_hint, state.nee_cache)
-    contrib3 = torch.where(
-        state.alive[None, :], color3 * state.throughput[None, :], 0.0
-    )
-    radiance3 = state.radiance3 + contrib3
+        with span("ptt.nee"):
+            color3, occ_hint, nee_cache = shade(
+                hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
+                state.alive, state.nee_occ_hint, state.nee_cache)
+    with span("ptt.scatter"):
+        contrib3 = torch.where(
+            state.alive[None, :], color3 * state.throughput[None, :], 0.0
+        )
+        radiance3 = state.radiance3 + contrib3
 
-    if cfg.mode == "reference":
-        new_dir3, factor, survives, chose_spec = scatter_reference(
-            state, hit, mat, u_scatter, scene)
-    else:
-        new_dir3, factor, survives, chose_spec = scatter(
-            state, hit, mat, u_scatter, shading_n3)
-    alive = state.alive & survives
-    return RayState(
-        origin3=torch.where(alive[None, :], hit.point3, state.origin3),
-        direction3=torch.where(alive[None, :], new_dir3, state.direction3),
-        throughput=torch.where(alive, state.throughput * factor,
-                               state.throughput),
-        alive=alive,
-        radiance3=radiance3,
-        counters=state.counters,
-        prev_specular=state.alive & chose_spec,
-        nee_occ_hint=occ_hint,
-        nee_cache=nee_cache,
-        lane=state.lane,
-    )
+        if cfg.mode == "reference":
+            new_dir3, factor, survives, chose_spec = scatter_reference(
+                state, hit, mat, u_scatter, scene)
+        else:
+            new_dir3, factor, survives, chose_spec = scatter(
+                state, hit, mat, u_scatter, shading_n3)
+        alive = state.alive & survives
+        return RayState(
+            origin3=torch.where(alive[None, :], hit.point3, state.origin3),
+            direction3=torch.where(alive[None, :], new_dir3, state.direction3),
+            throughput=torch.where(alive, state.throughput * factor,
+                                   state.throughput),
+            alive=alive,
+            radiance3=radiance3,
+            counters=state.counters,
+            prev_specular=state.alive & chose_spec,
+            nee_occ_hint=occ_hint,
+            nee_cache=nee_cache,
+            lane=state.lane,
+        )
 
 
 def init_rays(origins3, directions3, counters) -> RayState:
@@ -690,11 +697,13 @@ def _bounce_sweep(state: RayState, scene, cfg, k0, k1,
 
         step = carrying(bounce_step)
     for b in range(cfg.n_bounces):
-        if remat:
-            state = checkpoint(step, state, b, scene, cfg, k0, k1,
-                               sort_bounds, use_reentrant=False)
-        else:
-            state = bounce_step(state, b, scene, cfg, k0, k1, sort_bounds)
+        with span("ptt.bounce"):
+            if remat:
+                state = checkpoint(step, state, b, scene, cfg, k0, k1,
+                                   sort_bounds, use_reentrant=False)
+            else:
+                state = bounce_step(state, b, scene, cfg, k0, k1,
+                                    sort_bounds)
     return state
 
 
@@ -767,7 +776,8 @@ def render(scene: SceneTensors, cfg: RenderConfig, seed: int = 0):
     radiance [W*H, 3] in the reference's pixel order (x-outer / y-inner)."""
     w, h = scene.meta.width, scene.meta.height
     check_counter_space(w * h, cfg.n_samples)
-    origins, dirs = make_primary_rays(scene.eye, scene.ortho, w, h)
+    with span("ptt.camera"):
+        origins, dirs = make_primary_rays(scene.eye, scene.ortho, w, h)
     pixel_ids = torch.arange(w * h, dtype=torch.int64, device=scene.device)
     return render_rays(origins, dirs, pixel_ids, scene, cfg, seed)
 

@@ -18,6 +18,7 @@ from typing import Any
 import torch
 
 from pathtracerpython_tpu_torch.ops import rng
+from pathtracerpython_tpu_torch.utils.metrics import span
 
 _STATE_FILE = "state.pt"
 
@@ -144,12 +145,15 @@ def render_progressive(scene, cfg, total_samples: int, chunk_samples: int,
 
     for chunk in range(state["chunks_done"], n_chunks):
         t0 = time.perf_counter()
-        radiance = renderer(scene, cfg_chunk, seed=chunk_seed(seed, chunk))
-        state = {
-            "radiance_sum": state["radiance_sum"] + radiance * chunk_samples,
-            "samples_done": state["samples_done"] + chunk_samples,
-            "chunks_done": chunk + 1,
-        }
+        with span("ptt.chunk"):
+            radiance = renderer(scene, cfg_chunk,
+                                seed=chunk_seed(seed, chunk))
+            state = {
+                "radiance_sum": (state["radiance_sum"]
+                                 + radiance * chunk_samples),
+                "samples_done": state["samples_done"] + chunk_samples,
+                "chunks_done": chunk + 1,
+            }
         _synchronize(scene.device)
         dt = time.perf_counter() - t0
         if mgr is not None and is_primary():
