@@ -116,11 +116,19 @@ phase fails:
      version; its time beside the plain version's, the float32 weighted
      bincount's (the library call), index_add_'s and a stable sort's of
      the rows (which only the wide path runs);
-3. the full renders:
+   - the RNG (csrc/threefry.cu, ``ops/rng.py:uniforms`` on the card) on
+     a 16-spp chunk's 4,194,304 int64 path counters, a bounce's two
+     calls (15 and 3 draws): bit for bit its plain version, one launch a
+     call, its time beside the plain version's and its bound (the
+     counters and draws once over the memory rate, or the hashes' integer
+     operations over PEAK_INT32_OPS);
+3. the full renders, in each of which the RNG kernel launches twice a
+   bounce of each sample pass, as in every render on the card counted below:
    - Cornell stand-in at 512x512, 4 spp, 4 bounces, 3 NEE samples:
      radiance finite, non-negative and not constant; K1 and K2 launched
-     exactly once per bounce; a 32x32 render on the card held against the
-     same render on the CPU (the plain versions);
+     exactly once per bounce; the same render with the plain draws
+     (``rng.uniforms_plain``) bit for bit; a 32x32 render on the card
+     held against the same render on the CPU (the plain versions);
    - the 100k-triangle box field at 512x512, 2 spp, 3 bounces
      (accel="auto", the hybrid): the same radiance checks; K5 and K9
      launched once per bounce, K1, K2 and K4 never (the lists are
@@ -2313,9 +2321,9 @@ def phase2_kernels(scenes, morton, many, large) -> dict:
 
 def reset_launches() -> None:
     from pathtracerpython_tpu_torch.kernels import intersect, nee, sparse, walker
-    from pathtracerpython_tpu_torch.ops import gather
+    from pathtracerpython_tpu_torch.ops import gather, rng
 
-    gather.LAUNCHES = 0
+    gather.LAUNCHES = rng.LAUNCHES = 0
     intersect.LAUNCHES = intersect.ANY_HIT_LAUNCHES = 0
     nee.LAUNCHES = sparse.LAUNCHES = walker.LAUNCHES = 0
     sparse.ANY_HIT_LAUNCHES = sparse.ANY_HIT_IDX_LAUNCHES = 0
@@ -2327,7 +2335,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     from pathtracerpython_tpu_torch.kernels import intersect, nee, sparse, walker
-    from pathtracerpython_tpu_torch.ops import gather
+    from pathtracerpython_tpu_torch.ops import gather, rng
 
     return {"K1": intersect.LAUNCHES, "K2": nee.LAUNCHES,
             "K4": intersect.ANY_HIT_LAUNCHES, "K5": sparse.LAUNCHES,
@@ -2338,13 +2346,22 @@ def read_launches() -> dict:
             "K3 sparse nearest": sparse.PLUCKER_LAUNCHES,
             "K3 sparse any-hit": sparse.PLUCKER_ANY_HIT_LAUNCHES,
             "two-pass select": sparse.SELECT_LAUNCHES,
-            "scatter_rows": gather.LAUNCHES}
+            "scatter_rows": gather.LAUNCHES, "RNG": rng.LAUNCHES}
+
+
+def rng_launches(cfg) -> int:
+    """The RNG kernel's launches in a render of ``cfg`` on the card: two a
+    bounce (the NEE and the scatter draws) of each sample pass, the samples
+    one pass under batch_samples."""
+    passes = 1 if cfg.batch_samples else cfg.n_samples
+    return 2 * cfg.n_bounces * passes
 
 
 def sweep_launches(launches: dict) -> dict:
     """The launches of the sweeps (every count but the backwards'
-    ``scatter_rows``) that were not zero."""
-    return {k: v for k, v in launches.items() if v and k != "scatter_rows"}
+    ``scatter_rows`` and the RNG's) that were not zero."""
+    return {k: v for k, v in launches.items()
+            if v and k not in ("scatter_rows", "RNG")}
 
 
 @contextlib.contextmanager
@@ -2395,6 +2412,8 @@ def two_pass_renders(large, large_cfg, variant_rad) -> dict:
                 ok = n == 3 * LARGE_BOUNCES
             elif key == "two-pass select":
                 ok = n == len(sweeps) * LARGE_BOUNCES
+            elif key == "RNG":
+                ok = n == rng_launches(cfg)
             else:
                 ok = n == other.get(key, 0)
             if not ok:
@@ -2435,9 +2454,11 @@ def check_radiance(label, rad, pixels) -> None:
 
 def render_counted(label, scene, cfg, want: dict) -> tuple:
     """Render once with every launch count set to 0 just before; fail
-    unless the counts read just after are ``want``."""
+    unless the counts read just after are ``want``, with the RNG kernel's
+    count replaced by ``rng_launches(cfg)``."""
     from pathtracerpython_tpu_torch.render.integrator import render
 
+    want = {**want, "RNG": rng_launches(cfg)}
     reset_launches()
     rad = render(scene, cfg, seed=0)
     torch.cuda.synchronize()
@@ -2516,6 +2537,7 @@ def phase3_render(cornell, large, many) -> dict:
         f"{CORNELL_BOUNCES} bounces", cornell, cfg,
         {**none, "K1": CORNELL_BOUNCES, "K2": CORNELL_BOUNCES})
     check_radiance("Cornell stand-in", rad, CORNELL_SIZE * CORNELL_SIZE)
+    rng_with_plain_draws("Cornell stand-in", cornell, cfg, rad)
     plucker_counts = {}
     rad_p, plucker_counts["cornell"] = render_counted(
         "Cornell stand-in, mt_impl='plucker'", cornell,
@@ -2672,7 +2694,8 @@ def phase3_render(cornell, large, many) -> dict:
             "K3 sparse any-hit":
                 plucker_counts["accel='sparse'"]["K3 sparse any-hit"],
             "K1": cornell_counts["K1"], "K2": cornell_counts["K2"],
-            "K4": many_counts["K4"], "K5": large_counts["K5"],
+            "RNG": cornell_counts["RNG"], "K4": many_counts["K4"],
+            "K5": large_counts["K5"],
             "K6": variant_counts["accel='sparse'"]["K6"],
             "K7": variant_counts["accel='sparse', nee_cache='on'"]["K7"],
             "K8": variant_counts["accel='walker'"]["K8"],
@@ -3017,6 +3040,127 @@ def phase2_scatter(cornell, large) -> list:
     return report
 
 
+# The RNG kernel (csrc/threefry.cu) at the main path's shapes: the lanes of
+# one 16-spp chunk of the 512x512 render (the benchmark's cells), the path
+# counters int64 as RayState holds them, and a bounce's two draws at 3 NEE
+# samples: 5 x 3 for the NEE, 3 for the scatter.
+RNG_LANES = 512 * 512 * 16
+RNG_SPP = 16
+RNG_DRAWS = (5 * NEE_SAMPLES, 3)
+# The card's ceiling on 32-bit integer operations: each of an SM's 4
+# schedulers dispatches one warp instruction a clock, 128 lanes a clock an
+# SM, at the clock of the data sheet's float32 peak (128 FP32 lanes an SM, a
+# fused multiply-add counted as two): half of PEAK_FP32_FLOPS, 33.5 T a
+# second. The white paper's 64 INT32 lanes an SM (16.75 T) are no ceiling:
+# the compiler emits adds as IMAD on the float pipe beside the integer
+# pipe's shifts and logic, and csrc/threefry.cu ran 15 draws over
+# RNG_LANES in 0.133 ms on an H100 SXM (700 W), under the 0.156 ms that
+# rate would allow.
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
+# uint32 operations of one Threefry-2x32 hash (csrc/threefry.cu): 2 key
+# adds, 20 rounds of an add, a rotate and an xor, 5 key injections of 2
+# adds; and of one draw's conversion to [0, 1): a shift, an or, a subtract
+THREEFRY_OPS_PER_HASH = 72
+UNIT_OPS_PER_DRAW = 3
+
+
+def phase2_rng() -> list:
+    """csrc/threefry.cu (``ops/rng.py:uniforms`` on the card) on RNG_LANES
+    int64 path counters (pixel id x RNG_SPP + sample, as a chunk's lanes
+    hold them) for each of RNG_DRAWS: bit for bit the plain version
+    (``uniforms_plain``), one launch a call; the kernel's ms (CUDA events,
+    mean of 10, queued behind a spin), the plain version's (mean of 3) and
+    the bound: the counters read once and the draws written once over the
+    memory rate, or the hashes' and conversions' integer operations over
+    PEAK_INT32_OPS, the larger. Returns the rows; phase 3 holds the Cornell
+    render with the kernel to the render with the plain draws."""
+    from pathtracerpython_tpu_torch.ops import rng
+
+    pid = torch.arange(RNG_LANES // RNG_SPP, dtype=torch.int64, device="cuda")
+    counters = torch.cat([pid * RNG_SPP + s for s in range(RNG_SPP)])
+    k0, k1 = rng.fold(*rng.key_from_seed(2**40 + 12345), 4 + 1)
+    rows = []
+    for n_draws in RNG_DRAWS:
+        label = f"{RNG_LANES} int64 counters x {n_draws} draws"
+        before = rng.LAUNCHES
+        got = rng.uniforms(k0, k1, counters, n_draws)
+        want = rng.uniforms_plain(k0, k1, counters, n_draws)
+        torch.cuda.synchronize()
+        if rng.LAUNCHES != before + 1:
+            fail(f"rng {label}: {rng.LAUNCHES - before} launches in one call")
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = (got - want).abs().max().item()
+        if differ:
+            fail(f"rng {label}: {differ} draws differ from the plain "
+                 f"version's bits (max abs diff {err})")
+        ms = cuda_ms(lambda: rng.uniforms_cuda(k0, k1, counters, n_draws), 10,
+                     queued=True)
+        plain_ms = cuda_ms(
+            lambda: rng.uniforms_plain(k0, k1, counters, n_draws), 3)
+        n = counters.numel()
+        hashes = (n_draws + 1) // 2
+        int_ops = n * (hashes * THREEFRY_OPS_PER_HASH
+                       + n_draws * UNIT_OPS_PER_DRAW)
+        nbytes = tensor_bytes(counters) + n * n_draws * 4
+        row = report_row(label, err, ms, plain_ms,
+                         bound_ops(nbytes, int_ops / PEAK_INT32_OPS * 1e3),
+                         lanes=n, draws=n_draws, hashes=hashes,
+                         int_ops=int_ops, bytes=nbytes,
+                         launches=rng.LAUNCHES - before)
+        rows.append(row)
+        log(f"[2] rng {label}: kernel / plain / bound {ms:.4f} / "
+            f"{plain_ms:.4f} / {row['bound_ms']:.4f} ms (bound by "
+            f"{row['bound_by']}: {nbytes} bytes at {PEAK_BYTES_PER_S:.3g} "
+            f"B/s, {int_ops} integer operations at {PEAK_INT32_OPS:.4g}/s, "
+            "half the data sheet's float32 peak); max abs diff to the plain "
+            f"version {err}; {row['launches']} launches, one a call")
+    return rows
+
+
+def rng_with_plain_draws(label, scene, cfg, rad) -> None:
+    """``scene`` rendered again as ``render_counted`` rendered it (seed 0)
+    with ``rng.uniforms`` patched to the plain version: the radiance must
+    be ``rad`` bit for bit."""
+    from pathtracerpython_tpu_torch.ops import rng
+    from pathtracerpython_tpu_torch.render.integrator import render
+
+    real = rng.uniforms
+    rng.uniforms = rng.uniforms_plain
+    try:
+        plain = render(scene, cfg, seed=0)
+    finally:
+        rng.uniforms = real
+    diff = (rad - plain).abs().max().item()
+    if not torch.equal(rad, plain):
+        fail(f"{label}: the render with the RNG kernel differs from the "
+             f"render with the plain draws (max abs diff {diff})")
+    log(f"[3] {label}: the render with the RNG kernel equals the render "
+        "with the plain draws bit for bit")
+
+
+def rng_kernel_entry(rng_rows: list, launches: int) -> dict:
+    """The kernels line's entry of csrc/threefry.cu: its first row (a
+    bounce's NEE draws), the other beside it; ``launches``: those of
+    phase 3's Cornell render."""
+    first, *rest = rng_rows
+    return {
+        "name": "rng ops/rng.py:uniforms", "route": "cuda",
+        "source": "pathtracerpython_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: the JAX package's ops/rng.py is plain jnp",
+        "tpu_kernel": "none: jnp in the JAX package's ops/rng.py",
+        "launches": launches,
+        "max_abs_err": max(r["err"] for r in rng_rows),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None, "backward": "none (the draws carry no gradient)",
+        **{k: first[k] for k in ("lanes", "draws", "int_ops", "bytes")},
+        "int32_peak_ops_per_s": PEAK_INT32_OPS,
+        "other_shapes": [{k: r[k] for k in ("label", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                         for r in rest],
+    }
+
+
 def backward_syncs(loss_fn) -> int:
     """The stream syncs of one backward of ``loss_fn()``, as the sync debug
     mode "warn" reports them (the forward runs before the mode is set)."""
@@ -3112,11 +3256,13 @@ def grad_fit_slice(card: str) -> dict:
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"fit_albedo: the loss did not fall: {losses}")
     # one launch per sample pass and bounce of each step and of the target
-    # and fitted renders; the backwards launch none
+    # and fitted renders (the RNG two); the backwards launch none
     want = fit_albedo.SPP * fit_albedo.BOUNCES * (FIT_STEPS + 2)
-    if launches["K1"] != want or launches["K2"] != want:
-        fail(f"fit_albedo: K1 {launches['K1']} and K2 {launches['K2']} "
-             f"launches, expected {want} each")
+    if launches["K1"] != want or launches["K2"] != want \
+            or launches["RNG"] != 2 * want:
+        fail(f"fit_albedo: K1 {launches['K1']}, K2 {launches['K2']} and RNG "
+             f"{launches['RNG']} launches, expected {want}, {want} and "
+             f"{2 * want}")
     return {"losses": losses, "launches": launches,
             "max_albedo_err": result["max_albedo_err"],
             "scene": result["scene"]}
@@ -3351,6 +3497,7 @@ def grad_train_step(cornell, card: str) -> dict:
         f"ms; peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
         f"gradients bit-equal across {SCATTER_RUNS} runs")
     if launches["K1"] != CORNELL_BOUNCES or launches["K2"] != CORNELL_BOUNCES \
+            or launches["RNG"] != rng_launches(cfg) \
             or launches["scatter_rows"] < 1:
         fail(f"training step: launches {launches}")
     return row
@@ -3428,6 +3575,9 @@ def grad_hierarchies() -> dict:
         log(f"[3g] 100k field {HIER_SIZE}^2 {label}: loss {loss!r}, "
             f"|d tri_v0| {grads['tri_v0'].norm().item():.6g}, launches "
             f"{launches}")
+        if launches.get("RNG", 0) != rng_launches(cfg):
+            fail(f"100k field {label}: {launches.get('RNG', 0)} RNG "
+                 f"launches, expected {rng_launches(cfg)}")
         again = camera_grads(scene, cfg, params, target, (0, 2))[1]
         hold_bits_equal(f"100k field {HIER_SIZE}^2 {label}", [grads, again])
         if kw.get("accel", "auto") != "none":
@@ -4011,16 +4161,18 @@ def soft_fit_pose(card: str) -> dict:
 
 def launch_counted_fit(label, run, want: int) -> dict:
     """Run an app's fit with the launch counts set to 0 just before and
-    read just after; K1 and K2 must have launched ``want`` times each (the
-    backwards launch no sweep)."""
+    read just after; K1 and K2 must have launched ``want`` times each, the
+    RNG twice as often (the backwards launch no sweep and draw nothing)."""
     reset_launches()
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_launches().items() if v}
-    log(f"[3s] {label}: launches {launches} (expected K1 = K2 = {want}; "
-        "scatter_rows where a table's gradient is summed)")
-    if sweep_launches(launches) != {"K1": want, "K2": want}:
-        fail(f"{label}: launches {launches}, expected K1 = K2 = {want}")
+    log(f"[3s] {label}: launches {launches} (expected K1 = K2 = {want}, "
+        f"RNG = {2 * want}; scatter_rows where a table's gradient is summed)")
+    if sweep_launches(launches) != {"K1": want, "K2": want} \
+            or launches.get("RNG", 0) != 2 * want:
+        fail(f"{label}: launches {launches}, expected K1 = K2 = {want}, "
+             f"RNG = {2 * want}")
     return {**result, "launches": launches}
 
 
@@ -4060,7 +4212,8 @@ def remat_step(cornell, card: str) -> dict:
     """The training step of the bench configuration (Cornell 512^2, 4 spp
     as extra lanes, 4 bounces, 3 NEE) with remat_bounces off, then on:
     gradients within REMAT_RTOL per field, K1 and K2 launches a step (4,
-    then 8: the recompute launches them again), peak memory and ms a
+    then 8: the recompute launches them again; the RNG's twice as many),
+    peak memory and ms a
     step (CUDA events, median of 5 after 1 warm-up)."""
     from pathtracerpython_tpu_torch.diff import (
         adam,
@@ -4103,9 +4256,10 @@ def remat_step(cornell, card: str) -> dict:
         log(f"[3s] train step, remat_bounces={remat} ({card}): {ms:.2f} ms "
             f"a step, peak memory {peak / 2**30:.3f} GiB, launches "
             f"{launches}")
-        if sweep_launches(launches) != {"K1": want, "K2": want}:
+        if sweep_launches(launches) != {"K1": want, "K2": want} \
+                or launches.get("RNG", 0) != 2 * want:
             fail(f"remat_bounces={remat}: launches {launches}, expected "
-                 f"K1 = K2 = {want}")
+                 f"K1 = K2 = {want}, RNG = {2 * want}")
     errs = {k: rel_l2(grads[True][k], grads[False][k]) for k in STEP_FIELDS}
     log("[3s] remat against no remat, relative L2 per field " +
         json.dumps(errs))
@@ -4350,6 +4504,7 @@ def cli_phase(card: str) -> dict:
             launches = read_launches()
             want = {k: (want_fast if mode == "fast" and k in ("K1", "K2")
                         else 0) for k in launches}
+            want["RNG"] = 2 * want_fast
             log(f"[3r] CLI in-process, {mode} mode: exit {rc}, launches "
                 f"{launches}")
             if rc != 0 or launches != want:
@@ -4613,6 +4768,7 @@ def par_dp_bench(say) -> dict:
         launches = read_launches()
     want = {k: (CORNELL_BOUNCES if k in ("K1", "K2") else 0)
             for k in launches}
+    want["RNG"] = rng_launches(cfg)
     if launches != want:
         fail(f"dp bench: launches {launches} a rank, expected {want}")
     diff = float((rad - single).abs().max())
@@ -4682,6 +4838,7 @@ def par_ring(say) -> dict:
         moved, shifts = ring.BYTES_SENT, ring.SHIFTS
     steps = LARGE_BOUNCES * PAR_WORLD
     want = {k: (steps if k in ("K1", "K4") else 0) for k in launches}
+    want["RNG"] = rng_launches(cfg)
     if launches != want:
         fail(f"geom ring: launches {launches} a rank, expected {want}")
     diff = float((rad - single).abs().max())
@@ -5463,6 +5620,7 @@ def main() -> None:
                  large)
     rows["scatter_rows"] = timed("phase 2 scatter_rows", phase2_scatter,
                                  cornell, large)
+    rng_rows = timed("phase 2 rng", phase2_rng)
     launches = {**timed("phase 3", phase3_render, cornell, large, many),
                 **timed("phase 3 probes", phase3_probes)}
     grads = timed("phase 3g", phase3_grad, cornell, card)
@@ -5659,6 +5817,7 @@ def main() -> None:
                     "bincount32_rel_err")}}
                if key == "scatter_rows" else {}),
         })
+    kernels.append(rng_kernel_entry(rng_rows, launches["RNG"]))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its main path")

@@ -3,10 +3,13 @@ the JAX package.
 
 Keys are pairs of Python ints; per-ray streams hash dense counter tensors
 (the GLOBAL path id), so a draw depends only on the key and the counter,
-never on the lane it lands in. PyTorch has no shifts on uint32, so 32-bit
-words ride in int64 tensors masked to 32 bits after every step that can
-carry past them. The same code runs on Python ints, which is how keys are
-derived (``fold``) without touching the device.
+never on the lane it lands in. ``uniforms`` on a CUDA tensor launches the
+kernel of csrc/threefry.cu (``uniforms_cuda``), which hashes in uint32
+registers; on a CPU tensor it runs the plain version (``uniforms_plain``),
+the same bits. PyTorch has no shifts on uint32, so there 32-bit words ride
+in int64 tensors masked to 32 bits after every step that can carry past
+them. The same code runs on Python ints, which is how keys are derived
+(``fold``) without touching the device.
 
 Threefry-2x32 (Salmon et al. 2011, "Parallel random numbers: as easy as
 1, 2, 3") with the standard 20 rounds.
@@ -14,14 +17,27 @@ Threefry-2x32 (Salmon et al. 2011, "Parallel random numbers: as easy as
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from pathtracerpython_tpu_torch.kernels import build
 from pathtracerpython_tpu_torch.utils.metrics import span
 
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 _MASK = 0xFFFFFFFF
 _FOLD_WORD = 0x736F6C74
+
+# launches of csrc/threefry.cu, one a call of ``uniforms`` on the card
+LAUNCHES = 0
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # counters, stride, bytes
+    ctypes.c_longlong, ctypes.c_int,                   # n, n_draws
+    ctypes.c_uint, ctypes.c_uint,                      # k0, k1
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,    # out, device, stream
+]
 
 
 def _rotl(x, r: int):
@@ -116,13 +132,53 @@ def uniforms(k0: int, k1: int, counters: torch.Tensor, n_draws: int):
 
     Draws 2k and 2k+1 for counter c are the (y0, y1) outputs of the single
     hash threefry(key, (c, k)). ``counters``: integer tensor of 32-bit
-    path ids."""
+    path ids. On a CUDA tensor the kernel of csrc/threefry.cu
+    (``uniforms_cuda``), on a CPU tensor ``uniforms_plain``: the same
+    bits."""
     with span("ptt.rng"):
-        c = counters.to(torch.int64) & _MASK
-        out = []
-        for d in range(0, n_draws, 2):
-            y0, y1 = threefry2x32(k0, k1, c, d >> 1)
-            out.append(_to_unit_interval(y0))
-            if d + 1 < n_draws:
-                out.append(_to_unit_interval(y1))
-        return torch.stack(out, dim=0)
+        if counters.device.type == "cpu":
+            return uniforms_plain(k0, k1, counters, n_draws)
+        return uniforms_cuda(k0, k1, counters, n_draws)
+
+
+def uniforms_plain(k0: int, k1: int, counters: torch.Tensor, n_draws: int):
+    """The plain version of ``uniforms``: the hash as int64 tensor ops."""
+    c = counters.to(torch.int64) & _MASK
+    out = []
+    for d in range(0, n_draws, 2):
+        y0, y1 = threefry2x32(k0, k1, c, d >> 1)
+        out.append(_to_unit_interval(y0))
+        if d + 1 < n_draws:
+            out.append(_to_unit_interval(y1))
+    return torch.stack(out, dim=0)
+
+
+def uniforms_cuda(k0: int, k1: int, counters: torch.Tensor, n_draws: int):
+    """Launch csrc/threefry.cu: ``uniforms`` for int32 or int64
+    ``counters`` on one CUDA device, any strides, read in place (their low
+    32 bits). Allocates the [n_draws, *counters.shape] output and fills
+    every entry; no host read; no counters launch nothing."""
+    global LAUNCHES
+    if counters.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"uniforms_cuda: counters {counters.dtype}, "
+                         "expected int32 or int64")
+    if n_draws < 1:
+        raise ValueError(f"uniforms_cuda: n_draws {n_draws}, at least 1")
+    if counters.device.type != "cuda":
+        raise ValueError(f"uniforms_cuda: counters on {counters.device}, "
+                         "not on a card")
+    out = torch.empty((n_draws, *counters.shape), dtype=torch.float32,
+                      device=counters.device)
+    n = counters.numel()
+    if n == 0:
+        return out
+    c = counters.reshape(-1)
+    fn = build.function("ptt_threefry_uniforms", _ARGTYPES)
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    err = fn(c.data_ptr(), c.stride(0), c.element_size(), n, n_draws,
+             k0 & _MASK, k1 & _MASK, out.data_ptr(), c.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"ptt_threefry_uniforms: kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES += 1
+    return out

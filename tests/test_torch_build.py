@@ -92,8 +92,8 @@ def test_sources_are_in_the_package():
                      "nee.cu", "plucker.cuh", "probe_bf16.cu",
                      "probe_plucker.cu", "scatter_rows.cu",
                      "sparse_any_hit.cu", "sparse_any_hit_idx.cu",
-                     "sparse_nearest.cu", "two_pass.cu", "walker_any_hit.cu",
-                     "walker_nearest.cu"]
+                     "sparse_nearest.cu", "threefry.cu", "two_pass.cu",
+                     "walker_any_hit.cu", "walker_nearest.cu"]
 
 
 def _c_parameters(source: str, entry: str) -> list[str]:
@@ -150,6 +150,25 @@ def test_entry_signatures_match_their_argtypes(source, entry, argtypes):
     else:
         assert names[names.index("words") + 1:][:2] == ["t_out", "idx_out"]
     assert names[-3:] == ["stats", "device", "stream"]
+
+
+def test_threefry_entry_signature_matches_its_argtypes():
+    """ops/rng.py's argtypes for csrc/threefry.cu's entry, type by type: a
+    64-bit count or stride passed as an int, or a key word as a signed int
+    past 2^31, would be cut or refused by ctypes."""
+    from pathtracerpython_tpu_torch.ops import rng
+
+    kinds = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "unsigned": ctypes.c_uint}
+    params = _c_parameters("threefry.cu", "ptt_threefry_uniforms")
+    assert len(params) == len(rng._ARGTYPES), params
+    for decl, argtype in zip(params, rng._ARGTYPES):
+        kind = decl.rsplit(" ", 1)[0].replace("const ", "")
+        want = ctypes.c_void_p if "*" in decl else kinds[kind]
+        assert argtype is want, (decl, argtype)
+    names = [decl.split("*")[-1].split()[-1] for decl in params]
+    assert names == ["counters", "stride", "counter_bytes", "n", "n_draws",
+                     "k0", "k1", "out", "device", "stream"]
 
 
 def test_walk_segment_is_the_kernels_constant():

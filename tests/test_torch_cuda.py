@@ -1599,3 +1599,123 @@ def test_train_step_gradients_bit_equal_across_three_runs(cuda):
         assert torch.isfinite(runs[0][f]).all(), f
         assert torch.equal(runs[1][f], runs[0][f]), f
         assert torch.equal(runs[2][f], runs[0][f]), f
+
+
+# csrc/threefry.cu: ops/rng.py:uniforms on the card, against its plain
+# version (the int64 tensor ops) bit for bit. A key past 2^31 in both
+# words; counters of the word edges and random words, int64 ones carrying
+# high bits the draws must ignore; 70,001 lanes, not a multiple of a block.
+RNG_KEY_SEED, RNG_SALT = 2**40 + 12345, 13
+RNG_LANES = 70_001
+
+
+def _rng_counters(n, dtype, cuda, seed):
+    rs = np.random.default_rng(seed)
+    words = rs.integers(0, 2**32, n, dtype=np.uint64)
+    words[:5] = [0, 2**31 - 1, 2**31, 2**32 - 1, 1]
+    if dtype is torch.int32:
+        return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(
+            cuda)
+    high = rs.integers(-3, 4, n).astype(np.int64) << 32
+    return torch.from_numpy(words.astype(np.int64) + high).to(cuda)
+
+
+def _rng_bits_equal(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_draws", [1, 2, 3, 5, 9, 15])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_threefry_kernel_matches_plain(cuda, dtype, n_draws):
+    from pathtracerpython_tpu_torch.ops import rng
+
+    k0, k1 = rng.fold(*rng.key_from_seed(RNG_KEY_SEED), RNG_SALT)
+    assert k0 >= 2**31 or k1 >= 2**31
+    counters = _rng_counters(RNG_LANES, dtype, cuda, seed=n_draws)
+    before = rng.LAUNCHES
+    got = rng.uniforms(k0, k1, counters, n_draws)
+    assert rng.LAUNCHES == before + 1
+    assert got.device.type == "cuda"
+    _rng_bits_equal(got, rng.uniforms_plain(k0, k1, counters, n_draws))
+
+
+@pytest.mark.parametrize("layout", ["strided", "transposed_2d",
+                                    "past_one_wave"])
+def test_threefry_kernel_layouts_match_plain(cuda, layout):
+    """Counters read in place at their strides, the output
+    [n_draws, *counters.shape]; past one wave of the grid (1056 blocks of
+    256 threads) the grid-stride loop takes more than one counter a
+    thread."""
+    from pathtracerpython_tpu_torch.ops import rng
+
+    k0, k1 = rng.fold(*rng.key_from_seed(RNG_KEY_SEED), RNG_SALT + 1)
+    if layout == "strided":
+        counters = _rng_counters(3 * RNG_LANES, torch.int64, cuda, 5)[::3]
+    elif layout == "transposed_2d":
+        counters = _rng_counters(300 * 233, torch.int32, cuda, 6).reshape(
+            300, 233).T
+    else:
+        counters = _rng_counters(1_000_003, torch.int64, cuda, 7)
+    assert layout == "past_one_wave" or not counters.is_contiguous()
+    before = rng.LAUNCHES
+    got = rng.uniforms(k0, k1, counters, 15)
+    assert rng.LAUNCHES == before + 1
+    assert tuple(got.shape) == (15, *counters.shape)
+    _rng_bits_equal(got, rng.uniforms_plain(k0, k1, counters, 15))
+
+
+def test_threefry_kernel_no_counters_launches_nothing(cuda):
+    from pathtracerpython_tpu_torch.ops import rng
+
+    before = rng.LAUNCHES
+    got = rng.uniforms(1, 2, torch.zeros(0, dtype=torch.int64, device=cuda),
+                       15)
+    assert rng.LAUNCHES == before
+    assert tuple(got.shape) == (15, 0) and got.device.type == "cuda"
+
+
+def test_threefry_kernel_reads_nothing_back(cuda):
+    """One launch a call, on the current stream, with no stream sync: the
+    call runs clean under the sync debug mode "error", and a launch on a
+    second stream gives the same bits."""
+    from pathtracerpython_tpu_torch.ops import rng
+
+    counters = _rng_counters(RNG_LANES, torch.int64, cuda, seed=8)
+    want = rng.uniforms(3, 4, counters, 15)   # builds and loads
+    torch.cuda.synchronize()
+    before = rng.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rng.uniforms(3, 4, counters, 15)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        on_side = rng.uniforms(3, 4, counters, 15)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert rng.LAUNCHES == before + 2
+    _rng_bits_equal(got, want)
+    _rng_bits_equal(on_side, want)
+
+
+def test_render_with_the_threefry_kernel_bit_equals_the_plain_draws(
+        cuda, monkeypatch):
+    """A 64^2 Cornell render on the card, 4 spp, 4 bounces: with the kernel
+    (2 launches a bounce) and with ``rng.uniforms`` patched to the plain
+    path, the same radiance bit for bit."""
+    from pathtracerpython_tpu_torch.ops import rng
+
+    scene = arrays.pack_scene(synthetic.cornell_box_scene(64, 64), pad_to=32,
+                              device=cuda)
+    cfg = RenderConfig(n_samples=4, n_bounces=4, batch_samples=True)
+    before = rng.LAUNCHES
+    with_kernel = render(scene, cfg, seed=11)
+    assert rng.LAUNCHES == before + 2 * 4
+    monkeypatch.setattr(rng, "uniforms", rng.uniforms_plain)
+    plain = render(scene, cfg, seed=11)
+    assert rng.LAUNCHES == before + 2 * 4
+    assert torch.equal(with_kernel, plain)

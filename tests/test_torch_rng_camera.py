@@ -45,7 +45,7 @@ def test_fold_and_uniforms_bit_equal(seed):
         jf = jax_rng.fold(jk[0], jk[1], salt)
         pf = rng.fold(*pk, salt)
         assert pf == (int(jf[0]), int(jf[1]))
-        for n_draws in (3, 15):
+        for n_draws in (1, 3, 5, 15):  # odd counts: the tail's lone y0
             want = np.asarray(jax_rng.uniforms(
                 jf[0], jf[1], jnp.asarray(counters.astype(np.uint32)), n_draws
             ))
@@ -53,6 +53,76 @@ def test_fold_and_uniforms_bit_equal(seed):
                                n_draws).numpy()
             assert got.dtype == np.float32
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["int64", "int32", "strided", "2d"])
+def test_uniforms_counter_layouts_match_jax(layout):
+    """The draws follow the counter words' low 32 bits, whatever the
+    integer type and strides: int32 words past 2^31 read as negative,
+    int64 words above 2^32 or below 0 keep their low bits; the output is
+    [n_draws, *counters.shape]."""
+    words = _words(1200, 21)
+    words[:4] = [0, 2**31 - 1, 2**31, 2**32 - 1]
+    jk = jax_rng.fold(*jax_rng.key_from_seed(9), 4 * 2 + 1)
+    want = np.asarray(jax_rng.uniforms(
+        jk[0], jk[1], jnp.asarray(words.astype(np.uint32)), 5))
+    wide = torch.from_numpy(words.astype(np.int64))
+    if layout == "int64":
+        counters = wide + torch.from_numpy(
+            np.random.default_rng(22).integers(-3, 4, words.size) << 32)
+    elif layout == "int32":
+        counters = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    elif layout == "strided":
+        counters = torch.stack([wide, wide + 7], dim=1)[:, 0]
+        assert not counters.is_contiguous()
+    else:
+        counters = wide.reshape(30, 40).T
+        want = want.reshape(5, 30, 40).transpose(0, 2, 1)
+    got = rng.uniforms(int(jk[0]), int(jk[1]), counters, 5)
+    assert tuple(got.shape) == (5, *counters.shape)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_uniforms_on_the_cpu_never_touches_the_library(monkeypatch):
+    """A CPU tensor takes the plain version: with the library's loader
+    raising, the call still works, equals ``uniforms_plain`` and launches
+    nothing."""
+    from pathtracerpython_tpu_torch.kernels import build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the CUDA library")
+
+    monkeypatch.setattr(build, "function", refuse)
+    before = rng.LAUNCHES
+    counters = torch.from_numpy(_words(777, 31).astype(np.int64))
+    for n_draws in (1, 2, 15):
+        got = rng.uniforms(5, 6, counters, n_draws)
+        assert torch.equal(got, rng.uniforms_plain(5, 6, counters, n_draws))
+    assert rng.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case,message", [
+    ("cpu_tensor", "not on a card"), ("float_counters", "int32 or int64"),
+    ("int16_counters", "int32 or int64"), ("no_draws", "at least 1")])
+def test_uniforms_cuda_refuses_what_the_kernel_does_not_take(case, message,
+                                                             monkeypatch):
+    """The kernel's wrapper raises before it loads the library: a CPU
+    tensor, counters neither int32 nor int64, fewer than one draw."""
+    from pathtracerpython_tpu_torch.kernels import build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wrapper loaded the library")
+
+    monkeypatch.setattr(build, "function", refuse)
+    counters, n_draws = torch.arange(8), 3
+    if case == "float_counters":
+        counters = counters.float()
+    elif case == "int16_counters":
+        counters = counters.to(torch.int16)
+    elif case == "no_draws":
+        n_draws = 0
+    with pytest.raises(ValueError, match=message):
+        rng.uniforms_cuda(1, 2, counters, n_draws)
 
 
 def test_threefry_on_tensors_and_ints_matches_jax():
